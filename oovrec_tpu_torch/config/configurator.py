@@ -1,0 +1,81 @@
+"""Dict-based configuration with defaults written in Python.
+
+Holds the keys of `oovrec_tpu/config/defaults.yaml` that the ported
+modules read, with the same defaults and the same derived `eval_type`.
+The YAML layers (model, dataset and user files, command line) come with
+the slice that ports the atomic-file dataset; the card's machine has no
+PyYAML.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Any, Dict, Optional
+
+from oovrec_tpu_torch.utils.enums import EvaluatorType
+
+DEFAULTS: Dict[str, Any] = {
+    "seed": 2020,
+    # evaluation (defaults.yaml:49-61, :123, :143)
+    "metrics": ["Recall", "MRR", "NDCG", "Hit", "Precision"],
+    "topk": [10],
+    "eval_batch_size": 4096,
+    "metric_decimal_place": 4,
+    "use_perturbed_hits": True,
+    "use_fused_topk": "auto",
+}
+
+RANKING_METRICS = {
+    "recall", "mrr", "ndcg", "hit", "precision", "map", "gauc",
+    "itemcoverage", "averagepopularity", "shannonentropy", "giniindex",
+    "tailpercentage",
+}
+VALUE_METRICS = {"auc", "rmse", "mae", "logloss"}
+
+
+class Config:
+    """Dict-like resolved configuration: defaults updated by `config_dict`."""
+
+    def __init__(self, config_dict: Optional[Dict[str, Any]] = None):
+        self.final_config_dict = copy.deepcopy(DEFAULTS)
+        self.final_config_dict.update(config_dict or {})
+        self._derive()
+
+    def _derive(self) -> None:
+        d = self.final_config_dict
+        if isinstance(d.get("metrics"), str):
+            d["metrics"] = [d["metrics"]]
+        if isinstance(d.get("topk"), int):
+            d["topk"] = [d["topk"]]
+        kinds = set()
+        for m in d.get("metrics") or []:
+            ml = m.lower()
+            if ml in RANKING_METRICS:
+                kinds.add(EvaluatorType.RANKING)
+            elif ml in VALUE_METRICS:
+                kinds.add(EvaluatorType.VALUE)
+            else:
+                raise NotImplementedError(f"There is no metric named '{m}'")
+        if len(kinds) > 1:
+            raise RuntimeError(
+                "Ranking metrics and value metrics can not be used at the same time."
+            )
+        d["eval_type"] = kinds.pop() if kinds else EvaluatorType.RANKING
+
+    def __getitem__(self, key: str) -> Any:
+        return self.final_config_dict.get(key)
+
+    def __setitem__(self, key: str, value: Any) -> None:
+        self.final_config_dict[key] = value
+
+    def __contains__(self, key: str) -> bool:
+        return key in self.final_config_dict
+
+    def get(self, key: str, default: Any = None) -> Any:
+        v = self.final_config_dict.get(key, default)
+        return default if v is None else v
+
+    def as_dict(self) -> Dict[str, Any]:
+        return dict(self.final_config_dict)
+
+
