@@ -23,6 +23,9 @@ DEFAULTS: Dict[str, Any] = {
     "metric_decimal_place": 4,
     "use_perturbed_hits": True,
     "use_fused_topk": "auto",
+    # precision policy (utils/precision.py) and xDeepFM's CIN kernel switch
+    "compute_dtype": "float32",
+    "fused_cin": "auto",
 }
 
 RANKING_METRICS = {

@@ -1,9 +1,10 @@
-"""Full-sort eval batches: fixed-shape host-side batch assembly.
+"""Eval batches: fixed-shape host-side batch assembly.
 
-Port of `oovrec_tpu/data/dataloader.py:38-56, 345-446`. Every batch has
-the same shape; the final partial batch is padded and carries a `weight`
-column (1 real / 0 pad). Training and sampled-negative batchers come with
-later slices.
+Port of `oovrec_tpu/data/dataloader.py:38-67, 345-494`: full-sort batches
+for retrieval models and plain labelled rows for ranking (VALUE-metric)
+models. Every batch has the same shape; the final partial batch is padded
+and carries a `weight` column (1 real / 0 pad). Training and
+sampled-negative batchers come with later slices.
 """
 
 from __future__ import annotations
@@ -31,6 +32,19 @@ def _pad_to(arr: np.ndarray, n: int) -> np.ndarray:
         return arr
     pad_shape = (n - len(arr),) + arr.shape[1:]
     return np.concatenate([arr, np.zeros(pad_shape, dtype=arr.dtype)])
+
+
+def _join_features(
+    batch: Batch, ids: np.ndarray, feat: Optional[Dict[str, np.ndarray]],
+    id_field: str,
+) -> None:
+    """Attach per-row user/item feature columns (the reference's `join`)."""
+    if feat is None:
+        return
+    for field, table in feat.items():
+        if field == id_field or field.endswith("_len"):
+            continue
+        batch[field] = table[ids]
 
 
 class FullSortEvalBatcher:
@@ -134,3 +148,43 @@ class FullSortEvalBatcher:
                 "hist_len": hist_len,
                 "weight": weight,
             }
+
+
+class PlainEvalBatcher:
+    """'labeled' eval mode: plain interaction rows with their labels and
+    joined user/item features (the reference's NegSampleEvalDataLoader
+    'none'-distribution branch, `general_dataloader.py:189-195`). Used by
+    VALUE-metric models."""
+
+    def __init__(self, split: DatasetSplit, config,
+                 batch_size: Optional[int] = None):
+        self.split = split
+        self.config = config
+        self.label_field = split.label_field
+        self.batch_size = batch_size or config["eval_batch_size"]
+        self.user_feat = split.user_feat
+        self.item_feat = split.item_feat
+
+    def __len__(self) -> int:
+        return (len(self.split) + self.batch_size - 1) // self.batch_size
+
+    def __iter__(self) -> Iterator[Batch]:
+        inter = self.split.inter
+        n = len(self.split)
+        for start in range(0, n, self.batch_size):
+            idx = np.arange(start, min(start + self.batch_size, n))
+            batch = {k: v[idx] for k, v in inter.items()}
+            _join_features(
+                batch, batch[self.split.iid_field], self.item_feat,
+                self.split.iid_field,
+            )
+            _join_features(
+                batch, batch[self.split.uid_field], self.user_feat,
+                self.split.uid_field,
+            )
+            w = np.zeros(self.batch_size, np.float32)
+            w[: len(idx)] = 1.0
+            batch = {k: _pad_to(np.asarray(v), self.batch_size)
+                     for k, v in batch.items()}
+            batch["weight"] = w
+            yield batch

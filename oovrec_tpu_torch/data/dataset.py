@@ -1,14 +1,16 @@
 """Interaction splits as numpy arrays.
 
 Port of `DatasetSplit` (`oovrec_tpu/data/dataset.py:811-849`). The JAX
-split is a view over a pandas `Dataset` and derives its counts and field
-names from it; this one takes them directly. The atomic-file `Dataset`
-comes with a later slice.
+split is a view over a pandas `Dataset` and derives its counts, field
+names and feature tables from it; this one takes them directly. The
+optional `user_feat` / `item_feat` tables (field → array indexed by id)
+stand in for `split.parent.get_user_feature()` / `get_item_feature()`.
+The atomic-file `Dataset` comes with a later slice.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -24,8 +26,12 @@ class DatasetSplit:
         uid_field: str = "user_id",
         iid_field: str = "item_id",
         label_field: str = "label",
+        user_feat: Optional[Dict[str, np.ndarray]] = None,
+        item_feat: Optional[Dict[str, np.ndarray]] = None,
     ):
         self.inter = {k: np.asarray(v) for k, v in inter.items()}
+        self.user_feat = _as_arrays(user_feat)
+        self.item_feat = _as_arrays(item_feat)
         self.user_num = int(user_num)
         self.item_num = int(item_num)
         self.uid_field = uid_field
@@ -50,3 +56,7 @@ class DatasetSplit:
         for s, e in zip(starts, ends):
             out[su[s]] = si[s:e]
         return out
+
+
+def _as_arrays(feat: Optional[Dict[str, np.ndarray]]):
+    return None if feat is None else {k: np.asarray(v) for k, v in feat.items()}

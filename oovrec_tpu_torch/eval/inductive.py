@@ -1,8 +1,16 @@
 """InductiveEvaluator — 7-way old/new slice evaluation over the `_ind` corpus.
 
-Port of `oovrec_tpu/eval/inductive.py:53-356, 504-524` on full-sort
-retrieval. One device pass per user batch computes top-k for four item
-variants and the host assigns rows to slices with user old/new masks:
+Port of `oovrec_tpu/eval/inductive.py:53-356, 431-524` on two paths.
+
+Ranking (VALUE-metric) models: each labelled row is annotated with the
+OOV flags and mapper buckets of its user and item, scored by
+`model.predict`, and the (score, label) pairs are pooled per slice by the
+row's user and item old/new masks (overall, old_users, new_users,
+old_old, old_new, new_old, new_new).
+
+Retrieval models, on full sort: one device pass per user batch computes
+top-k for four item variants and the host assigns rows to slices with
+user old/new masks:
 
     slice        rows (users)   item variant
     overall      all            full (unperturbed, like the base Collector)
@@ -19,7 +27,7 @@ unshifted positive ids). Tie-breaking follows `use_perturbed_hits`: top-k
 runs on column-permuted scores. The permutations come from
 `host_rng(seed, "perturbed_hits")` drawn in the JAX order (three per batch
 on the dense path, one on the fused path), so both packages rank alike.
-The sampled-negative and value (ranking-model) paths come later.
+The sampled-negative path comes later.
 """
 
 from __future__ import annotations
@@ -205,10 +213,11 @@ class InductiveEvaluator:
 
     @torch.no_grad()
     def evaluate_model(self, test_loader):
-        """`evaluate_model` (`inductive/evaluator.py:136-179`) on the
-        full-sort retrieval path."""
+        """`evaluate_model` (`inductive/evaluator.py:136-179`): the value
+        slices for ranking models, full-sort retrieval otherwise."""
+        self.model.eval()
         if self.config["eval_type"] == EvaluatorType.VALUE:
-            raise NotImplementedError("value-metric slices are not ported yet")
+            return self._evaluate_value(test_loader)
         n_ext = test_loader.item_num
         all_item_e = self._all_item_embeddings(n_ext)
         if self._step is None:
@@ -266,6 +275,63 @@ class InductiveEvaluator:
                 evaluator.evaluate(struct) if struct.has("rec.topk") else OrderedDict()
             )
         return results
+
+    def _evaluate_value(self, test_loader):
+        """Ranking-model slices: per-row user/item old-new masks over pooled
+        (score, label) pairs — the VALUE branch of the reference's
+        FilteredCollector (`filtered_collector.py:70-79`,
+        `collector_filter.py:179-203`)."""
+        model = self.model
+        collectors = {s: Collector(self.config) for s in SLICES}
+        uidf, iidf = model.uid_field, model.iid_field
+        for batch in test_loader:
+            batch = self._annotate_rows(batch)
+            scores = model.predict(to_device_batch(batch, self.device))
+            scores = scores.float().cpu().numpy()
+            labels = np.asarray(batch[model.label_field])
+            w = np.asarray(batch["weight"]) > 0
+            old_u = np.asarray(batch[uidf]) < self.n_old_users
+            old_i = np.asarray(batch[iidf]) < self.n_old_items
+            plan = {
+                "overall": w,
+                "old_users": w & old_u,
+                "new_users": w & ~old_u,
+                "old_old": w & old_u & old_i,
+                "old_new": w & old_u & ~old_i,
+                "new_old": w & ~old_u & old_i,
+                "new_new": w & ~old_u & ~old_i,
+            }
+            for s, rows in plan.items():
+                if rows.any():
+                    collectors[s].collect_scores(scores[rows], labels[rows])
+
+        evaluator = Evaluator(self.config)
+        results: "OrderedDict[str, OrderedDict]" = OrderedDict()
+        for s in SLICES:
+            struct = collectors[s].get_data_struct()
+            results[s] = (
+                evaluator.evaluate(struct) if struct.has("rec.score") else OrderedDict()
+            )
+        return results
+
+    def _annotate_rows(self, batch: dict) -> dict:
+        """Host-side OOV flags/buckets for the rows' user AND item columns."""
+        out = dict(batch)
+        uidf, iidf = self.model.uid_field, self.model.iid_field
+        for field, n_old, bucket_fn in (
+            (uidf, self.n_old_users,
+             self.mapper.user_buckets if self.mapper else None),
+            (iidf, self.n_old_items,
+             self.mapper.item_buckets if self.mapper else None),
+        ):
+            ids = np.asarray(out[field], np.int64)
+            oov = (ids >= n_old).astype(np.int32)
+            out[field + "_oov"] = oov
+            if bucket_fn is not None and oov.any():
+                out[field + "_bucket"] = np.where(oov > 0, bucket_fn(ids), 0)
+            else:
+                out[field + "_bucket"] = np.zeros_like(ids)
+        return out
 
     def _annotate_users(self, batch: dict) -> dict:
         """Host-side OOV flags/buckets for the user block."""

@@ -1,9 +1,12 @@
 """Evaluation runner: loader → device step → collector → metrics.
 
-Port of `oovrec_tpu/eval/runner.py:24-148, 410-486` on the full-sort path:
-the dense step (`mask_and_topk` over `full_sort_scores`) and the fused
-step (`ops/topk_score.py:fused_topk_scores` over the two towers). The
-scanned, sampled-negative, value and multi-device paths come with later
+Port of `oovrec_tpu/eval/runner.py:24-148, 410-564` on two paths:
+  * full sort (retrieval models): the dense step (`mask_and_topk` over
+    `full_sort_scores`) and the fused step
+    (`ops/topk_score.py:fused_topk_scores` over the two towers);
+  * value (ranking models): `PlainEvalBatcher` rows → `model.predict` →
+    pooled (score, label) pairs → AUC / LogLoss / RMSE / MAE.
+The scanned, sampled-negative and multi-device paths come with later
 slices.
 """
 
@@ -14,7 +17,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from oovrec_tpu_torch.data.dataloader import FullSortEvalBatcher
+from oovrec_tpu_torch.data.dataloader import FullSortEvalBatcher, PlainEvalBatcher
 from oovrec_tpu_torch.eval.collector import (
     Collector,
     Evaluator,
@@ -110,10 +113,14 @@ class EvalRunner:
 
     @torch.no_grad()
     def evaluate(self, eval_loader):
-        """Run one full-sort evaluation pass; returns OrderedDict of metrics."""
+        """Run one evaluation pass; returns OrderedDict of metrics."""
+        self.model.eval()
+        if isinstance(eval_loader, PlainEvalBatcher):
+            return self._evaluate_value(eval_loader)
         if not isinstance(eval_loader, FullSortEvalBatcher):
             raise NotImplementedError(
-                f"{type(eval_loader).__name__}: only full-sort eval is ported"
+                f"{type(eval_loader).__name__}: only full-sort and plain "
+                "labelled eval are ported"
             )
         collector = Collector(self.config)
         if self.train_split is not None and (
@@ -145,4 +152,16 @@ class EvalRunner:
                     scores, batch["pos_items"], batch["pos_len"]
                 )
                 collector.collect_meanrank(prs, ul, pl, batch["weight"])
+        return Evaluator(self.config).evaluate(collector.get_data_struct())
+
+    def _evaluate_value(self, eval_loader: PlainEvalBatcher):
+        """VALUE metrics over pooled (score, label) pairs
+        (`runner.py:551-564` of the JAX package)."""
+        collector = Collector(self.config)
+        label = self.model.label_field
+        for batch in eval_loader:
+            scores = self.model.predict(to_device_batch(batch, self.device))
+            collector.collect_scores(
+                scores.float().cpu().numpy(), batch[label], batch["weight"]
+            )
         return Evaluator(self.config).evaluate(collector.get_data_struct())

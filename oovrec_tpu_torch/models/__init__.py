@@ -2,6 +2,8 @@
 
 from oovrec_tpu_torch.models.base import MODEL_REGISTRY, GeneralRecommender
 from oovrec_tpu_torch.models.bpr import BPR
+from oovrec_tpu_torch.models.context import ContextRecommender, FieldSpec
+from oovrec_tpu_torch.models.context_aware import xDeepFM
 
 
 def get_model_class(name: str):
@@ -10,4 +12,7 @@ def get_model_class(name: str):
     return MODEL_REGISTRY[name]
 
 
-__all__ = ["BPR", "GeneralRecommender", "MODEL_REGISTRY", "get_model_class"]
+__all__ = [
+    "BPR", "ContextRecommender", "FieldSpec", "GeneralRecommender",
+    "MODEL_REGISTRY", "get_model_class", "xDeepFM",
+]

@@ -1,0 +1,156 @@
+"""xDeepFM, serving methods.
+
+Port of `oovrec_tpu/models/context_aware/xdeepfm.py:19-200`: the CIN
+(pairwise Hadamard feature maps + a 1×1 conv over the pair axis per
+layer, sum-pooled over D), an MLP over the flattened field embeddings and
+the first-order linear term; `predict` is the sigmoid of their sum.
+
+`fused_cin="auto"` runs each CIN layer through the CUDA kernel
+(`ops/cin_fused.py:cin_layer_pooled`) when the embeddings lie on the
+card, for any batch size; `True` forces the kernel wrapper (on the CPU it
+takes its plain version); `False` runs the plain slab path. The JAX
+package's auto rule also asks for a batch that is a multiple of 128, a
+limit of its TPU kernel that the CUDA kernel does not have.
+
+`calculate_loss` and the CIN backward come with the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Sequence
+
+import torch
+from torch import nn
+
+from oovrec_tpu_torch.inductive.spec import InductiveSpec
+from oovrec_tpu_torch.models.base import Batch, register_model
+from oovrec_tpu_torch.models.context import ContextRecommender, FieldSpec
+from oovrec_tpu_torch.models.init import xavier_normal_
+from oovrec_tpu_torch.models.layers import MLPLayers
+from oovrec_tpu_torch.ops.cin_fused import cin_layer_pooled
+from oovrec_tpu_torch.utils.precision import compute_dtype
+
+
+class CinConv(nn.Module):
+    """Per-layer CIN conv parameters: `kernel` (H·F, L), pair index
+    h·F + f, and `bias` (L,), stored as the flax tree stores them."""
+
+    def __init__(self, in_features: int, features: int, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(in_features, features, device=device))
+        xavier_normal_(self.kernel, generator)
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., H·F) → (..., L) in the precision policy."""
+        dt = compute_dtype()
+        return x.to(dt) @ self.kernel.to(dt) + self.bias.to(dt)
+
+
+@register_model
+class xDeepFM(ContextRecommender):
+    def __init__(
+        self,
+        fields: FieldSpec,
+        embedding_size: int = 10,
+        spec: Optional[InductiveSpec] = None,
+        mlp_hidden_size: Sequence[int] = (128, 128, 128),
+        dropout_prob: float = 0.2,
+        direct: bool = False,
+        cin_layer_size: Sequence[int] = (100, 100, 100),
+        fused_cin: Any = "auto",
+        **kwargs,
+    ):
+        super().__init__(fields, embedding_size, spec, **kwargs)
+        self.direct = direct
+        self.fused_cin = fused_cin
+        # non-direct mode keeps every layer at an even size
+        # (`xdeepfm.py:50-57` of the reference)
+        cin = list(cin_layer_size)
+        if not direct:
+            cin = [int(x // 2 * 2) for x in cin]
+        self._cin_sizes = tuple(cin)
+
+        field_nums = [fields.num_feature_field]
+        self.conv1d_list = []
+        for i, layer_size in enumerate(self._cin_sizes):
+            conv = CinConv(field_nums[0] * field_nums[i], layer_size,
+                           device=self.device, generator=self.generator)
+            self.add_module(f"conv1d_{i}", conv)
+            self.conv1d_list.append(conv)
+            field_nums.append(layer_size if direct else layer_size // 2)
+        self._field_nums = tuple(field_nums)
+
+        if direct:
+            final_len = sum(self._cin_sizes)
+        else:
+            final_len = sum(self._cin_sizes[:-1]) // 2 + self._cin_sizes[-1]
+        self.cin_linear = nn.Linear(final_len, 1, device=self.device)
+        xavier_normal_(self.cin_linear.weight, self.generator)
+        nn.init.zeros_(self.cin_linear.bias)
+        self.mlp_layers = MLPLayers(
+            (self.in_feature_num,) + tuple(mlp_hidden_size) + (1,),
+            dropout=dropout_prob, device=self.device, generator=self.generator,
+        )
+        self._setup_context()
+
+    def _use_fused_cin(self, x: torch.Tensor) -> bool:
+        if self.fused_cin is False or self.fused_cin == "false":
+            return False
+        if self.fused_cin is True or self.fused_cin == "true":
+            return True
+        return x.device.type == "cuda"
+
+    def _layer_modes(self):
+        """(n_hidden, pool_all) of each CIN layer."""
+        last = len(self._cin_sizes) - 1
+        for i, layer_size in enumerate(self._cin_sizes):
+            if self.direct:
+                yield layer_size, True
+            elif i != last:
+                yield layer_size // 2, False
+            else:
+                yield 0, True
+
+    def compressed_interaction_network(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, F, D) → (B, final_len) f32: the pooled direct-connect rows of
+        every CIN layer (`xdeepfm.py:134-193` of the reference), in the
+        precision policy."""
+        dt = compute_dtype()
+        if self._use_fused_cin(x):
+            b0 = x.float().contiguous()
+            hidden = b0
+            pooled_parts = []
+            for conv, (nh, pool_all) in zip(self.conv1d_list, self._layer_modes()):
+                hidden, pooled = cin_layer_pooled(
+                    hidden, b0, conv.kernel, conv.bias, mxu_dtype=dt,
+                    n_hidden=nh, pool_all=pool_all,
+                )
+                pooled_parts.append(pooled)
+            return torch.cat(pooled_parts, dim=1)
+
+        b, _, d = x.shape
+        hidden = [x.to(dt)]
+        finals = []
+        for i, (conv, (nh, pool_all)) in enumerate(
+                zip(self.conv1d_list, self._layer_modes())):
+            z = torch.einsum("bhd,bmd->bhmd", hidden[-1], hidden[0])
+            z = z.reshape(b, self._field_nums[0] * self._field_nums[i], d)
+            # conv1d with kernel 1 over channels == dense on the pair axis
+            out = torch.relu(conv(z.transpose(1, 2)).transpose(1, 2))
+            ps = 0 if pool_all else nh
+            finals.append(out[:, ps:])
+            if nh:
+                hidden.append(out[:, :nh])
+        return torch.cat(finals, dim=1).float().sum(dim=-1)
+
+    def forward(self, batch: Batch) -> torch.Tensor:
+        emb = self.concat_embed_input_fields(batch)  # (B, F, D)
+        cin_out = self.cin_linear(self.compressed_interaction_network(emb))
+        dnn_out = self.mlp_layers(emb.reshape(emb.shape[0], -1))
+        y = self.first_order_linear(batch) + cin_out + dnn_out
+        return y.squeeze(-1)
+
+    def predict(self, batch: Batch) -> torch.Tensor:
+        return torch.sigmoid(self.forward(batch))

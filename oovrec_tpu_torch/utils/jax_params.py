@@ -1,46 +1,112 @@
 """Weight bridge between the JAX package's flax params and a port module.
 
-Works on numpy arrays only; it never imports flax or JAX. The layout rule
-follows `oovrec_tpu/utils/torch_import.py:10-14`: a flax embedding
-``{"embedding": W}`` is torch's ``<name>.weight`` (W, unchanged), so
-`BPR`'s `user_embedding` / `item_embedding` / `user_oov_buckets` /
-`item_oov_buckets` tables cross as they are. Dense layers
-(``kernel``/``bias``) come with the first ported model that has them.
+Works on numpy arrays only; it never imports flax or JAX. A flax param
+tree is a nested dict of modules whose leaves are arrays; a torch
+state_dict names the same leaves with dotted paths. The layout rules
+follow `oovrec_tpu/utils/torch_import.py:10-14`:
+
+  * a flax embedding ``{"embedding": W}`` is torch's ``<path>.weight``
+    (W unchanged);
+  * a flax ``nn.Dense`` ``{"kernel": K (in, out), "bias": b}`` is an
+    ``nn.Linear``'s ``<path>.weight`` (Kᵀ, (out, in)) and ``<path>.bias``;
+  * every other leaf (xDeepFM's ``CinConv`` ``kernel`` (H·F, L) and
+    ``bias``, the first-order ``bias``) keeps its name and its array.
+
+A ``kernel`` leaf is a Dense or a stored kernel depending on the port's
+module, so trees with kernels cross with the target `module` given. A
+model may rename top-level modules through a ``flax_names`` mapping
+(torch name → flax name), as `ContextRecommender` does for ``fields``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
-FlaxParams = Mapping[str, Mapping[str, np.ndarray]]
+FlaxParams = Mapping[str, Any]
 
 
-def state_dict_from_flax(params: FlaxParams) -> Dict[str, torch.Tensor]:
-    """flax param tree (module → {"embedding": array}) → torch state_dict."""
+def _renames(module: Optional[nn.Module]):
+    to_flax = dict(getattr(module, "flax_names", {}) or {})
+    return to_flax, {v: k for k, v in to_flax.items()}
+
+
+def _submodule(module: Optional[nn.Module], path: str) -> Optional[nn.Module]:
+    if module is None:
+        return None
+    try:
+        return module.get_submodule(path)
+    except AttributeError:
+        return None
+
+
+def state_dict_from_flax(
+    params: FlaxParams, module: Optional[nn.Module] = None,
+) -> Dict[str, torch.Tensor]:
+    """flax param tree → torch state_dict (for `module`, where the tree has
+    kernels)."""
+    _, from_flax = _renames(module)
     sd: Dict[str, torch.Tensor] = {}
-    for module, leaves in params.items():
-        if set(leaves) != {"embedding"}:
-            raise ValueError(
-                f"flax module [{module}] has leaves {sorted(leaves)}; "
-                "the bridge carries embedding tables only"
-            )
-        sd[f"{module}.weight"] = torch.from_numpy(
-            np.array(leaves["embedding"], dtype=np.float32)
-        )
+
+    def walk(tree: Mapping[str, Any], path: str) -> None:
+        for name, value in tree.items():
+            if isinstance(value, Mapping):
+                top = from_flax.get(name, name) if not path else name
+                walk(value, f"{path}.{top}" if path else top)
+                continue
+            if not path:
+                raise ValueError(f"flax leaf [{name}] has no module")
+            arr = np.array(value, dtype=np.float32)
+            if name == "embedding":
+                sd[f"{path}.weight"] = torch.from_numpy(arr)
+            elif name == "kernel":
+                sub = _submodule(module, path)
+                if sub is None:
+                    raise ValueError(
+                        f"flax module [{path}] has a kernel; the bridge needs "
+                        "the target module to place it"
+                    )
+                if isinstance(sub, nn.Linear):
+                    sd[f"{path}.weight"] = torch.from_numpy(arr.T.copy())
+                else:
+                    sd[f"{path}.kernel"] = torch.from_numpy(arr)
+            else:
+                sd[f"{path}.{name}"] = torch.from_numpy(arr)
+
+    walk(params, "")
     return sd
 
 
 def flax_from_state_dict(
-    sd: Mapping[str, torch.Tensor],
-) -> Dict[str, Dict[str, np.ndarray]]:
-    """torch state_dict of embedding tables → flax param tree."""
-    out: Dict[str, Dict[str, np.ndarray]] = {}
+    sd: Mapping[str, torch.Tensor], module: Optional[nn.Module] = None,
+) -> Dict[str, Any]:
+    """torch state_dict → flax param tree. Without `module` every
+    ``weight`` is an embedding table."""
+    to_flax, _ = _renames(module)
+    out: Dict[str, Any] = {}
     for key, value in sd.items():
-        module, leaf = key.rsplit(".", 1)
-        if leaf != "weight":
-            raise ValueError(f"state_dict key [{key}] is not an embedding table")
-        out[module] = {"embedding": value.detach().cpu().numpy()}
+        path, leaf = key.rsplit(".", 1)
+        arr = value.detach().cpu().numpy()
+        if leaf == "weight":
+            if isinstance(_submodule(module, path), nn.Linear):
+                leaf, arr = "kernel", arr.T.copy()
+            else:
+                leaf = "embedding"
+        parts = path.split(".")
+        parts[0] = to_flax.get(parts[0], parts[0])
+        node = out
+        for p in parts:
+            node = node.setdefault(p, {})
+        node[leaf] = arr
     return out
+
+
+def load_flax_params(module: nn.Module, params: FlaxParams) -> nn.Module:
+    """Load a flax param tree into `module` (every parameter must match)."""
+    sd = state_dict_from_flax(params, module)
+    device = next(module.parameters()).device
+    module.load_state_dict({k: v.to(device) for k, v in sd.items()})
+    return module

@@ -37,5 +37,7 @@ def test_port_module_imports_nothing_forbidden(path):
 def test_scan_sees_the_whole_port():
     names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
     assert "oovrec_tpu_torch/ops/topk_score.py" in names
+    assert "oovrec_tpu_torch/ops/cin_fused.py" in names
+    assert "oovrec_tpu_torch/models/context_aware/xdeepfm.py" in names
     assert "chip_smoke.py" in names
     assert len(names) >= 20
