@@ -21,7 +21,21 @@ Phases (any failure exits non-zero; no phase failure is caught):
      110,000 items (10 % new) with OOV buckets, 1,048,576 labelled rows in
      batches of 8,192: value eval (AUC, LogLoss) and the 7 value slices,
      CIN kernel vs plain slab path to 1e-6, with the CIN kernel's launch
-     count read around each run; then a profile of one fused pass.
+     count read around each run; then a profile of one fused pass;
+  5. ranking training: the same xDeepFM from another seed through
+     `Trainer.fit` over the IV rows of the first 90 % of those rows, one
+     epoch plus the frozen OOV-only sub-epoch (adam lr 1e-3, batches of
+     8,192): 3 forward and 3 backward CIN launches a step, IV tables
+     bitwise unchanged by the frozen sub-epoch and bucket tables moved, the
+     loss falling, held-out AUC up, then the 7 value slices on the trained
+     weights; 16 steps on the kernel path against the plain slab path from
+     identical weights; wall ms per step and a profile of fused steps;
+  6. retrieval training: BPR at embedding_size 64 over the serving scale,
+     64 pairwise steps of 2,048 rows plus an OOV sub-epoch through
+     `Trainer.fit`, then the 7-slice eval fused vs dense to 1e-9.
+Phase 2 also holds the CIN backward kernel against its plain version,
+bit for bit on integer inputs and gradients, and times it per layer and
+for the 3-layer stack.
 The last line is the device record; the line before it lists the kernels.
 
 TF32 is switched off for matmuls and cuDNN below: the plain versions and
@@ -45,6 +59,7 @@ from oovrec_tpu_torch.data import (
     FullSortEvalBatcher,
     PlainEvalBatcher,
     Sampler,
+    TrainBatcher,
 )
 from oovrec_tpu_torch.eval import EvalRunner, InductiveEvaluator
 from oovrec_tpu_torch.eval.runner import to_device_batch
@@ -53,8 +68,12 @@ from oovrec_tpu_torch.models import BPR, FieldSpec, xDeepFM
 from oovrec_tpu_torch.ops import topk_score
 from oovrec_tpu_torch.ops.cin_fused import (
     cin_layer,
+    cin_layer_bwd,
+    cin_layer_bwd_plain,
     cin_layer_plain,
     cin_layer_pooled,
+    cin_layer_pooled_bwd,
+    cin_layer_pooled_bwd_plain,
     cin_layer_pooled_plain,
 )
 from oovrec_tpu_torch.ops.topk_score import (
@@ -65,7 +84,9 @@ from oovrec_tpu_torch.ops.topk_score import (
     pack_bitplane,
     unpack_bitmap,
 )
+from oovrec_tpu_torch.train import Trainer
 from oovrec_tpu_torch.utils import cuda_build
+from oovrec_tpu_torch.utils.enums import InputType
 from oovrec_tpu_torch.utils.precision import set_policy
 from oovrec_tpu_torch.utils.seeding import torch_generator
 
@@ -92,8 +113,24 @@ CTR_B, CTR_BATCHES, CTR_D = 8192, 128, 10
 CIN_SIZES, MLP_SIZES = (100, 100, 100), (128, 128, 128)
 # random inputs, outputs of order 1: f32 sums taken in another order. The
 # bf16 mode is held to the same bound, tighter than a bf16 tolerance: kernel
-# and plain version round the same operands and products to bf16
+# and plain version round the same operands and products to bf16. The
+# backward's outputs sum up to B*D terms, so each is held to CIN_TOL
+# relative to max(1, its largest magnitude)
 CIN_TOL = 1e-4
+# random backward inputs: the incoming gradient is zeroed where the f64
+# pre-activation lies within this band of 0, so that the ReLU mask there (a
+# rounding matter between two summation orders) does not decide the result
+CIN_MASK_BAND = 1e-3
+# training: the ranking and retrieval trainers' batch sizes (bench.py's
+# CTR_BATCH and the train_batch_size default) and the kernel-vs-plain
+# training comparison
+CTR_TRAIN_FRACTION = 0.9
+BPR_TRAIN_B, BPR_TRAIN_STEPS = 2048, 64
+COMPARE_STEPS, LOSS_RTOL, PARAM_ATOL = 16, 1e-5, 1e-4
+# an element beyond PARAM_ATOL is explained when at some step its gradient
+# differed between the paths by more than this (relative): more than f32
+# summation rounding (about 1e-6 here) can do
+EXPLAINED_GRAD_RTOL, MAX_EXPLAINED_FRACTION = 1e-3, 1e-5
 
 
 def log(*args):
@@ -385,6 +422,13 @@ def agree(a, b, what, tol=1e-9):
             require(abs(x - y) < tol, f"{what}[{key}]: {x} vs {y}")
 
 
+def serving_cfg(fused, n_items):
+    return Config({
+        "topk": TOPK, "seed": SEED, "eval_batch_size": B * n_items,
+        "use_perturbed_hits": False, "use_fused_topk": "auto" if fused else False,
+    })
+
+
 def serving():
     model = build_model()
     mapper = RandomOOVMapper(
@@ -397,37 +441,8 @@ def serving():
     log(f"serving data: {len(ind_splits[1])} test positives, "
         f"{len(ind_splits[0])} history rows, {time.perf_counter() - t0:.1f} s")
 
-    def cfg(fused, n_items):
-        return Config({
-            "topk": TOPK, "seed": SEED, "eval_batch_size": B * n_items,
-            "use_perturbed_hits": False, "use_fused_topk": "auto" if fused else False,
-        })
-
-    results, launches, counts = {}, 0, {}
-    for fused in (True, False):
-        c = cfg(fused, N_OLD_ITEMS + N_NEW_ITEMS)
-        test_loader = loader(ind_splits, c)
-        require(test_loader.users_per_batch == B, "users_per_batch")
-        ev = InductiveEvaluator(model, c, N_OLD_USERS, N_OLD_ITEMS, mapper=mapper)
-        topk_score.fused_topk_scores.launches = 0
-        sync()
-        t0 = time.perf_counter()
-        results[fused] = ev.evaluate_model(test_loader)
-        sync()
-        wall = time.perf_counter() - t0
-        counts[fused] = topk_score.fused_topk_scores.launches
-        require(ev._fused is fused, f"inductive fused path active: {ev._fused}")
-        log(f"inductive eval {'fused' if fused else 'dense'}: {len(test_loader)} "
-            f"user batches of {B}, {wall / len(test_loader) * 1e3:.1f} ms per batch "
-            f"(wall, host included), kernel launches {counts[fused]}")
-    launches = counts[True]
-    require(launches == 4 * len(test_loader), f"fused launches {launches}")
-    require(counts[False] == 0, "the dense path launched the kernel")
-    for s, r in results[True].items():
-        log(f"[{s}] {dict(r)}")
-    agree(results[True], results[False], "inductive fused vs dense")
-    require(results[True]["overall"]["hit@20"] > 0, "overall hit@20 is 0")
-    log("inductive eval: fused == dense on all 7 slices (1e-9)")
+    cfg = serving_cfg
+    launches = seven_slices_fused_vs_dense(model, mapper, ind_splits, cfg)
 
     iv = {}
     for fused in (True, False):
@@ -456,16 +471,56 @@ def serving():
     return launches
 
 
+def seven_slices_fused_vs_dense(model, mapper, ind_splits, cfg, what="inductive eval"):
+    """The 7-slice inductive eval on the fused path and on the dense path:
+    equal to 1e-9, the fused one launching the top-k kernel 4 times a
+    batch. → the fused run's launch count."""
+    results, counts = {}, {}
+    for fused in (True, False):
+        c = cfg(fused, N_OLD_ITEMS + N_NEW_ITEMS)
+        test_loader = loader(ind_splits, c)
+        require(test_loader.users_per_batch == B, "users_per_batch")
+        ev = InductiveEvaluator(model, c, N_OLD_USERS, N_OLD_ITEMS, mapper=mapper)
+        topk_score.fused_topk_scores.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        results[fused] = ev.evaluate_model(test_loader)
+        sync()
+        wall = time.perf_counter() - t0
+        counts[fused] = topk_score.fused_topk_scores.launches
+        require(ev._fused is fused, f"{what} fused path active: {ev._fused}")
+        log(f"{what} {'fused' if fused else 'dense'}: {len(test_loader)} "
+            f"user batches of {B}, {wall / len(test_loader) * 1e3:.1f} ms per batch "
+            f"(wall, host included), kernel launches {counts[fused]}")
+    launches = counts[True]
+    require(launches == 4 * len(test_loader), f"{what}: fused launches {launches}")
+    require(counts[False] == 0, f"{what}: the dense path launched the kernel")
+    for s, r in results[True].items():
+        log(f"[{s}] {dict(r)}")
+    agree(results[True], results[False], f"{what} fused vs dense")
+    require(results[True]["overall"]["hit@20"] > 0, f"{what}: overall hit@20 is 0")
+    log(f"{what}: fused == dense on all 7 slices (1e-9)")
+    return launches
+
+
 def breakdown(evaluator, test_loader, what="fused inductive eval (perturbed hits on)"):
     """torch.profiler over one warm inductive eval pass: device time by
     kernel and the device's busy share of the wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
     evaluator.evaluate_model(test_loader)  # warm: allocator, library load
     sync()
+    profiled(lambda: evaluator.evaluate_model(test_loader),
+             f"profile {what}: {len(test_loader)} batches")
+
+
+def profiled(run, what, shares=()):
+    """torch.profiler around `run()`: the wall, the device's busy share of
+    it, the largest device kernels and, for each (label, name prefixes) of
+    `shares`, those kernels' share of the device time."""
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        evaluator.evaluate_model(test_loader)
+        run()
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -480,11 +535,14 @@ def breakdown(evaluator, test_loader, what="fused inductive eval (perturbed hits
          if e.device_type != torch.autograd.DeviceType.CPU and device_us(e) > 0),
         reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
-    log(f"profile {what}: "
-        f"{len(test_loader)} batches, wall {wall_ms:.1f} ms, device busy "
+    log(f"{what}, wall {wall_ms:.1f} ms, device busy "
         f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %)")
+    for label, prefixes in shares:
+        ms = sum(us for us, key, _ in rows if any(p in key for p in prefixes)) / 1e3
+        log(f"  {label}: {ms:.3f} ms ({100 * ms / max(busy_ms, 1e-9):.1f} % of device time)")
     for us, key, count in rows[:12]:
         log(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+    return wall_ms, busy_ms
 
 
 # ------------------------------------------------------------ CIN kernel
@@ -659,6 +717,213 @@ def cin_timing():
     return out
 
 
+# --------------------------------------------------- CIN backward kernel
+
+
+def cin_pre_f64(a, b0, w, bias, mxu):
+    """The pre-activation (B, L, D) in f64 from the operands as the kernel
+    rounds them: where a gradient may be masked."""
+    bsz, h, d = a.shape
+    a, b0, w = a.double(), b0.double(), w.double()
+    if mxu == "bfloat16":
+        r = lambda x: x.float().to(torch.bfloat16).double()  # noqa: E731
+        a, b0, w = r(a), r(b0), r(w)
+        z = r(a[:, :, None, :] * b0[:, None, :, :])
+    else:
+        z = a[:, :, None, :] * b0[:, None, :, :]
+    z = z.reshape(bsz, -1, d)
+    return torch.einsum("bkd,kl->bld", z, w) + bias.double()[None, :, None]
+
+
+def cin_grads(inputs, nh, ps, seed, exact, mxu):
+    """(gh, gp) for one layer: gh (B, nh, D) or None, gp (B, L - ps) or None.
+    `exact`: integers in -3..3, so every sum of the backward is exact.
+    Otherwise normal values, zeroed where |pre| < CIN_MASK_BAND."""
+    a, _, w, _ = inputs
+    b, _, d = a.shape
+    l = w.shape[1]
+    rng = np.random.default_rng(seed)
+    if exact:
+        gh, gp = rng.integers(-3, 4, (b, nh, d)), rng.integers(-3, 4, (b, l - ps))
+    else:
+        gh, gp = rng.standard_normal((b, nh, d)), rng.standard_normal((b, l - ps))
+        near = (cin_pre_f64(*inputs, mxu).abs() < CIN_MASK_BAND).cpu().numpy()
+        gh[near[:, :nh]] = 0
+        gp[near[:, ps:].any(axis=2)] = 0
+    dev = lambda x: torch.from_numpy(x.astype(np.float32)).to(DEVICE)  # noqa: E731
+    return (dev(gh) if nh else None), (dev(gp) if l > ps else None)
+
+
+def cin_bwd_err(got, want):
+    """Largest |kernel - plain| of the four gradients, each relative to
+    max(1, the plain gradient's largest magnitude)."""
+    return max(float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+               for g, w in zip(got, want))
+
+
+def cin_bwd_pair(inputs, grads, nh, pool_all, mxu):
+    """(kernel gradients, plain gradients) of one layer; nh None is
+    `cin_layer`, whose gradient is gh alone."""
+    gh, gp = grads
+    if nh is None:
+        got = cin_layer_bwd(*inputs, gh, mxu_dtype=mxu)
+        sync()
+        return got, cin_layer_bwd_plain(*inputs, gh, mxu_dtype=mxu)
+    kw = dict(mxu_dtype=mxu, n_hidden=nh, pool_all=pool_all)
+    got = cin_layer_pooled_bwd(*inputs, gh, gp, **kw)
+    sync()
+    return got, cin_layer_pooled_bwd_plain(*inputs, gh, gp, **kw)
+
+
+def cin_bwd_cases():
+    """The CIN backward kernel against its plain version on the card: bit
+    for bit on integer inputs and gradients, to CIN_TOL on random ones, in
+    both precision modes, at every case of the forward."""
+    for i, (name, b, h, f, d, l, nh, pool_all) in enumerate(CIN_CASES):
+        ps = l if nh is None else (0 if pool_all else nh)
+        n_hidden = l if nh is None else nh
+        errs = {}
+        for mxu in ("float32", "bfloat16"):
+            inputs = cin_inputs(b, h, f, d, l, SEED + 300 + i, True)
+            grads = cin_grads(inputs, n_hidden, ps, SEED + 600 + i, True, mxu)
+            got, want = cin_bwd_pair(inputs, grads, nh, pool_all, mxu)
+            require(all(g.shape == w.shape and torch.equal(g, w) for g, w in zip(got, want)),
+                    f"cin bwd {name} {mxu}: kernel differs from the plain version on exact inputs")
+            inputs = cin_inputs(b, h, f, d, l, SEED + 400 + i, False)
+            grads = cin_grads(inputs, n_hidden, ps, SEED + 700 + i, False, mxu)
+            got, want = cin_bwd_pair(inputs, grads, nh, pool_all, mxu)
+            errs[mxu] = cin_bwd_err(got, want)
+            require(errs[mxu] <= CIN_TOL, f"cin bwd {name} {mxu}: relative error {errs[mxu]}")
+        log(f"cin bwd check {name}: B={b} H={h} F={f} D={d} L={l} n_hidden={nh} "
+            f"pool_all={pool_all}: exact (f32, bf16); random error "
+            f"f32 {errs['float32']:.3e} bf16 {errs['bfloat16']:.3e}")
+
+
+def cin_bwd_bound(layers):
+    """(bound ms, bound_by, ops ms, bytes ms) of CIN backward layers (b, h,
+    f, d, l, nh, lp): three f32 products (pre, dW, dz) against each input
+    (a, b0, w, bias, gh, gp) read and each output (da, db0, dw, dbias)
+    written once."""
+    flops = sum(3 * 2 * b * d * h * f * l for b, h, f, d, l, nh, lp in layers)
+    nbytes = sum(4 * (2 * (b * h * d + b * f * d + h * f * l + l) + b * nh * d + b * lp)
+                 for b, h, f, d, l, nh, lp in layers)
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("bytes" if t_bytes > t_ops else "operations"), t_ops, t_bytes
+
+
+def autograd_yardstick(inputs, nh, ps, grads):
+    """Yardstick only (the port never calls it): a closure that runs
+    autograd's backward through the einsum + matmul slab path."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    outs = cin_library(*leaves, nh, ps)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    pairs = [(o, g) for o, g in zip(outs, grads) if g is not None and o.numel()]
+
+    def run():
+        return torch.autograd.grad([o for o, _ in pairs], leaves,
+                                   [g for _, g in pairs], retain_graph=True)
+
+    return run
+
+
+def cin_bwd_timing():
+    """The backward per layer and for the 3-layer stack at the training
+    shapes (B = 8192, D = 10), f32: kernel, plain and library ms beside the
+    bound, with the kernel's largest relative error against the plain
+    version (tolerance CIN_TOL)."""
+    f = 7
+    modes = []
+    h = f
+    for i, size in enumerate(CIN_SIZES):
+        last = i == len(CIN_SIZES) - 1
+        nh, pool_all = (0, True) if last else (size // 2, False)
+        modes.append((h, size, nh, pool_all))
+        h = size // 2
+    sets = []  # per input set: per layer (inputs, grads)
+    for r in range(2):
+        b0 = cin_inputs(CTR_B, f, f, CTR_D, 1, SEED + 800 + r, False)[1]
+        layers = []
+        for j, (hh, ll, nh, pool_all) in enumerate(modes):
+            a, _, w, bias = cin_inputs(CTR_B, hh, f, CTR_D, ll, SEED + 810 + 10 * r + j, False)
+            inputs = (a, b0, w, bias)
+            ps = 0 if pool_all else nh
+            layers.append((inputs, cin_grads(inputs, nh, ps, SEED + 900 + 10 * r + j,
+                                             False, "float32")))
+        sets.append(layers)
+
+    out = {}
+    err = 0.0
+    shapes = []
+    for j, (hh, ll, nh, pool_all) in enumerate(modes):
+        ps = 0 if pool_all else nh
+        kw = dict(n_hidden=nh, pool_all=pool_all)
+        calls = [layers[j] for layers in sets]
+        got, want = cin_bwd_pair(*calls[0], nh, pool_all, "float32")
+        err = max(err, cin_bwd_err(got, want))
+        ms = time_ms(lambda x, g: cin_layer_pooled_bwd(*x, *g, **kw), calls, 30)
+        plain_ms = time_ms(lambda x, g: cin_layer_pooled_bwd_plain(*x, *g, **kw), calls, 10)
+        yard = [(autograd_yardstick(x, nh, ps, (g[0], g[1])),) for x, g in calls]
+        lib_ms = time_ms(lambda run: run(), yard, 30)
+        shape = (CTR_B, hh, f, CTR_D, ll, nh, ll - ps)
+        shapes.append(shape)
+        bound, by, t_ops, t_bytes = cin_bwd_bound([shape])
+        log(f"cin bwd timing layer {j}: B={CTR_B} H={hh} F={f} D={CTR_D} L={ll} "
+            f"n_hidden={nh}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={lib_ms:.4f} bound_ms={bound:.4f} ({by}; ops {t_ops:.4f}, "
+            f"bytes {t_bytes:.4f})")
+        del yard
+    require(err <= CIN_TOL, f"cin bwd training layers: relative error {err}")
+
+    def stack(fn, *layers):
+        return [fn(*x, *g, n_hidden=nh, pool_all=pa)
+                for (x, g), (_, _, nh, pa) in zip(layers, modes)]
+
+    def stack_library(*runs):
+        return [run() for run in runs]
+
+    yard = [tuple(autograd_yardstick(x, nh, 0 if pa else nh, g)
+                  for (x, g), (_, _, nh, pa) in zip(layers, modes)) for layers in sets]
+    bound, by, t_ops, t_bytes = cin_bwd_bound(shapes)
+    out["cin_layer_pooled_bwd"] = {
+        "max_abs_err": err,
+        "ms": time_ms(lambda *ls: stack(cin_layer_pooled_bwd, *ls), sets, 30),
+        "plain_ms": time_ms(lambda *ls: stack(cin_layer_pooled_bwd_plain, *ls), sets, 10),
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": time_ms(stack_library, yard, 30),
+    }
+    del yard
+    log("cin bwd timing 3-layer backward (3 calls): " + " ".join(
+        f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in out["cin_layer_pooled_bwd"].items()) + f" (ops {t_ops:.4f}, bytes {t_bytes:.4f})")
+
+    # kernel 3 (`cin_layer_bwd`) at the widest layer: every row hidden
+    hh, ll = modes[1][0], modes[1][1]
+    calls = []
+    for r, layers in enumerate(sets):
+        inputs = layers[1][0]
+        calls.append((inputs, cin_grads(inputs, ll, ll, SEED + 950 + r, False, "float32")))
+    got, want = cin_bwd_pair(*calls[0], None, False, "float32")
+    e3 = cin_bwd_err(got, want)
+    require(e3 <= CIN_TOL, f"cin_layer_bwd: relative error {e3}")
+    yard = [(autograd_yardstick(x, None, 0, g),) for x, g in calls]
+    bound, by, t_ops, t_bytes = cin_bwd_bound([(CTR_B, hh, f, CTR_D, ll, ll, 0)])
+    out["cin_layer_bwd"] = {
+        "max_abs_err": e3,
+        "ms": time_ms(lambda x, g: cin_layer_bwd(*x, g[0]), calls, 30),
+        "plain_ms": time_ms(lambda x, g: cin_layer_bwd_plain(*x, g[0]), calls, 10),
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": time_ms(lambda run: run(), yard, 30),
+    }
+    del yard
+    log(f"cin_layer_bwd timing B={CTR_B} H={hh} F={f} D={CTR_D} L={ll}: " + " ".join(
+        f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in out["cin_layer_bwd"].items()) + f" (ops {t_ops:.4f}, bytes {t_bytes:.4f})")
+    return out
+
+
 # ---------------------------------------------------------- ranking serving
 
 
@@ -673,7 +938,7 @@ def ctr_fields():
     )
 
 
-def build_ranking_model():
+def build_ranking_model(seed=SEED + 1):
     spec = InductiveSpec(
         mapper="random", add_oov_buckets=True,
         n_user_buckets=100, n_item_buckets=100, hash_function="3round",
@@ -681,7 +946,7 @@ def build_ranking_model():
     return xDeepFM(
         ctr_fields(), embedding_size=CTR_D, spec=spec, mlp_hidden_size=MLP_SIZES,
         dropout_prob=0.2, direct=False, cin_layer_size=CIN_SIZES,
-        device=DEVICE, generator=torch_generator(SEED + 1, DEVICE),
+        device=DEVICE, generator=torch_generator(seed, DEVICE),
     )
 
 
@@ -727,7 +992,8 @@ def synth_ctr(model, mapper, cfg):
 
 def ranking():
     """xDeepFM value eval and 7 value slices, CIN kernel vs plain slab path.
-    Returns the launch counts of the fused 7-slice run."""
+    Returns the launch counts of the fused 7-slice run, the labelled rows
+    and the mapper."""
     model = build_ranking_model()
     mapper = RandomOOVMapper(
         model.spec, N_CTR_OLD_USERS, N_CTR_OLD_ITEMS,
@@ -787,7 +1053,261 @@ def ranking():
     model.fused_cin = cfg["fused_cin"]
     breakdown(InductiveEvaluator(model, cfg, N_CTR_OLD_USERS, N_CTR_OLD_ITEMS, mapper=mapper),
               PlainEvalBatcher(ind, cfg), what="fused 7-slice value eval (xDeepFM)")
-    return runs[True][2]
+    return runs[True][2], ind, mapper
+
+
+# --------------------------------------------------------- ranking training
+
+
+def ctr_train_cfg(**over):
+    d = {
+        "metrics": ["AUC", "LogLoss"], "valid_metric": "AUC", "seed": SEED,
+        "eval_batch_size": CTR_B, "metric_decimal_place": 12,
+        "train_batch_size": CTR_B, "learner": "adam", "learning_rate": 1e-3,
+        "epochs": 1, "train_neg_sample_args": {"distribution": "none"},
+        "train_oov": True, "oov_only_epoch": True, "oov_train_ratio": 0.2,
+        "oov_feature_mask_rate": 0.2, "oov_freeze_embedding": True,
+    }
+    d.update(over)
+    return Config(d)
+
+
+def rows_of(split, keep, n_users, n_items):
+    return DatasetSplit({k: v[keep] for k, v in split.inter.items()}, n_users, n_items,
+                        user_feat=split.user_feat, item_feat=split.item_feat)
+
+
+def ranking_training(ind, mapper):
+    """xDeepFM through `Trainer.fit` on the card: one epoch over the IV rows
+    of the first CTR_TRAIN_FRACTION of the rows plus the frozen OOV-only
+    sub-epoch, from a seed other than the labels' model. → the CIN launch
+    counts of the fit."""
+    n = len(ind)
+    cut = int(CTR_TRAIN_FRACTION * n)
+    row = np.arange(n)
+    old = ((ind.inter["user_id"] < N_CTR_OLD_USERS)
+           & (ind.inter["item_id"] < N_CTR_OLD_ITEMS))
+    n_u, n_i = N_CTR_OLD_USERS + N_CTR_NEW_USERS, N_CTR_OLD_ITEMS + N_CTR_NEW_ITEMS
+    train = rows_of(ind, (row < cut) & old, N_CTR_OLD_USERS, N_CTR_OLD_ITEMS)
+    held = rows_of(ind, row >= cut, n_u, n_i)
+    held_iv = rows_of(ind, (row >= cut) & old, N_CTR_OLD_USERS, N_CTR_OLD_ITEMS)
+    cfg = ctr_train_cfg()
+    model = build_ranking_model(SEED + 7)
+    auc0 = EvalRunner(model, cfg).evaluate(PlainEvalBatcher(held_iv, cfg))["auc"]
+
+    trainer = Trainer(cfg, model)
+    loader = TrainBatcher(train, None, cfg, InputType.POINTWISE)
+    require(loader.mode == "plain" and len(loader) > 1, f"train loader {loader.mode}")
+    iv_names = [n for n in trainer.params if n not in trainer.oov_params]
+    require(len(trainer.oov_params) == 4, f"OOV parameters {sorted(trainer.oov_params)}")
+    inner, seen = trainer._train_epoch, {}
+
+    def watched(loader, epoch_idx, oov_transform=None, keep_ratio=None, frozen=False):
+        before = {n: p.detach().clone() for n, p in trainer.params.items()}
+        steps = trainer._global_step
+        total = inner(loader, epoch_idx, oov_transform, keep_ratio, frozen)
+        seen["frozen" if frozen else "normal"] = {
+            "losses": trainer.last_losses, "steps": trainer._global_step - steps,
+            "moved": {n for n in trainer.params if not torch.equal(before[n], trainer.params[n])},
+        }
+        return total
+
+    trainer._train_epoch = watched
+    cin_layer_pooled.launches = cin_layer_pooled_bwd.launches = 0
+    cin_layer.launches = cin_layer_bwd.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    trainer.fit(loader, None, saved=False)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = {"cin_layer_pooled": cin_layer_pooled.launches,
+              "cin_layer_pooled_bwd": cin_layer_pooled_bwd.launches,
+              "cin_layer": cin_layer.launches, "cin_layer_bwd": cin_layer_bwd.launches}
+    steps = trainer._global_step
+    normal, frozen = seen["normal"], seen["frozen"]
+    n_layers = len(CIN_SIZES)
+    log(f"ranking training: {len(train)} rows, {normal['steps']} steps + {frozen['steps']} "
+        f"frozen OOV steps of {CTR_B} rows, {wall / steps * 1e3:.2f} ms per step (wall, host included), "
+        f"kernel launches {counts}")
+    require(counts["cin_layer_pooled"] == n_layers * steps
+            and counts["cin_layer_pooled_bwd"] == n_layers * steps,
+            f"CIN launches {counts} over {steps} steps")
+    require(normal["steps"] == len(loader) and frozen["steps"] > 0, "training steps")
+    require(not frozen["moved"] & set(iv_names),
+            f"the frozen sub-epoch moved IV tables {sorted(frozen['moved'] & set(iv_names))}")
+    require(frozen["moved"] == trainer.oov_params,
+            f"the frozen sub-epoch moved {sorted(frozen['moved'])}")
+    losses = normal["losses"]
+    tenth = max(1, len(losses) // 10)
+    first, last = float(losses[:tenth].mean()), float(losses[-tenth:].mean())
+    require(np.isfinite(losses).all() and np.isfinite(frozen["losses"]).all(), "loss not finite")
+    require(last < first, f"loss did not fall: first tenth {first}, last tenth {last}")
+    auc1 = trainer.evaluate(PlainEvalBatcher(held_iv, cfg), load_best_model=False)["auc"]
+    log(f"ranking training: loss first tenth {first:.5f} last tenth {last:.5f}, "
+        f"frozen OOV loss {float(frozen['losses'].mean()):.5f}; held-out IV AUC "
+        f"{auc0:.5f} before, {auc1:.5f} after; IV tables bitwise unchanged by the "
+        f"frozen sub-epoch, bucket tables moved")
+    require(auc1 > auc0, f"held-out AUC {auc0} before, {auc1} after")
+    ev = InductiveEvaluator(model, cfg, N_CTR_OLD_USERS, N_CTR_OLD_ITEMS, mapper=mapper)
+    slices = ev.evaluate_model(PlainEvalBatcher(held, cfg))
+    for s, r in slices.items():
+        log(f"[trained {s}] {dict(r)}")
+        require(list(r) == ["auc", "logloss"] and all(math.isfinite(v) for v in r.values()),
+                f"trained slice {s}: {dict(r)}")
+
+    # where a training step's time goes, after the counted run
+    profile_loader = TrainBatcher(rows_of(train, np.arange(len(train)) < 8 * CTR_B,
+                                          N_CTR_OLD_USERS, N_CTR_OLD_ITEMS),
+                                  None, cfg, InputType.POINTWISE)
+    inner(profile_loader, 1)
+    sync()
+    wall_ms, _ = profiled(
+        lambda: inner(profile_loader, 2),
+        f"profile {len(profile_loader)} fused xDeepFM training steps",
+        shares=(("CIN forward kernel", ("cin_fused_kernel",)),
+                ("CIN backward kernels", ("cin_bwd_",))))
+    log(f"ranking training profile: {wall_ms / len(profile_loader):.2f} ms per step "
+        "under the profiler")
+    kernel_vs_plain_training(train)
+    return counts
+
+
+def kernel_vs_plain_training(train):
+    """COMPARE_STEPS training steps on the CIN kernel path and on the plain
+    slab path from identical weights and dropout generators: per-step losses
+    to LOSS_RTOL relative, parameters to PARAM_ATOL absolute.
+
+    Adam scales each element's step by that element's own gradient history,
+    so an element whose gradient at some step is decided by more than
+    summation rounding (a ReLU mask at a pre-activation within rounding of
+    0, or a gradient that cancels to within rounding of 0) can move by a
+    fraction of lr on one path and not the other. Such elements are held
+    apart: each one beyond PARAM_ATOL is printed with both values and the
+    step at which its gradient differed between the paths by more than
+    EXPLAINED_GRAD_RTOL relative; any element beyond PARAM_ATOL without
+    such a step, or more than MAX_EXPLAINED_FRACTION of all elements, fails
+    the phase."""
+    part = rows_of(train, np.arange(len(train)) < COMPARE_STEPS * CTR_B,
+                   N_CTR_OLD_USERS, N_CTR_OLD_ITEMS)
+    cfg = ctr_train_cfg(train_oov=False)
+    runs = {}
+    for fused in (True, False):
+        model = build_ranking_model(SEED + 7)
+        model.fused_cin = cfg["fused_cin"] if fused else False
+        trainer = Trainer(cfg, model)
+        grads, step = [], trainer.optimizer.step
+
+        def recording(params, g, state, trainable=None, grads=grads, step=step):
+            grads.append({n: t.detach().clone() for n, t in g.items()})
+            return step(params, g, state, trainable)
+
+        trainer.optimizer.step = recording
+        launches = cin_layer_pooled_bwd.launches
+        trainer._train_epoch(TrainBatcher(part, None, cfg, InputType.POINTWISE), 0)
+        require((cin_layer_pooled_bwd.launches > launches) is fused, "CIN backward path")
+        runs[fused] = (trainer.last_losses,
+                       {n: p.detach() for n, p in model.named_parameters()}, grads)
+    (lk, pk, gk), (lp, pp, gp) = runs[True], runs[False]
+    require(len(lk) == len(lp) == COMPARE_STEPS, f"steps {len(lk)}, {len(lp)}")
+    rel = np.abs(lk - lp) / np.abs(lp)
+    worst = max(((float((pk[n] - pp[n]).abs().max()), n) for n in pk))
+    n_elements = sum(p.numel() for p in pk.values())
+    beyond = []
+    for n in pk:
+        idx = torch.nonzero(((pk[n] - pp[n]).abs() > PARAM_ATOL).flatten()).flatten()
+        for i in idx.tolist():
+            a = torch.stack([g[n].flatten()[i] for g in gk])
+            b = torch.stack([g[n].flatten()[i] for g in gp])
+            grel = (a - b).abs() / torch.maximum(torch.maximum(a.abs(), b.abs()),
+                                                  torch.tensor(1e-30, device=a.device))
+            s = int(grel.argmax())
+            beyond.append((n, i, float(pk[n].flatten()[i]), float(pp[n].flatten()[i]),
+                           s, float(a[s]), float(b[s]), float(grel[s])))
+    log(f"kernel vs plain training, {COMPARE_STEPS} steps: loss max relative "
+        f"difference {rel.max():.3e} (step {int(rel.argmax())}), parameters max "
+        f"absolute difference {worst[0]:.3e} ({worst[1]}); {len(beyond)} of "
+        f"{n_elements} elements beyond {PARAM_ATOL}")
+    for n, i, vk, vp, s, ga, gb, grel in beyond[:20]:
+        log(f"  {n}[{i}]: kernel {vk:.6e}, plain {vp:.6e}; at step {s} its gradient was "
+            f"{ga:.6e} (kernel) vs {gb:.6e} (plain), relative difference {grel:.3e}")
+    require(rel.max() <= LOSS_RTOL, f"training losses differ: step {int(rel.argmax())}, "
+            f"kernel {lk[rel.argmax()]}, plain {lp[rel.argmax()]}")
+    unexplained = [b for b in beyond if b[-1] <= EXPLAINED_GRAD_RTOL]
+    require(not unexplained, f"parameters differ beyond {PARAM_ATOL} where no gradient "
+            f"of the element differed by more than rounding: {unexplained[:5]}")
+    require(len(beyond) <= MAX_EXPLAINED_FRACTION * n_elements,
+            f"{len(beyond)} elements beyond {PARAM_ATOL}")
+
+
+# ------------------------------------------------------- retrieval training
+
+
+def retrieval_training():
+    """BPR through `Trainer.fit` at the serving scale, then the 7-slice eval
+    on the trained weights, fused vs dense."""
+    model = build_model()
+    mapper = RandomOOVMapper(
+        model.spec, N_OLD_USERS, N_OLD_ITEMS,
+        N_OLD_USERS + N_NEW_USERS, N_OLD_ITEMS + N_NEW_ITEMS,
+    )
+    mapper.set_eval()
+    rng = np.random.default_rng(SEED + 30)
+    n_rows = BPR_TRAIN_STEPS * BPR_TRAIN_B
+    train = DatasetSplit({"user_id": rng.integers(1, N_OLD_USERS, n_rows),
+                          "item_id": rng.integers(1, N_OLD_ITEMS, n_rows)},
+                         N_OLD_USERS, N_OLD_ITEMS)
+    t0 = time.perf_counter()
+    sampler = Sampler(["train"], [train], seed=SEED)
+    cfg = Config({"seed": SEED, "topk": TOPK, "train_batch_size": BPR_TRAIN_B,
+                  "learner": "adam", "learning_rate": 1e-3, "epochs": 1,
+                  "train_oov": True, "oov_only_epoch": True, "oov_train_ratio": 0.2,
+                  "oov_feature_mask_rate": 0.2})
+    trainer = Trainer(cfg, model)
+    loader = TrainBatcher(train, sampler, cfg, InputType.PAIRWISE)
+    require(loader.mode == "pairwise" and len(loader) == BPR_TRAIN_STEPS, "BPR loader")
+    log(f"retrieval training data: {n_rows} rows, {time.perf_counter() - t0:.1f} s")
+    before = {n: p.detach().clone() for n, p in trainer.params.items()}
+    sync()
+    t0 = time.perf_counter()
+    trainer.fit(loader, None, saved=False)
+    sync()
+    wall = time.perf_counter() - t0
+    steps = trainer._global_step
+    moved = {n for n in before if not torch.equal(before[n], trainer.params[n])}
+    loss, oov_loss = trainer.train_loss_dict[0], trainer.oov_loss_dict.get(0)
+    log(f"retrieval training: {steps} steps ({len(loader)} + {steps - len(loader)} OOV) of "
+        f"{BPR_TRAIN_B} rows, {wall / steps * 1e3:.2f} ms per step (wall, host included), "
+        f"mean loss {loss / len(loader):.5f}, OOV sub-epoch mean loss "
+        f"{(oov_loss or float('nan')) / max(1, steps - len(loader)):.5f}")
+    require(steps > BPR_TRAIN_STEPS and math.isfinite(loss) and oov_loss is not None
+            and math.isfinite(oov_loss), "retrieval training")
+    require({"user_embedding.weight", "item_embedding.weight"} <= moved
+            and moved & trainer.oov_params, f"parameters that moved: {sorted(moved)}")
+    ind_splits, _ = synth_interactions(model, mapper)
+    seven_slices_fused_vs_dense(model, mapper, ind_splits, serving_cfg,
+                                what="trained BPR inductive eval")
+
+
+# ------------------------------------------------- kernel 6, not ported yet
+
+
+def sparse_rows_bound():
+    """Kernel 6 (`oovrec_tpu/ops/sparse_rows.py:127`, the sparse-adam row
+    update, not ported yet): its bound per step at bench.py's sparse-adam
+    shape, computed from the shapes, not measured. A step updates the user
+    table (200,000 x 64) at 8,192 batch users and the item table
+    (100,000 x 64) at 16,384 positive and negative items: p, mu and nu of
+    each distinct row read and written, g and the id of each read once;
+    ~16 f32 operations an element."""
+    d = 64
+    distinct = sum(v * (1 - (1 - 1 / v) ** k)  # expected distinct draws
+                   for v, k in ((200_000, 8192), (99_999, 2 * 8192)))
+    nbytes = distinct * (3 * 2 * d * 4 + d * 4 + 4)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 16 * distinct * d / PEAK_F32_FLOPS * 1e3
+    log(f"kernel 6 bound (computed, not measured): {distinct:.0f} distinct rows a step, "
+        f"{nbytes / 1e6:.1f} MB, bound_ms={max(t_bytes, t_ops):.4f} "
+        f"({'bytes' if t_bytes > t_ops else 'operations'}; ops {t_ops:.5f}, bytes {t_bytes:.4f})")
 
 
 # -------------------------------------------------------------------- main
@@ -803,8 +1323,8 @@ def main():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
 
-    t0 = time.perf_counter()
-    built = cuda_build.build_kernels(["topk_score", "cin_fused"])
+    t_start = t0 = time.perf_counter()
+    built = cuda_build.build_kernels(["topk_score", "cin_fused", "cin_fused_bwd"])
     log(f"build: {built} ({time.perf_counter() - t0:.1f} s)")
     for name, out in cuda_build.LIBRARIES.build_log.items():
         for line in out.splitlines():
@@ -813,10 +1333,15 @@ def main():
 
     kernel_cases()
     cin_cases()
+    cin_bwd_cases()
     timing = kernel_timing()
     cin_times = cin_timing()
+    cin_times.update(cin_bwd_timing())
     launches = serving()
-    cin_launches = ranking()
+    cin_launches, ind, mapper = ranking()
+    train_launches = ranking_training(ind, mapper)
+    retrieval_training()
+    sparse_rows_bound()
 
     kernels = [{
         "name": "fused_topk_scores",
@@ -839,7 +1364,22 @@ def main():
         "replaces": "oovrec_tpu/ops/cin_fused.py:129",
         "launches": cin_launches["cin_layer"],
         **cin_times["cin_layer"],
+    }, {
+        "name": "cin_layer_pooled_bwd",
+        "route": "cuda",
+        "source": "oovrec_tpu_torch/csrc/cin_fused_bwd.cu",
+        "replaces": "oovrec_tpu/ops/cin_fused.py:414",
+        "launches": train_launches["cin_layer_pooled_bwd"],
+        **cin_times["cin_layer_pooled_bwd"],
+    }, {
+        "name": "cin_layer_bwd",
+        "route": "cuda",
+        "source": "oovrec_tpu_torch/csrc/cin_fused_bwd.cu",
+        "replaces": "oovrec_tpu/ops/cin_fused.py:155",
+        "launches": train_launches["cin_layer_bwd"],
+        **cin_times["cin_layer_bwd"],
     }]
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
-"""Eval batches: fixed-shape host-side batch assembly.
+"""Batchers: fixed-shape host-side batch assembly.
 
-Port of `oovrec_tpu/data/dataloader.py:38-67, 345-494`: full-sort batches
-for retrieval models and plain labelled rows for ranking (VALUE-metric)
-models. Every batch has the same shape; the final partial batch is padded
-and carries a `weight` column (1 real / 0 pad). Training and
-sampled-negative batchers come with later slices.
+Port of `oovrec_tpu/data/dataloader.py:38-253, 345-494`: training batches
+with negative sampling (`TrainBatcher`), full-sort batches for retrieval
+models and plain labelled rows for ranking (VALUE-metric) models. Every
+batch has the same shape; the final partial batch is padded and carries a
+`weight` column (1 real / 0 pad). The sampled-negative eval batcher comes
+with a later slice.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import numpy as np
 
 from oovrec_tpu_torch.data.dataset import DatasetSplit
 from oovrec_tpu_torch.data.sampler import Sampler
+from oovrec_tpu_torch.utils.enums import InputType
+from oovrec_tpu_torch.utils.seeding import host_rng
 
 Batch = Dict[str, np.ndarray]
 
@@ -36,7 +39,7 @@ def _pad_to(arr: np.ndarray, n: int) -> np.ndarray:
 
 def _join_features(
     batch: Batch, ids: np.ndarray, feat: Optional[Dict[str, np.ndarray]],
-    id_field: str,
+    id_field: str, prefix: str = "",
 ) -> None:
     """Attach per-row user/item feature columns (the reference's `join`)."""
     if feat is None:
@@ -44,7 +47,162 @@ def _join_features(
     for field, table in feat.items():
         if field == id_field or field.endswith("_len"):
             continue
-        batch[field] = table[ids]
+        batch[prefix + field] = table[ids]
+
+
+class TrainBatcher:
+    """Training batches with negative sampling (TrainDataLoader analog).
+
+    Modes as the JAX batcher: `plain` (no sampling: the rows as they are),
+    `pairwise` (rows tiled `sample_num` times, a `neg_<item>` column laid
+    out column-major, with the negatives' item features) and `pointwise`
+    (rows tiled 1 + `sample_num` times, the copies' items replaced by
+    negatives with label 0: [positives ∥ negative copies]). The shuffle is
+    `host_rng(seed + epoch, "train_shuffle_<phase>")`, so the batches equal
+    the JAX batcher's key for key. The feature tables are the split's
+    `user_feat` / `item_feat`; the process pair comes from the caller.
+    Only the identity transform (`transform` None / 'Equal') is ported, and
+    dynamic hard negatives are not.
+    """
+
+    def __init__(
+        self,
+        split: DatasetSplit,
+        sampler: Optional[Sampler],
+        config,
+        input_type: InputType,
+        phase: str = "train",
+        neg_sample_args: Optional[dict] = None,
+        batch_size: Optional[int] = None,
+        shuffle: bool = True,
+        process_index: Optional[int] = None,
+        process_count: Optional[int] = None,
+    ):
+        self.split = split
+        self.sampler = sampler
+        self.config = config
+        self.input_type = input_type
+        self.phase = phase
+        self.shuffle = shuffle
+        self.uid_field = split.uid_field
+        self.iid_field = split.iid_field
+        self.label_field = split.label_field
+        self.neg_prefix = config["NEG_PREFIX"] or "neg_"
+        self._epoch = 0
+
+        nsa = neg_sample_args or config["train_neg_sample_args"] or {}
+        self.distribution = nsa.get("distribution", "none")
+        self.sample_num = (
+            int(nsa.get("sample_num", 0)) if self.distribution != "none" else 0
+        )
+        if nsa.get("dynamic", False):
+            raise NotImplementedError(
+                "dynamic hard negatives (train_neg_sample_args.dynamic) are not ported")
+        if self.distribution == "none" or self.sample_num == 0:
+            self.times = 1
+            self.mode = "plain"
+        elif input_type == InputType.PAIRWISE:
+            self.times = self.sample_num
+            self.mode = "pairwise"
+        else:
+            self.times = 1 + self.sample_num
+            self.mode = "pointwise"
+
+        bs = batch_size or config["train_batch_size"]
+        if self.mode == "plain":
+            self.step = bs
+            self.batch_size = bs
+        else:
+            # the batch holds `step` positives, expanded to step * times rows
+            self.step = max(bs // self.times, 1)
+            self.batch_size = self.step * self.times
+
+        # per-process data sharding: every process walks the same shuffled
+        # order and takes its interleaved slice
+        self.process_index, self.process_count = _process_info(
+            process_index, process_count
+        )
+        self.local_step = (
+            max(self.step // self.process_count, 1)
+            if self.process_count > 1
+            else self.step
+        )
+        self.user_feat = split.user_feat
+        self.item_feat = split.item_feat
+        transform = config["transform"]
+        if transform not in (None, "Equal"):
+            raise NotImplementedError(f"batch transform [{transform}] is not ported")
+
+    def __len__(self) -> int:
+        n = len(self.split)
+        if not n:
+            return 0
+        max_local = -(-n // self.process_count)
+        return max(-(-max_local // self.local_step), 1)
+
+    def __iter__(self) -> Iterator[Batch]:
+        n = len(self.split)
+        order = np.arange(n)
+        if self.shuffle:
+            rng = host_rng(
+                int(self.config["seed"] or 0) + self._epoch, f"train_shuffle_{self.phase}"
+            )
+            rng.shuffle(order)
+        self._epoch += 1
+        local = order[self.process_index :: self.process_count]
+        max_local = -(-n // self.process_count)
+        n_batches = max(-(-max_local // self.local_step), 1) if n else 0
+        for b in range(n_batches):
+            idx = local[b * self.local_step : (b + 1) * self.local_step]
+            yield self._make_batch(idx)
+
+    def _make_batch(self, idx: np.ndarray) -> Batch:
+        inter = self.split.inter
+        rows = {k: v[idx] for k, v in inter.items()}
+        users = rows[self.uid_field]
+        items = rows[self.iid_field]
+        n_real = len(idx)
+
+        if self.mode == "pairwise":
+            neg = self.sampler.sample_negatives(self.phase, users, self.sample_num)
+            batch: Batch = {
+                k: np.tile(v, (self.times,) + (1,) * (v.ndim - 1))
+                for k, v in rows.items()
+            }
+            neg_flat = neg.flatten(order="F")
+            batch[self.neg_prefix + self.iid_field] = neg_flat
+            _join_features(batch, batch[self.iid_field], self.item_feat, self.iid_field)
+            _join_features(batch, neg_flat, self.item_feat, self.iid_field,
+                           prefix=self.neg_prefix)
+            _join_features(batch, batch[self.uid_field], self.user_feat, self.uid_field)
+            weight = np.zeros(self.local_step * self.times, dtype=np.float32)
+            weight[: n_real * self.times] = 1.0
+            total = self.local_step * self.times
+        elif self.mode == "pointwise":
+            neg = self.sampler.sample_negatives(self.phase, users, self.sample_num)
+            batch = {
+                k: np.tile(v, (self.times,) + (1,) * (v.ndim - 1))
+                for k, v in rows.items()
+            }
+            neg_flat = neg.flatten(order="F")
+            batch[self.iid_field] = np.concatenate([items, neg_flat])
+            label = np.zeros(n_real * self.times, dtype=np.float32)
+            label[:n_real] = 1.0
+            batch[self.label_field] = label
+            _join_features(batch, batch[self.iid_field], self.item_feat, self.iid_field)
+            _join_features(batch, batch[self.uid_field], self.user_feat, self.uid_field)
+            weight = np.ones(n_real * self.times, dtype=np.float32)
+            total = self.local_step * self.times
+        else:
+            batch = rows
+            _join_features(batch, items, self.item_feat, self.iid_field)
+            _join_features(batch, users, self.user_feat, self.uid_field)
+            weight = np.ones(n_real, dtype=np.float32)
+            total = self.local_step
+
+        batch = {k: _pad_to(np.asarray(v), total) for k, v in batch.items()}
+        batch["weight"] = _pad_to(weight, total)
+        return batch
 
 
 class FullSortEvalBatcher:

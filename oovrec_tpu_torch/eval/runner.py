@@ -112,8 +112,12 @@ class EvalRunner:
     # ------------------------------------------------------------- entry
 
     @torch.no_grad()
-    def evaluate(self, eval_loader):
-        """Run one evaluation pass; returns OrderedDict of metrics."""
+    def evaluate(self, eval_loader, sample_eval_ratio=None, rng=None):
+        """Run one evaluation pass; returns OrderedDict of metrics.
+
+        `sample_eval_ratio` (with `rng`) skips full-sort batches after the
+        first with probability 1 - ratio, the trainer's sampled validation
+        (`runner.py:463-470` of the JAX package)."""
         self.model.eval()
         if isinstance(eval_loader, PlainEvalBatcher):
             return self._evaluate_value(eval_loader)
@@ -135,7 +139,10 @@ class EvalRunner:
             else:
                 self._full_steps[key] = self._make_full_step()
         full_step = self._full_steps[key]
-        for batch in eval_loader:
+        for i, batch in enumerate(eval_loader):
+            if (sample_eval_ratio is not None and i >= 1 and rng is not None
+                    and rng.random() > sample_eval_ratio):
+                continue
             db = to_device_batch(batch, self.device)
             topk_idx, pos_idx, pos_len = full_step(db)
             collector.collect_topk(

@@ -39,6 +39,7 @@ class GeneralRecommender(nn.Module):
         spec: Optional[InductiveSpec] = None,
         uid_field: str = "user_id",
         iid_field: str = "item_id",
+        neg_prefix: str = "neg_",
         device="cuda",
         generator: Optional[torch.Generator] = None,
     ):
@@ -49,6 +50,7 @@ class GeneralRecommender(nn.Module):
         self.spec = spec
         self.uid_field = uid_field
         self.iid_field = iid_field
+        self.neg_prefix = neg_prefix
         self.device = resolve_device(device)
         self.generator = generator
 

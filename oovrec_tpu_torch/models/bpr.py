@@ -1,14 +1,16 @@
-"""BPR — matrix-factorization two-tower, serving methods.
+"""BPR — matrix-factorization two-tower trained pairwise.
 
-Port of `oovrec_tpu/models/bpr.py:21-105`: user/item tables; OOV rows
-route through bucket tables (`get_user_embedding` `bpr.py:48-78`,
-`get_item_embedding` `bpr.py:94-125` in the reference), branchless via
-`inductive.routing.route`. `calculate_loss` comes with the training slice.
+Port of `oovrec_tpu/models/bpr.py:21-105`: user/item tables and the BPR
+loss; OOV rows route through bucket tables (`get_user_embedding`
+`bpr.py:48-78`, `get_item_embedding` `bpr.py:94-125` in the reference),
+branchless via `inductive.routing.route`, on all three columns of a
+training row (user, positive and negative item).
 """
 
 from __future__ import annotations
 
 from oovrec_tpu_torch.models.base import Batch, GeneralRecommender, register_model
+from oovrec_tpu_torch.models.losses import bpr_loss
 from oovrec_tpu_torch.utils.enums import InputType
 
 
@@ -31,6 +33,13 @@ class BPR(GeneralRecommender):
         return self._route_side(
             "item", self.item_embedding, ids, batch, field or self.iid_field
         )
+
+    def calculate_loss(self, batch: Batch):
+        neg_field = self.neg_prefix + self.iid_field
+        u = self.user_e(batch[self.uid_field], batch)
+        p = self.item_e(batch[self.iid_field], batch)
+        n = self.item_e(batch[neg_field], batch, field=neg_field)
+        return bpr_loss((u * p).sum(dim=1), (u * n).sum(dim=1), batch.get("weight"))
 
     def predict(self, batch: Batch):
         u = self.user_e(batch[self.uid_field], batch)

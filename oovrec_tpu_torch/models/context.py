@@ -20,6 +20,11 @@ bucket tables. Module and parameter names follow the flax tree
 bridge maps them one to one; the one rename, `field_embedding` for the
 flax `fields`, is declared in `ContextRecommender.flax_names`.
 
+Train/eval switch: `nn.Module.train()` / `eval()`, which the trainer and
+the eval runner set; a model's `forward(batch, train=None)` follows the
+module's mode unless `train` is given, as the flax models take `train`,
+and `calculate_loss` always runs in train mode, as the JAX package's does.
+
 Not ported yet: token_seq / float_seq fields (no serving configuration
 has them), `field_spec_from_dataset` (waits for the atomic-file dataset)
 and the trainable embedder towers.
@@ -281,9 +286,3 @@ class ContextRecommender(nn.Module):
     @property
     def in_feature_num(self) -> int:
         return self.fields.num_feature_field * self.embedding_size
-
-    def calculate_loss(self, batch: Batch):
-        raise NotImplementedError(
-            f"{type(self).__name__}.calculate_loss comes with the slice that "
-            "ports the trainer"
-        )

@@ -1,18 +1,20 @@
-"""xDeepFM, serving methods.
+"""xDeepFM.
 
 Port of `oovrec_tpu/models/context_aware/xdeepfm.py:19-200`: the CIN
 (pairwise Hadamard feature maps + a 1×1 conv over the pair axis per
 layer, sum-pooled over D), an MLP over the flattened field embeddings and
-the first-order linear term; `predict` is the sigmoid of their sum.
+the first-order linear term; `predict` is the sigmoid of their sum and
+`calculate_loss` is BCE on the logits plus `reg_weight` times a sum of
+unsquared Frobenius norms (`_reg_from_scope`).
 
 `fused_cin="auto"` runs each CIN layer through the CUDA kernel
 (`ops/cin_fused.py:cin_layer_pooled`) when the embeddings lie on the
 card, for any batch size; `True` forces the kernel wrapper (on the CPU it
 takes its plain version); `False` runs the plain slab path. The JAX
 package's auto rule also asks for a batch that is a multiple of 128, a
-limit of its TPU kernel that the CUDA kernel does not have.
-
-`calculate_loss` and the CIN backward come with the training slice.
+limit of its TPU kernel that the CUDA kernel does not have. The kernel
+route is differentiable: its gradient is the CIN backward kernel
+(`ops/cin_fused.py:cin_layer_pooled_bwd`); the slab path's is autograd's.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from oovrec_tpu_torch.models.base import Batch, register_model
 from oovrec_tpu_torch.models.context import ContextRecommender, FieldSpec
 from oovrec_tpu_torch.models.init import xavier_normal_
 from oovrec_tpu_torch.models.layers import MLPLayers
+from oovrec_tpu_torch.models.losses import bce_with_logits
 from oovrec_tpu_torch.ops.cin_fused import cin_layer_pooled
 from oovrec_tpu_torch.utils.precision import compute_dtype
 
@@ -56,6 +59,7 @@ class xDeepFM(ContextRecommender):
         embedding_size: int = 10,
         spec: Optional[InductiveSpec] = None,
         mlp_hidden_size: Sequence[int] = (128, 128, 128),
+        reg_weight: float = 5e-4,
         dropout_prob: float = 0.2,
         direct: bool = False,
         cin_layer_size: Sequence[int] = (100, 100, 100),
@@ -64,6 +68,7 @@ class xDeepFM(ContextRecommender):
     ):
         super().__init__(fields, embedding_size, spec, **kwargs)
         self.direct = direct
+        self.reg_weight = float(reg_weight)
         self.fused_cin = fused_cin
         # non-direct mode keeps every layer at an even size
         # (`xdeepfm.py:50-57` of the reference)
@@ -145,12 +150,34 @@ class xDeepFM(ContextRecommender):
                 hidden.append(out[:, :nh])
         return torch.cat(finals, dim=1).float().sum(dim=-1)
 
-    def forward(self, batch: Batch) -> torch.Tensor:
+    def forward(self, batch: Batch, train: Optional[bool] = None) -> torch.Tensor:
         emb = self.concat_embed_input_fields(batch)  # (B, F, D)
         cin_out = self.cin_linear(self.compressed_interaction_network(emb))
-        dnn_out = self.mlp_layers(emb.reshape(emb.shape[0], -1))
+        dnn_out = self.mlp_layers(emb.reshape(emb.shape[0], -1), train=train)
         y = self.first_order_linear(batch) + cin_out + dnn_out
         return y.squeeze(-1)
+
+    def calculate_loss(self, batch: Batch) -> torch.Tensor:
+        """BCE with logits over the weighted rows + reg_weight · reg, in
+        train mode (dropout on), as `xdeepfm.py:174-180` of the JAX
+        package."""
+        out = self.forward(batch, train=True)
+        bce = bce_with_logits(out, batch[self.label_field], batch.get("weight"))
+        return bce + self.reg_weight * self._reg_from_scope()
+
+    def _reg_from_scope(self) -> torch.Tensor:
+        """Σ ‖W‖ (Frobenius, unsquared) over the CIN conv kernels, the MLP
+        Dense kernels (not biases) and every ≥ 2-D leaf of the first-order
+        twin (its token, float and OOV bucket tables), in the order of the
+        flax tree (`xdeepfm.py:182-197`)."""
+        kernels = [conv.kernel for conv in self.conv1d_list]
+        kernels += [lin.weight for lin in self.mlp_layers.dense]
+        kernels += [p for _, p in sorted(self.first_order_linear.named_parameters())
+                    if p.dim() >= 2]
+        reg = 0.0
+        for k in kernels:
+            reg = reg + torch.linalg.vector_norm(k)
+        return reg
 
     def predict(self, batch: Batch) -> torch.Tensor:
         return torch.sigmoid(self.forward(batch))

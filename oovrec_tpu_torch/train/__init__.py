@@ -1,0 +1,4 @@
+from oovrec_tpu_torch.train.optimizers import Optimizer, build_optimizer
+from oovrec_tpu_torch.train.trainer import Trainer
+
+__all__ = ["Optimizer", "Trainer", "build_optimizer"]

@@ -39,5 +39,8 @@ def test_scan_sees_the_whole_port():
     assert "oovrec_tpu_torch/ops/topk_score.py" in names
     assert "oovrec_tpu_torch/ops/cin_fused.py" in names
     assert "oovrec_tpu_torch/models/context_aware/xdeepfm.py" in names
+    assert "oovrec_tpu_torch/train/trainer.py" in names
+    assert "oovrec_tpu_torch/train/optimizers.py" in names
+    assert "oovrec_tpu_torch/inductive/transform.py" in names
     assert "chip_smoke.py" in names
     assert len(names) >= 20
