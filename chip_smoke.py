@@ -84,7 +84,9 @@ from oovrec_tpu_torch.ops.topk_score import (
     pack_bitplane,
     unpack_bitmap,
 )
+from oovrec_tpu_torch.ops.sparse_rows import sparse_adam_rows_kernel, sparse_adam_rows_plain
 from oovrec_tpu_torch.train import Trainer
+from oovrec_tpu_torch.train.sparse_update import coalesce_rows
 from oovrec_tpu_torch.utils import cuda_build
 from oovrec_tpu_torch.utils.enums import InputType
 from oovrec_tpu_torch.utils.precision import set_policy
@@ -127,6 +129,14 @@ CIN_MASK_BAND = 1e-3
 CTR_TRAIN_FRACTION = 0.9
 BPR_TRAIN_B, BPR_TRAIN_STEPS = 2048, 64
 COMPARE_STEPS, LOSS_RTOL, PARAM_ATOL = 16, 1e-5, 1e-4
+# the retrieval track's sparse-adam training (bench.py:61-65, 348-510): BPR
+# at D = 64 over 200,000 users x 100,000 items, 1,024 random-mapper buckets
+# a side, pairwise steps of 8,192 rows, 100 steps (bench.py's STEPS); each
+# user in one of 64 groups, 90 % of its items from the group's slice, so the
+# loss can fall; lr 1e-2 moves it within the one epoch (bench.py times the
+# step at 1e-3)
+SP_USERS, SP_ITEMS, SP_BUCKETS, SP_B, SP_STEPS = 200_000, 100_000, 1024, 8192, 100
+SP_GROUPS, SP_IN_GROUP, SP_LR = 64, 0.9, 1e-2
 # an element beyond PARAM_ATOL is explained when at some step its gradient
 # differed between the paths by more than this (relative): more than f32
 # summation rounding (about 1e-6 here) can do
@@ -1209,34 +1219,47 @@ def kernel_vs_plain_training(train):
                        {n: p.detach() for n, p in model.named_parameters()}, grads)
     (lk, pk, gk), (lp, pp, gp) = runs[True], runs[False]
     require(len(lk) == len(lp) == COMPARE_STEPS, f"steps {len(lk)}, {len(lp)}")
-    rel = np.abs(lk - lp) / np.abs(lp)
-    worst = max(((float((pk[n] - pp[n]).abs().max()), n) for n in pk))
-    n_elements = sum(p.numel() for p in pk.values())
+    compare_trajectories(
+        "kernel vs plain training", ("kernel", "plain"), lk, lp, pk, pp,
+        lambda n, i: torch.stack([g[n].flatten()[i] for g in gk]),
+        lambda n, i: torch.stack([g[n].flatten()[i] for g in gp]))
+
+
+def compare_trajectories(what, names, la, lb, pa, pb, grad_a, grad_b):
+    """Two COMPARE_STEPS training runs from identical weights: per-step
+    losses `la`, `lb` to LOSS_RTOL relative, parameter dicts `pa`, `pb` to
+    PARAM_ATOL absolute, each element beyond it explained by a step at which
+    its gradient (`grad_a(name, flat index)`, `grad_b`: one value a step)
+    differed between the runs by more than EXPLAINED_GRAD_RTOL, and at most
+    MAX_EXPLAINED_FRACTION of all elements beyond it."""
+    rel = np.abs(la - lb) / np.abs(lb)
+    worst = max(((float((pa[n] - pb[n]).abs().max()), n) for n in pa))
+    n_elements = sum(p.numel() for p in pa.values())
     beyond = []
-    for n in pk:
-        idx = torch.nonzero(((pk[n] - pp[n]).abs() > PARAM_ATOL).flatten()).flatten()
+    for n in pa:
+        idx = torch.nonzero(((pa[n] - pb[n]).abs() > PARAM_ATOL).flatten()).flatten()
         for i in idx.tolist():
-            a = torch.stack([g[n].flatten()[i] for g in gk])
-            b = torch.stack([g[n].flatten()[i] for g in gp])
+            a, b = grad_a(n, i), grad_b(n, i)
             grel = (a - b).abs() / torch.maximum(torch.maximum(a.abs(), b.abs()),
                                                   torch.tensor(1e-30, device=a.device))
             s = int(grel.argmax())
-            beyond.append((n, i, float(pk[n].flatten()[i]), float(pp[n].flatten()[i]),
+            beyond.append((n, i, float(pa[n].flatten()[i]), float(pb[n].flatten()[i]),
                            s, float(a[s]), float(b[s]), float(grel[s])))
-    log(f"kernel vs plain training, {COMPARE_STEPS} steps: loss max relative "
+    log(f"{what}, {len(la)} steps: loss max relative "
         f"difference {rel.max():.3e} (step {int(rel.argmax())}), parameters max "
         f"absolute difference {worst[0]:.3e} ({worst[1]}); {len(beyond)} of "
         f"{n_elements} elements beyond {PARAM_ATOL}")
-    for n, i, vk, vp, s, ga, gb, grel in beyond[:20]:
-        log(f"  {n}[{i}]: kernel {vk:.6e}, plain {vp:.6e}; at step {s} its gradient was "
-            f"{ga:.6e} (kernel) vs {gb:.6e} (plain), relative difference {grel:.3e}")
-    require(rel.max() <= LOSS_RTOL, f"training losses differ: step {int(rel.argmax())}, "
-            f"kernel {lk[rel.argmax()]}, plain {lp[rel.argmax()]}")
+    for n, i, va, vb, s, ga, gb, grel in beyond[:20]:
+        log(f"  {n}[{i}]: {names[0]} {va:.6e}, {names[1]} {vb:.6e}; at step {s} its gradient "
+            f"was {ga:.6e} ({names[0]}) vs {gb:.6e} ({names[1]}), relative difference "
+            f"{grel:.3e}")
+    require(rel.max() <= LOSS_RTOL, f"{what}: losses differ: step {int(rel.argmax())}, "
+            f"{la[rel.argmax()]} vs {lb[rel.argmax()]}")
     unexplained = [b for b in beyond if b[-1] <= EXPLAINED_GRAD_RTOL]
-    require(not unexplained, f"parameters differ beyond {PARAM_ATOL} where no gradient "
-            f"of the element differed by more than rounding: {unexplained[:5]}")
+    require(not unexplained, f"{what}: parameters differ beyond {PARAM_ATOL} where no "
+            f"gradient of the element differed by more than rounding: {unexplained[:5]}")
     require(len(beyond) <= MAX_EXPLAINED_FRACTION * n_elements,
-            f"{len(beyond)} elements beyond {PARAM_ATOL}")
+            f"{what}: {len(beyond)} elements beyond {PARAM_ATOL}")
 
 
 # ------------------------------------------------------- retrieval training
@@ -1261,10 +1284,11 @@ def retrieval_training():
     cfg = Config({"seed": SEED, "topk": TOPK, "train_batch_size": BPR_TRAIN_B,
                   "learner": "adam", "learning_rate": 1e-3, "epochs": 1,
                   "train_oov": True, "oov_only_epoch": True, "oov_train_ratio": 0.2,
-                  "oov_feature_mask_rate": 0.2})
+                  "oov_feature_mask_rate": 0.2, "device_epoch": False})
     trainer = Trainer(cfg, model)
     loader = TrainBatcher(train, sampler, cfg, InputType.PAIRWISE)
     require(loader.mode == "pairwise" and len(loader) == BPR_TRAIN_STEPS, "BPR loader")
+    require(trainer._maybe_device_epoch(loader) is None, "the host path is not driven")
     log(f"retrieval training data: {n_rows} rows, {time.perf_counter() - t0:.1f} s")
     before = {n: p.detach().clone() for n, p in trainer.params.items()}
     sync()
@@ -1288,26 +1312,406 @@ def retrieval_training():
                                 what="trained BPR inductive eval")
 
 
-# ------------------------------------------------- kernel 6, not ported yet
+# ------------------------------------------------------------- kernel 6
 
 
-def sparse_rows_bound():
-    """Kernel 6 (`oovrec_tpu/ops/sparse_rows.py:127`, the sparse-adam row
-    update, not ported yet): its bound per step at bench.py's sparse-adam
-    shape, computed from the shapes, not measured. A step updates the user
-    table (200,000 x 64) at 8,192 batch users and the item table
-    (100,000 x 64) at 16,384 positive and negative items: p, mu and nu of
-    each distinct row read and written, g and the id of each read once;
-    ~16 f32 operations an element."""
-    d = 64
-    distinct = sum(v * (1 - (1 - 1 / v) ** k)  # expected distinct draws
-                   for v, k in ((200_000, 8192), (99_999, 2 * 8192)))
-    nbytes = distinct * (3 * 2 * d * 4 + d * 4 + 4)
+def sparse_rows_inputs(v, d, n, seed, dup_runs=False, zero_ids=0, edges=False,
+                       ids_dtype=torch.int64):
+    """Tables (p, mu, nu) of (v, d) with moments as a trained table holds
+    them, and one step's coalesced (sorted ids, row gradients) of n rows on
+    the card. `dup_runs`: half the ids from v // 50 rows (long runs);
+    `zero_ids`: that many distinct ids get all-zero coalesced rows; `edges`:
+    the first and last table rows."""
+    rng = np.random.default_rng(seed)
+    dev = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(DEVICE)  # noqa: E731
+    tables = (dev(rng.standard_normal((v, d))), dev(rng.standard_normal((v, d)) * 0.01),
+              dev(rng.random((v, d)) * 1e-3))
+    return tables, sparse_rows_step(rng, v, d, n, dup_runs, zero_ids, edges, ids_dtype)
+
+
+def sparse_rows_step(rng, v, d, n, dup_runs=False, zero_ids=0, edges=False,
+                     ids_dtype=torch.int64):
+    ids = rng.integers(0, v, n)
+    if dup_runs:
+        ids[: n // 2] = rng.integers(0, max(1, v // 50), n // 2)
+    if edges:
+        ids[0], ids[-1] = 0, v - 1
+    rows = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(DEVICE)
+    sid, g = coalesce_rows(torch.from_numpy(ids).to(DEVICE), rows)
+    if zero_ids:
+        zero = torch.from_numpy(rng.choice(np.unique(ids), zero_ids, replace=False)).to(DEVICE)
+        g[torch.isin(sid, zero)] = 0.0
+    return sid.to(ids_dtype), g
+
+
+# name, V, D, n, options
+SPARSE_ROWS_CASES = [
+    ("random", SP_USERS, D, SP_B, {}),
+    ("dup-runs", SP_ITEMS, D, 2 * SP_B, dict(dup_runs=True)),
+    ("zero-rows", 1000, D, 700, dict(zero_ids=50)),
+    ("edges", 5000, D, 333, dict(edges=True)),
+    ("n1", 10, D, 1, {}),
+    ("D10", 3000, 10, 999, dict(dup_runs=True, zero_ids=5, edges=True)),
+    ("odd-D13", 777, 13, 500, dict(dup_runs=True, zero_ids=5, edges=True)),
+    ("int32-ids", SP_USERS, D, SP_B, dict(ids_dtype=torch.int32, edges=True)),
+]
+
+
+def sparse_rows_cases():
+    """Kernel 6 against its plain version on the card, bit for bit, over two
+    consecutive steps of each case; rows with an all-zero gradient and rows
+    not in the step keep their bits."""
+    for i, (name, v, d, n, opt) in enumerate(SPARSE_ROWS_CASES):
+        tables, step = sparse_rows_inputs(v, d, n, SEED + 1000 + i, **opt)
+        rng = np.random.default_rng(SEED + 1100 + i)
+        k = [t.clone() for t in tables]
+        p = [t.clone() for t in tables]
+        for count in (7, 8):
+            sid, g = step
+            sparse_adam_rows_kernel(*k, sid, g, count, SP_LR)
+            sync()
+            sparse_adam_rows_plain(*p, sid, g, count, SP_LR)
+            require(all(torch.equal(a, b) for a, b in zip(k, p)),
+                    f"kernel 6 {name} step {count}: differs from the plain version")
+            still = torch.ones(v, dtype=torch.bool, device=DEVICE)
+            still[sid.long()[(g != 0).any(dim=1)]] = False
+            require(all(torch.equal(a[still], t[still]) for a, t in zip(k, tables)),
+                    f"kernel 6 {name}: an untouched row changed")
+            tables = [t.clone() for t in k]
+            step = sparse_rows_step(rng, v, d, n, **opt)
+        log(f"kernel 6 check {name}: V={v} D={d} n={n} {opt}: exact over 2 steps")
+
+
+def sparse_rows_timing():
+    """Kernel 6 at the sparse training step's shapes (8,192 user ids into
+    200,000 x 64, 16,384 item ids into 100,000 x 64; one step is two
+    launches) beside its bound from the inputs' distinct rows, the plain
+    version and, as a yardstick only, `torch.optim.SparseAdam.step` on the
+    same rows as sparse COO gradients. SparseAdam puts eps inside the bias
+    correction (eps·sqrt(bc2)), so it is not the same function and its
+    output is not compared."""
+    rng = np.random.default_rng(SEED + 1200)
+    sides = {}
+    for side, v, n in (("user", SP_USERS, SP_B), ("item", SP_ITEMS, 2 * SP_B)):
+        tables, _ = sparse_rows_inputs(v, D, 1, SEED + 1210 + v)
+        steps = [sparse_rows_step(rng, v, D, n) for _ in range(3)]
+        sides[side] = (tables, steps)
+    inputs = [tuple(steps[r] for _, steps in sides.values()) for r in range(3)]
+    tabs = [tables for tables, _ in sides.values()]
+
+    err = 0.0
+    for (tables, _), (sid, g) in zip(sides.values(), inputs[0]):
+        k = [t.clone() for t in tables]
+        p = [t.clone() for t in tables]
+        sparse_adam_rows_kernel(*k, sid, g, 10, SP_LR)
+        sync()
+        sparse_adam_rows_plain(*p, sid, g, 10, SP_LR)
+        err = max([err] + [float((a - b).abs().max()) for a, b in zip(k, p)])
+    require(err == 0.0, f"kernel 6 at the step's shapes: max |kernel - plain| {err}")
+
+    def kernel(*steps):
+        for t, (sid, g) in zip(tabs, steps):
+            sparse_adam_rows_kernel(*t, sid, g, 10, SP_LR)
+
+    def plain(*steps):
+        for t, (sid, g) in zip(tabs, steps):
+            sparse_adam_rows_plain(*t, sid, g, 10, SP_LR)
+
+    params = [torch.nn.Parameter(t[0].clone()) for t in tabs]
+    yard = torch.optim.SparseAdam(params, lr=SP_LR)
+    coo = []
+    for steps in inputs:
+        grads = []
+        for prm, (sid, g) in zip(params, steps):
+            head = torch.ones_like(sid, dtype=torch.bool)
+            head[1:] = sid[1:] != sid[:-1]
+            grads.append(torch.sparse_coo_tensor(sid[head].long()[None], g[head], prm.shape,
+                                                 check_invariants=True))
+        coo.append(tuple(grads))
+
+    def library(*grads):  # yardstick only; the port never calls it
+        for prm, gr in zip(params, grads):
+            prm.grad = gr
+        yard.step()
+
+    ms = time_ms(kernel, inputs, 50)
+    plain_ms = time_ms(plain, inputs, 20)
+    library_ms = time_ms(library, coo, 20)
+    distinct = [int(torch.unique(sid).numel()) for sid, _ in inputs[0]]
+    nbytes = sum(r * (3 * 2 * D * 4 + D * 4 + 8) for r in distinct)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = 16 * distinct * d / PEAK_F32_FLOPS * 1e3
-    log(f"kernel 6 bound (computed, not measured): {distinct:.0f} distinct rows a step, "
-        f"{nbytes / 1e6:.1f} MB, bound_ms={max(t_bytes, t_ops):.4f} "
-        f"({'bytes' if t_bytes > t_ops else 'operations'}; ops {t_ops:.5f}, bytes {t_bytes:.4f})")
+    t_ops = 16 * sum(distinct) * D / PEAK_F32_FLOPS * 1e3
+    log(f"kernel 6 timing, one step (2 launches: user {SP_B} ids into {SP_USERS}x{D}, item "
+        f"{2 * SP_B} ids into {SP_ITEMS}x{D}; distinct rows {distinct}): kernel_ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (torch.optim.SparseAdam.step, "
+        f"another eps placement) bound_ms={max(t_bytes, t_ops):.4f} "
+        f"({'bytes' if t_bytes > t_ops else 'operations'}; {nbytes / 1e6:.1f} MB, "
+        f"ops {t_ops:.5f}, bytes {t_bytes:.4f})")
+    return {
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes > t_ops else "operations",
+        "library_ms": library_ms,
+    }
+
+
+# ------------------------------------- retrieval training, device epoch
+
+
+def structured_pairs(rng, n_rows):
+    """(users, items): users uniform, each in group user % SP_GROUPS, and
+    SP_IN_GROUP of the rows take an item from the group's slice of the
+    item ids, the rest any item."""
+    users = rng.integers(1, SP_USERS, n_rows)
+    width = (SP_ITEMS - 1) // SP_GROUPS
+    in_group = rng.random(n_rows) < SP_IN_GROUP
+    items = np.where(in_group, 1 + (users % SP_GROUPS) * width + rng.integers(0, width, n_rows),
+                     rng.integers(1, SP_ITEMS, n_rows))
+    return users, items
+
+
+def sparse_cfg(impl, **over):
+    d = {"seed": SEED, "train_batch_size": SP_B, "learner": "sparse_adam",
+         "learning_rate": SP_LR, "epochs": 1, "train_oov": True, "oov_only_epoch": True,
+         "oov_train_ratio": 0.2, "oov_feature_mask_rate": 0.2, "device_epoch": True,
+         "sparse_update_impl": impl}
+    d.update(over)
+    return Config(d)
+
+
+def sparse_model():
+    """BPR at D = 64 with SP_BUCKETS random-mapper buckets a side, from one
+    seed."""
+    spec = InductiveSpec(mapper="random", add_oov_buckets=True, n_user_buckets=SP_BUCKETS,
+                         n_item_buckets=SP_BUCKETS, hash_function="3round")
+    return BPR(SP_USERS, SP_ITEMS, D, spec, device=DEVICE,
+               generator=torch_generator(SEED + 40, DEVICE))
+
+
+def sparse_fit(loader, impl, **over):
+    """A fresh BPR from one seed through `Trainer.fit` on the device epoch.
+    → (trainer, per sub-epoch records: losses, steps run, wall, examples/s;
+    and the normal epoch's set-up seconds, built before `fit`)."""
+    trainer = Trainer(sparse_cfg(impl, **over), sparse_model())
+    inner, seen = trainer._train_epoch, {}
+
+    def watched(ldr, epoch_idx, oov_transform=None, keep_ratio=None, frozen=False):
+        sync()
+        t0 = time.perf_counter()
+        total = inner(ldr, epoch_idx, oov_transform, keep_ratio, frozen)
+        sync()
+        de = trainer._device_epochs.get((id(ldr), keep_ratio is not None, frozen))
+        seen["oov" if keep_ratio is not None else "normal"] = {
+            "losses": trainer.last_losses, "steps": de.steps_run if de else None,
+            "wall": time.perf_counter() - t0, "eps": trainer.last_examples_per_sec,
+            "sparse": de is not None and de.sparse_impl}
+        return total
+
+    trainer._train_epoch = watched
+    sync()
+    t0 = time.perf_counter()
+    trainer._maybe_device_epoch(loader)  # set-up: columns and bitmap to the card
+    sync()
+    seen["setup"] = time.perf_counter() - t0
+    trainer.fit(loader, None, saved=False)
+    trainer._train_epoch = inner
+    return trainer, seen
+
+
+def state_of(trainer):
+    """Parameters and Adam moments, cloned."""
+    out = {n: p.detach().clone() for n, p in trainer.params.items()}
+    for part in ("mu", "nu"):
+        out.update({f"{part}:{n}": t.clone() for n, t in trainer.opt_state[part].items()})
+    return out
+
+
+def recorded_sparse_run(loader, impl):
+    """COMPARE_STEPS steps of one epoch (no OOV sub-epoch) with every step's
+    gradients kept: the tables' (ids, row gradients) on the sparse path, the
+    dense gradients otherwise. → (losses, parameters, gradient of element
+    (name, flat index) at each step)."""
+    from oovrec_tpu_torch.train import device_epoch as de_mod
+
+    tables_seen, rest_seen = {}, []
+    update = de_mod.sparse_adam_update_table
+
+    def recording_update(table, state, ids, grows, *a, **k):
+        name = next(n for n, p in trainer.params.items() if p is table)
+        tables_seen.setdefault(name, []).append((ids.clone(), grows.clone()))
+        return update(table, state, ids, grows, *a, **k)
+
+    de_mod.sparse_adam_update_table = recording_update
+    try:
+        trainer = Trainer(sparse_cfg(impl, train_oov=False), sparse_model())
+        step = trainer.optimizer.step
+
+        def recording_step(params, g, state, trainable=None):
+            rest_seen.append({n: t.detach().clone() for n, t in g.items()})
+            return step(params, g, state, trainable)
+
+        trainer.optimizer.step = recording_step
+        trainer._train_epoch(loader, 0)
+    finally:
+        de_mod.sparse_adam_update_table = update
+
+    def grad(n, i):
+        if n in tables_seen:
+            r, c = divmod(i, D)
+            return torch.stack([g[ids == r, c].sum() for ids, g in tables_seen[n]])
+        return torch.stack([g[n].flatten()[i] for g in rest_seen])
+
+    return trainer.last_losses, {n: p.detach() for n, p in trainer.params.items()}, grad
+
+
+def gather_backward_ms():
+    """Autograd's backward of one `table[ids]` gather of SP_B rows from the
+    (SP_BUCKETS, D) bucket table: ids all 0 (an IV row's bucket, routed
+    branchlessly) against ids spread over the table. Diagnostic only."""
+    table = torch.zeros((SP_BUCKETS, D), device=DEVICE, requires_grad=True)
+    grad = torch.ones((SP_B, D), device=DEVICE)
+    spread = torch.randint(0, SP_BUCKETS, (SP_B,), device=DEVICE,
+                           generator=torch_generator(SEED, DEVICE))
+    out = {}
+    for what, ids in (("all 0", torch.zeros_like(spread)), ("spread", spread)):
+        out[what] = time_ms(lambda i: torch.autograd.grad(table[i], table, grad), [(ids,)], 20)
+    log(f"index backward of {SP_B} gathered rows into a ({SP_BUCKETS}, {D}) table: "
+        + ", ".join(f"ids {k} {v:.4f} ms" for k, v in out.items()))
+
+
+def retrieval_sparse_training():
+    """BPR at bench.py's sparse-adam shape on the device-resident epoch with
+    `learner: sparse_adam`: one epoch plus the unfrozen OOV sub-epoch under
+    `sparse_update_impl` auto (kernel 6), xla (plain) and dense, a second
+    auto run, 16 steps auto vs dense, the frozen OOV device sub-epoch, then
+    where a step's time goes. → kernel 6's launches in the auto run."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 50)
+    users, items = structured_pairs(rng, SP_B * SP_STEPS)
+    train = DatasetSplit({"user_id": users, "item_id": items}, SP_USERS, SP_ITEMS)
+    sampler = Sampler(["train"], [train], seed=SEED)
+    cfg = sparse_cfg("auto")
+    loader = TrainBatcher(train, sampler, cfg, InputType.PAIRWISE)
+    require(loader.mode == "pairwise" and len(loader) == SP_STEPS, "sparse BPR loader")
+    log(f"sparse retrieval training data: {len(train)} rows, {SP_USERS} users, {SP_ITEMS} "
+        f"items, {SP_GROUPS} groups ({SP_IN_GROUP:.0%} in group), {time.perf_counter() - t0:.1f} s")
+
+    sparse_adam_rows_kernel.launches = 0
+    sync()
+    trainer, seen = sparse_fit(loader, "auto")
+    launches = sparse_adam_rows_kernel.launches
+    normal, oov = seen["normal"], seen["oov"]
+    ran = normal["steps"] + oov["steps"]
+    de = trainer._device_epochs[(id(loader), False, False)]
+    log(f"sparse retrieval training (auto): {normal['steps']} steps + {oov['steps']} kept OOV "
+        f"steps of {len(oov['losses'])} ({normal['sparse']}, {oov['sparse']}); set-up "
+        f"{seen['setup']:.2f} s; epoch {normal['wall'] * 1e3 / normal['steps']:.2f} ms per step "
+        f"(wall, host included), {normal['eps']:.0f} examples/s; OOV sub-epoch "
+        f"{oov['wall'] * 1e3 / max(1, oov['steps']):.2f} ms per kept step (its set-up "
+        f"included); kernel 6 launches "
+        f"{launches}; used-pair bitmap {de.bitmap.numel() * 4 / 1e9:.3f} GB")
+    require(normal["steps"] == SP_STEPS and oov["steps"] > 0, "sparse training steps")
+    require(normal["sparse"] == oov["sparse"] == "pallas", "the sparse path with kernel 6")
+    require(launches == 2 * ran, f"kernel 6 launches {launches} for {ran} steps")
+    losses = normal["losses"]
+    tenth = max(1, len(losses) // 10)
+    first, last = float(losses[:tenth].mean()), float(losses[-tenth:].mean())
+    require(np.isfinite(losses).all() and np.isfinite(oov["losses"]).all(), "loss not finite")
+    log(f"sparse retrieval training: loss first tenth {first:.6f}, last tenth {last:.6f}")
+    require(last < first, f"loss did not fall: first tenth {first}, last tenth {last}")
+
+    # negatives on a sample of steps: never PAD, never a used pair (with
+    # ~4 used items a user of 99,999 a give-up after 64 rounds has
+    # probability ~1e-270)
+    n_neg = used = pad = 0
+    bitmap, W = de.bitmap.view(-1), de.bitmap.shape[1]
+    for i, (step, batch) in enumerate(de.batches(7)):
+        u, neg = batch["user_id"], batch["neg_item_id"]
+        bits = (bitmap[u * W + (neg >> 5)] >> (neg & 31)) & 1
+        used += int(bits.sum())
+        pad += int((neg == 0).sum())
+        n_neg += neg.numel()
+        if i == 3:
+            break
+    log(f"negatives on 4 sampled steps: {n_neg} drawn, {pad} PAD, {used} used pairs")
+    require(pad == 0 and used == 0, "a negative was PAD or a used pair")
+    auto1 = state_of(trainer)
+
+    # the frozen OOV device sub-epoch: the sparse path is off, as in JAX
+    iv = [n for n in trainer.params if n not in trainer.oov_params]
+    before = state_of(trainer)
+    k0 = sparse_adam_rows_kernel.launches
+    trainer._train_epoch(loader, 1, oov_transform=trainer.oov_simulator,
+                         keep_ratio=trainer.oov_train_ratio, frozen=True)
+    fde = trainer._device_epochs[(id(loader), True, True)]
+    moved = {n for n in trainer.params if not torch.equal(before[n], trainer.params[n])}
+    log(f"frozen OOV device sub-epoch: {fde.steps_run} kept steps, sparse path "
+        f"{fde.sparse_tables}, moved {sorted(moved)}")
+    require(fde.sparse_tables is None and sparse_adam_rows_kernel.launches == k0,
+            "the frozen sub-epoch took the sparse path")
+    require(fde.steps_run > 0 and not moved & set(iv) and moved == trainer.oov_params,
+            f"the frozen sub-epoch moved {sorted(moved)}")
+    del trainer, de, fde, before
+
+    # xla (the plain write-back) and a second auto run: the same bits
+    for impl in ("xla", "auto"):
+        other, oseen = sparse_fit(loader, impl)
+        got = state_of(other)
+        same = [n for n in auto1 if torch.equal(auto1[n], got[n])]
+        log(f"sparse retrieval training ({impl}): {oseen['normal']['steps']} + "
+            f"{oseen['oov']['steps']} steps, {oseen['normal']['wall'] * 1e3 / SP_STEPS:.2f} ms "
+            f"per step; {len(same)} of {len(auto1)} parameters and moments equal the first "
+            f"auto run bit for bit")
+        require(len(same) == len(auto1), f"{impl} run differs from the auto run")
+        del other, got
+
+    # auto vs the dense lazy sweep over the first COMPARE_STEPS steps
+    part = DatasetSplit({"user_id": users[: COMPARE_STEPS * SP_B],
+                         "item_id": items[: COMPARE_STEPS * SP_B]}, SP_USERS, SP_ITEMS)
+    part_loader = TrainBatcher(part, sampler, cfg, InputType.PAIRWISE)
+    la, pa, ga = recorded_sparse_run(part_loader, "auto")
+    lb, pb, gb = recorded_sparse_run(part_loader, "dense")
+    compare_trajectories("sparse (kernel 6) vs dense lazy-Adam training", ("sparse", "dense"),
+                         la, lb, pa, pb, ga, gb)
+    del pa, pb, ga, gb
+
+    # where a step's time goes: 8 steps on the device epoch under the
+    # profiler and under the sync check, then the host per-batch path
+    short = DatasetSplit({"user_id": users[: 8 * SP_B], "item_id": items[: 8 * SP_B]},
+                         SP_USERS, SP_ITEMS)
+    short_loader = TrainBatcher(short, sampler, cfg, InputType.PAIRWISE)
+    trainer, _ = sparse_fit(short_loader, "auto", train_oov=False)
+    de = trainer._device_epochs[(id(short_loader), False, False)]
+    de.run(1)
+    sync()
+    wall_ms, busy_ms = profiled(
+        lambda: de.run(2), f"profile {de.n_steps} device-epoch steps (sparse_adam, kernel 6)",
+        shares=(("kernel 6", ("sparse_adam_rows_kernel",)),))
+    log(f"device-epoch profile: {wall_ms / de.n_steps:.2f} ms per step under the profiler, "
+        f"{busy_ms / de.n_steps:.3f} ms of device time a step")
+    gather_backward_ms()
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        de.run(3)
+    torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message).splitlines()[0] for w in caught if "synchroniz" in str(w.message)]
+    log(f"host syncs in a {de.n_steps}-step device epoch: {len(syncs)} {sorted(set(syncs))[:4]}")
+    del trainer, de
+    host = Trainer(sparse_cfg("auto", device_epoch=False, train_oov=False), sparse_model())
+    host._train_epoch(short_loader, 0)
+    sync()
+    t0 = time.perf_counter()
+    host._train_epoch(short_loader, 1)
+    sync()
+    host_ms = (time.perf_counter() - t0) * 1e3 / len(short_loader)
+    require(not host._device_epochs, "the host path took the device epoch")
+    log(f"host per-batch path, same shape: {host_ms:.2f} ms per step (wall, host included)")
+    return launches
 
 
 # -------------------------------------------------------------------- main
@@ -1324,7 +1728,7 @@ def main():
     ).stdout.strip().splitlines()[0]
 
     t_start = t0 = time.perf_counter()
-    built = cuda_build.build_kernels(["topk_score", "cin_fused", "cin_fused_bwd"])
+    built = cuda_build.build_kernels(["topk_score", "cin_fused", "cin_fused_bwd", "sparse_rows"])
     log(f"build: {built} ({time.perf_counter() - t0:.1f} s)")
     for name, out in cuda_build.LIBRARIES.build_log.items():
         for line in out.splitlines():
@@ -1334,14 +1738,16 @@ def main():
     kernel_cases()
     cin_cases()
     cin_bwd_cases()
+    sparse_rows_cases()
     timing = kernel_timing()
     cin_times = cin_timing()
     cin_times.update(cin_bwd_timing())
+    sparse_times = sparse_rows_timing()
     launches = serving()
     cin_launches, ind, mapper = ranking()
     train_launches = ranking_training(ind, mapper)
     retrieval_training()
-    sparse_rows_bound()
+    sparse_launches = retrieval_sparse_training()
 
     kernels = [{
         "name": "fused_topk_scores",
@@ -1378,6 +1784,13 @@ def main():
         "replaces": "oovrec_tpu/ops/cin_fused.py:155",
         "launches": train_launches["cin_layer_bwd"],
         **cin_times["cin_layer_bwd"],
+    }, {
+        "name": "sparse_adam_rows_kernel",
+        "route": "cuda",
+        "source": "oovrec_tpu_torch/csrc/sparse_rows.cu",
+        "replaces": "oovrec_tpu/ops/sparse_rows.py:127",
+        "launches": sparse_launches,
+        **sparse_times,
     }]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(smi)

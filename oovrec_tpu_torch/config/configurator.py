@@ -59,10 +59,15 @@ DEFAULTS: Dict[str, Any] = {
     "oov_debug_skip_train": False,
     "oov_shuffle_epoch": True,
     "oov_freeze_skip_optim": False,
-    # TPU dispatch paths the trainer takes only on request
-    # (defaults.yaml:134, 146, 155): auto means the host pipeline here
+    # dispatch paths (defaults.yaml:134-155): the device-resident epoch
+    # (auto: pairwise loaders of >= 100k rows), its resampling round budget
+    # (None: the host sampler's 64) and the row-sparse table update of
+    # `learner: sparse_adam` (auto: kernel 6); host scan and the mesh are
+    # not ported (auto: one batch a step)
     "use_mesh": False,
     "device_epoch": "auto",
+    "device_epoch_rounds": None,
+    "sparse_update_impl": "auto",
     "host_scan_steps": "auto",
     # evaluation (defaults.yaml:49-61, :123, :143)
     "metrics": ["Recall", "MRR", "NDCG", "Hit", "Precision"],

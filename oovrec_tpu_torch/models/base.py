@@ -5,8 +5,8 @@ user/item ID tables, the OOV bucket tables of the inductive layer, and the
 IV/OOV routing (`inductive.routing.route`). Parameters are created on an
 explicit `device` and drawn from an explicit `torch.Generator`.
 
-Not ported yet: row-sharded tables, the sparse-rows training override and
-the DHE/DNN embedder towers (`EmbedderMLP`).
+Not ported yet: row-sharded tables and the DHE/DNN embedder towers
+(`EmbedderMLP`).
 """
 
 from __future__ import annotations
@@ -75,6 +75,14 @@ class GeneralRecommender(nn.Module):
 
     def _route_side(self, side: str, iv: nn.Embedding, ids, batch: Batch,
                     field: str):
+        """The routed embedding of `ids` on one side.
+
+        Sparse fast path (`train/sparse_update.py`): a batch key
+        `_sparse_rows_<side>` carries pre-gathered table rows (n, D) with
+        the id fields remapped to row positions; the lookup reads those rows
+        and not the table, so autograd yields row gradients. Training only:
+        ids are < vocab there, and the embedder must never read the whole
+        table (not mean or knn)."""
         spec = self.spec
         active = spec is not None and spec.active
         flags = batch.get(field + "_oov") if active else None
@@ -84,7 +92,13 @@ class GeneralRecommender(nn.Module):
             bucket_table = (
                 self.user_oov_buckets if side == "user" else self.item_oov_buckets
             ).weight
-        return route(spec, side, ids, flags, buckets, iv.weight, bucket_table)
+        table = batch.get("_sparse_rows_" + side)
+        if table is None:
+            table = iv.weight
+        else:
+            assert not (active and spec.embedder in ("mean", "knn")), (
+                "sparse row override cannot serve whole-table embedders")
+        return route(spec, side, ids, flags, buckets, table, bucket_table)
 
     # Methods models must provide:
     def predict(self, batch: Batch):

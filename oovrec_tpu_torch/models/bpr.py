@@ -17,6 +17,9 @@ from oovrec_tpu_torch.utils.enums import InputType
 @register_model
 class BPR(GeneralRecommender):
     input_type = InputType.PAIRWISE
+    # calculate_loss consumes only (uid, iid, neg_iid, weight): eligible for
+    # the device-resident epoch (train/device_epoch.py)
+    supports_device_epoch = True
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -33,6 +36,14 @@ class BPR(GeneralRecommender):
         return self._route_side(
             "item", self.item_embedding, ids, batch, field or self.iid_field
         )
+
+    def sparse_table_fields(self):
+        """Sparse fast-path declaration (train/sparse_update.py): the ID
+        tables are pure row lookups over these batch fields."""
+        return {
+            "user": ("user_embedding", [self.uid_field]),
+            "item": ("item_embedding", [self.iid_field, self.neg_prefix + self.iid_field]),
+        }
 
     def calculate_loss(self, batch: Batch):
         neg_field = self.neg_prefix + self.iid_field

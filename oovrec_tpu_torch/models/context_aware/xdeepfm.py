@@ -53,6 +53,11 @@ class CinConv(nn.Module):
 
 @register_model
 class xDeepFM(ContextRecommender):
+    # as the JAX model declares: its loss reads only split columns and
+    # joined features (the device epoch's pointwise and plain modes, which
+    # the port has not ported: train/device_epoch.py)
+    supports_device_epoch = True
+
     def __init__(
         self,
         fields: FieldSpec,

@@ -4,7 +4,8 @@ Port of `oovrec_tpu/train/optimizers.py:75-178` and of the chain the JAX
 trainer builds (`trainer.py:67-88, 215-218`). One step is the optax chain
 
     clip_by_global_norm (clip_grad_norm) → add_decayed_weights (weight_decay)
-    → scale_by_adam | scale_by_torch_adam | nothing (sgd) → scale(-lr)
+    → scale_by_adam | scale_by_lazy_adam | scale_by_torch_adam | nothing (sgd)
+    → scale(-lr)
 
 applied to every parameter, then `p + update`. Not `torch.optim.Adam`,
 whose semantics differ:
@@ -12,6 +13,12 @@ whose semantics differ:
     steps every leaf, zero-gradient leaves included (momentum glide on the
     bucket tables between OOV sub-epochs); its update is
     mu_hat / (sqrt(nu_hat) + eps);
+  * `learner: sparse_adam` is `scale_by_lazy_adam` (`optimizers.py:24-66`):
+    in a 2-D leaf a row whose gradient is all zero keeps its moments and
+    gets a zero step, a leaf of another rank takes dense Adam, and the
+    count is the shared one (the device epoch's row-sparse path,
+    `train/sparse_update.py`, is the O(touched rows) form of the same
+    rule);
   * `optimizer_skip_zero_grads: true` is the torch-faithful Adam of
     `scale_by_torch_adam`: per-leaf counts, and a leaf whose gradient is
     all zero this step neither moves nor advances its moments or count;
@@ -21,19 +28,18 @@ whose semantics differ:
 The state updates in place. A frozen step (`trainable` given) leaves the
 other leaves' parameters, moments and per-leaf counts as they were, while
 the shared count advances: `trainer.py:250-259` with `_select_opt_state`.
-`adagrad`, `rmsprop`, `sparse_adam` and `optimizer_mu_dtype` are not
-ported.
+`adagrad`, `rmsprop` and `optimizer_mu_dtype` are not ported.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Iterable, List, Optional
 
-import numpy as np
 import torch
 
-B1, B2, EPS = 0.9, 0.999, 1e-8
-NOT_PORTED = ("adagrad", "rmsprop", "sparse_adam")
+from oovrec_tpu_torch.ops.sparse_rows import B1, B2, EPS, bias_correction
+
+NOT_PORTED = ("adagrad", "rmsprop")
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -56,21 +62,31 @@ def add_decayed_weights(updates: List[torch.Tensor], params: List[torch.Tensor],
     return [g + weight_decay * p for g, p in zip(updates, params)]
 
 
-def _bias_correction(decay: float, count: int) -> float:
-    """1 - decay**count in f32, as optax computes it, held as a Python float
-    (no device transfer)."""
-    return float(np.float32(1) - np.float32(decay) ** np.float32(count))
-
-
 def adam_direction(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, count: int,
                    b1: float = B1, b2: float = B2, eps: float = EPS) -> torch.Tensor:
     """optax `scale_by_adam` on one leaf with the already incremented shared
     `count`: updates mu and nu in place, returns mu_hat / (sqrt(nu_hat) + eps)."""
     mu.copy_((1 - b1) * g + b1 * mu)
     nu.copy_((1 - b2) * (g * g) + b2 * nu)
-    mu_hat = mu / _bias_correction(b1, count)
-    nu_hat = nu / _bias_correction(b2, count)
+    mu_hat = mu / bias_correction(b1, count)
+    nu_hat = nu / bias_correction(b2, count)
     return mu_hat / (torch.sqrt(nu_hat) + eps)
+
+
+def lazy_adam_direction(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, count: int,
+                        b1: float = B1, b2: float = B2, eps: float = EPS) -> torch.Tensor:
+    """`scale_by_lazy_adam` on one leaf with the already incremented shared
+    `count`. A 2-D leaf's rows with an all-zero gradient keep their moments
+    and get a zero step; any other leaf takes dense Adam. Moments update in
+    place. No host sync."""
+    if g.dim() != 2:
+        return adam_direction(g, mu, nu, count, b1, b2, eps)
+    touched = (g != 0).any(dim=1, keepdim=True)
+    mu.copy_(torch.where(touched, b1 * mu + (1 - b1) * g, mu))
+    nu.copy_(torch.where(touched, b2 * nu + (1 - b2) * g * g, nu))
+    mu_hat = mu / bias_correction(b1, count)
+    nu_hat = nu / bias_correction(b2, count)
+    return torch.where(touched, mu_hat / (torch.sqrt(nu_hat) + eps), 0.0)
 
 
 def torch_adam_direction(g: torch.Tensor, count: torch.Tensor, mu: torch.Tensor,
@@ -107,6 +123,8 @@ class Optimizer:
             self.rule = "torch_adam"
         elif learner == "sgd":
             self.rule = "sgd"
+        elif learner == "sparse_adam":
+            self.rule = "lazy_adam"
         else:
             self.rule = "adam"
         self.learning_rate = float(learning_rate)
@@ -139,13 +157,15 @@ class Optimizer:
             g = clip_by_global_norm(g, self.max_norm)
         if self.weight_decay:
             g = add_decayed_weights(g, [params[n] for n in names], self.weight_decay)
-        if self.rule == "adam":
+        if self.rule in ("adam", "lazy_adam"):
             state["count"] += 1
         for n, gn in zip(names, g):
             if trainable is not None and n not in trainable:
                 continue
             if self.rule == "adam":
                 u = adam_direction(gn, state["mu"][n], state["nu"][n], state["count"])
+            elif self.rule == "lazy_adam":
+                u = lazy_adam_direction(gn, state["mu"][n], state["nu"][n], state["count"])
             elif self.rule == "torch_adam":
                 u = torch_adam_direction(gn, state["count"][n], state["mu"][n], state["nu"][n])
             else:

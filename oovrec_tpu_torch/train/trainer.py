@@ -1,6 +1,6 @@
 """Trainer: train step, epoch loop and the inductive OOV regime.
 
-Port of `oovrec_tpu/train/trainer.py` on its host per-batch path:
+Port of `oovrec_tpu/train/trainer.py`:
   * one step computes `model.calculate_loss(batch)`, its gradient over
     every parameter (a parameter the loss does not reach gets a zero
     gradient, as `jax.grad` gives) and one optimizer update
@@ -16,6 +16,13 @@ Port of `oovrec_tpu/train/trainer.py` on its host per-batch path:
     `oov_freeze_skip_optim` a rollback of the optimizer state to a true
     copy taken before the sub-epoch;
   * mixed mode (`oov_only_epoch: false`): `_augment_batch` :563-581;
+  * the device-resident epoch (`train/device_epoch.py`) for the normal
+    epoch and the OOV-only sub-epoch of pairwise loaders, chosen by the
+    JAX package's gates (`_train_epoch` :374-389, `_maybe_device_epoch`
+    :508-537: `device_epoch: true`, or `auto` at >= 100,000 rows); under
+    `learner: sparse_adam` its ID tables take the row-sparse step through
+    kernel 6. `device_epoch: true` on a pointwise or plain loader raises
+    (those modes are not ported); `auto` takes the host path for them;
   * validation through the port's `EvalRunner`, early stopping, the
     best-model checkpoint (the port's own `torch.save` format: the JAX
     package's flax/msgpack file cannot be read where JAX is absent) and
@@ -27,10 +34,9 @@ bit; dropout draws from the trainer's `torch.Generator`, seeded from
 `seed + 101`, which cannot match `jax.random`.
 
 Raises NotImplementedError where a config asks for what is not ported:
-the device-resident epoch (`device_epoch: true`) and `host_scan_steps` > 1
-(the same math, TPU dispatch amortisation; `auto` takes the host path
-here), a mesh, the DHE hasher and dynamic hard negatives. Tensorboard and
-wandb are not ported and log nothing.
+`host_scan_steps` > 1 (the same math, TPU dispatch amortisation; `auto`
+takes the host path here), a mesh, the DHE hasher and dynamic hard
+negatives. Tensorboard and wandb are not ported and log nothing.
 """
 
 from __future__ import annotations
@@ -47,6 +53,11 @@ from oovrec_tpu_torch.eval.collector import calculate_valid_score
 from oovrec_tpu_torch.eval.runner import EvalRunner, to_device_batch
 from oovrec_tpu_torch.inductive.transform import OOVSimulator
 from oovrec_tpu_torch.models.layers import set_dropout_generator
+from oovrec_tpu_torch.train.device_epoch import (
+    DeviceEpoch,
+    device_epoch_eligible,
+    device_epoch_flag,
+)
 from oovrec_tpu_torch.train.early_stopping import early_stopping
 from oovrec_tpu_torch.train.optimizers import build_optimizer, clone_state
 from oovrec_tpu_torch.utils.seeding import host_rng, torch_generator
@@ -110,11 +121,10 @@ class Trainer:
         self.dropout_generator = torch_generator(seed + 101, model.device)
         set_dropout_generator(model, self.dropout_generator)
         self._global_step = 0
+        self._device_epochs: Dict[tuple, DeviceEpoch] = {}
 
     @staticmethod
     def _refuse_unported(config, model) -> None:
-        if config["device_epoch"] is True or config["device_epoch"] == "true":
-            raise NotImplementedError("the device-resident epoch (device_epoch) is not ported")
         scan = config["host_scan_steps"]
         if scan not in (None, False, 0, 1, "auto"):
             raise NotImplementedError(f"host_scan_steps={scan} is not ported")
@@ -129,15 +139,21 @@ class Trainer:
     # ------------------------------------------------------------ steps
 
     def _step(self, batch: Dict[str, torch.Tensor], frozen: bool) -> torch.Tensor:
+        loss = self._apply_step(batch, self.oov_params if frozen else None)
+        self._global_step += 1
+        return loss
+
+    def _apply_step(self, batch: Dict[str, torch.Tensor],
+                    trainable: Optional[set] = None) -> torch.Tensor:
+        """Loss, gradient of every parameter and one optimizer update (only
+        `trainable` moves when it is given). → the detached loss."""
         loss = self.model.calculate_loss(batch)
         names = list(self.params)
         grads = torch.autograd.grad(loss, [self.params[n] for n in names],
                                     allow_unused=True)
         grads = {n: torch.zeros_like(self.params[n]) if g is None else g
                  for n, g in zip(names, grads)}
-        self.optimizer.step(self.params, grads, self.opt_state,
-                            trainable=self.oov_params if frozen else None)
-        self._global_step += 1
+        self.optimizer.step(self.params, grads, self.opt_state, trainable=trainable)
         return loss.detach()
 
     # ------------------------------------------------------------ epochs
@@ -149,6 +165,17 @@ class Trainer:
         keep probability of the OOV sub-epoch. → the sum of the batch
         losses, None when no batch ran; the losses themselves stay in
         `last_losses`."""
+        if oov_transform is None and keep_ratio is None and not frozen:
+            de = self._maybe_device_epoch(train_loader)
+            if de is not None:
+                return self._run_device_epoch(de, epoch_idx)
+        elif (keep_ratio is not None and oov_transform is self.oov_simulator
+              and self.oov_simulator is not None):
+            # the OOV-only sub-epoch on the device: flags, id masking, bucket
+            # hashing and the Bernoulli step keep drawn there
+            de = self._maybe_device_epoch(train_loader, oov=True, frozen=frozen)
+            if de is not None:
+                return self._run_device_epoch(de, epoch_idx)
         self.model.train()
         device = self.model.device
         losses = []
@@ -173,6 +200,42 @@ class Trainer:
             self.last_losses = vals
         self.last_examples_per_sec = n_examples / max(time.time() - t_epoch, 1e-9)
         return total_loss
+
+    def _maybe_device_epoch(self, train_loader, oov: bool = False,
+                            frozen: bool = False) -> Optional[DeviceEpoch]:
+        """The device-resident epoch for this loader, or None (the host
+        path), by the JAX package's gates; a loader whose mode the port has
+        not ported raises under `device_epoch: true`."""
+        if not device_epoch_eligible(self, train_loader, self.config):
+            return None
+        if train_loader.mode != "pairwise":
+            if device_epoch_flag(self.config) is True:
+                raise NotImplementedError(
+                    f"device_epoch: the device-resident epoch's {train_loader.mode} "
+                    "mode is not ported")
+            return None
+        if oov:
+            spec = getattr(self.model, "spec", None)
+            if spec is None or spec.hash_function not in ("mod", "fast", "3round", "64bit"):
+                return None
+            if max(spec.n_user_buckets or 0, spec.n_item_buckets or 0) > (1 << 16):
+                return None  # the JAX package's device mod bound, kept for the same path
+        key = (id(train_loader), oov, frozen)
+        if key not in self._device_epochs:
+            self._device_epochs[key] = DeviceEpoch(self, train_loader, oov=oov, frozen=frozen)
+        return self._device_epochs[key]
+
+    def _run_device_epoch(self, de: DeviceEpoch, epoch_idx: int) -> float:
+        """Run one device epoch: the losses are read once at its end, where
+        the NaN check runs. → their sum."""
+        t_epoch = time.time()
+        vals = de.run(epoch_idx).double().cpu().numpy()
+        if np.isnan(vals).any():
+            raise ValueError("Training loss is nan")
+        self._global_step += de.n_steps
+        self.last_losses = vals
+        self.last_examples_per_sec = de.n_real / max(time.time() - t_epoch, 1e-9)
+        return float(vals.sum())
 
     def _augment_batch(self, batch: dict) -> dict:
         """Mixed-mode augmentation: sample ~ratio of the real rows,

@@ -12,6 +12,10 @@ follow `oovrec_tpu/utils/torch_import.py:10-14`:
   * every other leaf (xDeepFM's ``CinConv`` ``kernel`` (H·F, L) and
     ``bias``, the first-order ``bias``) keeps its name and its array.
 
+An optimizer state crosses too: `lazy_adam_state_from_flax` turns the JAX
+package's ``chain(scale_by_lazy_adam(), scale(-lr))`` state (count, mu and
+nu trees) into the port's ``{"count", "mu", "nu"}``.
+
 A ``kernel`` leaf is a Dense or a stored kernel depending on the port's
 module, so trees with kernels cross with the target `module` given. A
 model may rename top-level modules through a ``flax_names`` mapping
@@ -110,3 +114,19 @@ def load_flax_params(module: nn.Module, params: FlaxParams) -> nn.Module:
     device = next(module.parameters()).device
     module.load_state_dict({k: v.to(device) for k, v in sd.items()})
     return module
+
+
+def lazy_adam_state_from_flax(opt_state, module: nn.Module) -> Dict[str, Any]:
+    """A JAX ``chain(scale_by_lazy_adam(), scale(-lr))`` state (its first
+    element has ``count``, ``mu`` and ``nu``: the moments as param-shaped
+    trees of arrays) → the port's lazy-Adam state for `module`: the shared
+    count as an int and the moments as name → tensor dicts on the module's
+    device."""
+    lazy = opt_state[0] if isinstance(opt_state, (tuple, list)) else opt_state
+    device = next(module.parameters()).device
+    moments = {
+        part: {k: v.to(device) for k, v in
+               state_dict_from_flax(getattr(lazy, part), module).items()}
+        for part in ("mu", "nu")
+    }
+    return {"count": int(np.asarray(lazy.count)), **moments}

@@ -42,5 +42,10 @@ def test_scan_sees_the_whole_port():
     assert "oovrec_tpu_torch/train/trainer.py" in names
     assert "oovrec_tpu_torch/train/optimizers.py" in names
     assert "oovrec_tpu_torch/inductive/transform.py" in names
+    assert "oovrec_tpu_torch/ops/sparse_rows.py" in names
+    assert "oovrec_tpu_torch/ops/inthash_device.py" in names
+    assert "oovrec_tpu_torch/train/sparse_update.py" in names
+    assert "oovrec_tpu_torch/train/device_epoch.py" in names
+    assert "oovrec_tpu_torch/data/alias.py" in names
     assert "chip_smoke.py" in names
     assert len(names) >= 20

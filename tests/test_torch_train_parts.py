@@ -4,9 +4,10 @@ Losses with padding weights; xDeepFM and BPR `calculate_loss` and their
 gradients against `jax.value_and_grad` of the flax models (dropout 0, OOV
 rows mixed in); the OOV simulator and the train batcher in all three modes,
 key for key and bit for bit on the toy-ind fixture; the port's Adam (both
-modes, with decay and clipping, frozen steps) and SGD against optax step
-for step; the frozen-parameter set; dropout's generator; the training
-config defaults; early stopping. Inputs come from numpy with a seed.
+modes, with decay and clipping, frozen steps), its `sparse_adam` lazy rule
+and SGD against optax step for step; the frozen-parameter set; dropout's
+generator; the training config defaults; early stopping. Inputs come from
+numpy with a seed.
 """
 
 import numpy as np
@@ -281,7 +282,7 @@ def _optax_chain(rule, lr, wd, clip):
 
 @pytest.mark.parametrize("wd,clip", [(0.0, None), (1e-2, {"max_norm": 6.0})],
                          ids=["plain", "decay-clip"])
-@pytest.mark.parametrize("rule", ["adam", "torch_adam", "sgd"])
+@pytest.mark.parametrize("rule", ["adam", "torch_adam", "sgd", "sparse_adam"])
 def test_optimizer_matches_optax_step_for_step(rule, wd, clip):
     """12 steps with gradients of varying norm (some above the clip, some
     below), all-zero gradients on some leaves and a frozen stretch (only
@@ -293,7 +294,7 @@ def test_optimizer_matches_optax_step_for_step(rule, wd, clip):
     tx = _optax_chain(rule, lr, wd, clip)
     jp = {n: jnp.asarray(v) for n, v in params0.items()}
     js = tx.init(jp)
-    opt = Optimizer("sgd" if rule == "sgd" else "adam", lr, wd, clip,
+    opt = Optimizer({"torch_adam": "adam"}.get(rule, rule), lr, wd, clip,
                     skip_zero_grads=rule == "torch_adam")
     tp = {n: torch.from_numpy(v.copy()) for n, v in params0.items()}
     ts = opt.init(tp)
@@ -316,7 +317,7 @@ def test_optimizer_matches_optax_step_for_step(rule, wd, clip):
 
 
 def test_optimizer_refuses_what_is_not_ported():
-    for learner in ("adagrad", "rmsprop", "sparse_adam"):
+    for learner in ("adagrad", "rmsprop"):
         with pytest.raises(NotImplementedError, match=learner):
             Optimizer(learner)
     with pytest.raises(NotImplementedError, match="mu_dtype"):

@@ -6,14 +6,16 @@ with random-mapper OOV buckets and the OOV regime: BPR (pairwise) and
 xDeepFM (pointwise, dropout 0, on the CIN kernel route and on the slab
 path), with the frozen OOV-only sub-epoch, in mixed mode
 (`oov_only_epoch: false`), with sampled validation and with the
-torch-faithful Adam plus decay and clipping. The JAX side runs its host per-batch path (`device_epoch:
+torch-faithful Adam plus decay and clipping, and under `learner:
+sparse_adam`. The JAX side runs its host per-batch path (`device_epoch:
 false`, `host_scan_steps: 1`), as `tests/test_host_scan.py:_train` builds
 it. Epoch losses must agree to 1e-5 relative, the final parameters to
 1e-5 absolute, and the validation scores exactly. Then the optimizer
 rollback of `oov_freeze_skip_optim`, which the JAX trainer cannot run (its
 `fit` raises NameError at `trainer.py:675`: `jnp` is bound only inside the
 dynamic-negatives branch above), a checkpoint save → resume round trip,
-and the configurations the port refuses.
+and the configurations the port refuses (`device_epoch: true` refuses a
+pointwise loader: only the pairwise device epoch is ported).
 """
 
 import dataclasses
@@ -33,6 +35,7 @@ from oovrec_tpu.data.utils import create_dataset, data_preparation  # noqa: E402
 from oovrec_tpu.train.trainer import Trainer as JaxTrainer  # noqa: E402
 from oovrec_tpu_torch.config import Config  # noqa: E402
 from oovrec_tpu_torch.data import (  # noqa: E402
+    DatasetSplit,
     FullSortEvalBatcher,
     PlainEvalBatcher,
     Sampler,
@@ -126,6 +129,9 @@ CASES = {
     # from the `valid_sampling` stream
     "bpr-frozen-sampled-valid": (_bpr_cfg, dict(
         oov_freeze_embedding=True, eval_batch_size=11, eval_valid_sample_ratio=0.5), "auto"),
+    # `learner: sparse_adam` on the host path: the whole-tree lazy sweep
+    "bpr-sparse-adam": (_bpr_cfg, dict(oov_freeze_embedding=True, learner="sparse_adam",
+                                       learning_rate=1e-2), "auto"),
     "bpr-torch-adam-decay-clip": (_bpr_cfg, dict(
         oov_freeze_embedding=True, optimizer_skip_zero_grads=True, weight_decay=1e-3,
         clip_grad_norm={"max_norm": 0.5}), "auto"),
@@ -226,7 +232,7 @@ def test_checkpoint_round_trip(tmp_path):
 
 
 @pytest.mark.parametrize("over,match", [
-    (dict(device_epoch=True), "device_epoch"),
+    (dict(device_epoch=True), "device_epoch: the device-resident epoch's pointwise mode"),
     (dict(host_scan_steps=4), "host_scan_steps"),
     (dict(use_mesh=True), "mesh"),
     (dict(train_neg_sample_args={"distribution": "uniform", "sample_num": 1,
@@ -236,5 +242,11 @@ def test_checkpoint_round_trip(tmp_path):
 ])
 def test_trainer_refuses_what_is_not_ported(over, match):
     model = BPR(7, 11, 8, InductiveSpec(), device="cpu")
+    cfg = Config(over)
+    split = DatasetSplit({"user_id": np.arange(1, 7), "item_id": np.arange(1, 7)}, 7, 11)
     with pytest.raises(NotImplementedError, match=match):
-        Trainer(Config(over), model)
+        trainer = Trainer(cfg, model)
+        # what the constructor accepts, an epoch may refuse: a pointwise loader
+        loader = TrainBatcher(split, Sampler(["train"], [split], seed=1), cfg,
+                              InputType.POINTWISE)
+        trainer._train_epoch(loader, 0)
