@@ -7,7 +7,8 @@ Phases (any failure exits non-zero; no phase failure is caught):
   1. build: `nvcc` builds every kernel of the port from `oovrec_tpu_torch/csrc`,
      one process per source, all at once;
   2. kernels: each kernel against its plain PyTorch version on the card,
-     exactly, on ragged, tied and all-masked shapes (top-k) and on
+     exactly, on ragged, tied and all-masked shapes, k = 1 / 20 / 100 /
+     512, B = 1 and 257 and ties across item ranges (top-k) and on
      integer-valued inputs at every CIN layer mode, odd and ragged shape
      (CIN); the CIN kernel also on random inputs to a stated tolerance;
      then each timed at the main-path shapes beside its bound and a
@@ -34,8 +35,8 @@ Phases (any failure exits non-zero; no phase failure is caught):
      64 pairwise steps of 2,048 rows plus an OOV sub-epoch through
      `Trainer.fit`, then the 7-slice eval fused vs dense to 1e-9.
 Phase 2 also holds the CIN backward kernel against its plain version,
-bit for bit on integer inputs and gradients, and times it per layer and
-for the 3-layer stack.
+bit for bit on integer inputs and gradients (and against itself on a
+repeat run), and times it per layer and for the 3-layer stack.
 The last line is the device record; the line before it lists the kernels.
 
 TF32 is switched off for matmuls and cuDNN below: the plain versions and
@@ -77,11 +78,14 @@ from oovrec_tpu_torch.ops.cin_fused import (
     cin_layer_pooled_plain,
 )
 from oovrec_tpu_torch.ops.topk_score import (
+    K_CLASSES,
     NEG_INF,
     build_hist_bitmap,
     fused_topk_scores,
     fused_topk_scores_plain,
+    k_class,
     pack_bitplane,
+    range_split,
     unpack_bitmap,
 )
 from oovrec_tpu_torch.ops.sparse_rows import sparse_adam_rows_kernel, sparse_adam_rows_plain
@@ -216,14 +220,21 @@ def kernel_cases():
         ("ragged", 37, 4099, 64, 10, False),
         ("odd-depth", 5, 700, 48, 20, True),
         ("n-below-k", 6, 13, 64, 20, True),
+        ("depth-7", 11, 3000, 7, 20, True),
+        ("k1", B, 200_000, D, 1, True),
+        ("k100", 70, 200_003, D, 100, True),
+        ("k512", 20, 100_001, D, 512, False),
+        ("k512-n-below-k", 3, 300, D, 512, True),
+        ("B1", 1, 300_000, D, K, True),
+        ("B257", 257, 50_000, D, K, True),
     ]
     for i, (name, b, n, d, k, ex) in enumerate(cases):
         u, it = exact_inputs(b, n, d, seed=SEED + i)
         hist, hist_len = random_hist(b, n, min(64, n - 1), seed=SEED + 100 + i)
         bm = build_hist_bitmap(hist, hist_len, n, exclude_col0=ex)
         check_exact(name, u, it, bm, k)
-        log(f"kernel check {name}: B={b} N={n} D={d} k={k} "
-            f"exclude_col0={ex}: exact")
+        log(f"kernel check {name}: B={b} N={n} D={d} k={k} exclude_col0={ex} "
+            f"({topk_ranges(b, n, d, k)} item ranges): exact")
 
     # users with fewer than k live items: their tail slots hold the lowest
     # excluded items, in the kernel as in the plain version
@@ -247,6 +258,31 @@ def kernel_cases():
         kv, ki = check_exact(name, u, it, bm, K)
         lowest_index_ties(u, it, bm, kv, ki)
         log(f"kernel check {name}: B={b} N={n}: exact, ties to the lowest index")
+
+    # every item scores the same: each range offers its lowest live items
+    # and the merge must keep the lowest across range boundaries
+    for name, b, n, k in (("tied-across-ranges", 40, 60_000, K),
+                          ("tied-across-ranges-k100", 9, 60_000, 100)):
+        u = torch.ones((b, D), device=DEVICE)
+        it = torch.full((n, D), 0.5, device=DEVICE)
+        hist, hist_len = random_hist(b, n, 64, seed=SEED + 11)
+        bm = build_hist_bitmap(hist, hist_len, n)
+        _, ki = check_exact(name, u, it, bm, k)
+        live = ~unpack_bitmap(bm, n)
+        for r in range(b):
+            lowest = torch.nonzero(live[r]).flatten()[:k].to(torch.int32)
+            require(torch.equal(ki[r], lowest), f"{name}: row {r} is not the lowest live items")
+        ranges = topk_ranges(b, n, D, k)
+        require(ranges > 1, f"{name}: one item range only")
+        log(f"kernel check {name}: B={b} N={n} k={k}, {ranges} item ranges: exact, "
+            "ties to the lowest index across range boundaries")
+
+
+def topk_ranges(b, n, d, k):
+    """The number of item ranges the top-k kernel splits N into."""
+    cls = k_class(k, d)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return range_split(n, k, K_CLASSES[cls][0], b, n_sm)[1]
 
 
 def time_ms(fn, inputs, reps):
@@ -311,19 +347,20 @@ def kernel_timing():
     library_ms = time_ms(
         library, [(u, it, mk) for (u, it, _), mk in zip(inputs, dense_masks)], 30
     )
-    # the selection rounds scale with k, the score product does not
+    # the selection's share grows with k, the score product does not
     by_k = {
         kk: time_ms(lambda u, it, m, kk=kk: fused_topk_scores(u, it, m, k=kk),
                     inputs, 20)
-        for kk in (1, 10)
+        for kk in (1, 10, 100)
     }
-    log("kernel_ms by k: " + " ".join(f"k={kk}:{t:.4f}" for kk, t in by_k.items())
-        + f" k={K}:{ms:.4f}")
+    by_k[K] = ms
     w = -(-n // 32)
     bytes_moved = 4 * (B * D + n * D + B * w) + 8 * B * K
     flops = 2 * B * n * D
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
+    log("kernel_ms by k: " + " ".join(f"k={kk}:{t:.4f}" for kk, t in sorted(by_k.items()))
+        + f" (bound {max(t_bytes, t_ops):.4f} ms; k={K} / k=1: {ms / by_k[1]:.3f})")
     log(f"timing B={B} N={n} D={D} k={K}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms={library_ms:.4f} (matmul + mask + torch.topk) "
         f"bytes_ms={t_bytes:.4f} ops_ms={t_ops:.4f} "
@@ -513,19 +550,24 @@ def seven_slices_fused_vs_dense(model, mapper, ind_splits, cfg, what="inductive 
     return launches
 
 
-def breakdown(evaluator, test_loader, what="fused inductive eval (perturbed hits on)"):
+def breakdown(evaluator, test_loader, what="fused inductive eval (perturbed hits on)",
+              shares=(("top-k kernel", ("topk_range_kernel",)),)):
     """torch.profiler over one warm inductive eval pass: device time by
-    kernel and the device's busy share of the wall time."""
+    kernel, a batch's wall and device time and the device's busy share of
+    the wall time."""
     evaluator.evaluate_model(test_loader)  # warm: allocator, library load
     sync()
-    profiled(lambda: evaluator.evaluate_model(test_loader),
-             f"profile {what}: {len(test_loader)} batches")
+    n = len(test_loader)
+    wall_ms, busy_ms = profiled(lambda: evaluator.evaluate_model(test_loader),
+                                f"profile {what}: {n} batches", shares)
+    log(f"  a batch: wall {wall_ms / n:.2f} ms under the profiler, device {busy_ms / n:.3f} ms")
 
 
 def profiled(run, what, shares=()):
     """torch.profiler around `run()`: the wall, the device's busy share of
     it, the largest device kernels and, for each (label, name prefixes) of
-    `shares`, those kernels' share of the device time."""
+    `shares`, those kernels' share of the device time, launches and device
+    ms a launch."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -548,8 +590,11 @@ def profiled(run, what, shares=()):
     log(f"{what}, wall {wall_ms:.1f} ms, device busy "
         f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %)")
     for label, prefixes in shares:
-        ms = sum(us for us, key, _ in rows if any(p in key for p in prefixes)) / 1e3
-        log(f"  {label}: {ms:.3f} ms ({100 * ms / max(busy_ms, 1e-9):.1f} % of device time)")
+        mine = [(us, n) for us, key, n in rows if any(p in key for p in prefixes)]
+        ms = sum(us for us, _ in mine) / 1e3
+        n = sum(c for _, c in mine)
+        log(f"  {label}: {ms:.3f} ms ({100 * ms / max(busy_ms, 1e-9):.1f} % of device time), "
+            f"{n} launches, {ms / max(n, 1):.4f} ms a launch")
     for us, key, count in rows[:12]:
         log(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
     return wall_ms, busy_ms
@@ -702,6 +747,7 @@ def cin_timing():
         "bound_by": by,
         "library_ms": time_ms(lambda *x: forward(library_pooled, *x), fwd, 30),
     }
+    out["cin_layer_pooled"]["ms_per_launch"] = out["cin_layer_pooled"]["ms"] / len(modes)
     log("cin timing 3-layer forward (3 launches): " + " ".join(
         f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
         for k, v in out["cin_layer_pooled"].items()) + f" (ops {t_ops:.4f}, bytes {t_bytes:.4f})")
@@ -721,6 +767,7 @@ def cin_timing():
         "bound_by": by,
         "library_ms": time_ms(cin_library, inputs, 30),
     }
+    out["cin_layer"]["ms_per_launch"] = out["cin_layer"]["ms"]
     log(f"cin_layer timing B={CTR_B} H={hh} F={f} D={CTR_D} L={ll}: " + " ".join(
         f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
         for k, v in out["cin_layer"].items()) + f" (ops {t_ops:.4f}, bytes {t_bytes:.4f})")
@@ -804,9 +851,13 @@ def cin_bwd_cases():
             got, want = cin_bwd_pair(inputs, grads, nh, pool_all, mxu)
             errs[mxu] = cin_bwd_err(got, want)
             require(errs[mxu] <= CIN_TOL, f"cin bwd {name} {mxu}: relative error {errs[mxu]}")
+            again, _ = cin_bwd_pair(inputs, grads, nh, pool_all, mxu)
+            require(all(torch.equal(x, y) for x, y in zip(got, again)),
+                    f"cin bwd {name} {mxu}: a repeat run gave other bits")
         log(f"cin bwd check {name}: B={b} H={h} F={f} D={d} L={l} n_hidden={nh} "
             f"pool_all={pool_all}: exact (f32, bf16); random error "
-            f"f32 {errs['float32']:.3e} bf16 {errs['bfloat16']:.3e}")
+            f"f32 {errs['float32']:.3e} bf16 {errs['bfloat16']:.3e}; a repeat run "
+            "gives the same bits")
 
 
 def cin_bwd_bound(layers):
@@ -903,6 +954,7 @@ def cin_bwd_timing():
         "bound_by": by,
         "library_ms": time_ms(stack_library, yard, 30),
     }
+    out["cin_layer_pooled_bwd"]["ms_per_launch"] = out["cin_layer_pooled_bwd"]["ms"] / len(modes)
     del yard
     log("cin bwd timing 3-layer backward (3 calls): " + " ".join(
         f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
@@ -927,6 +979,7 @@ def cin_bwd_timing():
         "bound_by": by,
         "library_ms": time_ms(lambda run: run(), yard, 30),
     }
+    out["cin_layer_bwd"]["ms_per_launch"] = out["cin_layer_bwd"]["ms"]
     del yard
     log(f"cin_layer_bwd timing B={CTR_B} H={hh} F={f} D={CTR_D} L={ll}: " + " ".join(
         f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
@@ -1062,7 +1115,8 @@ def ranking():
 
     model.fused_cin = cfg["fused_cin"]
     breakdown(InductiveEvaluator(model, cfg, N_CTR_OLD_USERS, N_CTR_OLD_ITEMS, mapper=mapper),
-              PlainEvalBatcher(ind, cfg), what="fused 7-slice value eval (xDeepFM)")
+              PlainEvalBatcher(ind, cfg), what="fused 7-slice value eval (xDeepFM)",
+              shares=(("CIN forward kernel", ("cin_fused_kernel",)),))
     return runs[True][2], ind, mapper
 
 
@@ -1175,7 +1229,10 @@ def ranking_training(ind, mapper):
         lambda: inner(profile_loader, 2),
         f"profile {len(profile_loader)} fused xDeepFM training steps",
         shares=(("CIN forward kernel", ("cin_fused_kernel",)),
-                ("CIN backward kernels", ("cin_bwd_",))))
+                ("CIN backward kernels", ("cin_bwd_",)),
+                ("  launch 1, rows (pre, dpre, dz, dA, dB0)", ("cin_bwd_rows_kernel",)),
+                ("  launch 2, dW / dbias partials", ("cin_bwd_dw_kernel",)),
+                ("  launch 3, partial sums", ("cin_bwd_reduce_kernel",))))
     log(f"ranking training profile: {wall_ms / len(profile_loader):.2f} ms per step "
         "under the profiler")
     kernel_vs_plain_training(train)

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -176,9 +177,107 @@ def _launch(a, b0, w, bias, mxu_dtype, n_hidden, ps):
     return hidden, pooled
 
 
+# The backward kernel's blocking (csrc/cin_fused_bwd.cu), mirrored so that
+# its launch geometry is plain Python the CPU tests reach;
+# `_bwd_library` checks the kernel's shared memory agrees.
+BWD_ROWS = 128      # launch 1: (b, d) rows per block at most
+BWD_KC = 32         # launch 1: pair chunk of pre; launch 2: rows per chunk
+BWD_DZ = 64         # launch 1: dz columns per sub-tile
+BWD_DW_TILE = 128   # launch 2: pair columns per block
+BWD_MAX_L = 128
+MAX_SMEM = 232448
+
+
+def _a4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _bwd_cols(L: int) -> int:
+    """Columns of pre / dW a block covers: 16 threads × RN."""
+    c = -(-L // 16)
+    return 16 * (2 if c <= 2 else 4 if c <= 4 else 7 if c <= 7 else 8)
+
+
+def bwd_row_smem(tb: int, H: int, F: int, D: int, L: int) -> int:
+    """Shared memory (bytes) of the backward's launch 1 at `tb` batch rows
+    a block: the A and B0 tiles, gh then dpre (L × 132), gp, bias, the
+    larger of the pre phase (a z chunk and two W chunks) and the dz phase
+    (the W rows of two h groups, at a pitch whose quarter is odd, and the
+    dz tile of one group), the dB0 sums and the pair-offset table."""
+    tms = BWD_ROWS + 4
+    kc2 = max(1, BWD_DZ // F) * F
+    kc2p = -(-kc2 // BWD_DZ) * BWD_DZ
+    pitch = _a4(L) if _a4(L) // 4 % 2 else _a4(L) + 4
+    phase = max(BWD_KC * tms + 2 * BWD_KC * _bwd_cols(L),
+                2 * kc2p * pitch + _a4(BWD_ROWS * ((kc2 + 1) | 1)))
+    return 4 * (_a4(tb * H * D) + _a4(tb * F * D) + L * tms + _a4(tb * L) + _a4(L)
+                + phase + _a4(BWD_ROWS * F) + _a4(H * F))
+
+
+class BwdGeometry(NamedTuple):
+    tb: int            # batch rows a launch-1 block owns (blocks: ⌈B / tb⌉)
+    ms: int            # rows (b, d) of one dW slice, a multiple of BWD_KC
+    slices: int
+    k_tiles: int       # launch 2's blocks along the pair axis
+    workspace: int     # f32 elements: dpre (B·D, L) and the partials
+
+
+def bwd_geometry(B: int, H: int, F: int, D: int, L: int, n_sm: int = 132) -> BwdGeometry:
+    """The backward kernel's launch geometry, or ValueError for a shape it
+    does not take. Launch 1: the most whole batch rows (≤ 128 rows (b, d))
+    whose tiles fit in shared memory. Launch 2: the B·D rows in slices of
+    ms rows, about 2 × n_sm blocks with the pair tiles."""
+    if D > BWD_ROWS:
+        raise ValueError(f"D={D} exceeds the backward kernel's row tile ({BWD_ROWS})")
+    if L > BWD_MAX_L:
+        raise ValueError(f"L={L} exceeds the backward kernel's columns ({BWD_MAX_L})")
+    if H * D >= 2**15 or F * D >= 2**16 or B * max(H, F) * D >= 2**31:
+        raise ValueError(f"B={B}, H={H}, F={F}, D={D}: offsets exceed the kernel's 32 bits")
+    tb = min(BWD_ROWS // D, B)
+    while tb and bwd_row_smem(tb, H, F, D, L) > MAX_SMEM:
+        tb -= 1
+    if not tb:
+        raise ValueError(f"H={H}, F={F}, D={D}, L={L}: the backward's row tiles "
+                         "exceed shared memory")
+    M, HF = B * D, H * F
+    k_tiles = -(-HF // BWD_DW_TILE)
+    slices = max(1, min(-(-2 * n_sm // k_tiles), -(-M // BWD_KC)))
+    ms = -(-(-(-M // slices)) // BWD_KC) * BWD_KC
+    slices = -(-M // ms)
+    return BwdGeometry(tb, ms, slices, k_tiles,
+                       M * L + slices * HF * L + slices * L)
+
+
+def bwd_dw_sliced_plain(a, b0, dpre, ms: int, mxu_dtype="float32"):
+    """dW and dbias as the backward kernel orders them: f32 partials over
+    slices of ms rows (b, d) in ascending row order, then the partials
+    summed in ascending slice order. dpre (B, L, D) unrounded. On
+    integer-valued inputs it equals `cin_layer_pooled_bwd_plain`'s dW and
+    dbias bit for bit."""
+    B, H, D = a.shape
+    F = b0.shape[1]
+    bf16 = _is_bf16(mxu_dtype)
+    a, b0 = a.float(), b0.float()
+    if bf16:
+        a, b0 = _round_bf16(a), _round_bf16(b0)
+        z = _round_bf16(a[:, :, None, :] * b0[:, None, :, :])
+    else:
+        z = a[:, :, None, :] * b0[:, None, :, :]
+    z = z.reshape(B, H * F, D).permute(0, 2, 1).reshape(B * D, H * F)   # rows (b, d)
+    rows = dpre.float().permute(0, 2, 1).reshape(B * D, -1)
+    rr = _round_bf16(rows) if bf16 else rows
+    dw = dbias = None
+    for m0 in range(0, B * D, ms):
+        pw = z[m0:m0 + ms].T @ rr[m0:m0 + ms]
+        pb = rows[m0:m0 + ms].sum(dim=0)
+        dw = pw if dw is None else dw + pw
+        dbias = pb if dbias is None else dbias + pb
+    return dw, dbias
+
+
 def _launch_bwd(a, b0, w, bias, gh, gp, mxu_dtype, n_hidden, ps):
-    """Backward kernel launch for CUDA tensors: checks, allocates the
-    outputs and the workspace, launches or raises."""
+    """Backward kernel launch for CUDA tensors: checks, computes the
+    geometry, allocates the outputs and the workspace, launches or raises."""
     B, H, F, D, L = _shapes(a, b0, w, bias)
     _check_cuda(a, (("a", a), ("b0", b0), ("w", w), ("bias", bias),
                     ("gh", gh), ("gp", gp)))
@@ -186,26 +285,23 @@ def _launch_bwd(a, b0, w, bias, gh, gp, mxu_dtype, n_hidden, ps):
         raise ValueError(f"gh {tuple(gh.shape)} must be {(B, n_hidden, D)}")
     if gp is not None and tuple(gp.shape) != (B, L - ps):
         raise ValueError(f"gp {tuple(gp.shape)} must be {(B, L - ps)}")
+    geo = bwd_geometry(B, H, F, D, L,
+                       torch.cuda.get_device_properties(a.device).multi_processor_count)
     lib = _bwd_library()
-    if D > lib.cin_bwd_max_depth():
-        raise ValueError(f"D={D} exceeds the kernel's row tile ({lib.cin_bwd_max_depth()})")
-    if lib.cin_bwd_smem_bytes(H, F, L) > lib.cin_bwd_max_smem():
-        raise ValueError(f"H={H}, F={F}, L={L}: the dA/dB0 tiles exceed shared memory")
     bf16 = _is_bf16(mxu_dtype)
     dev = a.device
     da = torch.empty((B, H, D), dtype=torch.float32, device=dev)
     db0 = torch.empty((B, F, D), dtype=torch.float32, device=dev)
     dw = torch.empty((H * F, L), dtype=torch.float32, device=dev)
     dbias = torch.empty((L,), dtype=torch.float32, device=dev)
-    work = torch.empty((lib.cin_bwd_workspace_floats(B, H, F, D, L),),
-                       dtype=torch.float32, device=dev)
+    work = torch.empty((geo.workspace,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cin_bwd_launch(
             a.data_ptr(), b0.data_ptr(), w.data_ptr(), bias.data_ptr(),
             gh.data_ptr() if gh is not None and n_hidden else None,
             gp.data_ptr() if gp is not None and L > ps else None,
-            B, H, F, D, L, n_hidden, ps, int(bf16),
+            B, H, F, D, L, n_hidden, ps, int(bf16), geo.tb, geo.ms, geo.slices,
             da.data_ptr(), db0.data_ptr(), dw.data_ptr(), dbias.data_ptr(),
             work.data_ptr(), stream,
         )
@@ -362,18 +458,16 @@ def _kernel_library():
 
 @functools.lru_cache(maxsize=None)
 def _bwd_library():
-    """The built backward kernel library with its C signatures."""
+    """The built backward kernel library with its C signatures; raises if
+    its shared memory differs from `bwd_row_smem`."""
     lib = load_kernel("cin_fused_bwd")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.cin_bwd_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i,
+    lib.cin_bwd_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i,
                                    p, p, p, p, p, p]
     lib.cin_bwd_launch.restype = ctypes.c_int
-    lib.cin_bwd_max_depth.argtypes = []
-    lib.cin_bwd_max_depth.restype = i
-    lib.cin_bwd_smem_bytes.argtypes = [i, i, i]
-    lib.cin_bwd_smem_bytes.restype = ll
-    lib.cin_bwd_max_smem.argtypes = []
-    lib.cin_bwd_max_smem.restype = ll
-    lib.cin_bwd_workspace_floats.argtypes = [i, i, i, i, i]
-    lib.cin_bwd_workspace_floats.restype = ll
+    lib.cin_bwd_row_smem.argtypes = [i, i, i, i, i]
+    lib.cin_bwd_row_smem.restype = ll
+    for shape in ((12, 50, 7, 10, 100), (2, 50, 39, 10, 100), (18, 7, 7, 7, 33)):
+        if lib.cin_bwd_row_smem(*shape) != bwd_row_smem(*shape):
+            raise RuntimeError(f"cin_fused_bwd shared memory at {shape} differs from the wrapper's")
     return lib

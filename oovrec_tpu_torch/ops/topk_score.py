@@ -3,9 +3,11 @@
 Port of `oovrec_tpu/ops/topk_score.py`. The retrieval eval hot path is
 `scores = U @ Iᵀ` over the whole item corpus, then PAD/history masking and
 top-k. On a CUDA tensor `fused_topk_scores` launches the hand-written
-kernel in `csrc/topk_score.cu`, which keeps each score tile in shared
-memory and reduces it to k candidates per item block; a stable sort merges
-the candidates. On a CPU tensor it runs `fused_topk_scores_plain`, a dense
+kernel in `csrc/topk_score.cu`, which scores contiguous ranges of the item
+axis in registers and keeps each user's running top-k of a range behind a
+threshold; a stable sort merges the ranges' candidates
+(`merge_candidates`; the kernel's output has a plain version of its own,
+`range_candidates_plain`). On a CPU tensor it runs `fused_topk_scores_plain`, a dense
 masked matmul with a stable top-k: the same function, the kernel's
 reference in `chip_smoke.py`.
 
@@ -125,6 +127,88 @@ def fused_topk_scores_plain(
     return vals, idx.to(torch.int32)
 
 
+# The kernel's blocking (csrc/topk_score.cu): 128-item tiles, a 3-stage ring
+# of 32-deep item slices, and k classes of (users per block, list capacity,
+# survivor buffer per user). Mirrored here so that the split into ranges is
+# plain Python the CPU tests reach; `_kernel_library` checks the kernel
+# agrees.
+TILE_ITEMS = 128
+K_CLASSES = ((128, 32, 64), (64, 128, 64), (16, 512, 128))
+MAX_SMEM = 232448
+_STAGES, _DEPTH = 3, 32
+
+
+def kernel_smem_bytes(cls: int, d: int) -> int:
+    """Shared memory (bytes) of the kernel's k class `cls` at depth d."""
+    tu, cap, buf = K_CLASSES[cls]
+    dp = _cdiv(d, _DEPTH) * _DEPTH
+    return (8 * tu * (cap + buf + 1) + 8 * tu + 16 + 4 * _STAGES * tu * TILE_ITEMS // 32
+            + 4 * tu * (dp + 4) + 4 * _STAGES * TILE_ITEMS * (_DEPTH + 4))
+
+
+def k_class(k: int, d: int) -> int:
+    """The first k class whose lists hold k and whose tiles fit in shared
+    memory at depth d."""
+    for cls, (_, cap, _) in enumerate(K_CLASSES):
+        if k <= cap and kernel_smem_bytes(cls, d) <= MAX_SMEM:
+            return cls
+    raise ValueError(
+        f"k={k}, D={d}: no k class of the kernel holds k (at most "
+        f"{K_CLASSES[-1][1]}) with its tiles in shared memory"
+    )
+
+
+def range_split(n_items: int, k: int, users_per_block: int, n_users: int,
+                n_sm: int = 132):
+    """(n_tiles, n_ranges): how the kernel splits the item axis.
+
+    The padded index space [0, n_tiles·128) covers max(N, k) indices; items
+    past N score -inf. Range r holds tiles [r·n_tiles // n_ranges,
+    (r+1)·n_tiles // n_ranges): contiguous, ascending, at least ⌈k/128⌉
+    tiles each, so every range emits k real candidates. About one block per
+    SM: n_sm // (user tiles) ranges."""
+    n_tiles = _cdiv(max(n_items, k), TILE_ITEMS)
+    want = max(1, n_sm // _cdiv(n_users, users_per_block))
+    n_ranges = max(1, min(want, n_tiles // _cdiv(k, TILE_ITEMS), 65535))
+    return n_tiles, n_ranges
+
+
+def range_bounds(n_tiles: int, n_ranges: int):
+    """[(first item, end item)] of each range, in the padded index space."""
+    return [(r * n_tiles // n_ranges * TILE_ITEMS,
+             (r + 1) * n_tiles // n_ranges * TILE_ITEMS) for r in range(n_ranges)]
+
+
+def range_candidates_plain(user_e, item_e, hist_bitmap, k: int, n_tiles: int,
+                           n_ranges: int):
+    """Plain version of the kernel's own output: each range's exact top-k
+    of the masked scores (padded with -inf past N), (n_ranges, B, k) values
+    f32 and global indices int32, ranges in ascending item order."""
+    _check_inputs(user_e, item_e, hist_bitmap, k)
+    N = item_e.shape[0]
+    scores = user_e.float() @ item_e.float().T
+    scores = scores.masked_fill(unpack_bitmap(hist_bitmap, N), NEG_INF)
+    pad = scores.new_full((scores.shape[0], n_tiles * TILE_ITEMS - N), float("-inf"))
+    scores = torch.cat([scores, pad], dim=1)
+    vals, idx = [], []
+    for lo, hi in range_bounds(n_tiles, n_ranges):
+        v, i = stable_topk(scores[:, lo:hi], k)
+        vals.append(v)
+        idx.append((i + lo).to(torch.int32))
+    return torch.stack(vals), torch.stack(idx)
+
+
+def merge_candidates(vals: torch.Tensor, idx: torch.Tensor, k: int):
+    """(n_ranges, B, k) range candidates → the (B, k) top-k. Among equal
+    values, lower ranges and lower ranks hold lower indices, so a stable
+    sort of the range-major list keeps ties lowest-first."""
+    n_ranges, B, kk = vals.shape
+    cand_v = vals.permute(1, 0, 2).reshape(B, n_ranges * kk)
+    cand_i = idx.permute(1, 0, 2).reshape(B, n_ranges * kk)
+    top_v, pos = stable_topk(cand_v, k)
+    return top_v, torch.gather(cand_i, 1, pos)
+
+
 def fused_topk_scores(
     user_e: torch.Tensor,       # (B, D) f32
     item_e: torch.Tensor,       # (N, D) f32
@@ -152,29 +236,23 @@ def fused_topk_scores(
             raise ValueError(f"{name} must be contiguous")
     B, D = user_e.shape
     N = item_e.shape[0]
+    cls = k_class(k, D)
+    n_sm = torch.cuda.get_device_properties(user_e.device).multi_processor_count
+    n_tiles, n_ranges = range_split(N, k, K_CLASSES[cls][0], B, n_sm)
     lib = _kernel_library()
-    tn = lib.topk_block_items()
-    if k > tn:
-        raise ValueError(f"k={k} exceeds the kernel's item block ({tn})")
-    n_blocks = _cdiv(N, tn)
-    if n_blocks > 65535:
-        raise ValueError(f"N={N} needs {n_blocks} item blocks; at most 65535")
-    vals = torch.empty((n_blocks, B, k), dtype=torch.float32, device=user_e.device)
-    idx = torch.empty((n_blocks, B, k), dtype=torch.int32, device=user_e.device)
+    vals = torch.empty((n_ranges, B, k), dtype=torch.float32, device=user_e.device)
+    idx = torch.empty((n_ranges, B, k), dtype=torch.int32, device=user_e.device)
+    vec = D % 4 == 0 and item_e.data_ptr() % 16 == 0
     with torch.cuda.device(user_e.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.topk_score_launch(
             user_e.data_ptr(), item_e.data_ptr(), hist_bitmap.data_ptr(),
-            B, N, D, _cdiv(N, 32), k, vals.data_ptr(), idx.data_ptr(), stream,
+            B, N, D, _cdiv(N, 32), k, cls, n_tiles, n_ranges, int(vec),
+            vals.data_ptr(), idx.data_ptr(), stream,
         )
     check(err, "topk_score_launch")
     fused_topk_scores.launches += 1
-    # block-major candidates: among equal values, lower blocks and lower
-    # ranks hold lower indices, so a stable sort keeps ties lowest-first
-    cand_v = vals.permute(1, 0, 2).reshape(B, n_blocks * k)
-    cand_i = idx.permute(1, 0, 2).reshape(B, n_blocks * k)
-    top_v, pos = stable_topk(cand_v, min(k, cand_v.shape[1]))
-    return top_v, torch.gather(cand_i, 1, pos)
+    return merge_candidates(vals, idx, k)
 
 
 fused_topk_scores.launches = 0
@@ -182,11 +260,25 @@ fused_topk_scores.launches = 0
 
 @functools.lru_cache(maxsize=None)
 def _kernel_library():
-    """The built kernel library with its C signatures (once per process)."""
+    """The built kernel library with its C signatures (once per process);
+    raises if its blocking differs from the one mirrored above."""
     lib = load_kernel("topk_score")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.topk_score_launch.argtypes = [p, p, p, i, i, i, i, i, p, p, p]
+    lib.topk_score_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p, p, p]
     lib.topk_score_launch.restype = ctypes.c_int
-    lib.topk_block_items.argtypes = []
-    lib.topk_block_items.restype = ctypes.c_int
+    for name in ("topk_tile_items", "topk_class_count"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i
+    for name in ("topk_class_users", "topk_class_capacity", "topk_class_buffer"):
+        getattr(lib, name).argtypes = [i]
+        getattr(lib, name).restype = i
+    lib.topk_smem_bytes.argtypes = [i, i]
+    lib.topk_smem_bytes.restype = ctypes.c_longlong
+    got = (lib.topk_tile_items(), tuple(
+        (lib.topk_class_users(c), lib.topk_class_capacity(c), lib.topk_class_buffer(c))
+        for c in range(lib.topk_class_count())))
+    if got != (TILE_ITEMS, K_CLASSES) or any(
+            lib.topk_smem_bytes(c, d) != kernel_smem_bytes(c, d)
+            for c in range(len(K_CLASSES)) for d in (7, 64, 100)):
+        raise RuntimeError(f"topk_score kernel blocking {got} differs from the wrapper's")
     return lib

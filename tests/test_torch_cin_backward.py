@@ -221,3 +221,90 @@ def test_backward_refuses_what_it_cannot_take():
     with pytest.raises(ValueError, match="do not agree"):
         cin_layer_pooled_bwd_plain(*_t(*inputs[:3]), torch.zeros(5), None, None)
     assert "cin_fused_bwd" not in cuda_build.LIBRARIES._libs
+
+
+# The backward kernel's launch geometry is Python (`bwd_geometry`); the
+# kernel derives each block's rows from it as below. The shapes are
+# `chip_smoke.py`'s CIN_CASES (B, H, F, D, L).
+GEOMETRY_CASES = [
+    (8192, 7, 7, 10, 100), (8192, 50, 7, 10, 100), (1000, 7, 7, 10, 100),
+    (4096, 50, 7, 16, 100), (512, 50, 39, 10, 100), (256, 39, 39, 10, 100),
+    (37, 50, 7, 10, 100), (1000, 50, 7, 10, 100), (300, 7, 7, 7, 33),
+    (301, 16, 7, 7, 33), (37, 7, 7, 7, 33),
+]
+
+
+@pytest.mark.parametrize("B,H,F,D,L", GEOMETRY_CASES)
+@pytest.mark.parametrize("n_sm", [132, 7])
+def test_bwd_geometry_covers_each_row_once_in_order(B, H, F, D, L, n_sm):
+    geo = cin_fused.bwd_geometry(B, H, F, D, L, n_sm)
+    # launch 1: block i owns batch rows [i·tb, min(B, (i+1)·tb)), ≤ 128 rows (b, d)
+    assert 0 < geo.tb * D <= cin_fused.BWD_ROWS
+    assert cin_fused.bwd_row_smem(geo.tb, H, F, D, L) <= cin_fused.MAX_SMEM
+    owned = [b for i in range(-(-B // geo.tb))
+             for b in range(i * geo.tb, min(B, (i + 1) * geo.tb))]
+    assert owned == list(range(B))
+    # launch 2: slice s walks rows (b, d) [s·ms, min(M, (s+1)·ms)) ascending,
+    # in chunks of BWD_KC; no slice is empty
+    M = B * D
+    assert geo.ms % cin_fused.BWD_KC == 0 and geo.slices <= 65535
+    walked = []
+    for s in range(geo.slices):
+        lo, hi = s * geo.ms, min(M, (s + 1) * geo.ms)
+        assert hi > lo
+        walked += range(lo, hi)
+    assert walked == list(range(M))
+    assert geo.k_tiles == -(-H * F // cin_fused.BWD_DW_TILE)
+    assert geo.workspace == M * L + geo.slices * (H * F * L + L)
+
+
+def test_bwd_geometry_refuses_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError, match="D=129"):
+        cin_fused.bwd_geometry(8, 3, 3, 129, 10)
+    with pytest.raises(ValueError, match="L=129"):
+        cin_fused.bwd_geometry(8, 3, 3, 10, 129)
+    with pytest.raises(ValueError, match="shared memory"):
+        cin_fused.bwd_geometry(8, 1000, 39, 10, 100)
+    # the largest tile that fits: F = 39, H = 50 keeps whole rows in shared memory
+    assert cin_fused.bwd_geometry(512, 50, 39, 10, 100).tb >= 1
+
+
+def _integer_case(B, H, F, D, L, nh, ps, seed):
+    rng = np.random.default_rng(seed)
+    a = rng.integers(-1, 2, (B, H, D)).astype(np.float32)
+    b0 = rng.integers(-1, 2, (B, F, D)).astype(np.float32)
+    w = rng.integers(-2, 3, (H * F, L)).astype(np.float32)
+    bias = rng.integers(-2, 3, L).astype(np.float32)
+    gh = rng.integers(-3, 4, (B, nh, D)).astype(np.float32)
+    gp = rng.integers(-3, 4, (B, L - ps)).astype(np.float32)
+    return _t(a, b0, w, bias, gh, gp)
+
+
+@pytest.mark.parametrize("mxu", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,F,D,L,nh,pool_all", [
+    (300, 7, 7, 7, 33, 16, False), (301, 16, 7, 7, 33, 0, True),
+    (64, 50, 7, 10, 100, 50, False), (37, 50, 7, 10, 100, 100, True),
+    (16, 50, 39, 10, 100, 50, False),
+])
+def test_sliced_dw_equals_plain_bitwise_on_integers(B, H, F, D, L, nh, pool_all, mxu):
+    """dW and dbias summed as the kernel sums them (f32 partials over slices
+    of ms rows (b, d), then the partials in ascending slice order) equal
+    the plain backward's bit for bit on integer inputs, at the kernel's own
+    slice length and at the shortest one."""
+    ps = 0 if pool_all else nh
+    a, b0, w, bias, gh, gp = _integer_case(B, H, F, D, L, nh, ps, seed=B + H + L)
+    want = cin_layer_pooled_bwd_plain(a, b0, w, bias, gh if nh else None, gp, mxu,
+                                      n_hidden=nh, pool_all=pool_all)
+    aa, bb, ww = (a, b0, w) if mxu == "float32" else (
+        cin_fused._round_bf16(a), cin_fused._round_bf16(b0), cin_fused._round_bf16(w))
+    z = (aa[:, :, None] * bb[:, None]).reshape(B, H * F, D)
+    pre = torch.einsum("bkd,kl->bld", z, ww) + bias[None, :, None]
+    g = torch.zeros_like(pre)
+    g[:, :nh] = gh
+    g[:, ps:] += gp[:, :, None]
+    dpre = torch.where(pre > 0, g, torch.zeros_like(g))
+    geo = cin_fused.bwd_geometry(B, H, F, D, L, n_sm=132)
+    for ms in {geo.ms, cin_fused.BWD_KC}:
+        dw, dbias = cin_fused.bwd_dw_sliced_plain(a, b0, dpre, ms, mxu)
+        assert torch.equal(dw, want[2]) and torch.equal(dbias, want[3])
+    assert want[2].abs().max() > 0 and want[3].abs().max() > 0
