@@ -8,11 +8,14 @@ Phases (any failure exits non-zero; no phase failure is caught):
      one process per source, all at once;
   2. kernels: each kernel against its plain PyTorch version on the card,
      exactly, on ragged, tied and all-masked shapes, k = 1 / 20 / 100 /
-     512, B = 1 and 257 and ties across item ranges (top-k) and on
-     integer-valued inputs at every CIN layer mode, odd and ragged shape
-     (CIN); the CIN kernel also on random inputs to a stated tolerance;
-     then each timed at the main-path shapes beside its bound and a
-     PyTorch yardstick;
+     512 / 600 / 1,024, B = 1 and 257, D = 1,000 / 2,048 (the user tile
+     streamed) and ties across item ranges (top-k) and on integer-valued
+     inputs at every CIN layer mode, odd and ragged shape and the edges of
+     its geometry (L = 128 / 200, D = 1 / 128 / 200, a pair axis of 700,
+     2,450 pairs at D = 128: several launches over D spans and column
+     groups) (CIN); the CIN kernel also on random inputs to a stated
+     tolerance and against a repeat run; then each timed at the main-path
+     shapes beside its bound and a PyTorch yardstick;
   3. retrieval serving: BPR at embedding_size 64 with random-mapper OOV
      buckets over 110,000 users and 1,000,000 items (10 % new), 7-slice
      inductive eval and IV full-sort eval, fused path vs dense path to
@@ -30,7 +33,11 @@ Phases (any failure exits non-zero; no phase failure is caught):
      bitwise unchanged by the frozen sub-epoch and bucket tables moved, the
      loss falling, held-out AUC up, then the 7 value slices on the trained
      weights; 16 steps on the kernel path against the plain slab path from
-     identical weights; wall ms per step and a profile of fused steps;
+     identical weights; wall ms per step and a profile of fused steps; then
+     4 steps at cin_layer_size 200 through `fused_cin: auto` on the CIN
+     kernels (two column groups a backward) against 4 on the slab path,
+     the backward against its plain version at those layers' shapes, and
+     one batch served on the forward kernel;
   6. retrieval training: BPR at embedding_size 64 over the serving scale,
      64 pairwise steps of 2,048 rows plus an OOV sub-epoch through
      `Trainer.fit`, then the 7-slice eval fused vs dense to 1e-9.
@@ -76,6 +83,9 @@ from oovrec_tpu_torch.ops.cin_fused import (
     cin_layer_pooled_bwd,
     cin_layer_pooled_bwd_plain,
     cin_layer_pooled_plain,
+    bwd_plan,
+    fwd_geometry,
+    fwd_plan,
 )
 from oovrec_tpu_torch.ops.topk_score import (
     K_CLASSES,
@@ -86,6 +96,7 @@ from oovrec_tpu_torch.ops.topk_score import (
     k_class,
     pack_bitplane,
     range_split,
+    stream_users,
     unpack_bitmap,
 )
 from oovrec_tpu_torch.ops.sparse_rows import sparse_adam_rows_kernel, sparse_adam_rows_plain
@@ -133,6 +144,9 @@ CIN_MASK_BAND = 1e-3
 CTR_TRAIN_FRACTION = 0.9
 BPR_TRAIN_B, BPR_TRAIN_STEPS = 2048, 64
 COMPARE_STEPS, LOSS_RTOL, PARAM_ATOL = 16, 1e-5, 1e-4
+# a CIN wider than one backward launch takes (L > 128): `fused_cin: auto`
+# trains it on the kernels (two column groups a backward) and serves it
+WIDE_CIN_SIZES, WIDE_STEPS = (200, 200, 200), 4
 # the retrieval track's sparse-adam training (bench.py:61-65, 348-510): BPR
 # at D = 64 over 200,000 users x 100,000 items, 1,024 random-mapper buckets
 # a side, pairwise steps of 8,192 rows, 100 steps (bench.py's STEPS); each
@@ -225,6 +239,10 @@ def kernel_cases():
         ("k100", 70, 200_003, D, 100, True),
         ("k512", 20, 100_001, D, 512, False),
         ("k512-n-below-k", 3, 300, D, 512, True),
+        ("k600", 20, 100_001, D, 600, False),
+        ("k1024-ragged", 7, 5003, D, 1024, True),
+        ("deep-D2048", 37, 20_000, 2048, 20, True),  # the user tile streams
+        ("deep-D1000-k600", 5, 10_000, 1000, 600, True),
         ("B1", 1, 300_000, D, K, True),
         ("B257", 257, 50_000, D, K, True),
     ]
@@ -233,8 +251,10 @@ def kernel_cases():
         hist, hist_len = random_hist(b, n, min(64, n - 1), seed=SEED + 100 + i)
         bm = build_hist_bitmap(hist, hist_len, n, exclude_col0=ex)
         check_exact(name, u, it, bm, k)
+        cls = k_class(k, d)
         log(f"kernel check {name}: B={b} N={n} D={d} k={k} exclude_col0={ex} "
-            f"({topk_ranges(b, n, d, k)} item ranges): exact")
+            f"({topk_ranges(b, n, d, k)} item ranges, k class {cls}, user tile "
+            f"{'streamed' if stream_users(cls, d) else 'whole'}): exact")
 
     # users with fewer than k live items: their tail slots hold the lowest
     # excluded items, in the kernel as in the plain version
@@ -302,6 +322,12 @@ def time_ms(fn, inputs, reps):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def back_to_back_ms(fn, inputs, n=10, reps=10):
+    """Median ms a call of `fn` over n calls enqueued back to back between
+    two events: the device's time, without the host's time of one call."""
+    return time_ms(lambda *args: [fn(*args) for _ in range(n)], inputs, reps) / n
 
 
 def kernel_timing():
@@ -617,6 +643,20 @@ CIN_CASES = [
     ("odd-D7-L33", 300, 7, 7, 7, 33, 16, False),
     ("odd-D7-L33-last", 301, 16, 7, 7, 33, 0, True),
     ("odd-cin_layer", 37, 7, 7, 7, 33, None, False),
+    # the edges of the geometry (ops/cin_fused.py:fwd_geometry, fwd_plan,
+    # bwd_plan): 128 columns in one pass, 200 in two (two column groups in
+    # the backward), one and 128 rows (b, d) a batch row, a pair axis of
+    # 700; D = 200 in two spans, and A's rows at H = 350, D = 128 beyond
+    # shared memory (two spans of 64)
+    ("L128", 1000, 50, 7, CTR_D, 128, 64, False),
+    ("L200", 700, 50, 7, CTR_D, 200, 100, False),
+    ("L200-cin_layer", 300, 50, 7, CTR_D, 200, None, False),
+    ("D1", 300, 50, 7, 1, 100, 50, False),
+    ("D128", 20, 50, 7, 128, 100, 50, False),
+    ("direct-H100", 1000, 100, 7, CTR_D, 100, 100, True),
+    ("D200", 20, 50, 7, 200, 100, 50, False),
+    ("D200-L200-direct", 9, 16, 7, 200, 200, 200, True),
+    ("H350-D128", 8, 350, 7, 128, 100, 50, False),
 ]
 
 
@@ -650,7 +690,8 @@ def cin_pair(inputs, nh, pool_all, mxu):
 
 def cin_cases():
     """The CIN kernel against its plain version on the card: bit for bit on
-    exact inputs, to CIN_TOL on random ones, in both precision modes."""
+    exact inputs, to CIN_TOL on random ones, in both precision modes, and
+    against itself on a repeat run."""
     for i, (name, b, h, f, d, l, nh, pool_all) in enumerate(CIN_CASES):
         errs = {}
         for mxu in ("float32", "bfloat16"):
@@ -659,13 +700,20 @@ def cin_cases():
             require(len(got) == len(want) and all(
                 g.shape == w.shape and torch.equal(g, w) for g, w in zip(got, want)),
                 f"cin {name} {mxu}: kernel differs from the plain version on exact inputs")
-            got, want = cin_pair(cin_inputs(b, h, f, d, l, SEED + 400 + i, False),
-                                 nh, pool_all, mxu)
+            inputs = cin_inputs(b, h, f, d, l, SEED + 400 + i, False)
+            got, want = cin_pair(inputs, nh, pool_all, mxu)
             errs[mxu] = max(float((g - w).abs().max()) for g, w in zip(got, want))
             require(errs[mxu] <= CIN_TOL, f"cin {name} {mxu}: max |kernel - plain| {errs[mxu]}")
+            again, _ = cin_pair(inputs, nh, pool_all, mxu)
+            require(all(torch.equal(x, y) for x, y in zip(got, again)),
+                    f"cin {name} {mxu}: a repeat run gave other bits")
+        spans = fwd_plan(b, h, f, d, l)
+        geo = fwd_geometry(b, h, f, spans[0][1], l)
         log(f"cin check {name}: B={b} H={h} F={f} D={d} L={l} n_hidden={nh} "
-            f"pool_all={pool_all}: exact (f32, bf16); random max_abs_err "
-            f"f32 {errs['float32']:.3e} bf16 {errs['bfloat16']:.3e}")
+            f"pool_all={pool_all} ({len(spans)} D span(s), {geo.tb} batch rows a block, "
+            f"{geo.passes} pass(es) of {geo.cols} columns): exact (f32, bf16); random "
+            f"max_abs_err f32 {errs['float32']:.3e} bf16 {errs['bfloat16']:.3e}; a repeat "
+            "run gives the same bits")
 
 
 def cin_library(a, b0, w, bias, nh=None, ps=0):
@@ -725,14 +773,15 @@ def cin_timing():
         err = max([err] + [float((g - w).abs().max()) for g, w in zip(got, want)])
         kw = dict(n_hidden=nh, pool_all=pool_all)
         ms = time_ms(lambda *x: cin_layer_pooled(*x, **kw), inputs, 30)
+        b2b_ms = back_to_back_ms(lambda *x: cin_layer_pooled(*x, **kw), inputs)
         plain_ms = time_ms(lambda *x: cin_layer_pooled_plain(*x, **kw), inputs, 10)
         lib_ms = time_ms(lambda *x: library_pooled(*x, **kw), inputs, 30)
         bound, by, t_ops, t_bytes = cin_bound(
             [(CTR_B, hh, f, CTR_D, ll, nh, ll - (0 if pool_all else nh))])
         log(f"cin timing layer {j}: B={CTR_B} H={hh} F={f} D={CTR_D} L={ll} "
-            f"n_hidden={nh}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={lib_ms:.4f} bound_ms={bound:.4f} ({by}; ops {t_ops:.4f}, "
-            f"bytes {t_bytes:.4f})")
+            f"n_hidden={nh}: kernel_ms={ms:.4f} (back to back {b2b_ms:.4f}) "
+            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} bound_ms={bound:.4f} ({by}; "
+            f"ops {t_ops:.4f}, bytes {t_bytes:.4f})")
     require(err <= CIN_TOL, f"cin serving layers: max |kernel - plain| {err}")
 
     fwd = [(b0, layers) for b0, layers in sets]
@@ -746,6 +795,7 @@ def cin_timing():
         "bound_ms": bound,
         "bound_by": by,
         "library_ms": time_ms(lambda *x: forward(library_pooled, *x), fwd, 30),
+        "ms_back_to_back": back_to_back_ms(lambda *x: forward(cin_layer_pooled, *x), fwd),
     }
     out["cin_layer_pooled"]["ms_per_launch"] = out["cin_layer_pooled"]["ms"] / len(modes)
     log("cin timing 3-layer forward (3 launches): " + " ".join(
@@ -766,6 +816,7 @@ def cin_timing():
         "bound_ms": bound,
         "bound_by": by,
         "library_ms": time_ms(cin_library, inputs, 30),
+        "ms_back_to_back": back_to_back_ms(cin_layer, inputs),
     }
     out["cin_layer"]["ms_per_launch"] = out["cin_layer"]["ms"]
     log(f"cin_layer timing B={CTR_B} H={hh} F={f} D={CTR_D} L={ll}: " + " ".join(
@@ -854,8 +905,10 @@ def cin_bwd_cases():
             again, _ = cin_bwd_pair(inputs, grads, nh, pool_all, mxu)
             require(all(torch.equal(x, y) for x, y in zip(got, again)),
                     f"cin bwd {name} {mxu}: a repeat run gave other bits")
+        cols, spans = bwd_plan(b, h, f, d, l)
         log(f"cin bwd check {name}: B={b} H={h} F={f} D={d} L={l} n_hidden={nh} "
-            f"pool_all={pool_all}: exact (f32, bf16); random error "
+            f"pool_all={pool_all} ({len(cols)} column group(s) x {len(spans)} D span(s)): "
+            f"exact (f32, bf16); random error "
             f"f32 {errs['float32']:.3e} bf16 {errs['bfloat16']:.3e}; a repeat run "
             "gives the same bits")
 
@@ -1001,14 +1054,14 @@ def ctr_fields():
     )
 
 
-def build_ranking_model(seed=SEED + 1):
+def build_ranking_model(seed=SEED + 1, cin_sizes=CIN_SIZES):
     spec = InductiveSpec(
         mapper="random", add_oov_buckets=True,
         n_user_buckets=100, n_item_buckets=100, hash_function="3round",
     )
     return xDeepFM(
         ctr_fields(), embedding_size=CTR_D, spec=spec, mlp_hidden_size=MLP_SIZES,
-        dropout_prob=0.2, direct=False, cin_layer_size=CIN_SIZES,
+        dropout_prob=0.2, direct=False, cin_layer_size=cin_sizes,
         device=DEVICE, generator=torch_generator(seed, DEVICE),
     )
 
@@ -1236,13 +1289,65 @@ def ranking_training(ind, mapper):
     log(f"ranking training profile: {wall_ms / len(profile_loader):.2f} ms per step "
         "under the profiler")
     kernel_vs_plain_training(train)
+    wide_cin_training(train)
     return counts
 
 
-def kernel_vs_plain_training(train):
-    """COMPARE_STEPS training steps on the CIN kernel path and on the plain
-    slab path from identical weights and dropout generators: per-step losses
-    to LOSS_RTOL relative, parameters to PARAM_ATOL absolute.
+def wide_cin_training(train):
+    """xDeepFM at cin_layer_size WIDE_CIN_SIZES through `fused_cin: auto`:
+    WIDE_STEPS training steps on the CIN kernels against the same steps on
+    the slab path (`kernel_vs_plain_training`), each backward in two column
+    groups (ops/cin_fused.py:bwd_plan); the backward kernel against its
+    plain version at each trained layer's shape on one batch; then one
+    batch served through the forward kernel (two column passes), equal to
+    the slab path to CIN_TOL."""
+    model, counts, wall, wall_plain, part, cfg = kernel_vs_plain_training(
+        train, WIDE_STEPS, WIDE_CIN_SIZES, SEED + 9)
+    shapes = model.cin_layer_shapes(CTR_B)
+    launches_bwd = sum(len(c) * len(s) for c, s in (bwd_plan(*x) for x in shapes))
+    launches_fwd = sum(len(fwd_plan(*x)) for x in shapes)
+    log(f"wide CIN training (cin_layer_size {WIDE_CIN_SIZES}, fused_cin auto): {WIDE_STEPS} "
+        f"steps of {CTR_B} rows, {wall / WIDE_STEPS * 1e3:.2f} ms per step (wall, host "
+        f"included; the slab path {wall_plain / WIDE_STEPS * 1e3:.2f}), kernel launches {counts}")
+    require(counts["cin_layer_pooled"] == WIDE_STEPS * launches_fwd
+            and counts["cin_layer_pooled_bwd"] == WIDE_STEPS * launches_bwd,
+            f"wide CIN training launches {counts}, want {launches_fwd} forward and "
+            f"{launches_bwd} backward a step")
+
+    db = to_device_batch(next(iter(PlainEvalBatcher(part, cfg))), DEVICE)
+    model.eval()
+    with torch.no_grad():
+        b0 = model.concat_embed_input_fields(db).float().contiguous()
+        hidden, err = b0, 0.0
+        for i, (conv, (nh, pool_all)) in enumerate(zip(model.conv1d_list, model._layer_modes())):
+            inputs = (hidden, b0, conv.kernel.detach(), conv.bias.detach())
+            grads = cin_grads(inputs, nh, 0 if pool_all else nh, SEED + 990 + i, False,
+                              "float32")
+            err = max(err, cin_bwd_err(*cin_bwd_pair(inputs, grads, nh, pool_all, "float32")))
+            hidden, _ = cin_layer_pooled(*inputs, n_hidden=nh, pool_all=pool_all)
+        log(f"wide CIN backward kernel vs plain at the trained layers' shapes {shapes}: "
+            f"relative error {err:.3e}")
+        require(err <= CIN_TOL, f"wide CIN backward: relative error {err}")
+        cin_layer_pooled.launches = 0
+        got = model.predict(db)
+        launches = cin_layer_pooled.launches
+        model.fused_cin = False
+        want = model.predict(db)
+        model.fused_cin = "auto"
+    err = float((got - want).abs().max())
+    log(f"wide CIN serving through auto: {launches} forward kernel launches for one batch of "
+        f"{CTR_B}; max |kernel - slab| {err:.3e} on the predicted probabilities")
+    require(launches == launches_fwd, f"wide CIN serving launches {launches}")
+    require(err <= CIN_TOL, f"wide CIN serving: max |kernel - slab| {err}")
+
+
+def kernel_vs_plain_training(train, steps=None, cin_sizes=CIN_SIZES, seed=SEED + 7):
+    """`steps` (default COMPARE_STEPS) training steps of xDeepFM at
+    `cin_sizes` on the CIN kernel path and on the plain slab path from
+    identical weights and dropout generators: per-step losses to LOSS_RTOL
+    relative, parameters to PARAM_ATOL absolute. Returns the kernel path's
+    model, CIN launch counts and wall seconds, the plain path's wall
+    seconds, the rows and the config.
 
     Adam scales each element's step by that element's own gradient history,
     so an element whose gradient at some step is decided by more than
@@ -1254,12 +1359,14 @@ def kernel_vs_plain_training(train):
     EXPLAINED_GRAD_RTOL relative; any element beyond PARAM_ATOL without
     such a step, or more than MAX_EXPLAINED_FRACTION of all elements, fails
     the phase."""
-    part = rows_of(train, np.arange(len(train)) < COMPARE_STEPS * CTR_B,
+    steps = steps or COMPARE_STEPS
+    part = rows_of(train, np.arange(len(train)) < steps * CTR_B,
                    N_CTR_OLD_USERS, N_CTR_OLD_ITEMS)
     cfg = ctr_train_cfg(train_oov=False)
     runs = {}
     for fused in (True, False):
-        model = build_ranking_model(SEED + 7)
+        model = build_ranking_model(seed, cin_sizes)
+        require(model.fused_cin == "auto", f"fused_cin {model.fused_cin}")
         model.fused_cin = cfg["fused_cin"] if fused else False
         trainer = Trainer(cfg, model)
         grads, step = [], trainer.optimizer.step
@@ -1269,17 +1376,30 @@ def kernel_vs_plain_training(train):
             return step(params, g, state, trainable)
 
         trainer.optimizer.step = recording
-        launches = cin_layer_pooled_bwd.launches
+        cin_layer_pooled.launches = cin_layer_pooled_bwd.launches = 0
+        cin_layer.launches = cin_layer_bwd.launches = 0
+        sync()
+        t0 = time.perf_counter()
         trainer._train_epoch(TrainBatcher(part, None, cfg, InputType.POINTWISE), 0)
-        require((cin_layer_pooled_bwd.launches > launches) is fused, "CIN backward path")
+        sync()
+        wall = time.perf_counter() - t0
+        counts = {"cin_layer_pooled": cin_layer_pooled.launches,
+                  "cin_layer_pooled_bwd": cin_layer_pooled_bwd.launches,
+                  "cin_layer": cin_layer.launches, "cin_layer_bwd": cin_layer_bwd.launches}
+        require((counts["cin_layer_pooled_bwd"] > 0) is fused, f"CIN backward path {counts}")
+        require(fused or not any(counts.values()), f"the slab path launched {counts}")
         runs[fused] = (trainer.last_losses,
-                       {n: p.detach() for n, p in model.named_parameters()}, grads)
-    (lk, pk, gk), (lp, pp, gp) = runs[True], runs[False]
-    require(len(lk) == len(lp) == COMPARE_STEPS, f"steps {len(lk)}, {len(lp)}")
+                       {n: p.detach() for n, p in model.named_parameters()}, grads,
+                       (model, counts, wall))
+    (lk, pk, gk, fused_run), (lp, pp, gp, plain_run) = runs[True], runs[False]
+    require(len(lk) == len(lp) == steps, f"steps {len(lk)}, {len(lp)}")
+    what = ("kernel vs plain training" if cin_sizes == CIN_SIZES
+            else f"kernel vs plain training (cin_layer_size {cin_sizes})")
     compare_trajectories(
-        "kernel vs plain training", ("kernel", "plain"), lk, lp, pk, pp,
+        what, ("kernel", "plain"), lk, lp, pk, pp,
         lambda n, i: torch.stack([g[n].flatten()[i] for g in gk]),
         lambda n, i: torch.stack([g[n].flatten()[i] for g in gp]))
+    return fused_run + (plain_run[2], part, cfg)
 
 
 def compare_trajectories(what, names, la, lb, pa, pb, grad_a, grad_b):

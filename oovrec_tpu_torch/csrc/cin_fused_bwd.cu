@@ -50,7 +50,12 @@
 //      columns of dW; the k = 0 blocks also sum dpre for dbias.
 //   3. reduce: dW and dbias sum the slices' partials in ascending s.
 // The wrapper computes the geometry (tb, the slice length, the slices, the
-// workspace) in Python and passes it in; this file checks it.
+// workspace) in Python and passes it in; this file checks it. A layer
+// wider than one launch (L > 128, D > 128, or rows beyond shared memory) is
+// launched by the wrapper over groups of at most 128 columns and spans of D
+// (`ops/cin_fused.py:bwd_plan`): a group needs only its own columns of W,
+// bias and the gradient, and its dz is one part of the sum over l, so dA
+// and dB0 add the groups' parts.
 // All sums are f32 FMAs in a fixed order: on integer-valued inputs the
 // result equals the plain version bit for bit, and it is the same on every
 // run. With `bf16` set, A, B0 and W are rounded to bf16, then each A*B0

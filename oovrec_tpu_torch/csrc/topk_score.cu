@@ -37,8 +37,10 @@
 // NEG_INF = -3.0e38; items past N score -inf and keep their index, so the
 // range holding N offers N, N+1, ... when N < k. Every range spans at least
 // k indices, so no list slot is left empty. The users a block owns shrink
-// with k (k classes 32 / 128 / 512 as template parameters) so that the lists
-// fit in shared memory.
+// with k (k classes 32 / 128 / 512 / 1024 as template parameters) so that
+// the lists fit in shared memory. Where the user tile does not fit whole (a
+// deep D) it rides the ring in 32-deep slices beside the item slices (`SU`),
+// read again for every item tile.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -60,15 +62,17 @@ template <int CLS> struct KClass;
 template <> struct KClass<0> { static constexpr int TU = 128, KCAP = 32, CAP = 64; };
 template <> struct KClass<1> { static constexpr int TU = 64, KCAP = 128, CAP = 64; };
 template <> struct KClass<2> { static constexpr int TU = 16, KCAP = 512, CAP = 128; };
-constexpr int N_CLASSES = 3;
+template <> struct KClass<3> { static constexpr int TU = 16, KCAP = 1024, CAP = 128; };
+constexpr int N_CLASSES = 4;
 
+// the user tile: whole ([TU][Dp + 4]) or, with `su`, streamed ([STAGES][TU][IS_ROW])
 template <int CLS>
-size_t smem_bytes(int D) {
+size_t smem_bytes(int D, bool su) {
     using C = KClass<CLS>;
     const size_t Dp = (size_t)(D + DK - 1) / DK * DK;
+    const size_t users = su ? (size_t)STAGES * C::TU * IS_ROW : (size_t)C::TU * (Dp + 4);
     return 8 * (size_t)C::TU * (C::KCAP + C::CAP + 1) + 4 * 2 * (size_t)C::TU + 16 +
-           4 * (size_t)STAGES * C::TU * WORDS + 4 * (size_t)C::TU * (Dp + 4) +
-           4 * (size_t)STAGES * TI * IS_ROW;
+           4 * (size_t)STAGES * C::TU * WORDS + 4 * users + 4 * (size_t)STAGES * TI * IS_ROW;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
@@ -181,7 +185,7 @@ __device__ void merge_buffers(uint64_t* lists, const uint64_t* bufs, uint64_t* t
     }
 }
 
-template <int CLS, bool VEC>
+template <int CLS, bool VEC, bool SU>
 __global__ void __launch_bounds__(THREADS, 1)
 topk_range_kernel(const float* __restrict__ U, const float* __restrict__ I,
                   const uint32_t* __restrict__ bitmap, int B, int N, int D, int Dp,
@@ -198,8 +202,9 @@ topk_range_kernel(const float* __restrict__ U, const float* __restrict__ I,
     int* cnt = reinterpret_cast<int*>(thr_v + TU);        // [TU]
     int* flag = cnt + TU;                                 // [4]
     uint32_t* Bs = reinterpret_cast<uint32_t*>(flag + 4);  // [STAGES][TU][WORDS]
-    float* Us = reinterpret_cast<float*>(Bs + STAGES * TU * WORDS);  // [TU][Dp + 4]
-    float* Is = Us + TU * (Dp + 4);                       // [STAGES][TI][IS_ROW]
+    float* Us = reinterpret_cast<float*>(Bs + STAGES * TU * WORDS);  // [TU][Dp + 4] or
+                                                          // [STAGES][TU][IS_ROW] (SU)
+    float* Is = Us + (SU ? STAGES * TU * IS_ROW : TU * (Dp + 4));  // [STAGES][TI][IS_ROW]
 
     const int tid = threadIdx.x;
     const int tx = tid & 15, ty = tid >> 4;
@@ -210,7 +215,7 @@ topk_range_kernel(const float* __restrict__ U, const float* __restrict__ I,
     const int t_end = (int)((long long)(r + 1) * n_tiles / n_ranges);
     const int nc = Dp / DK;
     const int steps = (t_end - t_beg) * nc;
-    const int us_row = Dp + 4;
+    const int us_row = SU ? IS_ROW : Dp + 4;
 
     for (int e = tid; e < TU * KCAP; e += THREADS) lists[e] = 0ull;
     for (int u = tid; u < TU; u += THREADS) {
@@ -220,9 +225,10 @@ topk_range_kernel(const float* __restrict__ U, const float* __restrict__ I,
         cnt[u] = 0;
     }
     if (tid == 0) flag[0] = 0;
-    for (int u = warp; u < TU; u += THREADS / 32)
-        for (int d = lane; d < Dp; d += 32)
-            Us[u * us_row + d] = (b0 + u < B && d < D) ? U[(size_t)(b0 + u) * D + d] : 0.0f;
+    if (!SU)
+        for (int u = warp; u < TU; u += THREADS / 32)
+            for (int d = lane; d < Dp; d += 32)
+                Us[u * us_row + d] = (b0 + u < B && d < D) ? U[(size_t)(b0 + u) * D + d] : 0.0f;
 
     auto load_stage = [&](int s) {
         if (s < steps) {
@@ -242,6 +248,15 @@ topk_range_kernel(const float* __restrict__ U, const float* __restrict__ I,
                     const bool ok = item0 + row < N && d < D;
                     cp_async4(dst + row * IS_ROW + (e & 31),
                               ok ? I + (size_t)(item0 + row) * D + d : I, ok ? 4 : 0);
+                }
+            }
+            if (SU) {  // the users' slice of the same depth
+                float* udst = Us + (s % STAGES) * TU * IS_ROW;
+                for (int e = tid; e < TU * DK; e += THREADS) {
+                    const int u = e >> 5, d = d0 + (e & 31);
+                    const bool ok = b0 + u < B && d < D;
+                    cp_async4(udst + u * IS_ROW + (e & 31),
+                              ok ? U + (size_t)(b0 + u) * D + d : U, ok ? 4 : 0);
                 }
             }
             if (c == 0) {
@@ -272,7 +287,7 @@ topk_range_kernel(const float* __restrict__ U, const float* __restrict__ I,
                 for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
         }
         const float* is = Is + (s % STAGES) * TI * IS_ROW;
-        const float* us = Us + c * DK;
+        const float* us = SU ? Us + (s % STAGES) * TU * IS_ROW : Us + c * DK;
 #pragma unroll 2
         for (int dd = 0; dd < DK; dd += 4) {
             float4 iv[8], uv[RU];
@@ -360,19 +375,19 @@ topk_range_kernel(const float* __restrict__ U, const float* __restrict__ I,
     }
 }
 
-template <int CLS, bool VEC>
+template <int CLS, bool VEC, bool SU>
 int launch(const float* U, const float* I, const uint32_t* bitmap, int B, int N, int D,
            int W, int k, int n_tiles, int n_ranges, float* out_v, int32_t* out_i,
            cudaStream_t stream) {
-    const size_t smem = smem_bytes<CLS>(D);
+    const size_t smem = smem_bytes<CLS>(D, SU);
     if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(topk_range_kernel<CLS, VEC>,
+    cudaError_t err = cudaFuncSetAttribute(topk_range_kernel<CLS, VEC, SU>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return (int)err;
     const int Dp = (D + DK - 1) / DK * DK;
     const dim3 grid((B + KClass<CLS>::TU - 1) / KClass<CLS>::TU, n_ranges);
-    topk_range_kernel<CLS, VEC><<<grid, THREADS, smem, stream>>>(
+    topk_range_kernel<CLS, VEC, SU><<<grid, THREADS, smem, stream>>>(
         U, I, bitmap, B, N, D, Dp, W, k, n_tiles, n_ranges, out_v, out_i);
     return (int)cudaGetLastError();
 }
@@ -387,29 +402,33 @@ int topk_class_count() { return N_CLASSES; }
 
 // users per block, list capacity and survivor buffer of a k class
 int topk_class_users(int cls) {
-    return cls == 0 ? KClass<0>::TU : cls == 1 ? KClass<1>::TU : KClass<2>::TU;
+    return cls == 0 ? KClass<0>::TU : cls == 1 ? KClass<1>::TU
+         : cls == 2 ? KClass<2>::TU : KClass<3>::TU;
 }
 
 int topk_class_capacity(int cls) {
-    return cls == 0 ? KClass<0>::KCAP : cls == 1 ? KClass<1>::KCAP : KClass<2>::KCAP;
+    return cls == 0 ? KClass<0>::KCAP : cls == 1 ? KClass<1>::KCAP
+         : cls == 2 ? KClass<2>::KCAP : KClass<3>::KCAP;
 }
 
 int topk_class_buffer(int cls) {
-    return cls == 0 ? KClass<0>::CAP : cls == 1 ? KClass<1>::CAP : KClass<2>::CAP;
+    return cls == 0 ? KClass<0>::CAP : cls == 1 ? KClass<1>::CAP
+         : cls == 2 ? KClass<2>::CAP : KClass<3>::CAP;
 }
 
-long long topk_smem_bytes(int cls, int D) {
-    return (long long)(cls == 0 ? smem_bytes<0>(D) : cls == 1 ? smem_bytes<1>(D)
-                                                              : smem_bytes<2>(D));
+long long topk_smem_bytes(int cls, int D, int su) {
+    return (long long)(cls == 0 ? smem_bytes<0>(D, su) : cls == 1 ? smem_bytes<1>(D, su)
+                     : cls == 2 ? smem_bytes<2>(D, su) : smem_bytes<3>(D, su));
 }
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success). The
 // wrapper chooses the k class `cls` and the split of the n_tiles item tiles
-// into n_ranges ranges (each at least ceil(k / 128) tiles); `vec` asks for
-// 16-byte item loads (D % 4 == 0 and a 16-byte aligned table).
+// into n_ranges ranges (each at least ceil(k / 128) tiles) and whether the
+// user tile streams (`su`); `vec` asks for 16-byte item loads (D % 4 == 0
+// and a 16-byte aligned table).
 int topk_score_launch(const float* U, const float* I, const int32_t* bitmap, int B, int N,
-                      int D, int W, int k, int cls, int n_tiles, int n_ranges, int vec,
-                      float* out_v, int32_t* out_i, void* stream) {
+                      int D, int W, int k, int cls, int su, int n_tiles, int n_ranges,
+                      int vec, float* out_v, int32_t* out_i, void* stream) {
     if (B <= 0 || N <= 0 || D <= 0 || k <= 0 || cls < 0 || cls >= N_CLASSES ||
         k > topk_class_capacity(cls) || n_ranges <= 0 || n_ranges > 65535 ||
         (long long)n_tiles * TI < N || (long long)n_tiles * TI < k ||
@@ -418,14 +437,21 @@ int topk_score_launch(const float* U, const float* I, const int32_t* bitmap, int
     }
     const uint32_t* bm = reinterpret_cast<const uint32_t*>(bitmap);
     cudaStream_t st = (cudaStream_t)stream;
-#define TOPK_LAUNCH(C)                                                                    \
-    return vec ? launch<C, true>(U, I, bm, B, N, D, W, k, n_tiles, n_ranges, out_v, out_i, \
-                                 st)                                                      \
-               : launch<C, false>(U, I, bm, B, N, D, W, k, n_tiles, n_ranges, out_v, out_i, st)
-    if (cls == 0) TOPK_LAUNCH(0);
-    if (cls == 1) TOPK_LAUNCH(1);
-    TOPK_LAUNCH(2);
+#define TOPK_LAUNCH_AS(C, V, S) \
+    return launch<C, V, S>(U, I, bm, B, N, D, W, k, n_tiles, n_ranges, out_v, out_i, st)
+#define TOPK_LAUNCH(C)                     \
+    if (vec) {                             \
+        if (su) TOPK_LAUNCH_AS(C, true, true); \
+        TOPK_LAUNCH_AS(C, true, false);    \
+    }                                      \
+    if (su) TOPK_LAUNCH_AS(C, false, true); \
+    TOPK_LAUNCH_AS(C, false, false)
+    if (cls == 0) { TOPK_LAUNCH(0); }
+    if (cls == 1) { TOPK_LAUNCH(1); }
+    if (cls == 2) { TOPK_LAUNCH(2); }
+    TOPK_LAUNCH(3);
 #undef TOPK_LAUNCH
+#undef TOPK_LAUNCH_AS
 }
 
 }  // extern "C"

@@ -39,7 +39,7 @@ import torch
 
 from oovrec_tpu_torch.eval.collector import Collector, Evaluator
 from oovrec_tpu_torch.eval.full_sort import variant_topk
-from oovrec_tpu_torch.eval.runner import fused_hits, to_device_batch
+from oovrec_tpu_torch.eval.runner import fused_hits, fused_topk_rule, to_device_batch
 from oovrec_tpu_torch.ops.topk_score import (
     NEG_INF as K_NEG_INF,
     build_hist_bitmap,
@@ -95,15 +95,10 @@ class InductiveEvaluator:
         return step
 
     def _use_fused(self, n_ext: int) -> bool:
-        """Mirror of `EvalRunner._use_fused`: block-candidate kernel
-        scoring for two-tower models on large corpora, on the card."""
-        flag = self.config.get("use_fused_topk", "auto")
-        if flag is False:
-            return False
-        supported = hasattr(self.model, "user_tower")
-        if flag == "auto":
-            return supported and n_ext >= 100_000 and self.device.type != "cpu"
-        return bool(flag) and supported
+        """`fused_topk_rule`, as `EvalRunner._use_fused`: block-candidate
+        kernel scoring for two-tower models on large corpora, on the card."""
+        return fused_topk_rule(self.config.get("use_fused_topk", "auto"), self.device.type,
+                               hasattr(self.model, "user_tower"), n_ext)
 
     def _make_fused_step(self, n_ext: int):
         """Block-candidate variant of `_make_step`: no (B, N) score matrix.

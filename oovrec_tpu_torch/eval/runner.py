@@ -39,6 +39,18 @@ def to_device_batch(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Ten
     return out
 
 
+def fused_topk_rule(flag, device_type: str, two_tower: bool, n_items: int) -> bool:
+    """Whether a full-sort eval scores through `fused_topk_scores`. False:
+    the dense path; True: the kernel wrapper on any two-tower model;
+    "auto": the kernel on the card for two-tower models over corpora of
+    ≥ 100,000 items (where it pays off), else the dense path."""
+    if flag is False:
+        return False
+    if flag == "auto":
+        return two_tower and n_items >= 100_000 and device_type == "cuda"
+    return bool(flag) and two_tower
+
+
 def fused_hits(topk_idx, pos_items, pos_valid):
     """(U, k) 0/1: is the j-th ranked item one of the user's positives."""
     hit = (topk_idx[:, :, None].long() == pos_items[:, None, :]) & pos_valid[:, None, :]
@@ -100,14 +112,8 @@ class EvalRunner:
         return step
 
     def _use_fused(self, n_items: int) -> bool:
-        flag = self.config.get("use_fused_topk", "auto")
-        if flag is False:
-            return False
-        supported = hasattr(self.model, "user_tower")
-        if flag == "auto":
-            # the fused kernel pays off on large corpora, on the card
-            return supported and n_items >= 100_000 and self.device.type != "cpu"
-        return bool(flag) and supported
+        return fused_topk_rule(self.config.get("use_fused_topk", "auto"), self.device.type,
+                               hasattr(self.model, "user_tower"), n_items)
 
     # ------------------------------------------------------------- entry
 

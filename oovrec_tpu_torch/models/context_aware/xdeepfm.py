@@ -8,12 +8,14 @@ the first-order linear term; `predict` is the sigmoid of their sum and
 unsquared Frobenius norms (`_reg_from_scope`).
 
 `fused_cin="auto"` runs each CIN layer through the CUDA kernel
-(`ops/cin_fused.py:cin_layer_pooled`) when the embeddings lie on the
-card, for any batch size; `True` forces the kernel wrapper (on the CPU it
-takes its plain version); `False` runs the plain slab path. The JAX
-package's auto rule also asks for a batch that is a multiple of 128, a
-limit of its TPU kernel that the CUDA kernel does not have. The kernel
-route is differentiable: its gradient is the CIN backward kernel
+(`ops/cin_fused.py:cin_layer_pooled`) whenever the embeddings lie on the
+card, at any width: a layer wider than one launch takes goes through
+several (`fwd_plan`, `bwd_plan`), and a shape no split fits raises.
+`True` forces the kernel wrapper (on the CPU it takes its plain version);
+`False` runs the slab path (`fused_cin_rule`). The JAX rule also asks for
+a batch that is a multiple of 128, a limit of its TPU kernel that the
+CUDA kernel does not have. The kernel route is differentiable: its
+gradient is the CIN backward kernel
 (`ops/cin_fused.py:cin_layer_pooled_bwd`); the slab path's is autograd's.
 """
 
@@ -32,6 +34,17 @@ from oovrec_tpu_torch.models.layers import MLPLayers
 from oovrec_tpu_torch.models.losses import bce_with_logits
 from oovrec_tpu_torch.ops.cin_fused import cin_layer_pooled
 from oovrec_tpu_torch.utils.precision import compute_dtype
+
+
+def fused_cin_rule(flag, device_type: str) -> bool:
+    """Whether the CIN runs through the kernel wrappers. False / "false":
+    the slab path; True / "true": the kernel wrapper; "auto": the kernel
+    wrapper on the card, the slab path elsewhere."""
+    if flag is False or flag == "false":
+        return False
+    if flag is True or flag == "true":
+        return True
+    return device_type == "cuda"
 
 
 class CinConv(nn.Module):
@@ -105,12 +118,14 @@ class xDeepFM(ContextRecommender):
         )
         self._setup_context()
 
+    def cin_layer_shapes(self, batch_size: int):
+        """(B, H, F, D, L) of each CIN layer at this batch size."""
+        f, d = self._field_nums[0], self.embedding_size
+        return [(batch_size, h, f, d, l) for h, l in zip(self._field_nums, self._cin_sizes)]
+
     def _use_fused_cin(self, x: torch.Tensor) -> bool:
-        if self.fused_cin is False or self.fused_cin == "false":
-            return False
-        if self.fused_cin is True or self.fused_cin == "true":
-            return True
-        return x.device.type == "cuda"
+        """`fused_cin_rule` for the (B, F, D) embeddings `x`."""
+        return fused_cin_rule(self.fused_cin, x.device.type)
 
     def _layer_modes(self):
         """(n_hidden, pool_all) of each CIN layer."""

@@ -10,7 +10,12 @@ CUDA tensor the wrappers launch the hand-written kernel in
 `csrc/cin_fused.cu`, which forms the Hadamard slab in shared memory and
 never writes it to device memory. On a CPU tensor they run the plain
 versions, which materialise the slab: the same function, the kernel's
-reference in `chip_smoke.py`.
+reference in `chip_smoke.py`. The kernels' launch geometry is plain Python
+(`fwd_geometry`, `bwd_geometry`: one launch). A layer wider than one launch
+takes (D > 128 lanes, a row tile beyond shared memory, or L > 128 columns
+in the backward) goes through several launches of the same kernel, over
+spans of D and, in the backward, groups of columns (`fwd_plan`,
+`bwd_plan`); only a shape that no split fits raises.
 
 Layout: batch-major, row-major. A (B, H, D), B0 (B, F, D), hidden
 (B, nh, D), pooled (B, L - ps): the model's (B, F, D) embeddings go in as
@@ -153,14 +158,18 @@ def _check_cuda(a, named):
             raise ValueError(f"{name} must be contiguous")
 
 
+@functools.lru_cache(maxsize=None)
+def _n_sm(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _launch(a, b0, w, bias, mxu_dtype, n_hidden, ps):
-    """Forward kernel launch for CUDA tensors: checks, allocates, launches
-    or raises."""
+    """Forward kernel launch for CUDA tensors: checks, computes the
+    geometry, allocates, launches or raises."""
     B, H, F, D, L = _shapes(a, b0, w, bias)
     _check_cuda(a, (("a", a), ("b0", b0), ("w", w), ("bias", bias)))
+    geo = fwd_geometry(B, H, F, D, L)
     lib = _kernel_library()
-    if D > lib.cin_fused_max_depth():
-        raise ValueError(f"D={D} exceeds the kernel's row tile ({lib.cin_fused_max_depth()})")
     bf16 = _is_bf16(mxu_dtype)
     hidden = torch.empty((B, n_hidden, D), dtype=torch.float32, device=a.device)
     pooled = torch.empty((B, L - ps), dtype=torch.float32, device=a.device)
@@ -168,13 +177,102 @@ def _launch(a, b0, w, bias, mxu_dtype, n_hidden, ps):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.cin_fused_launch(
             a.data_ptr(), b0.data_ptr(), w.data_ptr(), bias.data_ptr(),
-            B, H, F, D, L, n_hidden, ps, int(bf16),
+            B, H, F, D, L, n_hidden, ps, int(bf16), geo.tb,
             hidden.data_ptr() if n_hidden else None,
             pooled.data_ptr() if L > ps else None,
             stream,
         )
     check(err, "cin_fused_launch")
     return hidden, pooled
+
+
+MAX_SMEM = 232448   # shared memory a block may take on the H100
+
+
+def _a4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _cols(L: int) -> int:
+    """Columns a block covers in one pass: 16 threads × RN, RN = ⌈L / 16⌉
+    rounded up to 2 / 4 / 7 / 8 (at most 128)."""
+    c = -(-L // 16)
+    return 16 * (2 if c <= 2 else 4 if c <= 4 else 7 if c <= 7 else 8)
+
+
+# The forward kernel's blocking (csrc/cin_fused.cu), mirrored so that its
+# launch geometry is plain Python the CPU tests and the model's `auto` rule
+# reach; `_kernel_library` checks the kernel's shared memory agrees.
+FWD_ROWS = 128      # (b, d) rows a block owns at most
+FWD_KC = 32         # pair rows a chunk of the ring
+
+
+def fwd_smem(tb: int, H: int, F: int, D: int, L: int) -> int:
+    """Shared memory (bytes) of a forward block of `tb` batch rows: the A
+    and B0 tiles, bias, the region that the ring (two z chunks and two W
+    chunks) and the output tile of a pass share, the (h·D, f·D) table."""
+    lp = _cols(L)
+    region = max(2 * FWD_KC * (FWD_ROWS + lp), FWD_ROWS * (lp + 1))
+    return 4 * (_a4(tb * H * D) + _a4(tb * F * D) + _a4(L) + region) + 8 * H * F
+
+
+class FwdGeometry(NamedTuple):
+    tb: int            # batch rows a block owns (blocks: ⌈B / tb⌉)
+    cols: int          # columns one pass covers
+    passes: int        # column passes a block makes: ⌈L / cols⌉
+    smem: int          # bytes of shared memory a block
+
+
+@functools.lru_cache(maxsize=1024)
+def fwd_geometry(B: int, H: int, F: int, D: int, L: int) -> FwdGeometry:
+    """The forward kernel's launch geometry, or ValueError for a shape it
+    does not take. A block owns the most whole batch rows (≤ 128 rows
+    (b, d)) whose tiles fit in shared memory, and covers the L columns in
+    passes of `cols`. (Fewer rows a block, for more blocks, did not make
+    the published widths faster on the H100: a block's time hardly
+    depends on its rows.)"""
+    if D > FWD_ROWS:
+        raise ValueError(f"D={D} exceeds the forward kernel's row tile ({FWD_ROWS})")
+    tb = min(FWD_ROWS // D, B)
+    while tb and fwd_smem(tb, H, F, D, L) > MAX_SMEM:
+        tb -= 1
+    if not tb:
+        raise ValueError(f"H={H}, F={F}, D={D}, L={L}: the forward's row tiles "
+                         "exceed shared memory")
+    cols = _cols(L)
+    return FwdGeometry(tb, cols, -(-L // cols), fwd_smem(tb, H, F, D, L))
+
+
+def _spans(n: int, size: int):
+    """[(start, end)] of n in spans of `size`, the last one shorter."""
+    return tuple((i, min(n, i + size)) for i in range(0, n, size))
+
+
+def _d_spans(D: int, fits):
+    """The fewest even spans of D, each ≤ 128 lanes, whose every width
+    `fits` (raises ValueError where it does not)."""
+    for n in range(-(-D // FWD_ROWS), D + 1):
+        spans = _spans(D, -(-D // n))
+        try:
+            for width in {d1 - d0 for d0, d1 in spans}:
+                fits(width)
+        except ValueError:
+            continue
+        return spans
+    raise ValueError(f"D={D}: no span of D fits the kernel")
+
+
+@functools.lru_cache(maxsize=1024)
+def fwd_plan(B: int, H: int, F: int, D: int, L: int):
+    """The D spans the forward's launches cover: one span where
+    `fwd_geometry` takes the layer whole, else the fewest even spans that
+    it takes (a layer is separable over D). ValueError where none fits
+    (a pair axis whose offset table alone exceeds shared memory)."""
+    try:
+        return _d_spans(D, lambda d: fwd_geometry(B, H, F, d, L))
+    except ValueError:
+        raise ValueError(f"B={B}, H={H}, F={F}, D={D}, L={L}: no span of D fits "
+                         "the forward kernel's shared memory") from None
 
 
 # The backward kernel's blocking (csrc/cin_fused_bwd.cu), mirrored so that
@@ -185,17 +283,6 @@ BWD_KC = 32         # launch 1: pair chunk of pre; launch 2: rows per chunk
 BWD_DZ = 64         # launch 1: dz columns per sub-tile
 BWD_DW_TILE = 128   # launch 2: pair columns per block
 BWD_MAX_L = 128
-MAX_SMEM = 232448
-
-
-def _a4(n: int) -> int:
-    return -(-n // 4) * 4
-
-
-def _bwd_cols(L: int) -> int:
-    """Columns of pre / dW a block covers: 16 threads × RN."""
-    c = -(-L // 16)
-    return 16 * (2 if c <= 2 else 4 if c <= 4 else 7 if c <= 7 else 8)
 
 
 def bwd_row_smem(tb: int, H: int, F: int, D: int, L: int) -> int:
@@ -208,7 +295,7 @@ def bwd_row_smem(tb: int, H: int, F: int, D: int, L: int) -> int:
     kc2 = max(1, BWD_DZ // F) * F
     kc2p = -(-kc2 // BWD_DZ) * BWD_DZ
     pitch = _a4(L) if _a4(L) // 4 % 2 else _a4(L) + 4
-    phase = max(BWD_KC * tms + 2 * BWD_KC * _bwd_cols(L),
+    phase = max(BWD_KC * tms + 2 * BWD_KC * _cols(L),
                 2 * kc2p * pitch + _a4(BWD_ROWS * ((kc2 + 1) | 1)))
     return 4 * (_a4(tb * H * D) + _a4(tb * F * D) + L * tms + _a4(tb * L) + _a4(L)
                 + phase + _a4(BWD_ROWS * F) + _a4(H * F))
@@ -222,6 +309,7 @@ class BwdGeometry(NamedTuple):
     workspace: int     # f32 elements: dpre (B·D, L) and the partials
 
 
+@functools.lru_cache(maxsize=1024)
 def bwd_geometry(B: int, H: int, F: int, D: int, L: int, n_sm: int = 132) -> BwdGeometry:
     """The backward kernel's launch geometry, or ValueError for a shape it
     does not take. Launch 1: the most whole batch rows (≤ 128 rows (b, d))
@@ -246,6 +334,27 @@ def bwd_geometry(B: int, H: int, F: int, D: int, L: int, n_sm: int = 132) -> Bwd
     slices = -(-M // ms)
     return BwdGeometry(tb, ms, slices, k_tiles,
                        M * L + slices * HF * L + slices * L)
+
+
+@functools.lru_cache(maxsize=1024)
+def bwd_plan(B: int, H: int, F: int, D: int, L: int):
+    """(column groups, D spans) the backward's launches cover: L in the
+    fewest even groups of ≤ 128 columns, D as in `fwd_plan`, each pair
+    taken by `bwd_geometry`. A group's dpre, dW and dbias need only its own
+    columns; its dz, and so dA and dB0, is one part of a sum over groups.
+    ValueError where no split fits."""
+    cols = _spans(L, -(-L // -(-L // BWD_MAX_L)))
+    widths = {l1 - l0 for l0, l1 in cols}
+
+    def fits(d):
+        for lw in widths:
+            bwd_geometry(B, H, F, d, lw)
+
+    try:
+        return cols, _d_spans(D, fits)
+    except ValueError:
+        raise ValueError(f"B={B}, H={H}, F={F}, D={D}, L={L}: no span of D fits "
+                         "the backward kernel") from None
 
 
 def bwd_dw_sliced_plain(a, b0, dpre, ms: int, mxu_dtype="float32"):
@@ -285,8 +394,7 @@ def _launch_bwd(a, b0, w, bias, gh, gp, mxu_dtype, n_hidden, ps):
         raise ValueError(f"gh {tuple(gh.shape)} must be {(B, n_hidden, D)}")
     if gp is not None and tuple(gp.shape) != (B, L - ps):
         raise ValueError(f"gp {tuple(gp.shape)} must be {(B, L - ps)}")
-    geo = bwd_geometry(B, H, F, D, L,
-                       torch.cuda.get_device_properties(a.device).multi_processor_count)
+    geo = bwd_geometry(B, H, F, D, L, _n_sm(a.device))
     lib = _bwd_library()
     bf16 = _is_bf16(mxu_dtype)
     dev = a.device
@@ -309,14 +417,85 @@ def _launch_bwd(a, b0, w, bias, gh, gp, mxu_dtype, n_hidden, ps):
     return da, db0, dw, dbias
 
 
+def _d_span(t, d0, d1, whole):
+    return t if whole else t[:, :, d0:d1].contiguous()
+
+
+def forward_split(a, b0, w, bias, mxu_dtype, n_hidden, ps, run):
+    """One layer over the D spans of `fwd_plan`: `run(a, b0, w, bias,
+    mxu_dtype, n_hidden, ps) → (hidden, pooled)` computes a span (a kernel
+    launch; the tests pass a plain version); the hidden spans are joined
+    along D, the pooled parts added in ascending span order."""
+    spans = fwd_plan(*_shapes(a, b0, w, bias))
+    whole = len(spans) == 1
+    hs, pooled = [], None
+    for d0, d1 in spans:
+        h, p = run(_d_span(a, d0, d1, whole), _d_span(b0, d0, d1, whole), w, bias,
+                   mxu_dtype, n_hidden, ps)
+        hs.append(h)
+        pooled = p if pooled is None else pooled + p
+    return (hs[0] if whole else torch.cat(hs, dim=2)), pooled
+
+
+def backward_split(a, b0, w, bias, gh, gp, mxu_dtype, n_hidden, ps, run):
+    """The VJP over the column groups and D spans of `bwd_plan`: `run(a,
+    b0, w, bias, gh, gp, mxu_dtype, n_hidden, ps) → (da, db0, dw, dbias)`
+    computes one (group, span) (a kernel launch; the tests pass a plain
+    version). A group takes its columns of W, bias, gh and gp, and its own
+    n_hidden and pool start (hidden rows are a prefix of L, pooled rows a
+    suffix). dA and dB0 add the groups' parts in ascending group order, dW
+    and dbias the spans' parts in ascending span order."""
+    B, H, F, D, L = _shapes(a, b0, w, bias)
+    cols, spans = bwd_plan(B, H, F, D, L)
+    whole_l, whole_d = len(cols) == 1, len(spans) == 1
+    a_d = [(_d_span(a, d0, d1, whole_d), _d_span(b0, d0, d1, whole_d)) for d0, d1 in spans]
+    da = db0 = None
+    dws, dbs = [], []
+    for l0, l1 in cols:
+        nh = max(0, min(n_hidden, l1) - l0)
+        pg = min(max(ps - l0, 0), l1 - l0)
+        w_g = w if whole_l else w[:, l0:l1].contiguous()
+        bias_g = bias if whole_l else bias[l0:l1].contiguous()
+        gp_g = None
+        if gp is not None and pg < l1 - l0:
+            gp_g = gp if whole_l else gp[:, l0 + pg - ps:l1 - ps].contiguous()
+        parts = []
+        for (d0, d1), (a_s, b0_s) in zip(spans, a_d):
+            gh_s = None
+            if gh is not None and nh:
+                gh_s = gh if whole_l and whole_d else gh[:, l0:l0 + nh, d0:d1].contiguous()
+            parts.append(run(a_s, b0_s, w_g, bias_g, gh_s, gp_g, mxu_dtype, nh, pg))
+        da_g = parts[0][0] if whole_d else torch.cat([p[0] for p in parts], dim=2)
+        db0_g = parts[0][1] if whole_d else torch.cat([p[1] for p in parts], dim=2)
+        dw_g, dbias_g = parts[0][2], parts[0][3]
+        for p in parts[1:]:
+            dw_g, dbias_g = dw_g + p[2], dbias_g + p[3]
+        da = da_g if da is None else da + da_g
+        db0 = db0_g if db0 is None else db0 + db0_g
+        dws.append(dw_g)
+        dbs.append(dbias_g)
+    if whole_l:
+        return da, db0, dws[0], dbs[0]
+    return da, db0, torch.cat(dws, dim=1), torch.cat(dbs)
+
+
+def _counted(launch, counter):
+    """`launch`, adding one to `counter.launches` at each launch."""
+    def run(*args):
+        out = launch(*args)
+        counter.launches += 1
+        return out
+    return run
+
+
 def _pooled_forward(a, b0, w, bias, mxu_dtype, n_hidden, pool_all):
-    """CPU: the plain version; CUDA: the kernel, counted on
+    """CPU: the plain version; CUDA: the kernel, each launch counted on
     `cin_layer_pooled.launches`."""
     if a.device.type == "cpu":
         return cin_layer_pooled_plain(a, b0, w, bias, mxu_dtype, n_hidden, pool_all)
     ps = _pool_start(w.shape[1], n_hidden, pool_all)
-    hidden, pooled = _launch(a, b0, w, bias, mxu_dtype, n_hidden, ps)
-    cin_layer_pooled.launches += 1
+    hidden, pooled = forward_split(a, b0, w, bias, mxu_dtype, n_hidden, ps,
+                                   _counted(_launch, cin_layer_pooled))
     return (hidden if n_hidden else None), pooled
 
 
@@ -333,9 +512,8 @@ def cin_layer_pooled_bwd(a, b0, w, bias, gh, gp, mxu_dtype="float32",
         return cin_layer_pooled_bwd_plain(a, b0, w, bias, gh, gp, mxu_dtype,
                                           n_hidden, pool_all)
     ps = _pool_start(w.shape[1], n_hidden, pool_all)
-    out = _launch_bwd(a, b0, w, bias, gh, gp, mxu_dtype, n_hidden, ps)
-    cin_layer_pooled_bwd.launches += 1
-    return out
+    return backward_split(a, b0, w, bias, gh, gp, mxu_dtype, n_hidden, ps,
+                          _counted(_launch_bwd, cin_layer_pooled_bwd))
 
 
 cin_layer_pooled_bwd.launches = 0
@@ -348,9 +526,8 @@ def cin_layer_bwd(a, b0, w, bias, g, mxu_dtype="float32"):
     if a.device.type == "cpu":
         return cin_layer_bwd_plain(a, b0, w, bias, g, mxu_dtype)
     L = w.shape[1]
-    out = _launch_bwd(a, b0, w, bias, g, None, mxu_dtype, L, L)
-    cin_layer_bwd.launches += 1
-    return out
+    return backward_split(a, b0, w, bias, g, None, mxu_dtype, L, L,
+                          _counted(_launch_bwd, cin_layer_bwd))
 
 
 cin_layer_bwd.launches = 0
@@ -396,8 +573,8 @@ class _CinLayer(torch.autograd.Function):
             out = cin_layer_plain(a, b0, w, bias, mxu_dtype)
         else:
             L = w.shape[1]
-            out, _ = _launch(a, b0, w, bias, mxu_dtype, L, L)
-            cin_layer.launches += 1
+            out, _ = forward_split(a, b0, w, bias, mxu_dtype, L, L,
+                                   _counted(_launch, cin_layer))
         ctx.save_for_backward(a, b0, w, bias)
         ctx.mxu_dtype = mxu_dtype
         return out
@@ -446,13 +623,17 @@ cin_layer.launches = 0
 @functools.lru_cache(maxsize=None)
 def _kernel_library():
     """The built forward kernel library with its C signatures (once per
-    process)."""
+    process); raises if its shared memory differs from `fwd_smem`."""
     lib = load_kernel("cin_fused")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.cin_fused_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p, p, p]
+    lib.cin_fused_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p]
     lib.cin_fused_launch.restype = ctypes.c_int
-    lib.cin_fused_max_depth.argtypes = []
-    lib.cin_fused_max_depth.restype = ctypes.c_int
+    lib.cin_fused_smem.argtypes = [i, i, i, i, i]
+    lib.cin_fused_smem.restype = ctypes.c_longlong
+    for shape in ((12, 50, 7, 10, 100), (2, 50, 39, 10, 100), (18, 7, 7, 7, 33),
+                  (1, 100, 7, 128, 200), (128, 3, 3, 1, 20)):
+        if lib.cin_fused_smem(*shape) != fwd_smem(*shape):
+            raise RuntimeError(f"cin_fused shared memory at {shape} differs from the wrapper's")
     return lib
 
 

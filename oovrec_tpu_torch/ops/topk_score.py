@@ -133,29 +133,36 @@ def fused_topk_scores_plain(
 # plain Python the CPU tests reach; `_kernel_library` checks the kernel
 # agrees.
 TILE_ITEMS = 128
-K_CLASSES = ((128, 32, 64), (64, 128, 64), (16, 512, 128))
+K_CLASSES = ((128, 32, 64), (64, 128, 64), (16, 512, 128), (16, 1024, 128))
 MAX_SMEM = 232448
 _STAGES, _DEPTH = 3, 32
 
 
-def kernel_smem_bytes(cls: int, d: int) -> int:
-    """Shared memory (bytes) of the kernel's k class `cls` at depth d."""
+def kernel_smem_bytes(cls: int, d: int, stream_users: bool = False) -> int:
+    """Shared memory (bytes) of the kernel's k class `cls` at depth d: the
+    user tile stays whole, or with `stream_users` rides the ring in 32-deep
+    slices beside the item slices."""
     tu, cap, buf = K_CLASSES[cls]
-    dp = _cdiv(d, _DEPTH) * _DEPTH
+    users = _STAGES * tu * (_DEPTH + 4) if stream_users else tu * (_cdiv(d, _DEPTH) * _DEPTH + 4)
     return (8 * tu * (cap + buf + 1) + 8 * tu + 16 + 4 * _STAGES * tu * TILE_ITEMS // 32
-            + 4 * tu * (dp + 4) + 4 * _STAGES * TILE_ITEMS * (_DEPTH + 4))
+            + 4 * users + 4 * _STAGES * TILE_ITEMS * (_DEPTH + 4))
 
 
 def k_class(k: int, d: int) -> int:
     """The first k class whose lists hold k and whose tiles fit in shared
-    memory at depth d."""
-    for cls, (_, cap, _) in enumerate(K_CLASSES):
-        if k <= cap and kernel_smem_bytes(cls, d) <= MAX_SMEM:
-            return cls
-    raise ValueError(
-        f"k={k}, D={d}: no k class of the kernel holds k (at most "
-        f"{K_CLASSES[-1][1]}) with its tiles in shared memory"
-    )
+    memory at depth d with the user tile whole, else the first whose tiles
+    fit with it streamed (`stream_users`)."""
+    for stream in (False, True):
+        for cls, (_, cap, _) in enumerate(K_CLASSES):
+            if k <= cap and kernel_smem_bytes(cls, d, stream) <= MAX_SMEM:
+                return cls
+    raise ValueError(f"k={k}: no k class of the kernel holds k (at most {K_CLASSES[-1][1]})")
+
+
+def stream_users(cls: int, d: int) -> bool:
+    """Whether k class `cls` streams the user tile at depth d (it does not
+    fit whole)."""
+    return kernel_smem_bytes(cls, d) > MAX_SMEM
 
 
 def range_split(n_items: int, k: int, users_per_block: int, n_users: int,
@@ -247,8 +254,8 @@ def fused_topk_scores(
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.topk_score_launch(
             user_e.data_ptr(), item_e.data_ptr(), hist_bitmap.data_ptr(),
-            B, N, D, _cdiv(N, 32), k, cls, n_tiles, n_ranges, int(vec),
-            vals.data_ptr(), idx.data_ptr(), stream,
+            B, N, D, _cdiv(N, 32), k, cls, int(stream_users(cls, D)), n_tiles, n_ranges,
+            int(vec), vals.data_ptr(), idx.data_ptr(), stream,
         )
     check(err, "topk_score_launch")
     fused_topk_scores.launches += 1
@@ -264,7 +271,7 @@ def _kernel_library():
     raises if its blocking differs from the one mirrored above."""
     lib = load_kernel("topk_score")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.topk_score_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p, p, p]
+    lib.topk_score_launch.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, i, p, p, p]
     lib.topk_score_launch.restype = ctypes.c_int
     for name in ("topk_tile_items", "topk_class_count"):
         getattr(lib, name).argtypes = []
@@ -272,13 +279,13 @@ def _kernel_library():
     for name in ("topk_class_users", "topk_class_capacity", "topk_class_buffer"):
         getattr(lib, name).argtypes = [i]
         getattr(lib, name).restype = i
-    lib.topk_smem_bytes.argtypes = [i, i]
+    lib.topk_smem_bytes.argtypes = [i, i, i]
     lib.topk_smem_bytes.restype = ctypes.c_longlong
     got = (lib.topk_tile_items(), tuple(
         (lib.topk_class_users(c), lib.topk_class_capacity(c), lib.topk_class_buffer(c))
         for c in range(lib.topk_class_count())))
     if got != (TILE_ITEMS, K_CLASSES) or any(
-            lib.topk_smem_bytes(c, d) != kernel_smem_bytes(c, d)
-            for c in range(len(K_CLASSES)) for d in (7, 64, 100)):
+            lib.topk_smem_bytes(c, d, su) != kernel_smem_bytes(c, d, bool(su))
+            for c in range(len(K_CLASSES)) for d in (7, 64, 100, 2048) for su in (0, 1)):
         raise RuntimeError(f"topk_score kernel blocking {got} differs from the wrapper's")
     return lib

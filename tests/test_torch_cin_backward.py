@@ -308,3 +308,59 @@ def test_sliced_dw_equals_plain_bitwise_on_integers(B, H, F, D, L, nh, pool_all,
         dw, dbias = cin_fused.bwd_dw_sliced_plain(a, b0, dpre, ms, mxu)
         assert torch.equal(dw, want[2]) and torch.equal(dbias, want[3])
     assert want[2].abs().max() > 0 and want[3].abs().max() > 0
+
+
+# Layers one launch does not take (L > 128, D > 128, rows beyond shared
+# memory) go through several, over groups of columns and spans of D
+# (`bwd_plan`): a group takes its own columns of W, bias, gh and gp; dA and
+# dB0 add the groups' parts, dW and dbias the spans' parts.
+BWD_SPLIT_CASES = [
+    # B, H, F, D, L, nh, ps, column groups, D spans
+    (5, 7, 7, 10, 200, 100, 100, 2, 1),    # a mid layer at cin_layer_size 200
+    (4, 16, 7, 10, 200, 200, 0, 2, 1),     # direct mode
+    (4, 16, 7, 10, 200, 200, 200, 2, 1),   # `cin_layer`: every row hidden
+    (3, 7, 7, 200, 100, 0, 0, 1, 2),       # the last layer at D = 200
+    (3, 6, 3, 130, 300, 150, 150, 3, 2),
+    (2, 350, 7, 128, 100, 50, 50, 1, 3),   # A's rows beyond shared memory
+    (6, 50, 7, 10, 100, 50, 50, 1, 1),     # the published widths: one launch
+]
+
+
+@pytest.mark.parametrize("B,H,F,D,L,nh,ps,n_cols,n_spans", BWD_SPLIT_CASES)
+@pytest.mark.parametrize("mxu", ["float32", "bfloat16"])
+def test_backward_split_equals_the_whole_vjp(B, H, F, D, L, nh, ps, n_cols, n_spans, mxu):
+    """`backward_split` with the plain backward as its launch equals the
+    plain backward of the whole layer: bit for bit on integer inputs, to
+    1e-4 on random ones."""
+    cols, spans = cin_fused.bwd_plan(B, H, F, D, L)
+    assert (len(cols), len(spans)) == (n_cols, n_spans)
+    assert all(l1 - l0 <= cin_fused.BWD_MAX_L for l0, l1 in cols)
+
+    def plain(a, b0, w, bias, gh, gp, mxu_dtype, n_hidden, pool_start):
+        return cin_layer_pooled_bwd_plain(a, b0, w, bias, gh, gp, mxu_dtype, n_hidden,
+                                          pool_all=pool_start == 0)
+
+    for exact in (True, False):
+        if exact:
+            a, b0, w, bias, gh, gp = _integer_case(B, H, F, D, L, nh, ps, seed=B + L)
+        else:
+            inputs, gh, gp = _inputs(H, F, D, B, L, nh, ps, seed=B + L)
+            a, b0, w, bias = _t(*inputs)
+            gh, gp = _t(gh, gp)
+        gh, gp = (gh if nh else None), (gp if L > ps else None)
+        got = cin_fused.backward_split(a, b0, w, bias, gh, gp, mxu, nh, ps, plain)
+        want = plain(a, b0, w, bias, gh, gp, mxu, nh, ps)
+        for g, w_ in zip(got, want):
+            assert g.shape == w_.shape
+            if exact:
+                assert torch.equal(g, w_)
+            else:
+                np.testing.assert_allclose(g.numpy(), w_.numpy(), rtol=1e-4, atol=1e-4)
+        assert want[2].abs().max() > 0
+
+
+def test_bwd_plan_refuses_only_what_no_split_fits():
+    assert cin_fused.bwd_plan(8192, 100, 7, 10, 200) == (((0, 100), (100, 200)), ((0, 10),))
+    assert cin_fused.bwd_plan(8192, 50, 7, 10, 129)[0] == ((0, 65), (65, 129))
+    with pytest.raises(ValueError, match="no span of D fits"):
+        cin_fused.bwd_plan(8, 1000, 39, 10, 100)

@@ -225,13 +225,15 @@ def test_range_candidates_merge_to_plain_and_jax(name, B, N, D, k, n_sm, tied, n
 
 
 def test_k_class_and_range_split_limits():
-    """The k classes hold k up to 512 and shrink the user tile for large k
-    or a deep D; ranges are at most one per SM and user tile."""
+    """The k classes hold k up to 1024 and shrink the user tile for large k
+    or a deep D, then stream it; ranges are at most one per SM and user
+    tile."""
     assert topk_score.k_class(20, 64) == 0 and topk_score.k_class(100, 64) == 1
     assert topk_score.k_class(512, 64) == 2 and topk_score.k_class(20, 160) == 1
-    with pytest.raises(ValueError, match="k=513"):
-        topk_score.k_class(513, 64)
-    assert all(topk_score.kernel_smem_bytes(c, 64) <= topk_score.MAX_SMEM for c in range(3))
+    assert topk_score.k_class(513, 64) == 3 and not topk_score.stream_users(3, 64)
+    with pytest.raises(ValueError, match="k=1025"):
+        topk_score.k_class(1025, 64)
+    assert all(topk_score.kernel_smem_bytes(c, 64) <= topk_score.MAX_SMEM for c in range(4))
     n_tiles, n_ranges = topk_score.range_split(1_000_000, 20, 128, 256, n_sm=132)
     assert (n_tiles, n_ranges) == (7813, 66)
     assert topk_score.range_split(13, 20, 128, 6) == (1, 1)
