@@ -40,11 +40,34 @@ Phases (any failure exits non-zero; no phase failure is caught):
      one batch served on the forward kernel;
   6. retrieval training: BPR at embedding_size 64 over the serving scale,
      64 pairwise steps of 2,048 rows plus an OOV sub-epoch through
-     `Trainer.fit`, then the 7-slice eval fused vs dense to 1e-9.
+     `Trainer.fit`, then the 7-slice eval fused vs dense to 1e-9; then BPR
+     with `learner: sparse_adam` on the device epoch (kernel 6);
+  7. the CLI, the main path's own entry (`build/cli/`):
+     A. `python -m oovrec_tpu_torch.cli.run` as a subprocess on the tracked
+        corpus dataset/synth-ind: BPR (D 64), random-mapper OOV buckets,
+        the OOV regime, the paper protocol (uni250), 5 epochs, the 7-slice
+        inductive eval and `--results_json`; rc 0, finite metrics, all 7
+        slices; `--eval_only` on its checkpoint reproduces it to 1e-9;
+     B. `cli.run.main` in this process: xDeepFM at its published widths
+        under the ranking protocol, 3 epochs, the CIN forward and backward
+        kernels counted (> 0) and held against their plain versions at a
+        training batch's and a uni250 test batch's shapes (2,048 and about
+        100,000 rows); `--eval_only` with `--fused_cin` True and False
+        agree on AUC, RMSE and the 7 value slices to 1e-6;
+     C. an atomic-file family written here (the generator of
+        tools/make_synth_dataset.py at 50,000 users x 100,000 items x
+        1,000,000 rows) through `quick_start.run`: BPR at D 64 with 1,024
+        buckets a side, `learner: sparse_adam` on the device epoch (kernel
+        6 counted), full-sort eval, then `perform_inductive_eval` (kernel 1
+        counted); the wall time of each stage; `--eval_only` with
+        `use_fused_topk` True and False (perturbed hits off, as in phase
+        3) agree to 1e-9.
 Phase 2 also holds the CIN backward kernel against its plain version,
 bit for bit on integer inputs and gradients (and against itself on a
 repeat run), and times it per layer and for the 3-layer stack.
-The last line is the device record; the line before it lists the kernels.
+The last line is the device record; the line before it lists the kernels,
+each with its launches on the earlier phases' paths (`launches`) and on
+the CLI phases (`launches_cli`).
 
 TF32 is switched off for matmuls and cuDNN below: the plain versions and
 the dense path must compute in full f32, as the kernel does.
@@ -54,6 +77,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -61,7 +86,12 @@ import time
 import numpy as np
 import torch
 
+from oovrec_tpu_torch.cli import quick_start
+from oovrec_tpu_torch.cli import run as cli_run
+from oovrec_tpu_torch.cli.inductive_eval import perform_inductive_eval
 from oovrec_tpu_torch.config import Config
+from oovrec_tpu_torch.data import dataset as dataset_module
+from oovrec_tpu_torch.data.utils import data_preparation
 from oovrec_tpu_torch.data import (
     DatasetSplit,
     FullSortEvalBatcher,
@@ -1531,6 +1561,9 @@ SPARSE_ROWS_CASES = [
     ("D10", 3000, 10, 999, dict(dup_runs=True, zero_ids=5, edges=True)),
     ("odd-D13", 777, 13, 500, dict(dup_runs=True, zero_ids=5, edges=True)),
     ("int32-ids", SP_USERS, D, SP_B, dict(ids_dtype=torch.int32, edges=True)),
+    # CLI phase C's item table (90,001 rows) and a step's item rows
+    # (2,048 positives + 2,048 negatives)
+    ("cli-c-items", 90_001, D, 4096, dict(dup_runs=True)),
 ]
 
 
@@ -1891,6 +1924,390 @@ def retrieval_sparse_training():
     return launches
 
 
+# -------------------------------------------------------------- CLI phases
+
+# the `python -m oovrec_tpu_torch.cli.run` entry on the tracked corpus
+# dataset/synth-ind (EXPERIMENTS.md:40-45 with the random mapper in place of
+# the lsh embedder), its float_seq `*_vector` columns left out
+CLI_DIR = os.path.join("build", "cli")
+SYNTH_LOAD_COL = ("--load_col={'inter': ['user_id','item_id','timestamp','is_new'], "
+                  "'user': ['user_id','age','group'], 'item': ['item_id','price','category']}")
+CLI_OOV = ["--inductive_mapper=random", "--add_oov_buckets=True", "--n_user_oov_buckets=200",
+           "--n_item_oov_buckets=200", "--train_oov=True", "--oov_train_ratio=0.3",
+           "--inductive_eval=True"]
+CLI_EPOCHS_A, CLI_EPOCHS_B = 5, 3
+SLICE_NAMES = ("overall", "old_users", "new_users", "old_old", "old_new", "new_old", "new_new")
+# phase C: an atomic-file family the card notices (tools/make_synth_dataset.py's
+# generator at 50,000 users x 100,000 items x 1,000,000 rows, 10 % new), BPR
+# at D = 64 with 1,024 buckets a side, full-sort eval, sparse adam on the
+# device epoch at the sparse phase's lr 1e-2; 256 users a full-sort batch
+C_USERS, C_ITEMS, C_INTERS, C_NEW_RATIO, C_SEED = 50_000, 100_000, 1_000_000, 0.1, 7
+C_BUCKETS, C_EVAL_USERS = 1024, 256
+
+
+def cli_out(name):
+    out = os.path.join(CLI_DIR, name)
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    return out
+
+
+def cli_flags(out):
+    return [f"--checkpoint_dir={out}", f"--nfs_backup_path={os.path.join(out, 'backup')}",
+            f"--results_json={os.path.join(out, 'results.json')}", "--metric_decimal_place=12"]
+
+
+def agree_slices(a, b, what, tol):
+    """`agree` over the 7 slices, where a metric a slice cannot define
+    (AUC of a slice whose rows carry one label) must be NaN in both."""
+    require(list(a) == list(b), f"{what}: slices differ")
+    for s in a:
+        require(list(a[s]) == list(b[s]), f"{what}[{s}]: keys differ")
+        for k, x in a[s].items():
+            y = b[s][k]
+            if math.isnan(x) or math.isnan(y):
+                require(math.isnan(x) and math.isnan(y), f"{what}[{s}][{k}]: {x} vs {y}")
+            else:
+                require(abs(x - y) < tol, f"{what}[{s}][{k}]: {x} vs {y}")
+
+
+def finite_metrics(result, what):
+    require(result and all(math.isfinite(float(v)) for v in result.values()),
+            f"{what}: metrics not finite: {result}")
+
+
+def cli_retrieval():
+    """Phase A: the real entry as a subprocess, BPR on synth-ind with the
+    OOV regime, uni250 valid/test and the 7-slice inductive eval; then
+    `--eval_only` on its checkpoint in this process reproduces its test
+    metrics and slices to 1e-9. → the subprocess wall seconds."""
+    out = cli_out("a")
+    argv = ["--model=BPR", "--dataset=synth-ind", "--data_path=dataset", SYNTH_LOAD_COL,
+            *CLI_OOV, f"--epochs={CLI_EPOCHS_A}", *cli_flags(out)]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "oovrec_tpu_torch.cli.run", *argv],
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = (proc.stdout + proc.stderr).splitlines()
+    for line in lines:
+        if "training [" in line or "test result" in line or "] {" in line:
+            log(f"  [A] {line.split(' INFO ')[-1][:160]}")
+    require(proc.returncode == 0, f"phase A: rc {proc.returncode}: " + "\n".join(lines[-30:]))
+    with open(os.path.join(out, "results.json")) as f:
+        res = json.load(f)
+    finite_metrics(res["test_result"], "phase A test")
+    require(tuple(res["inductive"]) == SLICE_NAMES, f"phase A slices {list(res['inductive'])}")
+    finite_metrics(res["inductive"]["overall"], "phase A overall slice")
+    log(f"phase A: python -m oovrec_tpu_torch.cli.run (BPR, synth-ind, {CLI_EPOCHS_A} epochs, "
+        f"uni250) rc 0 in {wall:.1f} s (wall, process start and the corpus included)")
+    again = cli_run.main([f"--eval_only={os.path.join(out, 'BPR-synth-ind.pth')}",
+                          "--inductive_eval=True"])
+    agree(res["test_result"], again["test_result"], "phase A eval_only test", tol=1e-9)
+    agree_slices(res["inductive"], again["inductive_results"], "phase A eval_only slices",
+                 tol=1e-9)
+    log("phase A: --eval_only == the run on test metrics and the 7 slices (1e-9)")
+    return wall
+
+
+def cin_counts():
+    return {"cin_layer_pooled": cin_layer_pooled.launches, "cin_layer": cin_layer.launches,
+            "cin_layer_pooled_bwd": cin_layer_pooled_bwd.launches,
+            "cin_layer_bwd": cin_layer_bwd.launches}
+
+
+def reset_cin_counts():
+    cin_layer_pooled.launches = cin_layer.launches = 0
+    cin_layer_pooled_bwd.launches = cin_layer_bwd.launches = 0
+
+
+def hold_cin_at(model, db, seed):
+    """The CIN forward and backward kernels against their plain versions
+    (f32) at the layer shapes `model` gives one batch `db`; random
+    gradients, masked near the ReLU. → the largest error, each relative to
+    max(1, the plain output's largest magnitude)."""
+    err = 0.0
+    with torch.no_grad():
+        b0 = model.concat_embed_input_fields(db).float().contiguous()
+        hidden = b0
+        for i, (conv, (nh, pool_all)) in enumerate(zip(model.conv1d_list, model._layer_modes())):
+            inputs = (hidden, b0, conv.kernel.detach(), conv.bias.detach())
+            err = max(err, cin_bwd_err(*cin_pair(inputs, nh, pool_all, "float32")))
+            grads = cin_grads(inputs, nh, 0 if pool_all else nh, seed + i, False, "float32")
+            err = max(err, cin_bwd_err(*cin_bwd_pair(inputs, grads, nh, pool_all, "float32")))
+            hidden, _ = cin_layer_pooled(*inputs, n_hidden=nh, pool_all=pool_all)
+    return err
+
+
+def cli_ranking():
+    """Phase B: `cli.run.main` in this process, xDeepFM at its published
+    widths on synth-ind under the ranking protocol (uni250 rows, AUC and
+    RMSE), with the CIN kernels counted around the run; then `--eval_only`
+    with the CIN on the kernels and on the slab path agree to 1e-6. → the
+    run's CIN launch counts and wall seconds."""
+    out = cli_out("b")
+    argv = ["--model=xDeepFM", "--model_eval_type=ranking", "--dataset=synth-ind",
+            "--data_path=dataset", SYNTH_LOAD_COL, *CLI_OOV,
+            "--numerical_features=['age','price']", f"--epochs={CLI_EPOCHS_B}", *cli_flags(out)]
+    reset_cin_counts()
+    sync()
+    t0 = time.perf_counter()
+    res = cli_run.main(argv)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = cin_counts()
+    log(f"phase B: cli.run.main (xDeepFM, synth-ind, {CLI_EPOCHS_B} epochs, uni250) "
+        f"{wall:.1f} s (wall), CIN launches {counts}")
+    require(counts["cin_layer_pooled"] > 0 and counts["cin_layer_pooled_bwd"] > 0,
+            f"phase B: the CIN kernels were not launched: {counts}")
+    finite_metrics(res["test_result"], "phase B test")
+    require(tuple(res["inductive_results"]) == SLICE_NAMES, "phase B slices")
+    log(f"[B test] {dict(res['test_result'])}")
+    for s, r in res["inductive_results"].items():
+        log(f"[B {s}] {dict(r)}")
+    model = res["trainer"].model
+    model.eval()
+    train_loader, _, test_loader = data_preparation(res["config"], res["dataset"])
+    for what, loader_, seed in (("a training batch", train_loader, SEED + 1200),
+                                ("a uni250 test batch", test_loader, SEED + 1210)):
+        batch = next(iter(loader_))
+        err = hold_cin_at(model, to_device_batch(batch, DEVICE), seed)
+        log(f"phase B CIN kernels vs plain at {what}, layers (B, H, F, D, L) "
+            f"{model.cin_layer_shapes(len(batch['weight']))}: relative error {err:.3e}")
+        require(err <= CIN_TOL, f"phase B CIN at {what}: relative error {err}")
+    ckpt = res["trainer"].saved_model_file
+    runs = {}
+    for fused in (True, False):
+        reset_cin_counts()
+        runs[fused] = cli_run.main([f"--eval_only={ckpt}", "--inductive_eval=True",
+                                    f"--fused_cin={fused}"])
+        n = cin_layer_pooled.launches
+        require((n > 0) == fused, f"phase B eval_only fused_cin={fused}: {n} CIN launches")
+    agree(runs[True]["test_result"], runs[False]["test_result"], "phase B kernel vs slab test",
+          tol=1e-6)
+    agree_slices(runs[True]["inductive_results"], runs[False]["inductive_results"],
+                 "phase B kernel vs slab slices", tol=1e-6)
+    log("phase B: --eval_only on the CIN kernels == on the slab path: AUC, RMSE and the "
+        "7 value slices (1e-6)")
+    return counts, wall
+
+
+def generate(out: str, name: str, n_users: int, n_items: int, n_inters: int,
+             new_ratio: float = 0.1, dim: int = 8, seed: int = 7,
+             feat_dims: int = 4, feat_noise: float = 0.3):
+    """A copy of `tools/make_synth_dataset.py:generate` (the tool imports
+    the JAX package's config, which the card's machine cannot import):
+    `<name>/` (the training corpus with is_new rows and feature files) and
+    `<name>_ind/` (benchmark train/empty/test_filt and the full feature
+    files) in the atomic-file format, with latent-factor structure."""
+    rng = np.random.default_rng(seed)
+    n_new_u = int(n_users * new_ratio)
+    n_new_i = int(n_items * new_ratio)
+    n_old_u, n_old_i = n_users - n_new_u, n_items - n_new_i
+
+    U = rng.standard_normal((n_users, dim)) * 0.7
+    I = rng.standard_normal((n_items, dim)) * 0.7
+    u_age = (U[:, 0] * 10 + 35 + rng.standard_normal(n_users)).round(1)
+    u_group = (U[:, 1] > 0).astype(int)
+    i_price = (I[:, 0] * 20 + 50 + rng.standard_normal(n_items)).round(2)
+    i_cat = np.argmax(I[:, 1:4], axis=1)
+
+    def sample_inters(users, items_pool, n, t0):
+        uu = rng.integers(0, len(users), n)
+        ii = np.empty(n, np.int64)
+        order = np.argsort(uu, kind="stable")
+        uu_sorted = uu[order]
+        uniq, starts = np.unique(uu_sorted, return_index=True)
+        ends = np.append(starts[1:], n)
+        Ip = I[items_pool].astype(np.float32).T
+        block = max(1, (1 << 26) // max(1, len(items_pool)))
+        for bs in range(0, len(uniq), block):
+            ub = uniq[bs:bs + len(uniq[bs:bs + block])]
+            logits = U[users[ub]].astype(np.float32) @ Ip
+            logits -= logits.max(axis=1, keepdims=True)
+            cdf = np.cumsum(np.exp(logits), axis=1)
+            for k in range(len(ub)):
+                s, e = starts[bs + k], ends[bs + k]
+                r = rng.random(e - s).astype(np.float32) * cdf[k, -1]
+                ii[order[s:e]] = np.searchsorted(cdf[k], r, side="right")
+        np.clip(ii, 0, len(items_pool) - 1, out=ii)
+        return users[uu], items_pool[ii], t0 + np.arange(n)
+
+    old_users = np.arange(n_old_u)
+    old_items = np.arange(n_old_i)
+    all_users = np.arange(n_users)
+    all_items = np.arange(n_items)
+
+    n_old_inters = int(n_inters * (1 - new_ratio))
+    tu, ti, tt = sample_inters(old_users, old_items, n_old_inters, 0)
+    missing_u = np.setdiff1d(old_users, np.unique(tu))
+    missing_i = np.setdiff1d(old_items, np.unique(ti))
+    n_fix = max(len(missing_u), len(missing_i))
+    if n_fix:
+        fu = np.concatenate([missing_u, rng.choice(old_users, n_fix - len(missing_u))])
+        fi = np.concatenate([missing_i, rng.choice(old_items, n_fix - len(missing_i))])
+        ft = ((tt[-1] + 1) if len(tt) else 0) + np.arange(n_fix)
+        tu, ti, tt = (np.concatenate([tu, fu]), np.concatenate([ti, fi]),
+                      np.concatenate([tt, ft]))
+    n_new_rows = n_inters - n_old_inters
+    nu, ni, nt = sample_inters(all_users, all_items, n_new_rows, n_old_inters)
+    touch_new = (nu >= n_old_u) | (ni >= n_old_i)
+    nu, ni, nt = nu[touch_new], ni[touch_new], nt[touch_new]
+    seen_u = np.zeros(n_users, bool)
+    seen_u[np.unique(tu)] = True
+    seen_i = np.zeros(n_items, bool)
+    seen_i[np.unique(ti)] = True
+    ok = ((nu >= n_old_u) | seen_u[nu]) & ((ni >= n_old_i) | seen_i[ni])
+    nu, ni, nt = nu[ok], ni[ok], nt[ok]
+
+    def w(path, lines):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+    u_vec = (U[:, :feat_dims] + feat_noise * rng.standard_normal((n_users, feat_dims))).round(4)
+    i_vec = (I[:, :feat_dims] + feat_noise * rng.standard_normal((n_items, feat_dims))).round(4)
+
+    def user_rows(ids):
+        return [f"u{u}\t{u_age[u]}\tg{u_group[u]}\t" + " ".join(map(str, u_vec[u])) for u in ids]
+
+    def item_rows(ids):
+        return [f"i{i}\t{i_price[i]}\tc{i_cat[i]}\t" + " ".join(map(str, i_vec[i])) for i in ids]
+
+    uh = "user_id:token\tage:float\tgroup:token\tuser_vector:float_seq"
+    ih = "item_id:token\tprice:float\tcategory:token\titem_vector:float_seq"
+    d = os.path.join(out, name)
+    inter = ["user_id:token\titem_id:token\ttimestamp:float\tis_new:token"]
+    inter += [f"u{u}\ti{i}\t{t}\t-1" for u, i, t in zip(tu, ti, tt)]
+    inter += [f"u{u}\ti{i}\t{t}\t1" for u, i, t in zip(nu, ni, nt)]
+    w(f"{d}/{name}.inter", inter)
+    w(f"{d}/{name}.user", [uh] + user_rows(old_users))
+    w(f"{d}/{name}.item", [ih] + item_rows(old_items))
+    d2 = os.path.join(out, f"{name}_ind")
+    w(f"{d2}/{name}_ind.train.inter", ["user_id:token\titem_id:token\ttimestamp:float"]
+      + [f"u{u}\ti{i}\t{t}" for u, i, t in zip(tu, ti, tt)])
+    w(f"{d2}/{name}_ind.empty.inter", ["user_id:token\titem_id:token\ttimestamp:float"])
+    w(f"{d2}/{name}_ind.test_filt.inter", ["user_id:token\titem_id:token\ttimestamp:float"]
+      + [f"u{u}\ti{i}\t{t}" for u, i, t in zip(nu, ni, nt)])
+    w(f"{d2}/{name}_ind.user", [uh] + user_rows(all_users))
+    w(f"{d2}/{name}_ind.item", [ih] + item_rows(all_items))
+    return len(tu), len(nu)
+
+
+class timed:
+    """Wall seconds of every call of `owner.name` while in the block (the
+    card synchronised after each), on `calls`."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name, self.calls = owner, name, []
+
+    def __enter__(self):
+        inner = self.inner = getattr(self.owner, self.name)
+
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = inner(*args, **kwargs)
+            sync()
+            self.calls.append(time.perf_counter() - t0)
+            return out
+
+        setattr(self.owner, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.inner)
+
+
+def c_config(data_path, out):
+    return {
+        "model": "BPR", "dataset": "synth-c", "data_path": data_path, "load_col": {
+            "inter": ["user_id", "item_id", "timestamp", "is_new"],
+            "user": ["user_id", "age", "group"], "item": ["item_id", "price", "category"]},
+        "epochs": 1, "learner": "sparse_adam", "learning_rate": SP_LR, "device_epoch": True,
+        "inductive_mapper": "random", "add_oov_buckets": True,
+        "n_user_oov_buckets": C_BUCKETS, "n_item_oov_buckets": C_BUCKETS,
+        "train_oov": True, "oov_train_ratio": 0.3, "eval_args": {"mode": "full"},
+        "eval_batch_size": C_EVAL_USERS * (C_ITEMS + 1), "checkpoint_dir": out,
+        "metric_decimal_place": 12, "seed": SEED,
+    }
+
+
+def cli_corpus():
+    """Phase C: a written atomic-file family at 50,000 users x 100,000
+    items x 1,000,000 rows through `quick_start.run` (BPR, D 64, sparse adam
+    on the device epoch, the OOV sub-epoch, full-sort eval) and
+    `perform_inductive_eval`, with kernels 6 and 1 counted around them and
+    the wall time of each stage; then `--eval_only` with `use_fused_topk`
+    True and False (perturbed hits off) agree to 1e-9. → (kernel 6 launches, kernel 1
+    launches, stage seconds)."""
+    out = cli_out("c")
+    data = os.path.join(out, "data")
+    t0 = time.perf_counter()
+    n_rows, n_new = generate(data, "synth-c", C_USERS, C_ITEMS, C_INTERS, C_NEW_RATIO, seed=C_SEED)
+    log(f"phase C corpus: {n_rows} transductive + {n_new} inductive rows written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    stages = {}
+    sparse_adam_rows_kernel.launches = 0
+    topk_score.fused_topk_scores.launches = 0
+    sync()
+    with timed(dataset_module, "load_atomic_file") as t_load, \
+            timed(quick_start, "create_dataset") as t_ds, \
+            timed(quick_start, "data_preparation") as t_prep, \
+            timed(Trainer, "_train_epoch") as t_epoch, \
+            timed(Trainer, "evaluate") as t_test, \
+            timed(EvalRunner, "evaluate") as t_eval:
+        t0 = time.perf_counter()
+        res = quick_start.run(config_dict=c_config(data, out))
+        stages["run"] = time.perf_counter() - t0
+    k6 = sparse_adam_rows_kernel.launches
+    t0 = time.perf_counter()
+    ind = perform_inductive_eval(res["dataset"], res["trainer"].saved_model_file,
+                                 config=res["config"])
+    sync()
+    stages["inductive eval"] = time.perf_counter() - t0
+    k1 = topk_score.fused_topk_scores.launches
+    stages["atomic-file load (3 files)"] = sum(t_load.calls[:3])
+    stages["Dataset build (load included)"] = t_ds.calls[0]
+    stages["data_preparation"] = t_prep.calls[0]
+    stages["epoch (device epoch)"] = t_epoch.calls[0]
+    stages["OOV sub-epoch"] = t_epoch.calls[1]
+    stages["valid eval"] = t_eval.calls[0]
+    stages["test eval"] = t_test.calls[0]
+    for k, v in stages.items():
+        log(f"phase C wall: {k}: {v:.2f} s")
+    trainer = res["trainer"]
+    de = trainer._device_epochs
+    require(any(d.sparse_impl == "pallas" for d in de.values()),
+            "phase C: the device epoch did not take kernel 6")
+    require(k6 > 0 and k1 > 0, f"phase C: kernel 6 launches {k6}, kernel 1 launches {k1}")
+    finite_metrics(res["test_result"], "phase C test")
+    require(tuple(ind) == SLICE_NAMES, "phase C slices")
+    log(f"phase C: kernel 6 launches {k6} (training), kernel 1 launches {k1} (inductive eval)")
+    log(f"[C test] {dict(res['test_result'])}")
+    for s, r in ind.items():
+        log(f"[C {s}] {dict(r)}")
+    runs = {}
+    for fused in (True, False):
+        topk_score.fused_topk_scores.launches = 0
+        t0 = time.perf_counter()
+        # unperturbed ties (bucket-sharing new items score alike): both
+        # paths then break them to the lowest index, while perturbed hits
+        # draw one permutation a batch on the fused path and three on the
+        # dense one
+        runs[fused] = cli_run.main([f"--eval_only={trainer.saved_model_file}",
+                                    "--inductive_eval=True", f"--use_fused_topk={fused}",
+                                    "--use_perturbed_hits=False"])
+        n = topk_score.fused_topk_scores.launches
+        log(f"phase C eval_only use_fused_topk={fused}: {time.perf_counter() - t0:.1f} s "
+            f"(wall, corpus rebuilt), kernel 1 launches {n}")
+        require((n > 0) == fused, f"phase C eval_only fused={fused}: {n} kernel 1 launches")
+    agree(runs[True]["test_result"], runs[False]["test_result"], "phase C fused vs dense test")
+    agree_slices(runs[True]["inductive_results"], runs[False]["inductive_results"],
+                 "phase C fused vs dense slices", tol=1e-9)
+    agree(res["test_result"], runs[False]["test_result"], "phase C eval_only vs the run")
+    log("phase C: --eval_only fused == dense on test metrics and the 7 slices (1e-9)")
+    return k6, k1, stages
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -1925,6 +2342,19 @@ def main():
     train_launches = ranking_training(ind, mapper)
     retrieval_training()
     sparse_launches = retrieval_sparse_training()
+    t0 = time.perf_counter()
+    cli_retrieval()
+    cli_b, _ = cli_ranking()
+    k6_c, k1_c, _ = cli_corpus()
+    log(f"CLI phases A-C: {time.perf_counter() - t0:.1f} s")
+    cli = {  # each kernel's launches on the CLI paths (A launches none)
+        "fused_topk_scores": {"C": k1_c},
+        "cin_layer_pooled": {"B": cli_b["cin_layer_pooled"]},
+        "cin_layer": {"B": cli_b["cin_layer"]},
+        "cin_layer_pooled_bwd": {"B": cli_b["cin_layer_pooled_bwd"]},
+        "cin_layer_bwd": {"B": cli_b["cin_layer_bwd"]},
+        "sparse_adam_rows_kernel": {"C": k6_c},
+    }
 
     kernels = [{
         "name": "fused_topk_scores",
@@ -1969,6 +2399,8 @@ def main():
         "launches": sparse_launches,
         **sparse_times,
     }]
+    for k in kernels:
+        k["launches_cli"] = cli[k["name"]]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(smi)
     log(json.dumps({"kernels": kernels}))

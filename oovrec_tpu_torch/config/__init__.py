@@ -1,3 +1,8 @@
-from oovrec_tpu_torch.config.configurator import DEFAULTS, Config
+from oovrec_tpu_torch.config.configurator import (
+    DEFAULTS,
+    PORT_DEFAULTS,
+    Config,
+    parse_cli_args,
+)
 
-__all__ = ["Config", "DEFAULTS"]
+__all__ = ["Config", "DEFAULTS", "PORT_DEFAULTS", "parse_cli_args"]

@@ -1,11 +1,11 @@
 """Batchers: fixed-shape host-side batch assembly.
 
-Port of `oovrec_tpu/data/dataloader.py:38-253, 345-494`: training batches
+Port of `oovrec_tpu/data/dataloader.py:38-253, 345-855`: training batches
 with negative sampling (`TrainBatcher`), full-sort batches for retrieval
-models and plain labelled rows for ranking (VALUE-metric) models. Every
-batch has the same shape; the final partial batch is padded and carries a
-`weight` column (1 real / 0 pad). The sampled-negative eval batcher comes
-with a later slice.
+models, plain labelled rows for ranking (VALUE-metric) models and the
+sampled-negative eval batches of the `uniN` / `popN` modes
+(`NegSampleEvalBatcher`). Every batch has the same shape; the final
+partial batch is padded and carries a `weight` column (1 real / 0 pad).
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import numpy as np
 
 from oovrec_tpu_torch.data.dataset import DatasetSplit
 from oovrec_tpu_torch.data.sampler import Sampler
+from oovrec_tpu_torch.data.transform import construct_transform
 from oovrec_tpu_torch.utils.enums import InputType
 from oovrec_tpu_torch.utils.seeding import host_rng
 
@@ -61,8 +62,8 @@ class TrainBatcher:
     `host_rng(seed + epoch, "train_shuffle_<phase>")`, so the batches equal
     the JAX batcher's key for key. The feature tables are the split's
     `user_feat` / `item_feat`; the process pair comes from the caller.
-    Only the identity transform (`transform` None / 'Equal') is ported, and
-    dynamic hard negatives are not.
+    Only the identity transform (`transform` None / 'Equal',
+    `data/transform.py`) is ported, and dynamic hard negatives are not.
     """
 
     def __init__(
@@ -129,9 +130,7 @@ class TrainBatcher:
         )
         self.user_feat = split.user_feat
         self.item_feat = split.item_feat
-        transform = config["transform"]
-        if transform not in (None, "Equal"):
-            raise NotImplementedError(f"batch transform [{transform}] is not ported")
+        self.transform = construct_transform(config, n_items=split.item_num)
 
     def __len__(self) -> int:
         n = len(self.split)
@@ -202,7 +201,7 @@ class TrainBatcher:
 
         batch = {k: _pad_to(np.asarray(v), total) for k, v in batch.items()}
         batch["weight"] = _pad_to(weight, total)
-        return batch
+        return self.transform(batch)
 
 
 class FullSortEvalBatcher:
@@ -345,4 +344,223 @@ class PlainEvalBatcher:
             batch = {k: _pad_to(np.asarray(v), self.batch_size)
                      for k, v in batch.items()}
             batch["weight"] = w
+            yield batch
+
+
+class NegSampleEvalBatcher:
+    """Sampled-negative eval batches for the `uniN` / `popN` eval modes
+    (the paper's `uni250` protocol). Port of
+    `oovrec_tpu/data/dataloader.py:497-780`, batch for batch and key for
+    key.
+
+    All of a user's eval rows are in one batch. Each batch holds every
+    interaction field expanded per user (positives first, then the
+    negative copies, column-major), `label`, `row_user` (the batch-local
+    user slot of each row), `positive_u` / `positive_i` /
+    `positive_weight`, `n_users`, `slot_users` and `weight`. One process
+    packs users into batches by a row budget of `eval_batch_size`; several
+    processes each take an interleaved user slice with a fixed users-per-
+    batch `step`. A user's negatives come from its own stream,
+    `host_rng(seed, "eval_sampling_<phase>_<user>")`, drawn once and
+    cached (`eval_candidate_cache`). The process pair is the caller's (one
+    process when it gives none).
+    """
+
+    def __init__(
+        self,
+        split: DatasetSplit,
+        sampler: Optional[Sampler],
+        config,
+        phase: str,
+        neg_sample_args: dict,
+        batch_size: Optional[int] = None,
+        process_index: Optional[int] = None,
+        process_count: Optional[int] = None,
+    ):
+        self.split = split
+        self.sampler = sampler
+        self.config = config
+        self.phase = phase
+        self.uid_field = split.uid_field
+        self.iid_field = split.iid_field
+        self.label_field = split.label_field
+        self.item_num = split.item_num
+        self.distribution = neg_sample_args.get("distribution", "uniform")
+        self.sample_num = int(neg_sample_args.get("sample_num", 1))
+        self.times = 1 + self.sample_num
+
+        uid = split.inter[self.uid_field]
+        order = np.argsort(uid, kind="stable")
+        self._order = order
+        su = uid[order]
+        uniq, starts = np.unique(su, return_index=True)
+        ends = np.concatenate([starts[1:], [len(su)]])
+        self.uid_list = uniq
+        self._slices = list(zip(starts, ends))
+        self.uid2items_num = ends - starts
+
+        bs = batch_size or config["eval_batch_size"]
+        sizes = np.sort(self.uid2items_num * self.times)[::-1]
+        step, acc = 1, int(sizes[0]) if len(sizes) else 1
+        for i in range(1, len(sizes)):
+            if acc + sizes[i] > bs:
+                break
+            step += 1
+            acc += int(sizes[i])
+        self.step = step
+        self.max_rows = int(acc)
+        self.max_users = step
+        self.max_pos = int(
+            np.sort(self.uid2items_num)[::-1][:step].sum()
+        ) if len(self.uid2items_num) else 1
+        # feature columns are joined onto the expanded rows only for models
+        # that read them in predict() (context models; the runner decides)
+        self.join_features = True
+
+        self.process_index, self.process_count = _process_info(
+            process_index, process_count
+        )
+        self.n_global_users = len(self.uid_list)
+        self.slot_offset = 0
+        if self.process_count > 1:
+            self.step = max(1, self.step // self.process_count)
+            sizes_desc = np.sort(self.uid2items_num * self.times)[::-1]
+            self.max_rows = int(sizes_desc[: self.step].sum()) or 1
+            self.max_users = self.step * self.process_count
+            self.slot_offset = self.process_index * self.step
+            self.max_pos = int(
+                np.sort(self.uid2items_num)[::-1][: self.step].sum()
+            ) or 1
+            sel = slice(self.process_index, None, self.process_count)
+            self.uid_list = self.uid_list[sel]
+            self._slices = self._slices[sel]
+            max_local = -(-self.n_global_users // self.process_count)
+            n_batches = (max_local + self.step - 1) // self.step
+            self._groups = [
+                (i * self.step, min((i + 1) * self.step, len(self.uid_list)))
+                for i in range(n_batches)
+            ]
+        else:
+            # one process: users packed in uid order until the row budget
+            row_sizes = self.uid2items_num * self.times
+            groups = []
+            gstart, acc = 0, 0
+            for i, sz in enumerate(row_sizes):
+                if i > gstart and acc + int(sz) > bs:
+                    groups.append((gstart, i))
+                    gstart, acc = i, 0
+                acc += int(sz)
+            if gstart < len(row_sizes):
+                groups.append((gstart, len(row_sizes)))
+            self._groups = groups
+            self.max_users = max((e - s for s, e in self._groups), default=1) or 1
+            self.step = self.max_users
+            self.max_rows = int(max(
+                (row_sizes[s:e].sum() for s, e in self._groups if e > s), default=1,
+            )) or 1
+            self.max_pos = int(max(
+                (self.uid2items_num[s:e].sum() for s, e in self._groups if e > s),
+                default=1,
+            )) or 1
+
+        self.user_feat = split.user_feat
+        self.item_feat = split.item_feat
+
+    def __len__(self) -> int:
+        return len(self._groups)
+
+    def _empty_batch(self) -> Batch:
+        """An all-pad batch (weight 0): the tail batches of a process whose
+        user slice ran out."""
+        inter = self.split.inter
+        batch: Batch = {
+            k: np.zeros((self.max_rows,) + v.shape[1:], v.dtype)
+            for k, v in inter.items()
+        }
+        batch[self.label_field] = np.zeros(self.max_rows, np.float32)
+        batch["row_user"] = np.zeros(self.max_rows, np.int64)
+        batch["weight"] = np.zeros(self.max_rows, np.float32)
+        if self.join_features:
+            _join_features(batch, batch[self.iid_field], self.item_feat, self.iid_field)
+            _join_features(batch, batch[self.uid_field], self.user_feat, self.uid_field)
+        batch["positive_u"] = np.zeros(self.max_pos, np.int64)
+        batch["positive_i"] = np.zeros(self.max_pos, np.int64)
+        batch["positive_weight"] = np.zeros(self.max_pos, np.float32)
+        batch["n_users"] = np.array(0, dtype=np.int64)
+        batch["slot_users"] = np.zeros(self.step, np.int64)
+        return batch
+
+    def _user_negs(self, u: int, rows_uid: np.ndarray) -> np.ndarray:
+        """User `u`'s negatives, flattened column-major, from its own
+        stream: the same set in every eval pass."""
+        cache = getattr(self, "_neg_cache", None)
+        if cache is None:
+            cache = self._neg_cache = {}
+        got = cache.get(int(u))
+        if got is None:
+            u_rng = host_rng(
+                int(self.config["seed"] or 0), f"eval_sampling_{self.phase}_{int(u)}",
+            )
+            got = self.sampler.sample_negatives(
+                self.phase, rows_uid, self.sample_num, rng=u_rng,
+            ).flatten(order="F").astype(np.int32)
+            if self.config.get("eval_candidate_cache", True) is not False:
+                cache[int(u)] = got
+        return got
+
+    def __iter__(self) -> Iterator[Batch]:
+        inter = self.split.inter
+        order = self._order
+        for bstart, bend in self._groups:
+            users = self.uid_list[bstart:bend]
+            if len(users) == 0:
+                yield self._empty_batch()
+                continue
+            U = len(users)
+            n_pos = self.uid2items_num[bstart:bend].astype(np.int64)
+            starts = np.array([self._slices[bstart + i][0] for i in range(U)], np.int64)
+            exp = n_pos * self.times
+            total = int(exp.sum())
+            u_of_row = np.repeat(np.arange(U), exp)
+            p = np.arange(total) - np.repeat(np.cumsum(exp) - exp, exp)
+            npos_row = n_pos[u_of_row]
+            src = order[starts[u_of_row] + p % npos_row]
+            batch: Batch = {k: _pad_to(v[src], self.max_rows) for k, v in inter.items()}
+            # rows past the positives take the user's negatives (column-major:
+            # slot j * n_pos + i is draw j for positive i, that is p - n_pos)
+            neg_rows = p >= npos_row
+            negs = np.concatenate([
+                self._user_negs(
+                    users[i],
+                    inter[self.uid_field][order[starts[i]: starts[i] + n_pos[i]]],
+                )
+                for i in range(U)
+            ])
+            item_col = batch[self.iid_field]
+            item_col[:total][neg_rows] = negs
+            lab = np.zeros(self.max_rows, np.float32)
+            lab[:total] = (~neg_rows).astype(np.float32)
+            batch[self.label_field] = lab
+            row_user = np.zeros(self.max_rows, np.int64)
+            row_user[:total] = u_of_row + self.slot_offset
+            batch["row_user"] = row_user
+            w = np.zeros(self.max_rows, np.float32)
+            w[:total] = 1.0
+            batch["weight"] = w
+            if self.join_features:
+                _join_features(batch, batch[self.iid_field], self.item_feat, self.iid_field)
+                _join_features(batch, batch[self.uid_field], self.user_feat, self.uid_field)
+            pu = np.repeat(np.arange(U) + self.slot_offset, n_pos)
+            pos_src = order[
+                np.repeat(starts, n_pos)
+                + (np.arange(int(n_pos.sum())) - np.repeat(np.cumsum(n_pos) - n_pos, n_pos))
+            ]
+            pi = inter[self.iid_field][pos_src]
+            batch["positive_u"] = _pad_to(pu, self.max_pos)
+            batch["positive_i"] = _pad_to(pi, self.max_pos)
+            pw = np.zeros(self.max_pos, dtype=np.float32)
+            pw[: len(pu)] = 1.0
+            batch["positive_weight"] = pw
+            batch["n_users"] = np.array(U, dtype=np.int64)
+            batch["slot_users"] = _pad_to(users, self.step)
             yield batch

@@ -1,0 +1,140 @@
+"""Dataset and loader factory.
+
+Port of `oovrec_tpu/data/utils.py:28-189`: `create_dataset` (with the
+`save_dataset` pickle cache keyed on the dataset arguments),
+`eval_mode_to_neg_args` and `data_preparation`, which splits the dataset,
+builds the cross-phase sampler and the train / valid / test batchers
+(full sort for 'full', plain labelled rows for 'labeled', sampled
+negatives for 'uniN' / 'popN'). The loaders take the process pair from
+the caller (one process when it gives none). The knowledge-graph,
+sequential and user-batch (autoencoder) loaders are not ported and raise,
+naming their ROADMAP.md items.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import pickle
+import re
+from typing import Optional, Tuple
+
+from oovrec_tpu_torch.data.dataloader import (
+    FullSortEvalBatcher,
+    NegSampleEvalBatcher,
+    PlainEvalBatcher,
+    TrainBatcher,
+)
+from oovrec_tpu_torch.data.dataset import Dataset
+from oovrec_tpu_torch.data.inductive_dataset import InductiveDataset
+from oovrec_tpu_torch.data.sampler import Sampler
+from oovrec_tpu_torch.utils.enums import InputType, ModelType
+
+DATASET_CACHE_ARGS = (
+    "dataset", "data_path", "load_col", "unload_col", "rm_dup_inter",
+    "val_interval", "user_inter_num_interval", "item_inter_num_interval",
+    "filter_inter_by_user_or_item", "threshold", "normalize_field",
+    "normalize_all", "discretization", "numerical_features", "seed",
+    "benchmark_filename", "MAX_ITEM_LIST_LENGTH",
+)
+
+
+def _dataset_cache_path(config) -> str:
+    key = {k: config[k] for k in DATASET_CACHE_ARGS}
+    digest = hashlib.sha1(
+        json.dumps(key, sort_keys=True, default=str).encode()
+    ).hexdigest()[:16]
+    d = config.get("checkpoint_dir", "saved")
+    return f"{d}/{config['dataset']}-dataset-{digest}.pkl"
+
+
+def _model_class(config):
+    from oovrec_tpu_torch.models import get_model_class
+
+    try:
+        return get_model_class(config["model"]) if config["model"] else None
+    except ValueError:
+        return None
+
+
+def create_dataset(config, inductive: bool = False):
+    """The dataset for the config's model. Under `save_dataset` the
+    processed dataset round-trips through a pickle keyed on the dataset
+    arguments."""
+    if inductive:
+        return InductiveDataset(config)
+    cache_path = None
+    if config.get("save_dataset"):
+        cache_path = config.get("dataset_save_path") or _dataset_cache_path(config)
+        if os.path.isfile(cache_path):
+            with open(cache_path, "rb") as f:
+                ds = pickle.load(f)
+            ds.config = config
+            return ds
+    cls = _model_class(config)
+    mt = getattr(cls, "model_type", None)
+    if mt in (ModelType.SEQUENTIAL, ModelType.KNOWLEDGE):
+        raise NotImplementedError(
+            f"the {mt.name.lower()} datasets are not ported (ROADMAP.md, queue 1: "
+            "sequential models; general and knowledge zoo)")
+    ds = Dataset(config)
+    if cache_path:
+        os.makedirs(os.path.dirname(cache_path) or ".", exist_ok=True)
+        with open(cache_path, "wb") as f:
+            pickle.dump(ds, f)
+    return ds
+
+
+def eval_mode_to_neg_args(mode: str) -> Optional[dict]:
+    """'uni250' → {'distribution': 'uniform', 'sample_num': 250};
+    'full' / 'labeled' → None."""
+    if mode in ("full", "labeled"):
+        return None
+    m = re.fullmatch(r"(uni|pop)(\d+)", mode)
+    if not m:
+        raise NotImplementedError(f"eval mode [{mode}] is not supported")
+    dist = "uniform" if m.group(1) == "uni" else "popularity"
+    return {"distribution": dist, "sample_num": int(m.group(2))}
+
+
+def data_preparation(config, dataset, process_index: Optional[int] = None,
+                     process_count: Optional[int] = None
+                     ) -> Tuple[TrainBatcher, object, object]:
+    """Split, sampler and the (train, valid, test) batchers. An empty
+    valid or test split gives None for its loader."""
+    train_split, valid_split, test_split = dataset.build()[:3]
+
+    nsa = config["train_neg_sample_args"] or {"distribution": "none"}
+    sampler = Sampler(
+        ["train", "valid", "test"],
+        [train_split, valid_split, test_split],
+        distribution=nsa.get("distribution", "uniform")
+        if nsa.get("distribution", "none") != "none"
+        else "uniform",
+        alpha=nsa.get("alpha", 1.0),
+        seed=int(config["seed"] or 2020),
+        repeatable=bool(config["repeatable"]),
+    )
+    procs = dict(process_index=process_index, process_count=process_count)
+
+    input_type = config["MODEL_INPUT_TYPE"] or InputType.POINTWISE
+    if getattr(_model_class(config), "train_on_users", False):
+        raise NotImplementedError(
+            "user-batch training (autoencoder models) is not ported "
+            "(ROADMAP.md, queue 1: general and knowledge zoo)")
+    train_loader = TrainBatcher(train_split, sampler, config, input_type, phase="train", **procs)
+
+    def eval_loader(split, phase):
+        mode = config["eval_args"]["mode"]["valid" if phase == "valid" else "test"]
+        neg_args = eval_mode_to_neg_args(mode)
+        if mode == "labeled":
+            return PlainEvalBatcher(split, config)
+        if neg_args is None:
+            return FullSortEvalBatcher(split, sampler, config, phase=phase, **procs)
+        return NegSampleEvalBatcher(split, sampler, config, phase=phase,
+                                    neg_sample_args=neg_args, **procs)
+
+    valid_loader = eval_loader(valid_split, "valid") if len(valid_split) else None
+    test_loader = eval_loader(test_split, "test") if len(test_split) else None
+    return train_loader, valid_loader, test_loader

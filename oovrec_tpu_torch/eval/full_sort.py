@@ -1,10 +1,13 @@
 """Full-sort scoring steps on dense (U, N) score matrices.
 
-Port of `oovrec_tpu/eval/full_sort.py:20-142`: score a block of users
-against the item corpus, mask PAD + history, build the positive matrix and
-take the top-k, all on the device; only the small (U, maxk) hit matrices
-travel back to the host. Top-k is stable (ties to the lowest column), as
-`lax.top_k` is. The sampled-negative helpers are not ported yet.
+Port of `oovrec_tpu/eval/full_sort.py`: score a block of users against
+the item corpus, mask PAD + history, build the positive matrix and take
+the top-k, all on the device; only the small (U, maxk) hit matrices
+travel back to the host. The sampled-negative path scatters the scored
+rows into a (U, N) matrix that is −inf where unscored
+(`sampled_matrices`) and takes the top-k of that (`matrix_topk`,
+`variant_matrix_topk`). Top-k is stable (ties to the lowest column), as
+`lax.top_k` is.
 """
 
 from __future__ import annotations
@@ -112,3 +115,63 @@ def variant_topk(
         out_len.append((pos_valid & (imask[pos_long] > 0)).sum(dim=1))
     topk_idx, pos_idx = _pad_k(torch.stack(out_idx), torch.stack(out_pos), maxk)
     return topk_idx, pos_idx, torch.stack(out_len)
+
+
+def matrix_topk(mat: torch.Tensor, pos_matrix: torch.Tensor, maxk: int):
+    """Top-k over a pre-scattered (U, N) score matrix (−inf where
+    unscored) with its 0/1 positives. → (topk_idx, pos_idx, pos_len).
+    The JAX version's `perm` / `item_mask` arguments have no caller there
+    either; the slice variants go through `variant_matrix_topk`."""
+    k_eff = min(maxk, mat.shape[1])
+    _, topk_idx = stable_topk(mat, k_eff)
+    pos_idx = torch.gather(pos_matrix, 1, topk_idx)
+    topk_idx, pos_idx = _pad_k(topk_idx, pos_idx, maxk)
+    return topk_idx, pos_idx, pos_matrix.sum(dim=1)
+
+
+def variant_matrix_topk(mat, pos_matrix, maxk: int, perms, item_masks):
+    """`variant_topk` for the sampled-negative path: the V slice variants
+    (item mask + permuted top-k) of one pre-scattered score matrix."""
+    k_eff = min(maxk, mat.shape[1])
+    out_idx, out_pos, out_len = [], [], []
+    for perm, imask in zip(perms, item_masks):
+        m = torch.where(imask[None, :] > 0, mat, NEG_INF)
+        pm = pos_matrix * imask[None, :].to(pos_matrix.dtype)
+        _, topk_p = stable_topk(m[:, perm], k_eff)
+        topk_idx = perm[topk_p]
+        out_idx.append(topk_idx)
+        out_pos.append(torch.gather(pm, 1, topk_idx))
+        out_len.append(pm.sum(dim=1))
+    topk_idx, pos_idx = _pad_k(torch.stack(out_idx), torch.stack(out_pos), maxk)
+    return topk_idx, pos_idx, torch.stack(out_len)
+
+
+def scatter_scores(row_user, item_ids, scores, weight, n_users: int, n_items: int):
+    """The rows' scores scattered into a (n_users, n_items) −inf matrix,
+    the max where a (user, item) cell repeats; padded rows (weight 0) go
+    nowhere."""
+    mat = torch.full((n_users, n_items), NEG_INF, dtype=scores.dtype, device=scores.device)
+    real = weight > 0
+    flat = row_user[real].long() * n_items + item_ids[real].long()
+    mat.view(-1).scatter_reduce_(0, flat, scores[real], reduce="amax")
+    return mat
+
+
+def positives_matrix(positive_u, positive_i, positive_weight, n_users: int, n_items: int):
+    """(n_users, n_items) int32, 1 at each real positive, column 0 zero."""
+    mat = torch.zeros((n_users, n_items), dtype=torch.int32, device=positive_u.device)
+    real = positive_weight > 0
+    mat[positive_u[real].long(), positive_i[real].long()] = 1
+    mat[:, 0] = 0
+    return mat
+
+
+def sampled_matrices(batch, scores, iid_field: str, n_users: int, n_items: int):
+    """One uni-N batch as (its scores scattered per user slot, column 0
+    masked; its positives matrix)."""
+    mat = scatter_scores(batch["row_user"], batch[iid_field], scores, batch["weight"],
+                         n_users, n_items)
+    mat[:, 0] = NEG_INF
+    pos = positives_matrix(batch["positive_u"], batch["positive_i"],
+                           batch["positive_weight"], n_users, n_items)
+    return mat, pos

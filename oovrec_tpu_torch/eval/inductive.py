@@ -1,6 +1,6 @@
 """InductiveEvaluator — 7-way old/new slice evaluation over the `_ind` corpus.
 
-Port of `oovrec_tpu/eval/inductive.py:53-356, 431-524` on two paths.
+Port of `oovrec_tpu/eval/inductive.py:53-524` on three paths.
 
 Ranking (VALUE-metric) models: each labelled row is annotated with the
 OOV flags and mapper buckets of its user and item, scored by
@@ -21,13 +21,18 @@ user old/new masks:
     new_old      uid ≥ n_old    old items only
     new_new      uid ≥ n_old    new items only
 
+Retrieval models, on sampled negatives (the paper's uni250 protocol,
+`_evaluate_sampled`): `model.predict` over the annotated expanded rows,
+scattered into a (user slot, item) matrix per batch; the same four item
+variants over that matrix, the slices by the slot users' old/new masks.
+
 The slices keep the JAX package's semantics, including its documented
 deviation from the reference on old_new/new_old (complementary item mask,
 unshifted positive ids). Tie-breaking follows `use_perturbed_hits`: top-k
 runs on column-permuted scores. The permutations come from
 `host_rng(seed, "perturbed_hits")` drawn in the JAX order (three per batch
-on the dense path, one on the fused path), so both packages rank alike.
-The sampled-negative path comes later.
+on the dense and sampled paths, one on the fused path), so both packages
+rank alike.
 """
 
 from __future__ import annotations
@@ -37,8 +42,13 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from oovrec_tpu_torch.data.dataloader import NegSampleEvalBatcher
 from oovrec_tpu_torch.eval.collector import Collector, Evaluator
-from oovrec_tpu_torch.eval.full_sort import variant_topk
+from oovrec_tpu_torch.eval.full_sort import (
+    sampled_matrices,
+    variant_matrix_topk,
+    variant_topk,
+)
 from oovrec_tpu_torch.eval.runner import fused_hits, fused_topk_rule, to_device_batch
 from oovrec_tpu_torch.ops.topk_score import (
     NEG_INF as K_NEG_INF,
@@ -213,6 +223,8 @@ class InductiveEvaluator:
         self.model.eval()
         if self.config["eval_type"] == EvaluatorType.VALUE:
             return self._evaluate_value(test_loader)
+        if isinstance(test_loader, NegSampleEvalBatcher):
+            return self._evaluate_sampled(test_loader)
         n_ext = test_loader.item_num
         all_item_e = self._all_item_embeddings(n_ext)
         if self._step is None:
@@ -241,27 +253,57 @@ class InductiveEvaluator:
             w = np.asarray(batch["weight"]) > 0
             old_u = (users < self.n_old_users) & w
             new_u = (users >= self.n_old_users) & w
-            plan = {
-                "overall": ("overall", w),
-                "old_users": ("full", old_u),
-                "new_users": ("full", new_u),
-                "old_old": ("old", old_u),
-                "old_new": ("new", old_u),
-                "new_old": ("old", new_u),
-                "new_new": ("new", new_u),
-            }
             host = {
                 v: (pos_idx.cpu().numpy(), pos_len.cpu().numpy())
                 for v, (_, pos_idx, pos_len) in out.items()
             }
-            for slice_name, (variant, rows) in plan.items():
-                pos_idx, pos_len = host[variant]
-                keep = rows & (pos_len > 0)  # drop rows with no slice positives
-                if keep.any():
-                    collectors[slice_name].collect_topk(
-                        pos_idx[keep], pos_len[keep]
-                    )
+            self._collect_slices(collectors, host, w, old_u, new_u)
+        return self._results(collectors)
 
+    def _evaluate_sampled(self, test_loader: NegSampleEvalBatcher):
+        """Retrieval slices over scattered uni-N score matrices
+        (`inductive.py:358-430` of the JAX package)."""
+        model, maxk = self.model, self.maxk
+        n_ext = test_loader.item_num
+        n_users = test_loader.max_users
+        slots = np.arange(n_users)
+        collectors = {s: Collector(self.config) for s in SLICES}
+        for batch in test_loader:
+            batch = self._annotate_rows(batch)
+            db = to_device_batch(batch, self.device)
+            perms, imasks = self._variant_perms_masks(n_ext)
+            mat, pos = sampled_matrices(db, model.predict(db), model.iid_field,
+                                        n_users, n_ext)
+            _, pos_idx, pos_len = variant_matrix_topk(mat, pos, maxk, perms, imasks)
+            host = {v: (pos_idx[i].cpu().numpy(), pos_len[i].cpu().numpy())
+                    for i, v in enumerate(VARIANTS)}
+
+            slot_users = np.asarray(batch["slot_users"])
+            w = slots < int(batch["n_users"])
+            old_u = (slot_users < self.n_old_users) & w
+            new_u = (slot_users >= self.n_old_users) & w
+            self._collect_slices(collectors, host, w, old_u, new_u)
+        return self._results(collectors)
+
+    def _collect_slices(self, collectors, host, w, old_u, new_u) -> None:
+        """Each slice's rows of its item variant, rows without a slice
+        positive dropped."""
+        plan = {
+            "overall": ("overall", w),
+            "old_users": ("full", old_u),
+            "new_users": ("full", new_u),
+            "old_old": ("old", old_u),
+            "old_new": ("new", old_u),
+            "new_old": ("old", new_u),
+            "new_new": ("new", new_u),
+        }
+        for slice_name, (variant, rows) in plan.items():
+            pos_idx, pos_len = host[variant]
+            keep = rows & (pos_len > 0)
+            if keep.any():
+                collectors[slice_name].collect_topk(pos_idx[keep], pos_len[keep])
+
+    def _results(self, collectors):
         evaluator = Evaluator(self.config)
         results: "OrderedDict[str, OrderedDict]" = OrderedDict()
         for s in SLICES:

@@ -1,13 +1,17 @@
 """Evaluation runner: loader → device step → collector → metrics.
 
-Port of `oovrec_tpu/eval/runner.py:24-148, 410-564` on two paths:
+Port of `oovrec_tpu/eval/runner.py:24-148, 353-564` on three paths:
   * full sort (retrieval models): the dense step (`mask_and_topk` over
     `full_sort_scores`) and the fused step
     (`ops/topk_score.py:fused_topk_scores` over the two towers);
+  * sampled negatives (`NegSampleEvalBatcher`, the `uniN` / `popN`
+    modes): for RANKING metrics, `model.predict` over the expanded rows,
+    scattered into a (users, items) matrix per batch, then top-k and the
+    positives' ranks; for VALUE metrics, the pooled (score, label) pairs
+    of those rows;
   * value (ranking models): `PlainEvalBatcher` rows → `model.predict` →
     pooled (score, label) pairs → AUC / LogLoss / RMSE / MAE.
-The scanned, sampled-negative and multi-device paths come with later
-slices.
+The scanned and multi-device paths come with later slices.
 """
 
 from __future__ import annotations
@@ -17,13 +21,23 @@ from typing import Dict
 import numpy as np
 import torch
 
-from oovrec_tpu_torch.data.dataloader import FullSortEvalBatcher, PlainEvalBatcher
+from oovrec_tpu_torch.data.dataloader import (
+    FullSortEvalBatcher,
+    NegSampleEvalBatcher,
+    PlainEvalBatcher,
+)
 from oovrec_tpu_torch.eval.collector import (
     Collector,
     Evaluator,
     meanrank_from_scores,
 )
-from oovrec_tpu_torch.eval.full_sort import apply_masks, mask_and_topk
+from oovrec_tpu_torch.eval.full_sort import (
+    apply_masks,
+    mask_and_topk,
+    matrix_topk,
+    sampled_matrices,
+)
+from oovrec_tpu_torch.utils.enums import EvaluatorType, ModelType
 
 
 def to_device_batch(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -127,10 +141,17 @@ class EvalRunner:
         self.model.eval()
         if isinstance(eval_loader, PlainEvalBatcher):
             return self._evaluate_value(eval_loader)
+        if isinstance(eval_loader, NegSampleEvalBatcher):
+            # the joined feature columns are read only by context models
+            eval_loader.join_features = (
+                getattr(self.model, "model_type", None) == ModelType.CONTEXT)
+            if self.eval_type == EvaluatorType.VALUE:
+                return self._evaluate_value(eval_loader, sample_eval_ratio, rng)
+            return self._evaluate_neg(eval_loader, sample_eval_ratio, rng)
         if not isinstance(eval_loader, FullSortEvalBatcher):
             raise NotImplementedError(
-                f"{type(eval_loader).__name__}: only full-sort and plain "
-                "labelled eval are ported"
+                f"{type(eval_loader).__name__}: only full-sort, sampled-negative "
+                "and plain labelled eval are ported"
             )
         collector = Collector(self.config)
         if self.train_split is not None and (
@@ -167,12 +188,37 @@ class EvalRunner:
                 collector.collect_meanrank(prs, ul, pl, batch["weight"])
         return Evaluator(self.config).evaluate(collector.get_data_struct())
 
-    def _evaluate_value(self, eval_loader: PlainEvalBatcher):
-        """VALUE metrics over pooled (score, label) pairs
-        (`runner.py:551-564` of the JAX package)."""
+    def _evaluate_neg(self, eval_loader: NegSampleEvalBatcher, sample_eval_ratio=None,
+                      rng=None):
+        """RANKING metrics over uni-N batches (`runner.py:353-370,
+        432-490` of the JAX package): the rows' scores scattered per user
+        slot, top-k against the positives; each user slot in range collects
+        its hits."""
+        collector = Collector(self.config)
+        model = self.model
+        off = eval_loader.slot_offset
+        slots = np.arange(eval_loader.max_users)
+        for i, batch in enumerate(eval_loader):
+            if (sample_eval_ratio is not None and i >= 1 and rng is not None
+                    and rng.random() > sample_eval_ratio):
+                continue
+            db = to_device_batch(batch, self.device)
+            mat, pos = sampled_matrices(db, model.predict(db), model.iid_field,
+                                        eval_loader.max_users, eval_loader.item_num)
+            _, pos_idx, pos_len = matrix_topk(mat, pos, self.maxk)
+            user_w = ((slots >= off) & (slots < off + int(batch["n_users"]))).astype(np.float32)
+            collector.collect_topk(pos_idx.cpu().numpy(), pos_len.cpu().numpy(), user_w)
+        return Evaluator(self.config).evaluate(collector.get_data_struct())
+
+    def _evaluate_value(self, eval_loader, sample_eval_ratio=None, rng=None):
+        """VALUE metrics over pooled (score, label) pairs of plain labelled
+        or uni-N rows (`runner.py:531-564` of the JAX package)."""
         collector = Collector(self.config)
         label = self.model.label_field
-        for batch in eval_loader:
+        for i, batch in enumerate(eval_loader):
+            if (sample_eval_ratio is not None and i >= 1 and rng is not None
+                    and rng.random() > sample_eval_ratio):
+                continue
             scores = self.model.predict(to_device_batch(batch, self.device))
             collector.collect_scores(
                 scores.float().cpu().numpy(), batch[label], batch["weight"]

@@ -25,9 +25,10 @@ the eval runner set; a model's `forward(batch, train=None)` follows the
 module's mode unless `train` is given, as the flax models take `train`,
 and `calculate_loss` always runs in train mode, as the JAX package's does.
 
+`field_spec_from_dataset` derives the `FieldSpec` from a `Dataset`.
+
 Not ported yet: token_seq / float_seq fields (no serving configuration
-has them), `field_spec_from_dataset` (waits for the atomic-file dataset)
-and the trainable embedder towers.
+has them) and the trainable embedder towers.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ from oovrec_tpu_torch.inductive.spec import InductiveSpec
 from oovrec_tpu_torch.models.base import Batch
 from oovrec_tpu_torch.models.init import xavier_normal_
 from oovrec_tpu_torch.utils.device import resolve_device
-from oovrec_tpu_torch.utils.enums import InputType, ModelType
+from oovrec_tpu_torch.utils.enums import FeatureSource, FeatureType, InputType, ModelType
 
 # token columns a corpus may legitimately lack (PAD-filled when absent):
 # the is_new flag column exists only on the original benchmark files
@@ -83,6 +84,54 @@ class FieldSpec:
     @property
     def float_offsets(self) -> np.ndarray:
         return np.array((0, *np.cumsum(self.float_dims)[:-1]), dtype=np.int64)
+
+
+def field_spec_from_dataset(dataset, config) -> FieldSpec:
+    """The feature fields of a dataset, as the JAX package scans them
+    (`oovrec_tpu/models/context.py:83`): user_id and item_id first, then
+    the other fields in the dataset's field order; the label is left out,
+    and float fields count only when `numerical_features` names them."""
+    numerical = set(config["numerical_features"] or [])
+    label = config["LABEL_FIELD"]
+    sources = {
+        FeatureSource.INTERACTION, FeatureSource.USER, FeatureSource.USER_ID,
+        FeatureSource.ITEM, FeatureSource.ITEM_ID,
+    }
+    tn, td, fn, fd, sn, sd, qn, qd = [], [], [], [], [], [], [], []
+    uid, iid = config["USER_ID_FIELD"], config["ITEM_ID_FIELD"]
+    ordered = [uid, iid] + [f for f in dataset.field2type if f not in (uid, iid)]
+    for f in ordered:
+        if f == label or dataset.field2source.get(f) not in sources:
+            continue
+        t = dataset.field2type[f]
+        if t == FeatureType.TOKEN:
+            tn.append(f)
+            td.append(dataset.num(f))
+        elif t == FeatureType.TOKEN_SEQ:
+            sn.append(f)
+            sd.append(dataset.num(f))
+        elif t == FeatureType.FLOAT and f in numerical:
+            fn.append(f)
+            fd.append(dataset.num(f))
+        elif t == FeatureType.FLOAT_SEQ and f in numerical:
+            qn.append(f)
+            qd.append(dataset.num(f))
+    uidx, iidx = [], []
+    for i, f in enumerate(tn):
+        src = dataset.field2source.get(f)
+        if src in (FeatureSource.USER, FeatureSource.USER_ID):
+            uidx.append(i)
+        elif src in (FeatureSource.ITEM, FeatureSource.ITEM_ID):
+            iidx.append(i)
+    if not uidx:
+        uidx = [0]
+    if not iidx:
+        iidx = [1] if len(tn) > 1 else [0]
+    return FieldSpec(
+        tuple(tn), tuple(td), tuple(fn), tuple(fd),
+        tuple(sn), tuple(sd), tuple(qn), tuple(qd),
+        tuple(uidx), tuple(iidx),
+    )
 
 
 class _FieldEmbedding(nn.Module):

@@ -24,6 +24,7 @@ Port of `oovrec_tpu/train/trainer.py`:
     kernel 6. `device_epoch: true` on a pointwise or plain loader raises
     (those modes are not ported); `auto` takes the host path for them;
   * validation through the port's `EvalRunner`, early stopping, the
+    epoch log lines of the JAX trainer (`utils/logging.py`), the
     best-model checkpoint (the port's own `torch.save` format: the JAX
     package's flax/msgpack file cannot be read where JAX is absent) and
     the JSONL `metrics_log_path`.
@@ -60,6 +61,7 @@ from oovrec_tpu_torch.train.device_epoch import (
 )
 from oovrec_tpu_torch.train.early_stopping import early_stopping
 from oovrec_tpu_torch.train.optimizers import build_optimizer, clone_state
+from oovrec_tpu_torch.utils.logging import init_logger
 from oovrec_tpu_torch.utils.seeding import host_rng, torch_generator
 
 
@@ -86,6 +88,7 @@ class Trainer:
         self.config = config
         self.model = model
         self._refuse_unported(config, model)
+        self.logger = init_logger(config)
 
         self.epochs = int(config["epochs"])
         self.eval_step = min(int(config["eval_step"]), self.epochs)
@@ -271,6 +274,8 @@ class Trainer:
         self.eval_runner.train_split = getattr(train_loader, "split", None)
 
         for epoch_idx in range(self.start_epoch, self.epochs):
+            t0 = time.time()
+            oov_loss = None
             if self.train_oov and not self.oov_only_epoch:
                 train_loss = self._train_epoch(train_loader, epoch_idx,
                                                oov_transform=self._augment_batch)
@@ -294,12 +299,19 @@ class Trainer:
                     self.opt_state = snapshot
                 if oov_loss is not None:
                     self.oov_loss_dict[epoch_idx] = oov_loss
+            self.logger.info(
+                "epoch %d training [time: %.2fs, train loss: %s%s]" % (
+                    epoch_idx, time.time() - t0,
+                    f"{train_loss:.4f}" if train_loss is not None else "None",
+                    f", oov loss: {oov_loss:.4f}" if oov_loss is not None else "",
+                ))
 
             if self.eval_step <= 0 or valid_loader is None:
                 if saved:
                     self._save_checkpoint(epoch_idx)
                 continue
             if (epoch_idx + 1) % self.eval_step == 0:
+                t1 = time.time()
                 ratio = self.valid_sample_ratio
                 ratio = ratio if (ratio is not None and 0 < ratio < 1) else None
                 valid_result = self.eval_runner.evaluate(
@@ -309,6 +321,9 @@ class Trainer:
                     valid_score, self.best_valid_score, self.cur_step,
                     max_step=self.stopping_step, bigger=self.valid_metric_bigger,
                 )
+                self.logger.info("epoch %d evaluating [time: %.2fs, valid_score: %f]"
+                                 % (epoch_idx, time.time() - t1, valid_score))
+                self.logger.info(f"valid result: {dict(valid_result)}")
                 if update_flag:
                     if saved:
                         self._save_checkpoint(epoch_idx)
@@ -318,6 +333,8 @@ class Trainer:
                 self._log_metrics({**{k: float(v) for k, v in valid_result.items()},
                                    "epoch": epoch_idx}, head="valid")
                 if stop_flag:
+                    self.logger.info("Finished training, best eval result in epoch %d"
+                                     % (epoch_idx - self.cur_step * self.eval_step))
                     break
         return self.best_valid_score, self.best_valid_result
 

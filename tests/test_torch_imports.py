@@ -47,5 +47,12 @@ def test_scan_sees_the_whole_port():
     assert "oovrec_tpu_torch/train/sparse_update.py" in names
     assert "oovrec_tpu_torch/train/device_epoch.py" in names
     assert "oovrec_tpu_torch/data/alias.py" in names
+    assert "oovrec_tpu_torch/config/yaml_subset.py" in names
+    assert "oovrec_tpu_torch/data/atomic.py" in names
+    assert "oovrec_tpu_torch/data/inductive_dataset.py" in names
+    assert "oovrec_tpu_torch/data/utils.py" in names
+    assert "oovrec_tpu_torch/cli/run.py" in names
+    assert "oovrec_tpu_torch/cli/quick_start.py" in names
+    assert "oovrec_tpu_torch/cli/inductive_eval.py" in names
     assert "chip_smoke.py" in names
     assert len(names) >= 20
