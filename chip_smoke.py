@@ -61,13 +61,35 @@ Phases (any failure exits non-zero; no phase failure is caught):
         6 counted), full-sort eval, then `perform_inductive_eval` (kernel 1
         counted); the wall time of each stage; `--eval_only` with
         `use_fused_topk` True and False (perturbed hits off, as in phase
-        3) agree to 1e-9.
+        3) agree to 1e-9;
+  8. phase D, the embedders, at the published widths (BPR at D 64, DHE at
+     128 hashes and towers of 512, xDeepFM at xDeepFM.yaml):
+     D1. EXPERIMENTS.md:40-45 verbatim (lsh, the *_vector columns, 200
+         buckets a side, OOV ratio 0.3, the inductive eval; 5 epochs)
+         through `python -m oovrec_tpu_torch.cli.run` as a subprocess, its
+         `--eval_only` equal to 1e-9, then the same command through
+         `cli.run.main` with slsh, dnn, knn, dhe and fdhe (32 hashes); every
+         run's 7 slices finite;
+     D2. xDeepFM with lsh through `cli.run.main`, 3 epochs, the CIN kernels
+         counted;
+     D3. fdhe serving over phase 3's 1,000,000 items: the ids hashed on
+         the card equal to the numpy hasher on every id, the tower pass
+         over all items timed, the 7-slice eval fused vs dense to 1e-9;
+     D4. the gathers' backward of `ops/embed_grad.py` (its kernel) and the
+         routes it was measured against (BACKWARD_ROUTES: a call and device
+         time, each repeated bit for bit), and BPR with lsh on the
+         device epoch with sparse adam, auto == xla bit for bit.
+Phase 2 also holds the gathers' backward kernel (`csrc/embed_grad.cu`)
+against its plain version (bit for bit on integer-valued cotangents, to
+1e-5 on random ones, against a repeat run) and times it; phase 6 profiles
+the device-epoch step under each backward route and phase 5 the xDeepFM
+step under the kernel and the index route.
 Phase 2 also holds the CIN backward kernel against its plain version,
 bit for bit on integer inputs and gradients (and against itself on a
 repeat run), and times it per layer and for the 3-layer stack.
 The last line is the device record; the line before it lists the kernels,
-each with its launches on the earlier phases' paths (`launches`) and on
-the CLI phases (`launches_cli`).
+each with its launches on the earlier phases' paths (`launches`), on the
+CLI phases (`launches_cli`) and on phase D's parts (`launches_d`).
 
 TF32 is switched off for matmuls and cuDNN below: the plain versions and
 the dense path must compute in full f32, as the kernel does.
@@ -75,6 +97,7 @@ the dense path must compute in full f32, as the kernel does.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -101,9 +124,9 @@ from oovrec_tpu_torch.data import (
 )
 from oovrec_tpu_torch.eval import EvalRunner, InductiveEvaluator
 from oovrec_tpu_torch.eval.runner import to_device_batch
-from oovrec_tpu_torch.inductive import InductiveSpec, RandomOOVMapper
+from oovrec_tpu_torch.inductive import DHEHasher, InductiveSpec, RandomOOVMapper
 from oovrec_tpu_torch.models import BPR, FieldSpec, xDeepFM
-from oovrec_tpu_torch.ops import topk_score
+from oovrec_tpu_torch.ops import embed_grad, topk_score
 from oovrec_tpu_torch.ops.cin_fused import (
     cin_layer,
     cin_layer_bwd,
@@ -129,6 +152,8 @@ from oovrec_tpu_torch.ops.topk_score import (
     stream_users,
     unpack_bitmap,
 )
+from oovrec_tpu_torch.ops.siphash import siphash24_batch
+from oovrec_tpu_torch.ops.siphash_device import MAX_HASH, dhe_codes_device
 from oovrec_tpu_torch.ops.sparse_rows import sparse_adam_rows_kernel, sparse_adam_rows_plain
 from oovrec_tpu_torch.train import Trainer
 from oovrec_tpu_torch.train.sparse_update import coalesce_rows
@@ -460,18 +485,22 @@ def synth_interactions(model, mapper):
                    replace=False),
     ])
     ids = torch.arange(n_items, device=DEVICE)
-    buckets = torch.from_numpy(
-        np.where(np.arange(n_items) >= N_OLD_ITEMS,
-                 mapper.item_buckets(np.arange(n_items)), 0)
-    ).to(DEVICE)
-    item_e = model.all_item_embeddings(ids, buckets)
     oov = users >= N_OLD_USERS
     batch = {
         "user_id": torch.from_numpy(users).to(DEVICE),
         "user_id_oov": torch.from_numpy(oov.astype(np.int64)).to(DEVICE),
-        "user_id_bucket": torch.from_numpy(
-            np.where(oov, mapper.user_buckets(users), 0)).to(DEVICE),
     }
+    if mapper is None:  # a DHE model: the ids hashed on the card
+        item_e = model.all_item_embeddings(ids, item_dhe_ids=ids)
+        batch["user_id_dhe_id"] = batch["user_id"]
+    else:
+        buckets = torch.from_numpy(
+            np.where(np.arange(n_items) >= N_OLD_ITEMS,
+                     mapper.item_buckets(np.arange(n_items)), 0)
+        ).to(DEVICE)
+        item_e = model.all_item_embeddings(ids, buckets)
+        batch["user_id_bucket"] = torch.from_numpy(
+            np.where(oov, mapper.user_buckets(users), 0)).to(DEVICE)
     scores = model.score_against(batch, item_e)
     # old and new items separately: bucket rows outscore the IV table at init
     top_old = torch.topk(scores[:, 1:N_OLD_ITEMS], 24, dim=1).indices + 1
@@ -619,7 +648,12 @@ def breakdown(evaluator, test_loader, what="fused inductive eval (perturbed hits
     log(f"  a batch: wall {wall_ms / n:.2f} ms under the profiler, device {busy_ms / n:.3f} ms")
 
 
-def profiled(run, what, shares=()):
+GATHER_NODE = "_GatherRowsBackward"
+# the gathers' backward measurements of phases D4 and 6, for the last lines
+GATHER_RESULTS = {}
+
+
+def profiled(run, what, shares=(), quiet=False):
     """torch.profiler around `run()`: the wall, the device's busy share of
     it, the largest device kernels and, for each (label, name prefixes) of
     `shares`, those kernels' share of the device time, launches and device
@@ -645,13 +679,21 @@ def profiled(run, what, shares=()):
     busy_ms = sum(r[0] for r in rows) / 1e3
     log(f"{what}, wall {wall_ms:.1f} ms, device busy "
         f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %)")
+    # the row gathers' backward (ops/embed_grad.py): the device time of the
+    # kernels its autograd node launched, sort and segment sums included
+    spans = [(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0), e.count)
+             for e in prof.key_averages() if e.key.endswith(GATHER_NODE)]
+    g_us, g_n = max(spans, default=(0, 0))
+    profiled.gathers_ms = g_us / 1e3
+    log(f"  gathers' backward ({backward_route.name} route): {g_us / 1e3:.3f} ms "
+        f"({100 * g_us / 1e3 / max(busy_ms, 1e-9):.1f} % of device time), {g_n} calls")
     for label, prefixes in shares:
         mine = [(us, n) for us, key, n in rows if any(p in key for p in prefixes)]
         ms = sum(us for us, _ in mine) / 1e3
         n = sum(c for _, c in mine)
         log(f"  {label}: {ms:.3f} ms ({100 * ms / max(busy_ms, 1e-9):.1f} % of device time), "
             f"{n} launches, {ms / max(n, 1):.4f} ms a launch")
-    for us, key, count in rows[:12]:
+    for us, key, count in ([] if quiet else rows[:12]):
         log(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
     return wall_ms, busy_ms
 
@@ -1318,6 +1360,17 @@ def ranking_training(ind, mapper):
                 ("  launch 3, partial sums", ("cin_bwd_reduce_kernel",))))
     log(f"ranking training profile: {wall_ms / len(profile_loader):.2f} ms per step "
         "under the profiler")
+    # the same steps with the gathers' backward on torch's indexing route
+    # (the port's before this kernel), for the share it took
+    with backward_route("index"):
+        inner(profile_loader, 3)
+        sync()
+        _, busy = profiled(lambda: inner(profile_loader, 4),
+                           f"profile {len(profile_loader)} xDeepFM training steps, the "
+                           "gathers' backward on the index route", quiet=True)
+    log(f"ranking training profile, index route: {busy / len(profile_loader):.3f} ms of "
+        f"device time a step, the gathers' backward "
+        f"{profiled.gathers_ms / len(profile_loader):.3f} ms")
     kernel_vs_plain_training(train)
     wide_cin_training(train)
     return counts
@@ -1667,6 +1720,109 @@ def sparse_rows_timing():
     }
 
 
+# ------------------------------------- the gathers' backward (embed_grad)
+
+# (name, n, table rows, D, ids from [0, high) or "perm" (a permutation),
+# share of rows kept): the device epoch's bucket gathers (every IV row at
+# bucket 0, discarded or kept; the OOV rows' spread buckets), its row
+# overrides (positions, each once), xDeepFM's packed token table (8,192
+# rows x 7 fields, a small-vocabulary field's few rows), the first-order
+# twin at D 1, a width past one warp, a ragged short input and none
+EMBED_GRAD_CASES = [
+    ("bucket-0-discarded", SP_B, SP_BUCKETS, D, 1, 0.0),
+    ("bucket-0-kept", SP_B, SP_BUCKETS, D, 1, 1.0),
+    ("oov-spread", SP_B, SP_BUCKETS, D, SP_BUCKETS, 0.3),
+    ("row-overrides", 2 * SP_B, 2 * SP_B, D, "perm", 1.0),
+    ("ctr-tokens", 7 * CTR_B, 330_000, CTR_D, 3, 0.9),
+    ("first-order-D1", 7 * CTR_B, 330_000, 1, 40, 1.0),
+    ("D100", 3000, 500, 100, 50, 0.8),
+    ("ragged31", 31, 8, 2, 8, 1.0),
+    ("empty", 0, 16, 4, 1, 1.0),
+]
+EMBED_GRAD_TOL = 1e-5
+
+
+def embed_grad_inputs(n, n_rows, d, high, p_live, seed, integer, ids_dtype=torch.int64):
+    gen = torch_generator(seed, DEVICE)
+    if high == "perm":
+        ids = torch.randperm(n, generator=gen, device=DEVICE)
+    else:
+        ids = torch.randint(0, high, (n,), generator=gen, device=DEVICE)
+    live = torch.rand(n, generator=gen, device=DEVICE) < p_live
+    if integer:
+        g = torch.randint(-8, 9, (n, d), generator=gen, device=DEVICE).float()
+    else:
+        g = torch.randn((n, d), generator=gen, device=DEVICE)
+    return g, ids.to(ids_dtype), live, n_rows
+
+
+def embed_grad_cases():
+    """The gathers' backward kernel (`csrc/embed_grad.cu`) against its plain
+    version on the card: bit for bit on integer-valued cotangents (int64
+    and int32 ids), to EMBED_GRAD_TOL relative to max(1, the plain
+    result's largest magnitude) on random ones, and against a repeat run
+    bit for bit. → the largest relative error."""
+    worst = 0.0
+    for i, (name, n, n_rows, d, high, p_live) in enumerate(EMBED_GRAD_CASES):
+        for integer in (True, False):
+            for ids_dtype in ((torch.int64, torch.int32) if integer else (torch.int64,)):
+                g, ids, live, rows = embed_grad_inputs(n, n_rows, d, high, p_live,
+                                                       SEED + 1300 + i, integer, ids_dtype)
+                got = embed_grad.scatter_rows_kernel(g, ids, rows, live)
+                again = embed_grad.scatter_rows_kernel(g, ids, rows, live)
+                sync()
+                want = embed_grad.scatter_rows_plain(g, ids, rows, live)
+                require(got.shape == want.shape == (rows, d), f"embed_grad {name}: shape")
+                require(torch.equal(got, again), f"embed_grad {name}: a repeat gave other bits")
+                if integer:
+                    require(torch.equal(got, want),
+                            f"embed_grad {name} ({ids_dtype}): differs from the plain version")
+                else:
+                    scale = max(1.0, float(want.abs().max())) if want.numel() else 1.0
+                    err = float((got - want).abs().max()) / scale if want.numel() else 0.0
+                    worst = max(worst, err)
+                    require(err <= EMBED_GRAD_TOL, f"embed_grad {name}: relative error {err}")
+        log(f"embed_grad check {name}: n={n} rows={n_rows} D={d} ids<{high} kept {p_live}: "
+            "exact on integers (int64 and int32 ids), a repeat the same bits")
+    return worst
+
+
+def embed_grad_timing(err):
+    """The kernel at the device epoch's bucket gathers (8,192 rows into
+    1,024 x 64: ids spread over the buckets and kept, as in the OOV
+    sub-epoch) beside its bound (the cotangent and ids read once, the
+    touched rows written once), its plain version and the library call
+    (`embedding_dense_backward`, torch.nn.functional.embedding's
+    backward). A call's time, host included, and the device time a call
+    from a profile."""
+    g, ids, live, rows = embed_grad_inputs(SP_B, SP_BUCKETS, D, SP_BUCKETS, 1.0, SEED + 1400,
+                                           False)
+    kernel = lambda: embed_grad.scatter_rows_kernel(g, ids, rows, live)  # noqa: E731
+    plain = lambda: embed_grad.scatter_rows_plain(g, ids, rows, live)  # noqa: E731
+    library = lambda: torch.ops.aten.embedding_dense_backward(  # noqa: E731
+        g, ids, rows, -1, False)
+    ms, plain_ms, library_ms = (time_ms(f, [()], 50) for f in (kernel, plain, library))
+    touched = int(torch.unique(ids[live]).numel())
+    nbytes = SP_B * D * 4 + SP_B * 8 + touched * D * 4
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = SP_B * D / PEAK_F32_FLOPS * 1e3
+    _, busy = profiled(lambda: [kernel() for _ in range(20)],
+                       "profile 20 calls of the gathers' backward kernel", quiet=True)
+    log(f"embed_grad timing {SP_B} rows into {rows}x{D} ({touched} rows touched): "
+        f"kernel_ms={ms:.4f} ({busy / 20:.4f} ms of device time a call) plain_ms={plain_ms:.4f} "
+        f"library_ms={library_ms:.4f} (embedding_dense_backward) bound_ms={max(t_bytes, t_ops):.5f} "
+        f"({'bytes' if t_bytes > t_ops else 'operations'}; {nbytes / 1e6:.2f} MB)")
+    return {
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes > t_ops else "operations",
+        "library_ms": library_ms,
+        "device_ms": busy / 20,
+    }
+
+
 # ------------------------------------- retrieval training, device epoch
 
 
@@ -1776,19 +1932,88 @@ def recorded_sparse_run(loader, impl):
     return trainer.last_losses, {n: p.detach() for n, p in trainer.params.items()}, grad
 
 
+def _skip_backward(g, ids, n_rows, live=None):
+    """The kernel's plain version on the card: `embedding_dense_backward`
+    with the discarded rows sent to a padding row that it skips."""
+    return embed_grad.scatter_rows_plain(g, ids, n_rows, live)
+
+
+def _embedding_backward(g, ids, n_rows, live=None):
+    """`torch.nn.functional.embedding`'s backward over every row."""
+    return torch.ops.aten.embedding_dense_backward(g, ids.long(), n_rows, -1, False)
+
+
+def _index_backward(g, ids, n_rows, live=None):
+    """torch's indexing backward over every row (`index_put_` with
+    accumulate), the port's gathers' backward before `csrc/embed_grad.cu`."""
+    return g.new_zeros((n_rows, g.shape[-1])).index_put_((ids.long(),), g, accumulate=True)
+
+
+# D4's backward routes of the row gathers: the port's (the kernel) and the
+# three it was measured against, each patched in for `embed_grad.scatter_rows`
+BACKWARD_ROUTES = {"kernel": embed_grad.scatter_rows, "skip": _skip_backward,
+                   "embedding": _embedding_backward, "index": _index_backward}
+
+
+@contextlib.contextmanager
+def backward_route(route):
+    """Run the block with `ops/embed_grad.py`'s backward replaced by the
+    route `route` of BACKWARD_ROUTES."""
+    old, old_name = embed_grad.scatter_rows, backward_route.name
+    embed_grad.scatter_rows, backward_route.name = BACKWARD_ROUTES[route], route
+    try:
+        yield
+    finally:
+        embed_grad.scatter_rows, backward_route.name = old, old_name
+
+
+backward_route.name = "kernel"
+
+
 def gather_backward_ms():
-    """Autograd's backward of one `table[ids]` gather of SP_B rows from the
-    (SP_BUCKETS, D) bucket table: ids all 0 (an IV row's bucket, routed
-    branchlessly) against ids spread over the table. Diagnostic only."""
+    """D4: the row gathers' backward (`ops/embed_grad.py`) at the device
+    epoch's shape: SP_B rows of the (SP_BUCKETS, D) bucket table under each
+    of its routes, with ids all 0 and every row thrown away (an IV row's
+    placeholder bucket, as branchless routing makes it) and with ids spread
+    and every row kept; each twice on the same random cotangents: the same
+    bits. The bound: the cotangent and ids read once, the touched rows
+    written once. → {route: {case: {call_ms, device_ms}}} and the bound of
+    each case in ms."""
     table = torch.zeros((SP_BUCKETS, D), device=DEVICE, requires_grad=True)
-    grad = torch.ones((SP_B, D), device=DEVICE)
-    spread = torch.randint(0, SP_BUCKETS, (SP_B,), device=DEVICE,
-                           generator=torch_generator(SEED, DEVICE))
+    gen = torch_generator(SEED, DEVICE)
+    grad = torch.randn((SP_B, D), device=DEVICE, generator=gen)
+    spread = torch.randint(0, SP_BUCKETS, (SP_B,), device=DEVICE, generator=gen)
+    cases = {
+        "all 0, discarded": (torch.zeros_like(spread),
+                             torch.zeros(SP_B, dtype=torch.bool, device=DEVICE)),
+        "spread, kept": (spread, torch.ones(SP_B, dtype=torch.bool, device=DEVICE)),
+    }
+
+    def bwd(ids, live):
+        return torch.autograd.grad(embed_grad.gather_rows(table, ids, live), table, grad)[0]
+
+    bound = {}
+    for case, (ids, live) in cases.items():
+        touched = int(torch.unique(ids[live]).numel())
+        bound[case] = (SP_B * D * 4 + SP_B * 8 + touched * D * 4) / PEAK_BYTES_PER_S * 1e3
     out = {}
-    for what, ids in (("all 0", torch.zeros_like(spread)), ("spread", spread)):
-        out[what] = time_ms(lambda i: torch.autograd.grad(table[i], table, grad), [(ids,)], 20)
-    log(f"index backward of {SP_B} gathered rows into a ({SP_BUCKETS}, {D}) table: "
-        + ", ".join(f"ids {k} {v:.4f} ms" for k, v in out.items()))
+    for route in BACKWARD_ROUTES:
+        out[route] = {}
+        with backward_route(route):
+            for case, (ids, live) in cases.items():
+                first, again = bwd(ids, live), bwd(ids, live)
+                require(torch.equal(first, again), f"{route} backward, ids {case}: a repeat "
+                        "gave other bits")
+                call_ms = time_ms(bwd, [(ids, live)], 20)
+                profiled(lambda: [bwd(ids, live) for _ in range(20)],
+                         f"profile 20 backward calls, {route} route, ids {case}", quiet=True)
+                out[route][case] = {"call_ms": call_ms, "device_ms": profiled.gathers_ms / 20}
+        log(f"gathers' backward, {route} route, {SP_B} rows into a ({SP_BUCKETS}, {D}) table: "
+            + ", ".join(f"ids {c} {v['call_ms']:.4f} ms a call, {v['device_ms']:.4f} ms of "
+                        "device time" for c, v in out[route].items())
+            + " (a repeat: the same bits)")
+    log("gathers' backward bound: " + ", ".join(f"ids {c} {v:.5f} ms" for c, v in bound.items()))
+    return out, bound
 
 
 def retrieval_sparse_training():
@@ -1809,9 +2034,11 @@ def retrieval_sparse_training():
         f"items, {SP_GROUPS} groups ({SP_IN_GROUP:.0%} in group), {time.perf_counter() - t0:.1f} s")
 
     sparse_adam_rows_kernel.launches = 0
+    embed_grad.scatter_rows_kernel.launches = 0
     sync()
     trainer, seen = sparse_fit(loader, "auto")
     launches = sparse_adam_rows_kernel.launches
+    gather_launches = embed_grad.scatter_rows_kernel.launches
     normal, oov = seen["normal"], seen["oov"]
     ran = normal["steps"] + oov["steps"]
     de = trainer._device_epochs[(id(loader), False, False)]
@@ -1825,6 +2052,10 @@ def retrieval_sparse_training():
     require(normal["steps"] == SP_STEPS and oov["steps"] > 0, "sparse training steps")
     require(normal["sparse"] == oov["sparse"] == "pallas", "the sparse path with kernel 6")
     require(launches == 2 * ran, f"kernel 6 launches {launches} for {ran} steps")
+    # the gathers' backward: the 3 bucket gathers (the IV row overrides are
+    # read as slices of the gathered rows, without a gather)
+    require(gather_launches == 3 * ran,
+            f"gathers' backward kernel launches {gather_launches} for {ran} steps")
     losses = normal["losses"]
     tenth = max(1, len(losses) // 10)
     first, last = float(losses[:tenth].mean()), float(losses[-tenth:].mean())
@@ -1901,7 +2132,25 @@ def retrieval_sparse_training():
         shares=(("kernel 6", ("sparse_adam_rows_kernel",)),))
     log(f"device-epoch profile: {wall_ms / de.n_steps:.2f} ms per step under the profiler, "
         f"{busy_ms / de.n_steps:.3f} ms of device time a step")
-    gather_backward_ms()
+    # D4: the same steps under each backward route of the gathers
+    routes = {}
+    for route in BACKWARD_ROUTES:
+        with backward_route(route):
+            de.run(4)
+            sync()
+            t0 = time.perf_counter()
+            de.run(5)
+            sync()
+            step_ms = (time.perf_counter() - t0) * 1e3 / de.n_steps
+            _, busy = profiled(lambda: de.run(6), f"profile {de.n_steps} device-epoch steps, "
+                               f"gathers' backward route {route}")
+            routes[route] = {"step_ms": step_ms, "device_ms": busy / de.n_steps,
+                             "gathers_ms": profiled.gathers_ms / de.n_steps}
+        log(f"device-epoch step, {route} route: {step_ms:.3f} ms a step (wall), "
+            f"{routes[route]['device_ms']:.3f} ms of device time, the gathers' backward "
+            f"{routes[route]['gathers_ms']:.3f} ms "
+            f"({100 * routes[route]['gathers_ms'] / routes[route]['device_ms']:.1f} %)")
+    GATHER_RESULTS["device_epoch"] = routes
     import warnings
 
     torch.cuda.set_sync_debug_mode("warn")
@@ -1921,7 +2170,7 @@ def retrieval_sparse_training():
     host_ms = (time.perf_counter() - t0) * 1e3 / len(short_loader)
     require(not host._device_epochs, "the host path took the device epoch")
     log(f"host per-batch path, same shape: {host_ms:.2f} ms per step (wall, host included)")
-    return launches
+    return launches, gather_launches
 
 
 # -------------------------------------------------------------- CLI phases
@@ -2308,6 +2557,269 @@ def cli_corpus():
     return k6, k1, stages
 
 
+
+# ------------------------------------------------- phase D, the embedders
+
+# the embedders at the models' published widths: BPR at embedding_size 64
+# (BPR.yaml), DHE at dhe_num_hashes 128 and dhe_layer_size 512
+# (config/defaults.yaml:115-116), xDeepFM at xDeepFM.yaml. D1 is the
+# paper's reproduce command (EXPERIMENTS.md:40-45: lsh, the *_vector
+# columns, 200 buckets a side, OOV ratio 0.3, the inductive eval), cut to
+# CLI_EPOCHS_A epochs as phase A is. Key files come from the seed, under
+# build/ (without a file DHEHasher would draw random keys)
+SYNTH_VEC_LOAD_COL = ("--load_col={'inter': ['user_id','item_id','timestamp','is_new'], "
+                      "'user': ['user_id','age','group','user_vector'], "
+                      "'item': ['item_id','price','category','item_vector']}")
+EXPERIMENTS_FLAGS = ["--model=BPR", "--dataset=synth-ind", "--data_path=dataset",
+                     SYNTH_VEC_LOAD_COL, "--inductive_embedder=lsh", "--add_oov_buckets=True",
+                     "--n_user_oov_buckets=200", "--n_item_oov_buckets=200", "--train_oov=True",
+                     "--oov_train_ratio=0.3", "--inductive_eval=True"]
+D_EMBEDDERS = (("slsh", []), ("dnn", []), ("knn", []), ("dhe", []),
+               ("fdhe", ["--dhe_num_hashes=32"]))  # EXPERIMENTS.md:20
+D_KEYS = os.path.join("build", "hash_keys")
+D_HASHES, D_LAYER, D_FEATS = 128, 512, 6
+D_HASH_CHUNK, D_HASH_THREADS = 1024, 8
+D_LSH_STEPS = 8
+
+
+def kernel_counts():
+    """Every kernel wrapper's launch count."""
+    return {"fused_topk_scores": topk_score.fused_topk_scores.launches, **cin_counts(),
+            "sparse_adam_rows_kernel": sparse_adam_rows_kernel.launches,
+            "scatter_rows_kernel": embed_grad.scatter_rows_kernel.launches}
+
+
+def reset_kernel_counts():
+    topk_score.fused_topk_scores.launches = 0
+    reset_cin_counts()
+    sparse_adam_rows_kernel.launches = 0
+    embed_grad.scatter_rows_kernel.launches = 0
+
+
+def write_hash_keys(counts):
+    """`<D_KEYS>/<n>.hashes` for each n: n SipHash keys drawn from the seed,
+    hex-encoded, the reference's format."""
+    os.makedirs(D_KEYS, exist_ok=True)
+    for n in counts:
+        rng = np.random.default_rng(SEED + n)
+        with open(os.path.join(D_KEYS, f"{n}.hashes"), "w") as f:
+            json.dump([rng.bytes(16).hex() for _ in range(n)], f)
+
+
+def slices_finite(slices, what):
+    """All 7 slices, each with finite metrics where it has rows (synth-ind's
+    inductive test rows all touch a new user or item, so old_old has none);
+    one line of them."""
+    require(tuple(slices) == SLICE_NAMES, f"{what}: slices {list(slices)}")
+    require(all(slices[name] for name in ("overall", "old_users", "new_users")),
+            f"{what}: an empty user slice")
+    for name, r in slices.items():
+        if r:
+            finite_metrics(r, f"{what} [{name}]")
+    log(f"[{what}] recall@20 / ndcg@20 by slice: " + ", ".join(
+        f"{name} {r['recall@20']:.4f} / {r['ndcg@20']:.4f}" if r else f"{name} (no rows)"
+        for name, r in slices.items()))
+
+
+def d1_embedders():
+    """D1: the paper's reproduce command (lsh) through `python -m
+    oovrec_tpu_torch.cli.run` as a subprocess on dataset/synth-ind, its
+    `--eval_only` equal to the run to 1e-9 (the planes come back from the
+    checkpoint); then the same command in this process through
+    `cli.run.main` with slsh, dnn, knn, dhe and fdhe (32 hashes). Each run's
+    test metrics and 7 slices finite, its wall logged. → {} (no count
+    reset)."""
+    write_hash_keys((32, D_HASHES))
+    common = [f"--epochs={CLI_EPOCHS_A}", f"--hash_key_dir={D_KEYS}"]
+    out = cli_out("d1-lsh")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "oovrec_tpu_torch.cli.run", *EXPERIMENTS_FLAGS,
+                           *common, *cli_flags(out)], capture_output=True, text=True, timeout=600)
+    walls = {"lsh": time.perf_counter() - t0}
+    lines = (proc.stdout + proc.stderr).splitlines()
+    for line in lines:
+        if "training [" in line or "test result" in line:
+            log(f"  [D1 lsh] {line.split(' INFO ')[-1][:160]}")
+    require(proc.returncode == 0, f"D1 lsh: rc {proc.returncode}: " + "\n".join(lines[-30:]))
+    with open(os.path.join(out, "results.json")) as f:
+        res = json.load(f)
+    finite_metrics(res["test_result"], "D1 lsh test")
+    slices_finite(res["inductive"], "D1 lsh")
+    log(f"D1: python -m oovrec_tpu_torch.cli.run, EXPERIMENTS.md:40-45 (lsh, {CLI_EPOCHS_A} "
+        f"epochs) rc 0 in {walls['lsh']:.1f} s (wall, process start and the corpus included)")
+    again = cli_run.main([f"--eval_only={os.path.join(out, 'BPR-synth-ind.pth')}",
+                          "--inductive_eval=True"])
+    agree(res["test_result"], again["test_result"], "D1 lsh eval_only test", tol=1e-9)
+    agree_slices(res["inductive"], again["inductive_results"], "D1 lsh eval_only slices",
+                 tol=1e-9)
+    log("D1: lsh --eval_only == the run on test metrics and the 7 slices (1e-9)")
+    for emb, extra in D_EMBEDDERS:
+        out = cli_out(f"d1-{emb}")
+        argv = [a.replace("=lsh", f"={emb}") for a in EXPERIMENTS_FLAGS]
+        sync()
+        t0 = time.perf_counter()
+        res = cli_run.main([*argv, *common, *cli_flags(out), *extra])
+        sync()
+        walls[emb] = time.perf_counter() - t0
+        require(res["trainer"].model.spec.embedder == emb, f"D1 {emb}: the embedder")
+        finite_metrics(res["test_result"], f"D1 {emb} test")
+        slices_finite(res["inductive_results"], f"D1 {emb}")
+        log(f"D1: cli.run.main with {emb} {' '.join(extra)}: {walls[emb]:.1f} s (wall)")
+    return {}
+
+
+def d2_ranking_lsh():
+    """D2: the ranking track with lsh (the SKILL.md ranking command on
+    xDeepFM, WideDeep not being ported) through `cli.run.main` on synth-ind,
+    CLI_EPOCHS_B epochs, the CIN kernels counted. → {} (no count reset)."""
+    out = cli_out("d2")
+    argv = ["--model=xDeepFM", "--model_eval_type=ranking", *EXPERIMENTS_FLAGS[1:],
+            "--numerical_features=['age','price']", f"--epochs={CLI_EPOCHS_B}", *cli_flags(out)]
+    reset_cin_counts()
+    sync()
+    t0 = time.perf_counter()
+    res = cli_run.main(argv)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = cin_counts()
+    require(res["trainer"].model.spec.embedder == "lsh", "D2: the embedder")
+    require(counts["cin_layer_pooled"] > 0 and counts["cin_layer_pooled_bwd"] > 0,
+            f"D2: the CIN kernels were not launched: {counts}")
+    finite_metrics(res["test_result"], "D2 test")
+    require(tuple(res["inductive_results"]) == SLICE_NAMES, "D2 slices")
+    finite_metrics(res["inductive_results"]["overall"], "D2 overall slice")
+    log(f"D2: cli.run.main (xDeepFM, lsh, synth-ind, {CLI_EPOCHS_B} epochs, uni250) {wall:.1f} s "
+        f"(wall), CIN launches {counts}")
+    log(f"[D2 test] {dict(res['test_result'])}")
+    for name, r in res["inductive_results"].items():
+        log(f"[D2 {name}] {dict(r)}")
+    return {}
+
+
+def hashes_match_host(codes, keys):
+    """The card's DHE codes of ids 0..n-1 against the numpy hasher
+    (`ops/siphash.py`), chunk by chunk on D_HASH_THREADS threads. → the
+    number of chunks that differ."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    got = codes.cpu().numpy()
+    n = got.shape[0]
+
+    def differs(a):
+        ids = np.arange(a, min(a + D_HASH_CHUNK, n), dtype=np.uint64)
+        want = (siphash24_batch(ids, keys) % np.uint64(MAX_HASH)).astype(np.float32)
+        return not np.array_equal(got[a:a + len(ids)], want)
+
+    with ThreadPoolExecutor(D_HASH_THREADS) as pool:
+        return sum(pool.map(differs, range(0, n, D_HASH_CHUNK)))
+
+
+def dhe_cfg(fused, n_items):
+    c = serving_cfg(fused, n_items)
+    c["dhe_on_device"] = True
+    c["hash_key_dir"] = D_KEYS
+    return c
+
+
+def d3_fdhe_serving():
+    """D3: fdhe serving at the serving phase's scale (1,000,000 items, D 64,
+    128 hashes, towers of 512): synthetic unit features from the seed, the
+    1M item ids hashed on the card (`dhe_codes_device`) equal to the numpy
+    hasher bit for bit, the tower pass over all items, then the 7-slice eval
+    fused vs dense to 1e-9. → kernel 1's launches on the fused run."""
+    write_hash_keys((D_HASHES,))
+    keys = DHEHasher(D_HASHES, D_KEYS).keys
+    rng = np.random.default_rng(SEED + 90)
+    n_users, n_items = N_OLD_USERS + N_NEW_USERS, N_OLD_ITEMS + N_NEW_ITEMS
+
+    def unit_rows(n):
+        m = rng.standard_normal((n, D_FEATS)).astype(np.float32)
+        return m / np.linalg.norm(m, axis=1, keepdims=True)
+
+    state = {"user_feat_mat": unit_rows(n_users), "item_feat_mat": unit_rows(n_items),
+             "dhe_keys": keys}
+    spec = InductiveSpec(embedder="fdhe", dhe_num_hashes=D_HASHES, dhe_layer_size=D_LAYER,
+                         embedding_size=D)
+    model = BPR(N_OLD_USERS, N_OLD_ITEMS, D, spec, device=DEVICE,
+                generator=torch_generator(SEED + 91, DEVICE), embedder_state=state)
+    model.eval()
+    ids = torch.arange(n_items, device=DEVICE)
+    key_t = model.embedder_state["dhe_keys"]
+    hash_ms = time_ms(lambda: dhe_codes_device(ids, key_t), [()], 5)
+    t0 = time.perf_counter()
+    bad = hashes_match_host(dhe_codes_device(ids, key_t), keys)
+    log(f"D3: {n_items} item ids x {D_HASHES} keys hashed on the card in {hash_ms:.3f} ms; "
+        f"the numpy hasher's check took {time.perf_counter() - t0:.1f} s")
+    require(bad == 0, f"D3: {bad} chunks of card hashes differ from the numpy hasher")
+    with torch.no_grad():
+        tower_ms = time_ms(lambda: model.all_item_embeddings(ids, item_dhe_ids=ids), [()], 3)
+        item_e = model.all_item_embeddings(ids, item_dhe_ids=ids)
+    require(item_e.shape == (n_items, D) and bool(torch.isfinite(item_e).all()),
+            "D3: tower pass output")
+    log(f"D3: card hashes == numpy hasher on all {n_items} ids (bit for bit); the fdhe item "
+        f"pass over {n_items} items (hashes, features, towers {D_HASHES}+{D_FEATS} -> {D_LAYER} "
+        f"x3 -> {D}): {tower_ms:.3f} ms")
+    del item_e
+    t0 = time.perf_counter()
+    ind_splits, _ = synth_interactions(model, None)
+    log(f"D3 data: {len(ind_splits[1])} test positives, {time.perf_counter() - t0:.1f} s")
+    launches = seven_slices_fused_vs_dense(model, None, ind_splits, dhe_cfg,
+                                           what="D3 fdhe 7-slice eval")
+    return {"fused_topk_scores": launches}
+
+
+def lsh_device_epoch():
+    """D4: BPR with lsh (SP_BUCKETS hash bits a side over synthetic unit
+    features) on the device epoch with `learner: sparse_adam`: D_LSH_STEPS
+    steps of SP_B rows plus the OOV sub-epoch under `sparse_update_impl`
+    auto (kernel 6) and xla, the same bits. → the auto run's kernel 6
+    launches."""
+    rng = np.random.default_rng(SEED + 95)
+    users, items = structured_pairs(rng, D_LSH_STEPS * SP_B)
+    split = DatasetSplit({"user_id": users, "item_id": items}, SP_USERS, SP_ITEMS)
+    sampler = Sampler(["train"], [split], seed=SEED)
+    loader = TrainBatcher(split, sampler, sparse_cfg("auto"), InputType.PAIRWISE)
+    state = {}
+    for side, n in (("user", SP_USERS), ("item", SP_ITEMS)):
+        m = rng.standard_normal((n, D_FEATS)).astype(np.float32)
+        state[f"{side}_feat_mat"] = m / np.linalg.norm(m, axis=1, keepdims=True)
+        state[f"{side}_planes"] = rng.standard_normal((SP_BUCKETS, D_FEATS)).astype(np.float32)
+    spec = InductiveSpec(embedder="lsh", add_oov_buckets=True, n_user_buckets=SP_BUCKETS,
+                         n_item_buckets=SP_BUCKETS)
+    runs, launches, gathers = {}, {}, {}
+    for impl in ("auto", "xla"):
+        # every OOV step kept, so the sub-epoch surely runs lsh's flagged rows
+        trainer = Trainer(sparse_cfg(impl, oov_train_ratio=1.0), BPR(
+            SP_USERS, SP_ITEMS, D, spec, device=DEVICE,
+            generator=torch_generator(SEED + 40, DEVICE), embedder_state=state))
+        sparse_adam_rows_kernel.launches = 0
+        embed_grad.scatter_rows_kernel.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        trainer.fit(loader, None, saved=False)
+        sync()
+        wall = time.perf_counter() - t0
+        launches[impl] = sparse_adam_rows_kernel.launches
+        gathers[impl] = embed_grad.scatter_rows_kernel.launches
+        des = list(trainer._device_epochs.values())
+        require(len(des) == 2 and all(d.sparse_impl == ("xla" if impl == "xla" else "pallas")
+                                      for d in des), f"D4 lsh {impl}: the sparse device epoch")
+        require(trainer.oov_loss_dict and math.isfinite(trainer.oov_loss_dict[0]),
+                f"D4 lsh {impl}: the OOV sub-epoch")
+        runs[impl] = state_of(trainer)
+        log(f"D4 lsh on the device epoch ({impl}): {D_LSH_STEPS} + {des[1].steps_run} OOV "
+            f"steps in {wall:.2f} s (wall, set-up included), kernel 6 launches {launches[impl]}")
+        del trainer, des
+    same = [n for n in runs["auto"] if torch.equal(runs["auto"][n], runs["xla"][n])]
+    require(len(same) == len(runs["auto"]), "D4 lsh: auto and xla differ")
+    require(launches["auto"] > 0 and launches["xla"] == 0, f"D4 lsh: kernel 6 {launches}")
+    # lsh reads its bucket table through a product and the IV rows as
+    # slices of the gathered rows: no row gather has a backward here
+    require(gathers["auto"] == 0, f"D4 lsh: gathers' backward launches {gathers}")
+    log(f"D4 lsh: auto == xla bit for bit ({len(same)} parameters and moments)")
+    return {"sparse_adam_rows_kernel": launches["auto"]}
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -2321,8 +2833,10 @@ def main():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
 
+    log(f"card: {smi}")
     t_start = t0 = time.perf_counter()
-    built = cuda_build.build_kernels(["topk_score", "cin_fused", "cin_fused_bwd", "sparse_rows"])
+    built = cuda_build.build_kernels(["topk_score", "cin_fused", "cin_fused_bwd", "sparse_rows",
+                                      "embed_grad"])
     log(f"build: {built} ({time.perf_counter() - t0:.1f} s)")
     for name, out in cuda_build.LIBRARIES.build_log.items():
         for line in out.splitlines():
@@ -2333,6 +2847,7 @@ def main():
     cin_cases()
     cin_bwd_cases()
     sparse_rows_cases()
+    embed_grad_times = embed_grad_timing(embed_grad_cases())
     timing = kernel_timing()
     cin_times = cin_timing()
     cin_times.update(cin_bwd_timing())
@@ -2341,12 +2856,36 @@ def main():
     cin_launches, ind, mapper = ranking()
     train_launches = ranking_training(ind, mapper)
     retrieval_training()
-    sparse_launches = retrieval_sparse_training()
+    sparse_launches, gather_launches = retrieval_sparse_training()
     t0 = time.perf_counter()
     cli_retrieval()
+    embed_grad.scatter_rows_kernel.launches = 0
     cli_b, _ = cli_ranking()
+    gathers_b = embed_grad.scatter_rows_kernel.launches
+    embed_grad.scatter_rows_kernel.launches = 0
     k6_c, k1_c, _ = cli_corpus()
+    gathers_c = embed_grad.scatter_rows_kernel.launches
     log(f"CLI phases A-C: {time.perf_counter() - t0:.1f} s")
+    # phase D, the embedders; each kernel's launches counted by part
+    t0 = time.perf_counter()
+    on_d = {}
+    for part, run in (("D1", d1_embedders), ("D2", d2_ranking_lsh), ("D3", d3_fdhe_serving),
+                      ("D4", lsh_device_epoch)):
+        reset_kernel_counts()
+        sync()
+        t1 = time.perf_counter()
+        seen = run()
+        sync()
+        # a part that compares a kernel with its plain path resets that
+        # kernel's count itself and returns the main run's
+        on_d[part] = {**kernel_counts(), **seen}
+        log(f"phase {part}: {time.perf_counter() - t1:.1f} s, kernel launches {on_d[part]}")
+    gathers, gather_bound = gather_backward_ms()
+    log(f"phase D: {time.perf_counter() - t0:.1f} s")
+    require(on_d["D2"]["cin_layer_pooled"] > 0 and on_d["D2"]["cin_layer_pooled_bwd"] > 0
+            and on_d["D3"]["fused_topk_scores"] > 0 and on_d["D4"]["sparse_adam_rows_kernel"] > 0
+            and all(on_d[p]["scatter_rows_kernel"] > 0 for p in ("D1", "D2")),
+            f"phase D launches {on_d}")
     cli = {  # each kernel's launches on the CLI paths (A launches none)
         "fused_topk_scores": {"C": k1_c},
         "cin_layer_pooled": {"B": cli_b["cin_layer_pooled"]},
@@ -2354,6 +2893,7 @@ def main():
         "cin_layer_pooled_bwd": {"B": cli_b["cin_layer_pooled_bwd"]},
         "cin_layer_bwd": {"B": cli_b["cin_layer_bwd"]},
         "sparse_adam_rows_kernel": {"C": k6_c},
+        "scatter_rows_kernel": {"B": gathers_b, "C": gathers_c},
     }
 
     kernels = [{
@@ -2398,9 +2938,22 @@ def main():
         "replaces": "oovrec_tpu/ops/sparse_rows.py:127",
         "launches": sparse_launches,
         **sparse_times,
+    }, {
+        # not a Pallas kernel: the backward of the JAX package's custom-VJP
+        # gather; its launches are the device-epoch run's (3 a step)
+        "name": "scatter_rows_kernel",
+        "route": "cuda",
+        "source": "oovrec_tpu_torch/csrc/embed_grad.cu",
+        "replaces": "oovrec_tpu/ops/embed_grad.py:90",
+        "launches": gather_launches,
+        **embed_grad_times,
     }]
     for k in kernels:
         k["launches_cli"] = cli[k["name"]]
+        k["launches_d"] = {part: c[k["name"]] for part, c in on_d.items()}
+    log("gathers' backward (ops/embed_grad.py, not a Pallas kernel): " + json.dumps({
+            "ms": gathers, "bound_ms": gather_bound,
+            "device_epoch": GATHER_RESULTS.get("device_epoch")}))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(smi)
     log(json.dumps({"kernels": kernels}))

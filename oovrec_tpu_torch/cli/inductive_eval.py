@@ -5,8 +5,11 @@ Port of `oovrec_tpu/cli/inductive_eval.py:34-173`:
     ['train', 'empty', 'test_filt'] with topk [3, 5, 10, 20];
   * reconcile its vocabularies to the training dataset and check that the
     shared-entity feature rows are identical;
-  * rebuild the model with the ORIGINAL user / item counts, load the
-    checkpoint's parameters (the port's `torch.save` file), build the
+  * rebuild the model with the ORIGINAL user / item counts and its
+    embedder state in 'inductive' mode over the `_ind` corpus (feature
+    matrices and knn neighbors of every entity), load the checkpoint's
+    parameters (the port's `torch.save` file) and of its state only the
+    LSH planes and DHE keys (`:116-150` of the JAX module), build the
     random mapper over the extended id space and run the
     `InductiveEvaluator`.
 """
@@ -24,6 +27,7 @@ from oovrec_tpu_torch.data.utils import create_dataset, data_preparation
 from oovrec_tpu_torch.eval.inductive import InductiveEvaluator
 from oovrec_tpu_torch.inductive.mapper import RandomOOVMapper
 from oovrec_tpu_torch.inductive.spec import InductiveSpec
+from oovrec_tpu_torch.models.base import load_params
 from oovrec_tpu_torch.utils.logging import init_logger
 
 
@@ -100,7 +104,7 @@ def perform_inductive_eval(
         ind_cfg, ind_dataset, mode="inductive",
         n_entities=(n_old_users, n_old_items), fields_from=orig_dataset,
     )
-    model.load_state_dict(ckpt["params"])
+    load_params(model, ckpt["params"])
 
     mapper = None
     if spec.active and spec.mapper is not None:

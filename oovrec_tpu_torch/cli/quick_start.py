@@ -24,6 +24,7 @@ from torch import nn
 from oovrec_tpu_torch.config import Config
 from oovrec_tpu_torch.config.configurator import DERIVED_KEYS
 from oovrec_tpu_torch.data.utils import create_dataset, data_preparation
+from oovrec_tpu_torch.inductive.factory import build_embedder_state, needs_state
 from oovrec_tpu_torch.inductive.spec import InductiveSpec
 from oovrec_tpu_torch.models import get_model_class
 from oovrec_tpu_torch.models.context import ContextRecommender, field_spec_from_dataset
@@ -37,7 +38,7 @@ from oovrec_tpu_torch.utils.seeding import init_seed, torch_generator
 # config where it holds them (`mlp_hidden_size`, `fused_cin`, ...)
 _CLAIMED = frozenset({
     "spec", "uid_field", "iid_field", "label_field", "neg_prefix", "fields",
-    "embedding_size", "n_users", "n_items", "device", "generator",
+    "embedding_size", "n_users", "n_items", "device", "generator", "embedder_state",
 })
 
 
@@ -77,9 +78,11 @@ def build_model_and_state(config, dataset, mode: str = "transductive",
     model is rebuilt against the inductive corpus with the ORIGINAL
     counts; `fields_from` is the dataset a context model's field spec
     comes from (the training dataset in that rebuild, so the packed
-    tables match the checkpoint). `mode` names the corpus, as in the JAX
-    driver; the port's embedders keep no state that depends on it."""
-    del mode
+    tables match the checkpoint). The embedder state
+    (`inductive/factory.py:build_embedder_state`) is built over `dataset`
+    in `mode` ('transductive', or 'inductive' over the `_ind` corpus, as
+    `oovrec_tpu/cli/quick_start.py:122-131` builds it) and handed to the
+    model, which keeps it as buffers."""
     cls = get_model_class(config["model"])
     spec = InductiveSpec.from_config(config)
     if not spec.active:
@@ -88,12 +91,19 @@ def build_model_and_state(config, dataset, mode: str = "transductive",
     seed = int(config["seed"] or 2020)
     n_users, n_items = n_entities or (dataset.user_num, dataset.item_num)
 
+    state = None
+    if needs_state(spec):
+        state = build_embedder_state(
+            spec, dataset, n_users, n_items, mode=mode, seed=seed,
+            hash_key_dir=config.get("hash_key_dir") or "./hash_keys",
+        )
     kwargs: Dict[str, Any] = dict(
         spec=spec,
         uid_field=config["USER_ID_FIELD"],
         iid_field=config["ITEM_ID_FIELD"],
         device=device,
         generator=torch_generator(seed, device),
+        embedder_state=state,
     )
     if issubclass(cls, ContextRecommender):
         fields = field_spec_from_dataset(fields_from or dataset, config)

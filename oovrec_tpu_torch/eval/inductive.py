@@ -26,6 +26,11 @@ Retrieval models, on sampled negatives (the paper's uni250 protocol,
 scattered into a (user slot, item) matrix per batch; the same four item
 variants over that matrix, the slices by the slot users' old/new masks.
 
+DHE / fDHE: the users and rows carry the hashes of their RAW ids (no
+prime pad) and the item corpus is hashed once a pass, on the host, or on
+the card under `dhe_on_device` (`inductive.py:60-85, 229-250, 495-525` of
+the JAX package, whose corpus hashes always run on the host).
+
 The slices keep the JAX package's semantics, including its documented
 deviation from the reference on old_new/new_old (complementary item mask,
 unshifted positive ids). Tie-breaking follows `use_perturbed_hits`: top-k
@@ -50,6 +55,7 @@ from oovrec_tpu_torch.eval.full_sort import (
     variant_topk,
 )
 from oovrec_tpu_torch.eval.runner import fused_hits, fused_topk_rule, to_device_batch
+from oovrec_tpu_torch.inductive.dhe import model_hasher
 from oovrec_tpu_torch.ops.topk_score import (
     NEG_INF as K_NEG_INF,
     build_hist_bitmap,
@@ -80,6 +86,7 @@ class InductiveEvaluator:
         self._step = None
         self._fused = False
         self._rng = host_rng(int(config["seed"] or 2020), "perturbed_hits")
+        self.dhe_hasher = model_hasher(model, config)
 
     @property
     def device(self) -> torch.device:
@@ -189,9 +196,16 @@ class InductiveEvaluator:
             oov = item_ids >= self.n_old_items
             if oov.any():
                 buckets[oov] = self.mapper.item_buckets(item_ids[oov])
+        ids = torch.from_numpy(item_ids).to(self.device)
+        dhe = dhe_ids = None
+        if self.dhe_hasher is not None:
+            if self.dhe_hasher.on_device:
+                dhe_ids = ids
+            else:
+                dhe = torch.from_numpy(self.dhe_hasher.hash_ids(item_ids)).to(self.device)
         return self.model.all_item_embeddings(
-            torch.from_numpy(item_ids).to(self.device),
-            torch.from_numpy(buckets).to(self.device),
+            ids, torch.from_numpy(buckets).to(self.device),
+            item_dhe=dhe, item_dhe_ids=dhe_ids,
         )
 
     def _variant_perms_masks(self, n_ext: int):
@@ -368,6 +382,8 @@ class InductiveEvaluator:
                 out[field + "_bucket"] = np.where(oov > 0, bucket_fn(ids), 0)
             else:
                 out[field + "_bucket"] = np.zeros_like(ids)
+            if self.dhe_hasher is not None:
+                self.dhe_hasher.annotate_batch(out, field, 0, padded_when_flagged=False)
         return out
 
     def _annotate_users(self, batch: dict) -> dict:
@@ -380,4 +396,7 @@ class InductiveEvaluator:
         if self.mapper is not None and oov.any():
             buckets = np.where(oov > 0, self.mapper.user_buckets(users), 0)
         out["user_id_bucket"] = buckets
+        if self.dhe_hasher is not None:
+            # eval hashes the RAW inductive id (no prime pad)
+            self.dhe_hasher.annotate_batch(out, "user_id", 0, padded_when_flagged=False)
         return out

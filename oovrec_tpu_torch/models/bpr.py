@@ -1,10 +1,11 @@
 """BPR — matrix-factorization two-tower trained pairwise.
 
 Port of `oovrec_tpu/models/bpr.py:21-105`: user/item tables and the BPR
-loss; OOV rows route through bucket tables (`get_user_embedding`
-`bpr.py:48-78`, `get_item_embedding` `bpr.py:94-125` in the reference),
-branchless via `inductive.routing.route`, on all three columns of a
-training row (user, positive and negative item).
+loss; OOV rows route through bucket tables or an embedder
+(`get_user_embedding` `bpr.py:48-78`, `get_item_embedding` `bpr.py:94-125`
+in the reference), branchless via `inductive.routing.route`, on all three
+columns of a training row (user, positive and negative item), with the
+model's embedder state and the batch's DHE hashes.
 """
 
 from __future__ import annotations
@@ -62,12 +63,19 @@ class BPR(GeneralRecommender):
         u = self.user_e(batch[self.uid_field], batch)
         return u @ self.item_embedding.weight.T
 
-    def all_item_embeddings(self, item_ids, item_buckets=None):
+    def all_item_embeddings(self, item_ids, item_buckets=None, item_dhe=None,
+                            item_dhe_ids=None):
         """Embed the full (IV+OOV) item range once per eval pass
-        (the item half of `ind_full_sort_predict`, `bpr.py:151-156`)."""
+        (the item half of `ind_full_sort_predict`, `bpr.py:151-156`):
+        `item_dhe` are host hashes, `item_dhe_ids` the ids hashed on the
+        model's device."""
         batch = {self.iid_field: item_ids}
         if item_buckets is not None:
             batch[self.iid_field + "_bucket"] = item_buckets
+        if item_dhe is not None:
+            batch[self.iid_field + "_dhe"] = item_dhe
+        if item_dhe_ids is not None:
+            batch[self.iid_field + "_dhe_id"] = item_dhe_ids
         return self.item_e(item_ids, batch)
 
     def user_tower(self, batch: Batch):

@@ -2,7 +2,8 @@
 
 Port of `oovrec_tpu/models/context.py:43-80, 139-417` (the reference's
 `ContextRecommender` / `InductiveContextRecommender` and its `FMEmbedding`
-/ `FMFirstOrderLinear` layers).
+/ `FMFirstOrderLinear` layers), with the towers of the trainable embedders
+(`:151-260`).
 
 Layout (as the JAX package):
   * all token fields share ONE offset-packed table (Σ dims, D); token
@@ -12,10 +13,14 @@ Layout (as the JAX package):
   * the concat output is [token ∥ float] along the field axis;
   * a first-order twin of the whole structure with output dim 1 + bias.
 
+The token fields go through `ops/embed_grad.py:packed_gather`, whose
+backward sums a small-vocabulary field's repeated rows by segment.
 Inductive routing: cells 0/1 of the packed lookup are replaced with the
 OOV-routed embeddings of `inductive.routing.route` over the IV slice of
-the packed table. The first-order twin routes through its OWN dim-1
-bucket tables. Module and parameter names follow the flax tree
+the packed table, with the model's embedder state (`embedder_state`
+buffers), the side's tower and the batch's DHE hashes; the packed rows of
+those cells are thrown away, so their backward skips them. The
+first-order twin routes through its OWN dim-1 bucket tables and towers. Module and parameter names follow the flax tree
 (`first_order_linear/fo`, `token_embedding_table`, ...), so the weight
 bridge maps them one to one; the one rename, `field_embedding` for the
 flax `fields`, is declared in `ContextRecommender.flax_names`.
@@ -28,7 +33,7 @@ and `calculate_loss` always runs in train mode, as the JAX package's does.
 `field_spec_from_dataset` derives the `FieldSpec` from a `Dataset`.
 
 Not ported yet: token_seq / float_seq fields (no serving configuration
-has them) and the trainable embedder towers.
+has them).
 """
 
 from __future__ import annotations
@@ -42,8 +47,15 @@ from torch import nn
 
 from oovrec_tpu_torch.inductive.routing import route
 from oovrec_tpu_torch.inductive.spec import InductiveSpec
-from oovrec_tpu_torch.models.base import Batch
+from oovrec_tpu_torch.models.base import (
+    Batch,
+    EmbedderMLP,
+    dhe_hashes_for,
+    make_embedder_state,
+    tower_inputs,
+)
 from oovrec_tpu_torch.models.init import xavier_normal_
+from oovrec_tpu_torch.ops.embed_grad import gather_rows, packed_gather
 from oovrec_tpu_torch.utils.device import resolve_device
 from oovrec_tpu_torch.utils.enums import FeatureSource, FeatureType, InputType, ModelType
 
@@ -148,6 +160,7 @@ class _FieldEmbedding(nn.Module):
         iid_field: str = "item_id",
         device=None,
         generator: Optional[torch.Generator] = None,
+        tower_in: Optional[dict] = None,
     ):
         super().__init__()
         if fields.token_seq_names or fields.float_seq_names:
@@ -172,13 +185,14 @@ class _FieldEmbedding(nn.Module):
         if fields.float_dims:
             self.float_embedding_table = table(int(sum(fields.float_dims)))
         if spec is not None and spec.active:
-            if spec.trainable_embedder:
-                raise NotImplementedError(
-                    f"embedder [{spec.embedder}] towers come with a later slice"
-                )
             if spec.needs_buckets:
                 self.user_oov_buckets = table(spec.n_user_buckets)
                 self.item_oov_buckets = table(spec.n_item_buckets)
+            if spec.trainable_embedder:
+                for side in ("user", "item"):
+                    setattr(self, f"{side}_oov_mlp", EmbedderMLP(
+                        tower_in[side], spec.dhe_layer_size, dim,
+                        device=device, generator=generator))
         dev = self.token_embedding_table.weight.device if fields.token_dims else device
         self.register_buffer(
             "_token_offsets", torch.as_tensor(fields.token_offsets, device=dev),
@@ -193,7 +207,7 @@ class _FieldEmbedding(nn.Module):
 
     # -- token fields with OOV routing on cells 0/1 ------------------------
 
-    def embed_token_fields(self, batch: Batch) -> Optional[torch.Tensor]:
+    def embed_token_fields(self, batch: Batch, estate=None) -> Optional[torch.Tensor]:
         f = self.fields
         if not f.token_names:
             return None
@@ -216,10 +230,16 @@ class _FieldEmbedding(nn.Module):
         ).long()  # (B, F)
         safe = torch.minimum(ids, self._token_dims[None, :] - 1)
         table = self.token_embedding_table.weight
-        emb = table[safe + self._token_offsets[None, :]]  # (B, F, dim)
-
         spec = self.spec
-        if spec is not None and spec.active:
+        routed = spec is not None and spec.active
+        live = None
+        if routed:  # cells 0/1 are replaced below: their rows add nothing
+            live = torch.ones_like(ids, dtype=torch.bool)
+            live[:, :2] = False
+        emb = packed_gather(table, safe + self._token_offsets[None, :],
+                            f.token_dims, f.token_offsets, live)  # (B, F, dim)
+
+        if routed:
             for cell, side, field in (
                 (0, "user", self.uid_field),
                 (1, "item", self.iid_field),
@@ -233,7 +253,9 @@ class _FieldEmbedding(nn.Module):
                 emb[:, cell, :] = route(
                     spec, side, batch[field],
                     batch.get(field + "_oov"), batch.get(field + "_bucket"),
-                    table[off: off + n], bucket_table,
+                    table[off: off + n], bucket_table, estate,
+                    mlp=getattr(self, f"{side}_oov_mlp", None),
+                    dhe_hashes=dhe_hashes_for(batch, field, estate),
                 )
         return emb
 
@@ -250,12 +272,13 @@ class _FieldEmbedding(nn.Module):
             ],
             dim=1,
         ).long()  # (B, F)
-        emb = self.float_embedding_table.weight[buckets + self._float_offsets[None, :]]
+        emb = gather_rows(self.float_embedding_table.weight,
+                          buckets + self._float_offsets[None, :])
         return values[..., None] * emb  # (B, F, dim)
 
-    def forward(self, batch: Batch):
+    def forward(self, batch: Batch, estate=None):
         """→ (sparse (B, F_token, dim) | None, dense (B, F_float, dim) | None)."""
-        return self.embed_token_fields(batch), self.embed_float_fields(batch)
+        return self.embed_token_fields(batch, estate), self.embed_float_fields(batch)
 
 
 class FirstOrderLinear(nn.Module):
@@ -264,16 +287,16 @@ class FirstOrderLinear(nn.Module):
     (`InductiveFMFirstOrderLinear`)."""
 
     def __init__(self, fields: FieldSpec, spec=None, uid_field="user_id",
-                 iid_field="item_id", device=None, generator=None):
+                 iid_field="item_id", device=None, generator=None, tower_in=None):
         super().__init__()
         self.fo = _FieldEmbedding(
             fields, 1, spec=spec, uid_field=uid_field, iid_field=iid_field,
-            device=device, generator=generator,
+            device=device, generator=generator, tower_in=tower_in,
         )
         self.bias = nn.Parameter(torch.zeros(1, device=device))
 
-    def forward(self, batch: Batch) -> torch.Tensor:
-        sparse, dense = self.fo(batch)
+    def forward(self, batch: Batch, estate=None) -> torch.Tensor:
+        sparse, dense = self.fo(batch, estate)
         total = 0.0
         if sparse is not None:
             total = total + sparse.sum(dim=(1, 2))
@@ -301,6 +324,7 @@ class ContextRecommender(nn.Module):
         label_field: str = "label",
         device="cuda",
         generator: Optional[torch.Generator] = None,
+        embedder_state=None,
     ):
         super().__init__()
         self.fields = fields
@@ -311,6 +335,7 @@ class ContextRecommender(nn.Module):
         self.label_field = label_field
         self.device = resolve_device(device)
         self.generator = generator
+        self.embedder_state = make_embedder_state(spec, embedder_state, self.device)
 
     @property
     def n_users(self) -> int:
@@ -321,14 +346,17 @@ class ContextRecommender(nn.Module):
         return self.fields.token_dims[1]
 
     def _setup_context(self):
-        kw = dict(spec=self.spec, uid_field=self.uid_field,
+        spec = self.spec
+        tower_in = (tower_inputs(spec, self.embedder_state)
+                    if spec is not None and spec.active and spec.trainable_embedder else None)
+        kw = dict(spec=spec, uid_field=self.uid_field,
                   iid_field=self.iid_field, device=self.device,
-                  generator=self.generator)
+                  generator=self.generator, tower_in=tower_in)
         self.field_embedding = _FieldEmbedding(self.fields, self.embedding_size, **kw)
         self.first_order_linear = FirstOrderLinear(self.fields, **kw)
 
     def concat_embed_input_fields(self, batch: Batch) -> torch.Tensor:
-        sparse, dense = self.field_embedding(batch)
+        sparse, dense = self.field_embedding(batch, self.embedder_state)
         parts = [p for p in (sparse, dense) if p is not None]
         return torch.cat(parts, dim=1)  # (B, num_field, D)
 

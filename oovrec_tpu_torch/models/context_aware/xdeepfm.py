@@ -174,7 +174,7 @@ class xDeepFM(ContextRecommender):
         emb = self.concat_embed_input_fields(batch)  # (B, F, D)
         cin_out = self.cin_linear(self.compressed_interaction_network(emb))
         dnn_out = self.mlp_layers(emb.reshape(emb.shape[0], -1), train=train)
-        y = self.first_order_linear(batch) + cin_out + dnn_out
+        y = self.first_order_linear(batch, self.embedder_state) + cin_out + dnn_out
         return y.squeeze(-1)
 
     def calculate_loss(self, batch: Batch) -> torch.Tensor:

@@ -97,7 +97,8 @@ def device_epoch_eligible(trainer, loader, config) -> bool:
     number pointwise, none plain) and a model whose loss reads only what the
     epoch provides (`supports_device_epoch`); under `auto`, at least
     AUTO_MIN_ROWS rows. The port's batcher, trainer and models refuse the
-    other gates' cases (transforms, dynamic negatives, DHE, the mesh)."""
+    other gates' cases (transforms, dynamic negatives, the mesh); the
+    trainer keeps DHE off the device epoch (`_maybe_device_epoch`)."""
     from oovrec_tpu_torch.data.dataloader import TrainBatcher
 
     flag = device_epoch_flag(config)

@@ -115,7 +115,12 @@ def gather_rows_for_batch(
       * rows[side]: the gathered (n, D) table rows of the side's id fields,
         concatenated, a leaf that requires grad;
       * new_batch: the batch with those fields remapped to row positions
-        (the caller sets `_sparse_rows_<side>` to rows[side]);
+        (the caller sets `_sparse_rows_<side>` to rows[side]), each field's
+        first position as `_sparse_off_<field>` (its rows are one slice of
+        rows[side], which the model reads without a gather) and the entity
+        ids kept as `_sparse_ids_<field>`, which the embedders' feature
+        lookups read (the JAX function drops them, so its lsh, dnn and fdhe
+        look features up by row position);
       * gathered[side]: the ids aligned with rows, the scatter targets of
         `sparse_adam_update_table`.
     """
@@ -130,6 +135,8 @@ def gather_rows_for_batch(
         for f in fields:
             m = batch[f].numel()
             new_batch[f] = torch.arange(off, off + m, device=ids.device).reshape(batch[f].shape)
+            new_batch["_sparse_ids_" + f] = batch[f]
+            new_batch["_sparse_off_" + f] = off
             off += m
         gathered[side] = ids
     return rows, new_batch, gathered

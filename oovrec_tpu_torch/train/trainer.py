@@ -21,13 +21,20 @@ Port of `oovrec_tpu/train/trainer.py`:
     JAX package's gates (`_train_epoch` :374-389, `_maybe_device_epoch`
     :508-537: `device_epoch: true`, or `auto` at >= 100,000 rows); under
     `learner: sparse_adam` its ID tables take the row-sparse step through
-    kernel 6. `device_epoch: true` on a pointwise or plain loader raises
-    (those modes are not ported); `auto` takes the host path for them;
+    kernel 6. `device_epoch: true` on a pointwise or plain loader, or with
+    the DHE / fDHE hasher, raises (those are not ported: ROADMAP.md queue
+    1, item 8); `auto` takes the host path for them;
+  * DHE / fDHE (`:150-167`, `:462-470`): a `DHEHasher` over the model's
+    keys annotates each host batch after its OOV transform with the hashes
+    of the (prime-padded when flagged) user, item and negative ids, or
+    with the id columns that the model hashes on the card
+    (`dhe_on_device`);
   * validation through the port's `EvalRunner`, early stopping, the
     epoch log lines of the JAX trainer (`utils/logging.py`), the
     best-model checkpoint (the port's own `torch.save` format: the JAX
-    package's flax/msgpack file cannot be read where JAX is absent) and
-    the JSONL `metrics_log_path`.
+    package's flax/msgpack file cannot be read where JAX is absent; the
+    embedder state rides in it as the model's buffers) and the JSONL
+    `metrics_log_path`.
 Randomness: batches, the keep draws, the simulator and the negatives come
 from the JAX package's numpy streams (`host_rng(seed, "oov_regime")`,
 `"train_shuffle_train"`, `"valid_sampling"`, the sampler's seed) bit for
@@ -36,8 +43,7 @@ bit; dropout draws from the trainer's `torch.Generator`, seeded from
 
 Raises NotImplementedError where a config asks for what is not ported:
 `host_scan_steps` > 1 (the same math, TPU dispatch amortisation; `auto`
-takes the host path here), a mesh, the DHE hasher and dynamic hard
-negatives. Tensorboard and wandb are not ported and log nothing.
+takes the host path here), a mesh and dynamic hard negatives. Tensorboard and wandb are not ported and log nothing.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ import torch
 
 from oovrec_tpu_torch.eval.collector import calculate_valid_score
 from oovrec_tpu_torch.eval.runner import EvalRunner, to_device_batch
+from oovrec_tpu_torch.inductive.dhe import model_hasher
 from oovrec_tpu_torch.inductive.transform import OOVSimulator
 from oovrec_tpu_torch.models.layers import set_dropout_generator
 from oovrec_tpu_torch.train.device_epoch import (
@@ -125,6 +132,7 @@ class Trainer:
         set_dropout_generator(model, self.dropout_generator)
         self._global_step = 0
         self._device_epochs: Dict[tuple, DeviceEpoch] = {}
+        self.dhe_hasher = model_hasher(model, config)
 
     @staticmethod
     def _refuse_unported(config, model) -> None:
@@ -135,9 +143,6 @@ class Trainer:
             raise NotImplementedError("mesh training (use_mesh) is not ported")
         if (config["train_neg_sample_args"] or {}).get("dynamic"):
             raise NotImplementedError("dynamic hard negatives are not ported")
-        spec = getattr(model, "spec", None)
-        if spec is not None and spec.embedder in ("dhe", "fdhe"):
-            raise NotImplementedError(f"the [{spec.embedder}] hasher is not ported")
 
     # ------------------------------------------------------------ steps
 
@@ -189,6 +194,13 @@ class Trainer:
                 continue
             if oov_transform is not None:
                 batch = oov_transform(batch)
+            if self.dhe_hasher is not None:
+                model = self.model
+                for f in (model.uid_field, model.iid_field,
+                          getattr(model, "neg_prefix", "neg_") + model.iid_field):
+                    if f in batch:
+                        self.dhe_hasher.annotate_batch(batch, f, model.spec.prime_pad,
+                                                       padded_when_flagged=True)
             n_examples += int(np.asarray(batch["weight"]).sum())
             losses.append(self._step(to_device_batch(batch, device), frozen))
             if self.config["oov_debug_skip_train"]:
@@ -210,6 +222,12 @@ class Trainer:
         path), by the JAX package's gates; a loader whose mode the port has
         not ported raises under `device_epoch: true`."""
         if not device_epoch_eligible(self, train_loader, self.config):
+            return None
+        if self.dhe_hasher is not None:
+            if device_epoch_flag(self.config) is True:
+                raise NotImplementedError(
+                    "device_epoch: DHE / fDHE on the device-resident epoch is not ported "
+                    "(ROADMAP.md queue 1, item 8)")
             return None
         if train_loader.mode != "pairwise":
             if device_epoch_flag(self.config) is True:

@@ -12,9 +12,19 @@ follow `oovrec_tpu/utils/torch_import.py:10-14`:
   * every other leaf (xDeepFM's ``CinConv`` ``kernel`` (H·F, L) and
     ``bias``, the first-order ``bias``) keeps its name and its array.
 
+The embedder towers (``user_oov_mlp`` / ``item_oov_mlp``, flax
+``Dense_<j>``) are ``nn.Linear``s, so their kernels cross transposed.
+
 An optimizer state crosses too: `lazy_adam_state_from_flax` turns the JAX
 package's ``chain(scale_by_lazy_adam(), scale(-lr))`` state (count, mu and
 nu trees) into the port's ``{"count", "mu", "nu"}``.
+
+The embedder state is not a parameter: the JAX package passes it as a
+dict of numpy arrays (``estate``), the port holds it as the model's
+``embedder_state`` buffers. `embedder_state_to_numpy` and
+`set_embedder_state` cross it (the uint64 DHE keys as their int64 bits on
+the port's side, int32 knn tables as int64), so both packages run from the
+same planes, keys and neighbors; the param bridge leaves it alone.
 
 A ``kernel`` leaf is a Dense or a stored kernel depending on the port's
 module, so trees with kernels cross with the target `module` given. A
@@ -31,6 +41,11 @@ import torch
 from torch import nn
 
 FlaxParams = Mapping[str, Any]
+STATE = "embedder_state"
+
+
+def _is_state(key: str) -> bool:
+    return key.split(".")[-2:-1] == [STATE]
 
 
 def _renames(module: Optional[nn.Module]):
@@ -92,6 +107,8 @@ def flax_from_state_dict(
     to_flax, _ = _renames(module)
     out: Dict[str, Any] = {}
     for key, value in sd.items():
+        if _is_state(key):
+            continue
         path, leaf = key.rsplit(".", 1)
         arr = value.detach().cpu().numpy()
         if leaf == "weight":
@@ -109,10 +126,47 @@ def flax_from_state_dict(
 
 
 def load_flax_params(module: nn.Module, params: FlaxParams) -> nn.Module:
-    """Load a flax param tree into `module` (every parameter must match)."""
+    """Load a flax param tree into `module` (every parameter must match;
+    the embedder state buffers stay as they are)."""
     sd = state_dict_from_flax(params, module)
     device = next(module.parameters()).device
-    module.load_state_dict({k: v.to(device) for k, v in sd.items()})
+    missing, unexpected = module.load_state_dict(
+        {k: v.to(device) for k, v in sd.items()}, strict=False)
+    missing = [k for k in missing if not _is_state(k)]
+    if missing or unexpected:
+        raise KeyError(f"flax tree and module differ: missing {missing}, "
+                       f"unexpected {unexpected}")
+    return module
+
+
+def embedder_state_to_numpy(module: nn.Module) -> Dict[str, np.ndarray]:
+    """The model's embedder state as the JAX package's ``estate``: float32
+    arrays, int32 knn tables, uint64 DHE keys, int64 counts."""
+    out: Dict[str, np.ndarray] = {}
+    for k, v in getattr(module, STATE).named_buffers():
+        arr = v.detach().cpu().numpy()
+        if k == "dhe_keys":
+            arr = arr.view(np.uint64)
+        elif k.endswith("_knn_neighbors"):
+            arr = arr.astype(np.int32)
+        out[k] = arr
+    return out
+
+
+def set_embedder_state(module: nn.Module, estate: Mapping[str, Any]) -> nn.Module:
+    """Give `module` the JAX package's ``estate`` arrays as its embedder
+    state (the buffers must exist with the same shapes)."""
+    buffers = dict(getattr(module, STATE).named_buffers())
+    for k, v in estate.items():
+        if k not in buffers:
+            continue  # JAX-only entries (the uint32 key parts of the TPU hash)
+        arr = np.asarray(v)
+        if arr.dtype == np.uint64:
+            arr = arr.view(np.int64)
+        t = buffers[k]
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(f"embedder state [{k}]: {arr.shape} for {tuple(t.shape)}")
+        t.copy_(torch.as_tensor(arr).to(t.dtype))
     return module
 
 

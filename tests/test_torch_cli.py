@@ -4,8 +4,11 @@ package's `oovrec_tpu.cli.run`, on the CPU.
 Both CLIs run the verify-skill commands on the toy-ind fixture: the
 retrieval track (BPR, random-mapper OOV buckets, OOV training, the paper
 protocol's uni250 eval, the 7-slice inductive eval) and the ranking track
-with xDeepFM in place of WideDeep and the random mapper in place of the
-lsh embedder (not ported). The port runs with `--device=cpu`, xDeepFM's
+with xDeepFM in place of WideDeep, each with the random mapper and with
+the lsh embedder, and the retrieval track with fdhe (host hashing, one key
+file under the test's directory that both CLIs read). The embedder state
+each CLI builds (feature matrices, planes, keys; in 'inductive' mode over
+the `_ind` corpus for the 7 slices) is its own. The port runs with `--device=cpu`, xDeepFM's
 CIN through the kernel wrapper's plain version (`--fused_cin=True`), and
 starts from the JAX run's initial weights: the test wraps the JAX
 driver's `build_model_and_state` to record them and the port's to load
@@ -29,6 +32,7 @@ import pytest
 pytest.importorskip("jax")
 
 import jax  # noqa: E402
+import torch  # noqa: E402
 
 import oovrec_tpu.cli.quick_start as jax_quick_start  # noqa: E402
 import oovrec_tpu_torch.cli.quick_start as port_quick_start  # noqa: E402
@@ -42,18 +46,52 @@ LOAD_COL = ("--load_col={'inter': ['user_id','item_id','rating','timestamp','is_
             "'user': ['user_id','age','gender'], 'item': ['item_id','price','category']}")
 COMMON = [
     "--dataset=toy-ind", f"--data_path={ASSETS}", "--epochs=2", "--train_batch_size=16",
-    "--embedding_size=8", "--inductive_mapper=random", "--add_oov_buckets=True",
+    "--embedding_size=8", "--add_oov_buckets=True",
     "--n_user_oov_buckets=8", "--n_item_oov_buckets=8", "--train_oov=True",
     "--inductive_eval=True", LOAD_COL, "--log_tensorboard=False",
     "--metric_decimal_place=12",
 ]
+RETRIEVAL = ["--model=BPR"]
+RANKING = ["--model=xDeepFM", "--model_eval_type=ranking",
+           "--numerical_features=['age','price']", "--threshold={'rating': 4}",
+           "--dropout_prob=0.0", "--mlp_hidden_size=[16,8]", "--cin_layer_size=[8,8]"]
+MAPPER = ["--inductive_mapper=random"]
 TRACKS = {
-    "retrieval": ["--model=BPR"],
-    "ranking": ["--model=xDeepFM", "--model_eval_type=ranking",
-                "--numerical_features=['age','price']", "--threshold={'rating': 4}",
-                "--dropout_prob=0.0", "--mlp_hidden_size=[16,8]", "--cin_layer_size=[8,8]"],
+    "retrieval": RETRIEVAL + MAPPER,
+    "ranking": RANKING + MAPPER,
+    "retrieval-lsh": RETRIEVAL + ["--inductive_embedder=lsh"],
+    "retrieval-fdhe": RETRIEVAL + ["--inductive_embedder=fdhe", "--dhe_num_hashes=8",
+                                   "--dhe_layer_size=16"],
+    "ranking-lsh": RANKING + ["--inductive_embedder=lsh"],
 }
 TOL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's CPU ops at these tiny shapes run fastest on one thread:
+    several test workers each spreading a 512-element GELU over every core
+    spend milliseconds a call on the thread pool alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+
+@pytest.fixture(autouse=True)
+def _fresh_feature_caches():
+    """Both packages keep a module-global feature cache per mode: each test
+    starts from an empty one and leaves one, so no other test's corpus is
+    taken for this one's."""
+    from oovrec_tpu.inductive import factory as jax_factory
+    from oovrec_tpu_torch.inductive import factory
+
+    for mod in (factory, jax_factory):
+        mod._global_cache = mod.InductiveFeatureCache("unset")
+    yield
+    for mod in (factory, jax_factory):
+        mod._global_cache = mod.InductiveFeatureCache("unset")
 
 
 def _agree(a, b, tol, what):
@@ -97,7 +135,7 @@ def _run_pair(track, tmp_path, monkeypatch):
 
     monkeypatch.setattr(jax_quick_start, "build_model_and_state", recording)
     monkeypatch.setattr(port_quick_start, "build_model_and_state", bridged)
-    argv = COMMON + TRACKS[track]
+    argv = COMMON + TRACKS[track] + [f"--hash_key_dir={tmp_path / 'keys'}"]
     for side in ("jax", "port"):
         (tmp_path / side).mkdir()
     monkeypatch.chdir(tmp_path / "jax")
@@ -106,7 +144,7 @@ def _run_pair(track, tmp_path, monkeypatch):
     results_json = tmp_path / "port" / "results.json"
     extra = ["--device=cpu", f"--checkpoint_dir={tmp_path / 'port' / 'saved'}",
              f"--results_json={results_json}"]
-    if track == "ranking":
+    if track.startswith("ranking"):
         extra.append("--fused_cin=True")
     pres = port_main(argv + extra)
     return jres, pres, pres["trainer"].saved_model_file, results_json
@@ -116,6 +154,8 @@ def _run_pair(track, tmp_path, monkeypatch):
 def test_port_cli_matches_the_jax_cli(track, tmp_path, monkeypatch):
     jres, pres, ckpt, results_json = _run_pair(track, tmp_path, monkeypatch)
     assert pres["config"]["eval_args"]["mode"] == {"valid": "uni250", "test": "uni250"}
+    assert pres["trainer"].model.spec.embedder == (
+        track.split("-")[1] if "-" in track else None)
     _agree(jres["test_result"], pres["test_result"], TOL, f"{track} test result")
     _slices_agree(jres["inductive_results"], pres["inductive_results"], TOL,
                   f"{track} inductive slices")

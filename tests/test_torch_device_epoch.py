@@ -10,7 +10,13 @@ lazy-Adam state, to 1e-5. Then the port's epoch on its own on toy data
 with a CPU `torch.Generator` (the streams cannot match `jax.random`):
 every row once, valid negatives, OOV buckets, the frozen sub-epoch, the
 sparse epoch against the dense lazy sweep, repeatability, and the
-eligibility gates against `device_epoch_eligible`.
+eligibility gates against `device_epoch_eligible`. Then the embedders:
+lsh, slsh, dnn, knn, zero and mean take the device epoch (the sparse path
+with lsh, slsh and dnn equal to the dense sweep, which checks that the
+feature lookups read entity ids and not row positions; kernel 6's route
+and the plain route bit for bit), while DHE and fDHE raise under
+`device_epoch: true` (ROADMAP queue 1, item 8) and take the host path under
+`auto`.
 """
 
 import numpy as np
@@ -34,6 +40,7 @@ from oovrec_tpu_torch.config import Config  # noqa: E402
 from oovrec_tpu_torch.data import DatasetSplit, Sampler, TrainBatcher  # noqa: E402
 from oovrec_tpu_torch.data import alias  # noqa: E402
 from oovrec_tpu_torch.inductive import InductiveSpec, OOVSimulator  # noqa: E402
+from oovrec_tpu_torch.inductive.factory import exact_knn_neighbors  # noqa: E402
 from oovrec_tpu_torch.inductive.hashes import hash_ids  # noqa: E402
 from oovrec_tpu_torch.models import BPR  # noqa: E402
 from oovrec_tpu_torch.ops.inthash_device import sim_buckets_device  # noqa: E402
@@ -51,6 +58,18 @@ from tests.test_torch_trainer import _bpr_cfg, _flat, _setup  # noqa: E402
 from tests.test_torch_xdeepfm import _jax_batch  # noqa: E402
 
 PRIME = 112062759511
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's CPU ops at these tiny shapes run fastest on one thread:
+    several test workers each spreading a 512-element GELU over every core
+    spend milliseconds a call on the thread pool alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 # --------------------------------------------------------- bit-exact pieces
 
@@ -483,3 +502,71 @@ def test_oov_sub_epoch_gates(hash_function, buckets, device):
         live = b["user_id"] != 0
         want = hash_ids(b["user_id"] + PRIME - split.user_num, buckets, hash_function)
         np.testing.assert_array_equal(b["user_id_bucket"][live], want[live])
+
+
+# ------------------------------------------------------------- embedders
+
+
+def _emb_trainer(split, embedder, impl="auto", **over):
+    """`_trainer` with an embedder and a random state: unit feature rows,
+    planes, neighbors and keys from a seed."""
+    rng = np.random.default_rng(8)
+    state = {}
+    for side, n in (("user", split.user_num), ("item", split.item_num)):
+        mat = rng.standard_normal((n, 5)).astype(np.float32)
+        mat /= np.linalg.norm(mat, axis=1, keepdims=True)
+        state[f"{side}_feat_mat"] = mat
+        state[f"{side}_planes"] = rng.standard_normal((8, 5)).astype(np.float32)
+        state[f"{side}_knn_neighbors"] = exact_knn_neighbors(mat, mat, 2)
+    state["dhe_keys"] = rng.integers(0, 2**63, (4, 2)).astype(np.uint64)
+    cfg = Config(dict(dict(
+        seed=11, train_batch_size=64, learner="sparse_adam", learning_rate=1e-2, epochs=2,
+        train_oov=True, oov_only_epoch=True, oov_train_ratio=0.8, oov_feature_mask_rate=0.2,
+        device_epoch=True, sparse_update_impl=impl), **over))
+    spec = InductiveSpec(embedder=embedder, add_oov_buckets=True, n_user_buckets=8,
+                         n_item_buckets=8, dhe_num_hashes=4, dhe_layer_size=8)
+    model = BPR(split.user_num, split.item_num, 8, spec, device="cpu",
+                generator=torch_generator(5), embedder_state=state)
+    sampler = Sampler(["train"], [split], seed=11)
+    return Trainer(cfg, model), TrainBatcher(split, sampler, cfg, InputType.PAIRWISE)
+
+
+@pytest.mark.parametrize("embedder", ["lsh", "slsh", "dnn", "knn", "zero", "mean"])
+def test_embedders_take_the_device_epoch(embedder):
+    """Two epochs + OOV sub-epochs on the device epoch; with lsh, slsh and
+    dnn the sparse path (kernel 6's route and the plain route, bit for bit)
+    equals the dense lazy sweep, as for the buckets; knn and mean read the
+    whole table, so they take the dense sweep."""
+    split = _toy()
+    runs = {}
+    for impl in ("auto", "xla", "dense"):
+        trainer, loader = _emb_trainer(split, embedder, impl)
+        trainer.fit(loader, None, saved=False)
+        des = list(trainer._device_epochs.values())
+        assert len(des) == 2 and trainer.oov_loss_dict
+        sparse = embedder not in ("knn", "mean") and impl != "dense"
+        assert all(bool(d.sparse_tables) == sparse for d in des), impl
+        runs[impl] = trainer
+    for n, p in runs["auto"].params.items():
+        assert torch.equal(p, runs["xla"].params[n]), n
+        np.testing.assert_allclose(p.detach().numpy(), runs["dense"].params[n].detach().numpy(),
+                                   rtol=2e-5, atol=2e-6, err_msg=n)
+    for e in (0, 1):
+        np.testing.assert_allclose(runs["auto"].oov_loss_dict[e],
+                                   runs["dense"].oov_loss_dict[e], rtol=1e-5)
+
+
+@pytest.mark.parametrize("embedder", ["dhe", "fdhe"])
+def test_dhe_keeps_off_the_device_epoch(embedder, monkeypatch):
+    """`device_epoch: true` raises, naming ROADMAP queue 1 item 8; `auto`
+    takes the host path, which hashes each batch and trains."""
+    split = _toy()
+    trainer, loader = _emb_trainer(split, embedder)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        trainer._maybe_device_epoch(loader)
+    monkeypatch.setattr(pde, "AUTO_MIN_ROWS", 1)
+    trainer, loader = _emb_trainer(split, embedder, device_epoch="auto", epochs=1)
+    assert pde.device_epoch_eligible(trainer, loader, trainer.config)
+    assert trainer._maybe_device_epoch(loader) is None
+    trainer.fit(loader, None, saved=False)
+    assert not trainer._device_epochs and trainer.oov_loss_dict

@@ -55,4 +55,7 @@ def test_scan_sees_the_whole_port():
     assert "oovrec_tpu_torch/cli/quick_start.py" in names
     assert "oovrec_tpu_torch/cli/inductive_eval.py" in names
     assert "chip_smoke.py" in names
-    assert len(names) >= 20
+    for module in ("ops/embed_grad.py", "ops/siphash.py", "ops/siphash_device.py",
+                   "inductive/dhe.py", "inductive/factory.py"):
+        assert f"oovrec_tpu_torch/{module}" in names, module
+    assert len(names) >= 25

@@ -180,10 +180,12 @@ def test_route_matches_jax(embedder):
 
 
 def test_later_embedders_raise():
-    spec = InductiveSpec(embedder="lsh")
-    table = torch.zeros((5, 2))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        route(spec, "user", torch.tensor([7]), None, None, table, torch.zeros((3, 2)))
+    """The state-reading embedders refuse to start without their state
+    (`inductive/factory.py:build_embedder_state`)."""
+    for emb in ("lsh", "slsh", "dnn", "knn", "dhe", "fdhe"):
+        with pytest.raises(ValueError, match="needs its state"):
+            BPR(5, 5, 2, InductiveSpec(embedder=emb, n_user_buckets=4, n_item_buckets=4),
+                device="cpu")
 
 
 def test_xavier_scale_and_explicit_device():

@@ -7,10 +7,15 @@ xDeepFM (pointwise, dropout 0, on the CIN kernel route and on the slab
 path), with the frozen OOV-only sub-epoch, in mixed mode
 (`oov_only_epoch: false`), with sampled validation and with the
 torch-faithful Adam plus decay and clipping, and under `learner:
-sparse_adam`. The JAX side runs its host per-batch path (`device_epoch:
+sparse_adam`; then with the embedders: BPR with lsh, dnn and fdhe (host
+hashing, a key file under the test's directory) and xDeepFM with lsh, the
+port's model holding the JAX run's embedder state as its buffers. The JAX
+side runs its host per-batch path (`device_epoch:
 false`, `host_scan_steps: 1`), as `tests/test_host_scan.py:_train` builds
 it. Epoch losses must agree to 1e-5 relative, the final parameters to
-1e-5 absolute, and the validation scores exactly. Then the optimizer
+1e-5 absolute, and the validation scores exactly. Then the frozen
+OOV sub-epoch with an embedder tower moves only `oov_bucket` and `oov_mlp`
+parameters, the optimizer
 rollback of `oov_freeze_skip_optim`, which the JAX trainer cannot run (its
 `fit` raises NameError at `trainer.py:675`: `jnp` is bound only inside the
 dynamic-negatives branch above), a checkpoint save → resume round trip,
@@ -51,14 +56,47 @@ from tests.test_context_models import _ranking_cfg  # noqa: E402
 from tests.test_inductive import _ind_cfg  # noqa: E402
 from tests.test_torch_train_parts import _port_split  # noqa: E402
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The port's CPU ops at these tiny shapes run fastest on one thread:
+    several test workers each spreading a 512-element GELU over every core
+    spend milliseconds a call on the thread pool alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 HOST_PATH = dict(host_scan_steps=1, device_epoch=False, log_tensorboard=False)
+EMB = {
+    "lsh": dict(inductive_mapper=None, inductive_embedder="lsh"),
+    "dnn": dict(inductive_mapper=None, inductive_embedder="dnn", dhe_layer_size=16),
+    "fdhe": dict(inductive_mapper=None, inductive_embedder="fdhe", dhe_num_hashes=8,
+                 dhe_layer_size=16),
+}
 OOV = dict(inductive_mapper="random", add_oov_buckets=True, n_user_oov_buckets=8,
            n_item_oov_buckets=8, train_oov=True, oov_only_epoch=True,
            oov_train_ratio=0.8, oov_feature_mask_rate=0.2)
 
 
+@pytest.fixture(autouse=True)
+def _fresh_feature_caches():
+    """Both packages keep a module-global feature cache per mode: each test
+    starts from an empty one and leaves one, so no other test's corpus is
+    taken for this one's."""
+    from oovrec_tpu.inductive import factory as jax_factory
+    from oovrec_tpu_torch.inductive import factory
+
+    for mod in (factory, jax_factory):
+        mod._global_cache = mod.InductiveFeatureCache("unset")
+    yield
+    for mod in (factory, jax_factory):
+        mod._global_cache = mod.InductiveFeatureCache("unset")
+
+
 def _bpr_cfg(tmp, **over):
-    d = dict(epochs=2, train_batch_size=4, checkpoint_dir=str(tmp), **HOST_PATH)
+    d = dict(epochs=2, train_batch_size=4, checkpoint_dir=str(tmp),
+             hash_key_dir=str(tmp / "keys"), **HOST_PATH)
     d.update(over)
     return _ind_cfg(**d)
 
@@ -68,7 +106,7 @@ def _xdfm_cfg(tmp, **over):
              valid_metric="AUC", cin_layer_size=[8, 8], dropout_prob=0.0,
              eval_args={"split": {"RS": [0.8, 0.1, 0.1]}, "order": "TO",
                         "group_by": None, "mode": "labeled"},
-             checkpoint_dir=str(tmp), **HOST_PATH)
+             checkpoint_dir=str(tmp), hash_key_dir=str(tmp / "keys"), **HOST_PATH)
     d.update(over)
     return _ranking_cfg("xDeepFM", **d)
 
@@ -83,6 +121,7 @@ def _setup(cfg_dict, fused="auto"):
     template = data_preparation(jcfg, ds)[0]._make_batch(np.arange(2))
     jtrain, jvalid, jtest = data_preparation(jcfg, ds)
     jm, variables, estate = build_model_and_state(jcfg, ds, template_batch=template)
+    estate = {k: np.array(v) for k, v in estate.items()}
     # float-field tables scaled down: ages and prices of ~20 saturate xDeepFM
     params = jax.tree_util.tree_map_with_path(
         lambda p, v: np.asarray(v) * (np.float32(0.01) if p[-2].key == "float_embedding_table"
@@ -97,7 +136,8 @@ def _setup(cfg_dict, fused="auto"):
                       repeatable=bool(jcfg["repeatable"]))
     spec = InductiveSpec.from_config(cfg)
     if jcfg["model"] == "BPR":
-        model = BPR(ds.user_num, ds.item_num, int(jcfg["embedding_size"]), spec, device="cpu")
+        model = BPR(ds.user_num, ds.item_num, int(jcfg["embedding_size"]), spec, device="cpu",
+                    embedder_state=estate or None)
         input_type = InputType.PAIRWISE
         valid = FullSortEvalBatcher(splits[1], sampler, cfg, phase="valid")
         test = FullSortEvalBatcher(splits[2], sampler, cfg, phase="test")
@@ -106,7 +146,8 @@ def _setup(cfg_dict, fused="auto"):
             FieldSpec(**dataclasses.asdict(jm.fields)), embedding_size=jm.embedding_size,
             spec=spec, mlp_hidden_size=jm.mlp_hidden_size, reg_weight=jm.reg_weight,
             dropout_prob=jm.dropout_prob, direct=jm.direct, cin_layer_size=jm.cin_layer_size,
-            fused_cin=fused, label_field=jm.label_field, device="cpu")
+            fused_cin=fused, label_field=jm.label_field, device="cpu",
+            embedder_state=estate or None)
         input_type = InputType.POINTWISE
         valid, test = PlainEvalBatcher(splits[1], cfg), PlainEvalBatcher(splits[2], cfg)
     load_flax_params(model, params)
@@ -137,6 +178,11 @@ CASES = {
         clip_grad_norm={"max_norm": 0.5}), "auto"),
     "xdeepfm-frozen-kernel": (_xdfm_cfg, dict(oov_freeze_embedding=True), True),
     "xdeepfm-mixed-slab": (_xdfm_cfg, dict(oov_only_epoch=False), False),
+    # the embedders (no mapper): features from toy-ind's user and item files
+    "bpr-lsh-frozen": (_bpr_cfg, dict(oov_freeze_embedding=True, **EMB["lsh"]), "auto"),
+    "bpr-dnn": (_bpr_cfg, EMB["dnn"], "auto"),
+    "bpr-fdhe-frozen": (_bpr_cfg, dict(oov_freeze_embedding=True, **EMB["fdhe"]), "auto"),
+    "xdeepfm-lsh-kernel": (_xdfm_cfg, dict(oov_freeze_embedding=True, **EMB["lsh"]), True),
 }
 
 
@@ -145,7 +191,7 @@ def test_fit_trajectory_matches_jax(case, tmp_path):
     make, over, fused = CASES[case]
     s = _setup(make(tmp_path, **over), fused)
     jcfg, jm, variables, estate, jtrain, jvalid, _ = s["jax"]
-    jt = JaxTrainer(jcfg, jm, variables, estate)
+    jt = JaxTrainer(jcfg, jm, variables, dict(estate))
     jbest = jt.fit(jtrain, jvalid, saved=False)
 
     cfg, model, train, valid, _ = s["port"]
@@ -196,6 +242,30 @@ def test_frozen_sub_epoch_rollback_restores_a_true_copy(tmp_path):
             assert torch.equal(trainer.opt_state[part][n], t), (part, n)
     moved = {n for n, p in trainer.params.items() if not torch.equal(p, seen["params"][n])}
     assert moved == {"user_oov_buckets.weight", "item_oov_buckets.weight"}
+
+
+def test_frozen_sub_epoch_moves_only_oov_parameters(tmp_path):
+    """With an embedder tower (dnn) the frozen OOV sub-epoch moves its
+    `oov_mlp` parameters (and at most the `oov_bucket` tables), never an
+    IV table; the tower counts among the trainer's OOV parameters."""
+    s = _setup(_bpr_cfg(tmp_path, epochs=1, oov_freeze_embedding=True, **EMB["dnn"]))
+    cfg, model, train, _, _ = s["port"]
+    trainer = Trainer(cfg, model)
+    towers = {n for n in trainer.params if "oov_mlp" in n}
+    assert len(towers) == 16 and towers <= trainer.oov_params
+    inner, seen = trainer._train_epoch, {}
+
+    def watched(loader, epoch_idx, oov_transform=None, keep_ratio=None, frozen=False):
+        if frozen:
+            seen["before"] = {n: p.detach().clone() for n, p in trainer.params.items()}
+        return inner(loader, epoch_idx, oov_transform, keep_ratio, frozen)
+
+    trainer._train_epoch = watched
+    trainer.fit(train, None, saved=False)
+    assert trainer.oov_loss_dict
+    moved = {n for n, p in trainer.params.items() if not torch.equal(p, seen["before"][n])}
+    assert moved <= trainer.oov_params and towers <= moved
+    assert {"user_embedding.weight", "item_embedding.weight"}.isdisjoint(moved)
 
 
 def test_checkpoint_round_trip(tmp_path):

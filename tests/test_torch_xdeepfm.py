@@ -185,7 +185,7 @@ def test_unported_parts_raise():
     with pytest.raises(NotImplementedError, match="token_seq"):
         xDeepFM(FieldSpec(**FIELDS, token_seq_names=("tags",), token_seq_dims=(9,)),
                 device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(ValueError, match="needs its state"):
         xDeepFM(FieldSpec(**FIELDS), spec=InductiveSpec(embedder="dnn"), device="cpu")
     with pytest.raises(KeyError, match="cat"):
         batch = _torch_batch(_batch())
