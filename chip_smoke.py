@@ -79,6 +79,28 @@ Phases (any failure exits non-zero; no phase failure is caught):
          routes it was measured against (BACKWARD_ROUTES: a call and device
          time, each repeated bit for bit), and BPR with lsh on the
          device epoch with sparse adam, auto == xla bit for bit.
+  9. phase E, the paper's other three models at their published widths
+     (WideDeep.yaml, DCNV2.yaml, DirectAU.yaml):
+     E1. EXPERIMENTS.md:79, the ranking track (WideDeep, lsh over the
+         *_vector columns, 200 buckets a side, OOV ratio 0.3; 3 epochs of
+         8) through `python -m oovrec_tpu_torch.cli.run` as a subprocess:
+         the training loss falls, the 7 slices are finite, `--eval_only`
+         equal to 1e-9; then the same command through `cli.run.main`;
+     E2. DCNv2 through `cli.run.main` on synth-ind (random mapper, 2
+         epochs) stacked, parallel and with mixed experts, each
+         `--eval_only` equal to 1e-9 and its BatchNorm statistics moved;
+         stacked at `--worker=2` (batch prefetch) equal to `worker: 0`;
+     E3. WideDeep, DCNv2 stacked and mixed through `Trainer.fit` at phase
+         4's shape (one epoch + the frozen OOV sub-epoch): the loss falls,
+         held-out AUC rises, the 7 value slices; 64 rows score alike alone
+         and inside a batch of 8,192 in eval mode (1e-6); then WideDeep
+         with a token_seq item field, 16 steps, the loss falling and the
+         gathers' backward launched for the field's tables;
+     E4. DirectAU at D 64: 64 pointwise steps of 2,048 rows + the OOV
+         sub-epoch with adam and with `learner: sparse_adam` (kernel 6 on
+         the host path); the serving cell's corpus, fused == dense on the 7
+         slices and the full sort (1e-9); DirectAU on synth-ind through
+         `cli.run.main`, `--eval_only` equal to 1e-9.
 Phase 2 also holds the gathers' backward kernel (`csrc/embed_grad.cu`)
 against its plain version (bit for bit on integer-valued cotangents, to
 1e-5 on random ones, against a repeat run) and times it; phase 6 profiles
@@ -89,7 +111,8 @@ bit for bit on integer inputs and gradients (and against itself on a
 repeat run), and times it per layer and for the 3-layer stack.
 The last line is the device record; the line before it lists the kernels,
 each with its launches on the earlier phases' paths (`launches`), on the
-CLI phases (`launches_cli`) and on phase D's parts (`launches_d`).
+CLI phases (`launches_cli`) and on phase D's and E's parts (`launches_d`,
+`launches_e`).
 
 TF32 is switched off for matmuls and cuDNN below: the plain versions and
 the dense path must compute in full f32, as the kernel does.
@@ -98,6 +121,8 @@ the dense path must compute in full f32, as the kernel does.
 from __future__ import annotations
 
 import contextlib
+import copy
+import dataclasses
 import json
 import math
 import os
@@ -125,7 +150,7 @@ from oovrec_tpu_torch.data import (
 from oovrec_tpu_torch.eval import EvalRunner, InductiveEvaluator
 from oovrec_tpu_torch.eval.runner import to_device_batch
 from oovrec_tpu_torch.inductive import DHEHasher, InductiveSpec, RandomOOVMapper
-from oovrec_tpu_torch.models import BPR, FieldSpec, xDeepFM
+from oovrec_tpu_torch.models import BPR, FieldSpec, get_model_class, xDeepFM
 from oovrec_tpu_torch.ops import embed_grad, topk_score
 from oovrec_tpu_torch.ops.cin_fused import (
     cin_layer,
@@ -575,25 +600,7 @@ def serving():
 
     cfg = serving_cfg
     launches = seven_slices_fused_vs_dense(model, mapper, ind_splits, cfg)
-
-    iv = {}
-    for fused in (True, False):
-        c = cfg(fused, N_OLD_ITEMS)
-        iv_loader = loader(iv_splits, c)
-        runner = EvalRunner(model, c)
-        topk_score.fused_topk_scores.launches = 0
-        t0 = time.perf_counter()
-        iv[fused] = runner.evaluate(iv_loader)
-        sync()
-        wall = time.perf_counter() - t0
-        n_launch = topk_score.fused_topk_scores.launches
-        require(runner._use_fused(iv_loader.item_num) is fused, "runner fused path")
-        require(n_launch == (len(iv_loader) if fused else 0), f"runner launches {n_launch}")
-        log(f"full-sort eval {'fused' if fused else 'dense'}: {len(iv_loader)} batches, "
-            f"{wall / len(iv_loader) * 1e3:.1f} ms per batch, kernel launches {n_launch}")
-    log(f"[full-sort] {dict(iv[True])}")
-    agree(iv[True], iv[False], "full-sort fused vs dense")
-    log("full-sort eval: fused == dense (1e-9)")
+    full_sort_fused_vs_dense(model, iv_splits)
     # after the counted runs: where the time of the default (perturbed)
     # fused inductive eval goes on the device
     c = cfg(True, N_OLD_ITEMS + N_NEW_ITEMS)
@@ -601,6 +608,30 @@ def serving():
     breakdown(InductiveEvaluator(model, c, N_OLD_USERS, N_OLD_ITEMS, mapper=mapper),
               loader(ind_splits, c))
     return launches
+
+
+def full_sort_fused_vs_dense(model, iv_splits, what="full-sort eval"):
+    """The IV full-sort eval on the fused path (one top-k launch a batch)
+    and on the dense path: equal to 1e-9. → the fused run's launches."""
+    iv, counts = {}, {}
+    for fused in (True, False):
+        c = serving_cfg(fused, N_OLD_ITEMS)
+        iv_loader = loader(iv_splits, c)
+        runner = EvalRunner(model, c)
+        topk_score.fused_topk_scores.launches = 0
+        t0 = time.perf_counter()
+        iv[fused] = runner.evaluate(iv_loader)
+        sync()
+        wall = time.perf_counter() - t0
+        counts[fused] = n_launch = topk_score.fused_topk_scores.launches
+        require(runner._use_fused(iv_loader.item_num) is fused, f"{what}: runner fused path")
+        require(n_launch == (len(iv_loader) if fused else 0), f"{what}: launches {n_launch}")
+        log(f"{what} {'fused' if fused else 'dense'}: {len(iv_loader)} batches, "
+            f"{wall / len(iv_loader) * 1e3:.1f} ms per batch, kernel launches {n_launch}")
+    log(f"[{what}] {dict(iv[True])}")
+    agree(iv[True], iv[False], f"{what} fused vs dense")
+    log(f"{what}: fused == dense (1e-9)")
+    return counts[True]
 
 
 def seven_slices_fused_vs_dense(model, mapper, ind_splits, cfg, what="inductive eval"):
@@ -1266,20 +1297,26 @@ def rows_of(split, keep, n_users, n_items):
                         user_feat=split.user_feat, item_feat=split.item_feat)
 
 
-def ranking_training(ind, mapper):
-    """xDeepFM through `Trainer.fit` on the card: one epoch over the IV rows
-    of the first CTR_TRAIN_FRACTION of the rows plus the frozen OOV-only
-    sub-epoch, from a seed other than the labels' model. → the CIN launch
-    counts of the fit."""
+def ctr_splits(ind):
+    """→ (the IV rows of the first CTR_TRAIN_FRACTION of the labelled rows,
+    the rest, the IV rows of the rest)."""
     n = len(ind)
     cut = int(CTR_TRAIN_FRACTION * n)
     row = np.arange(n)
     old = ((ind.inter["user_id"] < N_CTR_OLD_USERS)
            & (ind.inter["item_id"] < N_CTR_OLD_ITEMS))
     n_u, n_i = N_CTR_OLD_USERS + N_CTR_NEW_USERS, N_CTR_OLD_ITEMS + N_CTR_NEW_ITEMS
-    train = rows_of(ind, (row < cut) & old, N_CTR_OLD_USERS, N_CTR_OLD_ITEMS)
-    held = rows_of(ind, row >= cut, n_u, n_i)
-    held_iv = rows_of(ind, (row >= cut) & old, N_CTR_OLD_USERS, N_CTR_OLD_ITEMS)
+    return (rows_of(ind, (row < cut) & old, N_CTR_OLD_USERS, N_CTR_OLD_ITEMS),
+            rows_of(ind, row >= cut, n_u, n_i),
+            rows_of(ind, (row >= cut) & old, N_CTR_OLD_USERS, N_CTR_OLD_ITEMS))
+
+
+def ranking_training(ind, mapper):
+    """xDeepFM through `Trainer.fit` on the card: one epoch over the IV rows
+    of the first CTR_TRAIN_FRACTION of the rows plus the frozen OOV-only
+    sub-epoch, from a seed other than the labels' model. → the CIN launch
+    counts of the fit."""
+    train, held, held_iv = ctr_splits(ind)
     cfg = ctr_train_cfg()
     model = build_ranking_model(SEED + 7)
     auc0 = EvalRunner(model, cfg).evaluate(PlainEvalBatcher(held_iv, cfg))["auc"]
@@ -1617,6 +1654,10 @@ SPARSE_ROWS_CASES = [
     # CLI phase C's item table (90,001 rows) and a step's item rows
     # (2,048 positives + 2,048 negatives)
     ("cli-c-items", 90_001, D, 4096, dict(dup_runs=True)),
+    # E4's DirectAU tables on the host path: a pointwise step's 2,048 ids a
+    # side into 100,000 users and 900,000 items
+    ("directau-users", N_OLD_USERS, D, 2048, {}),
+    ("directau-items", N_OLD_ITEMS, D, 2048, {}),
 ]
 
 
@@ -1722,19 +1763,26 @@ def sparse_rows_timing():
 
 # ------------------------------------- the gathers' backward (embed_grad)
 
-# (name, n, table rows, D, ids from [0, high) or "perm" (a permutation),
-# share of rows kept): the device epoch's bucket gathers (every IV row at
-# bucket 0, discarded or kept; the OOV rows' spread buckets), its row
+# (name, n, table rows, D, ids from [0, high), "perm" (a permutation) or
+# "pads" (the kept rows from [1, table rows), the others at the pad row
+# 0), share of rows kept): the device epoch's bucket gathers (every IV row
+# at bucket 0, discarded or kept; the OOV rows' spread buckets), its row
 # overrides (positions, each once), xDeepFM's packed token table (8,192
-# rows x 7 fields, a small-vocabulary field's few rows), the first-order
-# twin at D 1, a width past one warp, a ragged short input and none
+# rows x 7 fields, a small-vocabulary field's few rows), DCNv2's (D 16,
+# ids over the whole table), the first-order twin at D 1, E3's token_seq
+# field (8,192 rows x 16 positions, 47 % of them live, into 1,000 rows at
+# D 10 and its twin at D 1), a width past one warp, a ragged short input
+# and none
 EMBED_GRAD_CASES = [
     ("bucket-0-discarded", SP_B, SP_BUCKETS, D, 1, 0.0),
     ("bucket-0-kept", SP_B, SP_BUCKETS, D, 1, 1.0),
     ("oov-spread", SP_B, SP_BUCKETS, D, SP_BUCKETS, 0.3),
     ("row-overrides", 2 * SP_B, 2 * SP_B, D, "perm", 1.0),
     ("ctr-tokens", 7 * CTR_B, 330_000, CTR_D, 3, 0.9),
+    ("dcnv2-tokens", 7 * CTR_B, 330_000, 16, 330_000, 0.9),
     ("first-order-D1", 7 * CTR_B, 330_000, 1, 40, 1.0),
+    ("tags-seq", 16 * CTR_B, 1000, CTR_D, "pads", 0.47),
+    ("tags-seq-D1", 16 * CTR_B, 1000, 1, "pads", 0.47),
     ("D100", 3000, 500, 100, 50, 0.8),
     ("ragged31", 31, 8, 2, 8, 1.0),
     ("empty", 0, 16, 4, 1, 1.0),
@@ -1747,8 +1795,11 @@ def embed_grad_inputs(n, n_rows, d, high, p_live, seed, integer, ids_dtype=torch
     if high == "perm":
         ids = torch.randperm(n, generator=gen, device=DEVICE)
     else:
-        ids = torch.randint(0, high, (n,), generator=gen, device=DEVICE)
+        ids = torch.randint(1 if high == "pads" else 0, n_rows if high == "pads" else high,
+                            (n,), generator=gen, device=DEVICE)
     live = torch.rand(n, generator=gen, device=DEVICE) < p_live
+    if high == "pads":
+        ids = torch.where(live, ids, 0)
     if integer:
         g = torch.randint(-8, 9, (n, d), generator=gen, device=DEVICE).float()
     else:
@@ -1894,24 +1945,23 @@ def state_of(trainer):
     return out
 
 
-def recorded_sparse_run(loader, impl):
-    """COMPARE_STEPS steps of one epoch (no OOV sub-epoch) with every step's
-    gradients kept: the tables' (ids, row gradients) on the sparse path, the
-    dense gradients otherwise. → (losses, parameters, gradient of element
-    (name, flat index) at each step)."""
-    from oovrec_tpu_torch.train import device_epoch as de_mod
+def recorded_run(trainer, loader):
+    """One epoch of `trainer` over `loader` (no OOV sub-epoch) with every
+    step's gradients kept: the tables' (ids, row gradients) on the sparse
+    path, the dense gradients otherwise. → (losses, parameters, gradient of
+    element (name, flat index) at each step)."""
+    from oovrec_tpu_torch.train import trainer as trainer_mod
 
     tables_seen, rest_seen = {}, []
-    update = de_mod.sparse_adam_update_table
+    update = trainer_mod.sparse_adam_update_table
 
     def recording_update(table, state, ids, grows, *a, **k):
         name = next(n for n, p in trainer.params.items() if p is table)
         tables_seen.setdefault(name, []).append((ids.clone(), grows.clone()))
         return update(table, state, ids, grows, *a, **k)
 
-    de_mod.sparse_adam_update_table = recording_update
+    trainer_mod.sparse_adam_update_table = recording_update
     try:
-        trainer = Trainer(sparse_cfg(impl, train_oov=False), sparse_model())
         step = trainer.optimizer.step
 
         def recording_step(params, g, state, trainable=None):
@@ -1921,11 +1971,11 @@ def recorded_sparse_run(loader, impl):
         trainer.optimizer.step = recording_step
         trainer._train_epoch(loader, 0)
     finally:
-        de_mod.sparse_adam_update_table = update
+        trainer_mod.sparse_adam_update_table = update
 
     def grad(n, i):
         if n in tables_seen:
-            r, c = divmod(i, D)
+            r, c = divmod(i, trainer.params[n].shape[1])
             return torch.stack([g[ids == r, c].sum() for ids, g in tables_seen[n]])
         return torch.stack([g[n].flatten()[i] for g in rest_seen])
 
@@ -2112,8 +2162,10 @@ def retrieval_sparse_training():
     part = DatasetSplit({"user_id": users[: COMPARE_STEPS * SP_B],
                          "item_id": items[: COMPARE_STEPS * SP_B]}, SP_USERS, SP_ITEMS)
     part_loader = TrainBatcher(part, sampler, cfg, InputType.PAIRWISE)
-    la, pa, ga = recorded_sparse_run(part_loader, "auto")
-    lb, pb, gb = recorded_sparse_run(part_loader, "dense")
+    la, pa, ga = recorded_run(Trainer(sparse_cfg("auto", train_oov=False), sparse_model()),
+                              part_loader)
+    lb, pb, gb = recorded_run(Trainer(sparse_cfg("dense", train_oov=False), sparse_model()),
+                              part_loader)
     compare_trajectories("sparse (kernel 6) vs dense lazy-Adam training", ("sparse", "dense"),
                          la, lb, pa, pb, ga, gb)
     del pa, pb, ga, gb
@@ -2161,15 +2213,29 @@ def retrieval_sparse_training():
     syncs = [str(w.message).splitlines()[0] for w in caught if "synchroniz" in str(w.message)]
     log(f"host syncs in a {de.n_steps}-step device epoch: {len(syncs)} {sorted(set(syncs))[:4]}")
     del trainer, de
-    host = Trainer(sparse_cfg("auto", device_epoch=False, train_oov=False), sparse_model())
-    host._train_epoch(short_loader, 0)
-    sync()
-    t0 = time.perf_counter()
-    host._train_epoch(short_loader, 1)
-    sync()
-    host_ms = (time.perf_counter() - t0) * 1e3 / len(short_loader)
-    require(not host._device_epochs, "the host path took the device epoch")
-    log(f"host per-batch path, same shape: {host_ms:.2f} ms per step (wall, host included)")
+    # the host per-batch path at the same shape: the row-sparse step
+    # (`Trainer._sparse_step`, kernel 6) and the dense lazy-Adam sweep, each
+    # warmed by an epoch, then timed an epoch at a time in the order
+    # sparse, dense, dense, sparse
+    hosts = {impl: Trainer(sparse_cfg(impl, device_epoch=False, train_oov=False),
+                           sparse_model()) for impl in ("auto", "dense")}
+    host_ms = {impl: [] for impl in hosts}
+    for impl, host in hosts.items():
+        require(bool(host.sparse_tables) == (impl == "auto"), f"host path {impl}: sparse tables")
+        host._train_epoch(short_loader, 0)
+    for epoch, impl in enumerate(("auto", "dense", "dense", "auto"), 1):
+        sync()
+        t0 = time.perf_counter()
+        hosts[impl]._train_epoch(short_loader, epoch)
+        sync()
+        host_ms[impl].append((time.perf_counter() - t0) * 1e3 / len(short_loader))
+    require(not any(h._device_epochs for h in hosts.values()),
+            "the host path took the device epoch")
+    del hosts
+    log("host per-batch path, same shape, ms per step (wall, host included): "
+        f"{', '.join(f'{t:.2f}' for t in host_ms['auto'])} with the row-sparse step (kernel 6), "
+        f"{', '.join(f'{t:.2f}' for t in host_ms['dense'])} with the dense lazy-Adam sweep "
+        "(run in the order sparse, dense, dense, sparse)")
     return launches, gather_launches
 
 
@@ -2820,6 +2886,466 @@ def lsh_device_epoch():
     return {"sparse_adam_rows_kernel": launches["auto"]}
 
 
+# ---------------------------------------------------------------- phase E
+#
+# The paper's other three models at their published widths (the port's
+# copies of oovrec_tpu/config/model/{WideDeep,DCNV2,DirectAU}.yaml):
+# WideDeep (embedding 10, MLP 32/16/8, dropout 0.1), DCNv2 (embedding 16, 3
+# cross layers, MLP 768/768 with BatchNorm, dropout 0.2, reg_weight 2; mixed:
+# 4 experts of rank 128) and DirectAU (embedding 64, gamma 1).
+
+E_EPOCHS_RANK = 3  # EXPERIMENTS.md:79 runs 8 epochs; cut as phase B is
+E_EPOCHS_CLI = 2
+E_BN_ROWS = 64
+E_TAGS_VOCAB, E_TAGS_LEN, E_TAGS_STEPS = 1000, 16, 16
+E_DAU_STEPS, E_DAU_B = 64, 2048
+E_DCNV2 = (("stacked", []), ("parallel", ["--structure=parallel"]), ("mixed", ["--mixed=True"]),
+           ("stacked-worker2", ["--worker=2"]))
+E3_MODELS = (("WideDeep", "WideDeep", {}), ("DCNV2", "DCNV2", {}),
+             ("DCNV2-mixed", "DCNV2", {"mixed": True}))
+
+
+def published(model):
+    """(the constructor's hyper-parameters from the model file, its
+    embedding_size), as `cli/quick_start.py:build_model_and_state` takes
+    them."""
+    cfg = Config({"model": model})
+    return quick_start.model_kwargs(cfg, get_model_class(model)), int(cfg["embedding_size"])
+
+
+def bn_stats(model):
+    """The BatchNorm running statistics of `model`, by state_dict name."""
+    return {k: v for k, v in model.state_dict().items()
+            if ".BatchNorm_" in k and k.endswith((".mean", ".var"))}
+
+
+def require_trained_stats(model, what):
+    """DCNv2's running statistics moved off their initial values (mean 0,
+    var 1) in every BatchNorm."""
+    stats = bn_stats(model)
+    require(len(stats) == 4, f"{what}: BatchNorm statistics {sorted(stats)}")
+    for k, v in stats.items():
+        start = 0.0 if k.endswith(".mean") else 1.0
+        require(bool(torch.isfinite(v).all()) and float((v - start).abs().max()) > 1e-3,
+                f"{what}: {k} did not move from {start}")
+
+
+def value_slices_finite(slices, what):
+    """The 7 value slices: RMSE finite in every slice with rows, AUC in
+    the overall slice (a one-label slice's AUC is NaN); one line of them."""
+    require(tuple(slices) == SLICE_NAMES, f"{what}: slices {list(slices)}")
+    require(slices["overall"] and math.isfinite(slices["overall"]["auc"]),
+            f"{what}: overall slice {slices['overall']}")
+    for name, r in slices.items():
+        if r:
+            require(math.isfinite(r["rmse"]), f"{what} [{name}]: {r}")
+    log(f"[{what}] auc / rmse by slice: " + ", ".join(
+        f"{name} {r['auc']:.4f} / {r['rmse']:.4f}" if r else f"{name} (no rows)"
+        for name, r in slices.items()))
+
+
+def e1_ranking_track():
+    """E1: EXPERIMENTS.md:79, the paper's ranking track (the lsh command of
+    D1 with --model=WideDeep --model_eval_type=ranking), through `python -m
+    oovrec_tpu_torch.cli.run` as a subprocess on dataset/synth-ind: the
+    training loss falls, the 7 slices are finite, `--eval_only` reproduces
+    them to 1e-9; then the same command through `cli.run.main` in this
+    process, where the gathers' backward is counted. → {} (no reset)."""
+    argv = ["--model=WideDeep", "--model_eval_type=ranking", *EXPERIMENTS_FLAGS[1:],
+            f"--epochs={E_EPOCHS_RANK}"]
+    out = cli_out("e1")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "oovrec_tpu_torch.cli.run", *argv,
+                           *cli_flags(out)], capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = (proc.stdout + proc.stderr).splitlines()
+    losses = []
+    for line in lines:
+        if "training [" in line or "test result" in line:
+            log(f"  [E1] {line.split(' INFO ')[-1][:160]}")
+        if "train loss: " in line:
+            losses.append(float(line.split("train loss: ")[1].split(",")[0].rstrip("]")))
+    require(proc.returncode == 0, f"E1: rc {proc.returncode}: " + "\n".join(lines[-30:]))
+    require(len(losses) == E_EPOCHS_RANK and all(map(math.isfinite, losses))
+            and losses[-1] < losses[0], f"E1: epoch losses {losses}")
+    with open(os.path.join(out, "results.json")) as f:
+        res = json.load(f)
+    finite_metrics(res["test_result"], "E1 test")
+    value_slices_finite(res["inductive"], "E1 WideDeep lsh")
+    log(f"E1: python -m oovrec_tpu_torch.cli.run, EXPERIMENTS.md:79 (WideDeep, lsh, "
+        f"{E_EPOCHS_RANK} epochs) rc 0 in {wall:.1f} s (wall, process start and the corpus "
+        f"included), epoch losses {[round(x, 4) for x in losses]}")
+    again = cli_run.main([f"--eval_only={os.path.join(out, 'WideDeep-synth-ind.pth')}",
+                          "--inductive_eval=True"])
+    agree(res["test_result"], again["test_result"], "E1 eval_only test", tol=1e-9)
+    agree_slices(res["inductive"], again["inductive_results"], "E1 eval_only slices", tol=1e-9)
+    log("E1: --eval_only == the run on AUC, RMSE and the 7 slices (1e-9)")
+    sync()
+    t0 = time.perf_counter()
+    res = cli_run.main([*argv, *cli_flags(cli_out("e1-in-process"))])
+    sync()
+    require(type(res["trainer"].model).__name__ == "WideDeep", "E1: the model")
+    value_slices_finite(res["inductive_results"], "E1 in-process")
+    log(f"E1: the same command through cli.run.main: {time.perf_counter() - t0:.1f} s (wall)")
+    return {}
+
+
+def e2_dcnv2():
+    """E2: DCNv2 through `cli.run.main` on synth-ind, the random mapper and
+    the OOV regime, E_EPOCHS_CLI epochs each: stacked, parallel and with
+    mixed experts, each `--eval_only` equal to its run to 1e-9 (the running
+    statistics come back from the checkpoint) and its statistics moved;
+    stacked again at `--worker=2` equal to `worker: 0` to 1e-9. → {}."""
+    base = ["--model=DCNV2", "--model_eval_type=ranking", "--dataset=synth-ind",
+            "--data_path=dataset", SYNTH_LOAD_COL, *CLI_OOV, f"--epochs={E_EPOCHS_CLI}"]
+    runs = {}
+    for tag, extra in E_DCNV2:
+        out = cli_out(f"e2-{tag}")
+        sync()
+        t0 = time.perf_counter()
+        res = runs[tag] = cli_run.main([*base, *extra, *cli_flags(out)])
+        sync()
+        wall = time.perf_counter() - t0
+        model = res["trainer"].model
+        require((model.structure, model.mixed) == ("parallel" if tag == "parallel" else "stacked",
+                                                   tag == "mixed"), f"E2 {tag}: the model")
+        require(res["config"]["worker"] == (2 if "worker" in tag else 0), f"E2 {tag}: worker")
+        finite_metrics(res["test_result"], f"E2 {tag} test")
+        value_slices_finite(res["inductive_results"], f"E2 DCNv2 {tag}")
+        require_trained_stats(model, f"E2 {tag}")
+        log(f"E2: cli.run.main (DCNv2 {tag}, {E_EPOCHS_CLI} epochs) {wall:.1f} s (wall), "
+            f"test {dict(res['test_result'])}")
+        if "worker" in tag:
+            continue
+        again = cli_run.main([f"--eval_only={res['trainer'].saved_model_file}",
+                              "--inductive_eval=True"])
+        agree(res["test_result"], again["test_result"], f"E2 {tag} eval_only test", tol=1e-9)
+        agree_slices(res["inductive_results"], again["inductive_results"],
+                     f"E2 {tag} eval_only slices", tol=1e-9)
+    agree(runs["stacked"]["test_result"], runs["stacked-worker2"]["test_result"],
+          "E2 worker 2 vs 0 test", tol=1e-9)
+    agree_slices(runs["stacked"]["inductive_results"], runs["stacked-worker2"]["inductive_results"],
+                 "E2 worker 2 vs 0 slices", tol=1e-9)
+    log("E2: each --eval_only == its run (1e-9); the running statistics moved; stacked at "
+        "--worker=2 == --worker=0 on the test metrics and the 7 slices (1e-9)")
+    return {}
+
+
+def e_ranking_model(name, seed, fields=None, **over):
+    """A ranking model at its published widths over the CTR fields, with
+    phase 4's random-mapper buckets."""
+    kw, emb = published(name)
+    kw.update(over)
+    spec = InductiveSpec(mapper="random", add_oov_buckets=True, n_user_buckets=100,
+                         n_item_buckets=100, hash_function="3round")
+    return get_model_class(name)(fields or ctr_fields(), embedding_size=emb, spec=spec,
+                                 device=DEVICE, generator=torch_generator(seed, DEVICE), **kw)
+
+
+def e3_train(tag, model, mapper, train, held, held_iv):
+    """One model through `Trainer.fit` at the ranking cell's shape: one
+    epoch + the frozen OOV sub-epoch, the loss falling, held-out AUC up, IV
+    tables unchanged by the frozen sub-epoch, the 7 value slices; then the
+    eval-mode BatchNorm check: E_BN_ROWS rows scored alone equal to the
+    same rows inside a batch of CTR_B (1e-6)."""
+    cfg = ctr_train_cfg()
+    auc0 = EvalRunner(model, cfg).evaluate(PlainEvalBatcher(held_iv, cfg))["auc"]
+    trainer = Trainer(cfg, model)
+    loader = TrainBatcher(train, None, cfg, InputType.POINTWISE)
+    iv_names = [n for n in trainer.params if n not in trainer.oov_params]
+    inner, seen = trainer._train_epoch, {}
+
+    def watched(ldr, epoch_idx, oov_transform=None, keep_ratio=None, frozen=False):
+        before = {n: p.detach().clone() for n, p in trainer.params.items()}
+        stats = {k: v.clone() for k, v in bn_stats(model).items()}
+        total = inner(ldr, epoch_idx, oov_transform, keep_ratio, frozen)
+        seen["frozen" if frozen else "normal"] = {
+            "losses": trainer.last_losses,
+            "moved": {n for n in trainer.params if not torch.equal(before[n], trainer.params[n])},
+            "stats_moved": all(not torch.equal(v, bn_stats(model)[k]) for k, v in stats.items())}
+        return total
+
+    trainer._train_epoch = watched
+    sync()
+    t0 = time.perf_counter()
+    trainer.fit(loader, None, saved=False)
+    sync()
+    wall = time.perf_counter() - t0
+    steps = trainer._global_step
+    normal, frozen = seen["normal"], seen["frozen"]
+    losses = normal["losses"]
+    tenth = max(1, len(losses) // 10)
+    first, last = float(losses[:tenth].mean()), float(losses[-tenth:].mean())
+    require(np.isfinite(losses).all() and np.isfinite(frozen["losses"]).all(),
+            f"E3 {tag}: loss not finite")
+    require(last < first, f"E3 {tag}: loss did not fall: {first} -> {last}")
+    require(frozen["moved"] and not frozen["moved"] & set(iv_names),
+            f"E3 {tag}: the frozen sub-epoch moved {sorted(frozen['moved'])}")
+    if bn_stats(model):
+        require(frozen["stats_moved"], f"E3 {tag}: the frozen sub-epoch left the statistics")
+        require_trained_stats(model, f"E3 {tag}")
+    auc1 = trainer.evaluate(PlainEvalBatcher(held_iv, cfg), load_best_model=False)["auc"]
+    log(f"E3 {tag}: {len(loader)} + {steps - len(loader)} frozen OOV steps of {CTR_B} rows, "
+        f"{wall / steps * 1e3:.2f} ms per step (wall, host included); loss first tenth "
+        f"{first:.5f} last tenth {last:.5f}; held-out IV AUC {auc0:.5f} -> {auc1:.5f}")
+    require(auc1 > auc0, f"E3 {tag}: held-out AUC {auc0} -> {auc1}")
+    ev = InductiveEvaluator(model, cfg, N_CTR_OLD_USERS, N_CTR_OLD_ITEMS, mapper=mapper)
+    sync()
+    t0 = time.perf_counter()
+    slices = ev.evaluate_model(PlainEvalBatcher(held, cfg))
+    sync()
+    log(f"E3 {tag}: 7-slice value eval over {len(held)} rows in {time.perf_counter() - t0:.2f} s")
+    for name, r in slices.items():
+        require(list(r) == ["auc", "logloss"] and all(math.isfinite(v) for v in r.values()),
+                f"E3 {tag} slice {name}: {dict(r)}")
+    log(f"[E3 {tag}] " + ", ".join(f"{n} {r['auc']:.4f}" for n, r in slices.items()))
+    # eval mode normalises with the running statistics: E_BN_ROWS rows
+    # score the same alone (a batch of their own, tiled to the batch's
+    # CTR_B rows, so that every product runs the same kernels and only
+    # the statistics could tell the two apart) and inside a batch of CTR_B
+    model.eval()
+    db = to_device_batch(next(iter(PlainEvalBatcher(held_iv, cfg))), DEVICE)
+    reps = len(db["weight"]) // E_BN_ROWS
+    alone_b = {k: v[:E_BN_ROWS].repeat((reps,) + (1,) * (v.dim() - 1)) for k, v in db.items()}
+    few = {k: v[:E_BN_ROWS] for k, v in db.items()}
+    with torch.no_grad():
+        whole = model.predict(db)[:E_BN_ROWS]
+        err = float((model.predict(alone_b)[:E_BN_ROWS] - whole).abs().max())
+        small = float((model.predict(few) - whole).abs().max())
+        # in train mode (on a copy, without dropout) the batch's own
+        # statistics decide
+        gen, model.mlp_layers.generator = model.mlp_layers.generator, None
+        trained = copy.deepcopy(model)
+        model.mlp_layers.generator = gen
+        trained.mlp_layers.dropout = 0.0
+        gap = float((trained(alone_b, train=True) - trained(db, train=True))[:E_BN_ROWS]
+                    .abs().max())
+    del trained
+    log(f"E3 {tag}: {E_BN_ROWS} rows alone (tiled to {len(db['weight'])}) vs inside a batch of "
+        f"{len(db['weight'])}: eval mode max |diff| {err:.3e} (a batch of {E_BN_ROWS}, whose "
+        f"products take other kernels: {small:.3e}); train mode (batch statistics) {gap:.3e}")
+    require(err <= 1e-6, f"E3 {tag}: eval-mode scores depend on the batch: {err}")
+    require(small <= 1e-5, f"E3 {tag}: eval-mode scores of a {E_BN_ROWS}-row batch: {small}")
+    if bn_stats(model):
+        require(gap > 1e-4, f"E3 {tag}: train-mode scores do not depend on the batch: {gap}")
+    return normal
+
+
+def e3_prefetch(train, models=("WideDeep", "DCNV2")):
+    """The batch prefetch (`data/prefetch.py`, `worker` > 0) against the
+    loop without it at the ranking cell's shape: one epoch of each model on
+    the host path without the OOV regime, run with `worker` 0, 2, 2, 0 on
+    one trainer after a warm-up epoch, and the loader's batches assembled
+    alone, without training. → {model: {worker: [ms per step]}, "alone":
+    ms per batch}."""
+    out = {}
+    cfg = ctr_train_cfg(train_oov=False)
+    for i, name in enumerate(models):
+        trainer = Trainer(cfg, e_ranking_model(name, SEED + 330 + i))
+        loader = TrainBatcher(train, None, cfg, InputType.POINTWISE)
+        trainer._train_epoch(loader, 0)
+        out[name] = {0: [], 2: []}
+        for epoch, worker in enumerate((0, 2, 2, 0), 1):
+            cfg["worker"] = worker
+            sync()
+            t0 = time.perf_counter()
+            trainer._train_epoch(loader, epoch)
+            sync()
+            out[name][worker].append((time.perf_counter() - t0) * 1e3 / len(loader))
+        cfg["worker"] = 0
+        log(f"E3 prefetch, {name}: {len(loader)} steps of {CTR_B} rows, ms per step (wall, host "
+            f"included) at worker 0: {', '.join(f'{t:.3f}' for t in out[name][0])}; at worker "
+            f"2: {', '.join(f'{t:.3f}' for t in out[name][2])} (run in the order 0, 2, 2, 0)")
+        del trainer
+    t0 = time.perf_counter()
+    n = sum(1 for _ in loader)
+    out["alone"] = (time.perf_counter() - t0) * 1e3 / n
+    log(f"E3 prefetch: the loader alone assembles a batch of {CTR_B} rows in "
+        f"{out['alone']:.3f} ms (host)")
+    return out
+
+
+def e3_tags_step_launches(fields, item_feat, train, seed):
+    """WideDeep over `fields`, E_TAGS_STEPS steps of CTR_B rows without the
+    OOV regime. → (losses, the gathers' backward launches)."""
+    rows = rows_of(train, np.arange(len(train)) < E_TAGS_STEPS * CTR_B,
+                   N_CTR_OLD_USERS, N_CTR_OLD_ITEMS)
+    rows = DatasetSplit(rows.inter, N_CTR_OLD_USERS, N_CTR_OLD_ITEMS,
+                        user_feat=rows.user_feat, item_feat=item_feat)
+    cfg = ctr_train_cfg(train_oov=False)
+    trainer = Trainer(cfg, e_ranking_model("WideDeep", seed, fields))
+    loader = TrainBatcher(rows, None, cfg, InputType.POINTWISE)
+    require(len(loader) == E_TAGS_STEPS, f"E3 tags: {len(loader)} steps")
+    embed_grad.scatter_rows_kernel.launches = 0
+    trainer.fit(loader, None, saved=False)
+    return trainer.last_losses, embed_grad.scatter_rows_kernel.launches
+
+
+def e3_ranking(ind, mapper):
+    """E3: WideDeep, DCNv2 stacked and DCNv2 mixed at the ranking cell's
+    shape (phase 4's rows and fields), each through `e3_train`; the batch
+    prefetch timed against the loop without it (`e3_prefetch`); then
+    WideDeep with a token_seq item field `tags` (vocabulary E_TAGS_VOCAB,
+    lengths 1..E_TAGS_LEN from the seed, mean pooling): its E_TAGS_STEPS
+    steps lower the loss and launch the gathers' backward twice more a step
+    (the field's table and its first-order twin) than without the field.
+    → the gathers' backward launches (the tags runs reset the count: the
+    launches of the fits before them are added)."""
+    train, held, held_iv = ctr_splits(ind)
+    embed_grad.scatter_rows_kernel.launches = 0
+    for i, (tag, name, over) in enumerate(E3_MODELS):
+        e3_train(tag, e_ranking_model(name, SEED + 300 + i, **over), mapper, train, held, held_iv)
+    e3_prefetch(train)
+    gathers = embed_grad.scatter_rows_kernel.launches
+    rng = np.random.default_rng(SEED + 310)
+    n_i = N_CTR_OLD_ITEMS + N_CTR_NEW_ITEMS
+    lengths = rng.integers(1, E_TAGS_LEN + 1, n_i)
+    tags = rng.integers(1, E_TAGS_VOCAB, (n_i, E_TAGS_LEN))
+    tags[np.arange(E_TAGS_LEN)[None, :] >= lengths[:, None]] = 0
+    tagged = dataclasses.replace(ctr_fields(), token_seq_names=("tags",),
+                                 token_seq_dims=(E_TAGS_VOCAB,))
+    sync()
+    t0 = time.perf_counter()
+    losses, with_tags = e3_tags_step_launches(tagged, dict(train.item_feat, tags=tags), train,
+                                              SEED + 320)
+    _, without = e3_tags_step_launches(ctr_fields(), train.item_feat, train, SEED + 320)
+    sync()
+    q = E_TAGS_STEPS // 4
+    first, last = float(losses[:q].mean()), float(losses[-q:].mean())
+    log(f"E3 tags: WideDeep with a token_seq field (vocabulary {E_TAGS_VOCAB}, mean length "
+        f"{lengths.mean():.2f}), {E_TAGS_STEPS} steps: loss first quarter {first:.5f} last "
+        f"{last:.5f}; gathers' backward launches {with_tags} with the field, {without} without "
+        f"({time.perf_counter() - t0:.1f} s for both)")
+    require(np.isfinite(losses).all() and last < first, f"E3 tags: losses {losses}")
+    require(with_tags - without == 2 * E_TAGS_STEPS,
+            f"E3 tags: gathers' backward launches {with_tags} with the field, {without} without")
+    return {"scatter_rows_kernel": gathers + with_tags}
+
+
+def e4_cfg(learner, **over):
+    d = {"seed": SEED, "topk": TOPK, "train_batch_size": E_DAU_B, "learner": learner,
+         "learning_rate": 1e-3, "epochs": 1, "train_oov": True, "oov_only_epoch": True,
+         "oov_train_ratio": 0.2, "oov_feature_mask_rate": 0.2, "oov_freeze_embedding": True}
+    d.update(over)
+    return Config(d)
+
+
+def e4_trainer(cfg, rows, steps=None):
+    """A fresh DirectAU at its published widths (D 64, the serving scale's
+    tables, random-mapper buckets) from one seed, its trainer under `cfg`,
+    and a loader of `steps` pointwise steps over the first rows of `rows`
+    with a sampler of its own (every run draws the same negatives). →
+    (trainer, loader)."""
+    steps = steps or E_DAU_STEPS
+    kw, emb = published("DirectAU")
+    spec = InductiveSpec(mapper="random", add_oov_buckets=True, n_user_buckets=100,
+                         n_item_buckets=100, hash_function="3round")
+    model = get_model_class("DirectAU")(N_OLD_USERS, N_OLD_ITEMS, emb, spec, device=DEVICE,
+                                        generator=torch_generator(SEED + 401, DEVICE), **kw)
+    n = steps * E_DAU_B // 2  # a pointwise batch: positives, then one negative each
+    train = DatasetSplit({k: v[:n] for k, v in rows.items()}, N_OLD_USERS, N_OLD_ITEMS)
+    loader = TrainBatcher(train, Sampler(["train"], [train], seed=SEED), cfg,
+                          InputType.POINTWISE)
+    trainer = Trainer(cfg, model)
+    require(loader.mode == "pointwise" and len(loader) == steps
+            and trainer._maybe_device_epoch(loader) is None,
+            f"E4: the host path's {len(loader)} pointwise steps are not driven")
+    return trainer, loader
+
+
+def e4_directau():
+    """E4: DirectAU at D 64 (DirectAU.yaml) over the serving scale, E_DAU_STEPS
+    pointwise steps of E_DAU_B rows plus the frozen OOV sub-epoch through
+    `Trainer.fit`, with adam and with `learner: sparse_adam` (the ID tables
+    through kernel 6 in `Trainer._sparse_step`, two launches a normal step);
+    the sparse run again with `sparse_update_impl: xla` (the plain
+    write-back: the same bits), and COMPARE_STEPS steps of the row-sparse
+    step against the dense lazy-Adam sweep (`sparse_update_impl: dense`)
+    from the same weights; then the sparse-adam model served over the
+    serving cell's corpus (1M items, B 256, 4 user batches): the 7 slices
+    and the IV full sort fused == dense (1e-9); then DirectAU on synth-ind
+    through `cli.run.main`, `--eval_only` to 1e-9. → the fused runs' top-k
+    launches and the sparse run's kernel-6 launches."""
+    rng = np.random.default_rng(SEED + 400)
+    n_rows = E_DAU_STEPS * E_DAU_B // 2
+    rows = {"user_id": rng.integers(1, N_OLD_USERS, n_rows),
+            "item_id": rng.integers(1, N_OLD_ITEMS, n_rows)}
+    k6 = 0
+    for learner in ("adam", "sparse_adam"):
+        trainer, loader = e4_trainer(e4_cfg(learner), rows)
+        require(bool(trainer.sparse_tables) == (learner == "sparse_adam"),
+                f"E4 {learner}: sparse tables {trainer.sparse_tables}")
+        sparse_adam_rows_kernel.launches = 0
+        before = {n: p.detach().clone() for n, p in trainer.params.items()}
+        sync()
+        t0 = time.perf_counter()
+        trainer.fit(loader, None, saved=False)
+        sync()
+        wall = time.perf_counter() - t0
+        steps, k6 = trainer._global_step, sparse_adam_rows_kernel.launches
+        moved = {n for n in before if not torch.equal(before[n], trainer.params[n])}
+        loss, oov_loss = trainer.train_loss_dict[0], trainer.oov_loss_dict.get(0)
+        log(f"E4 DirectAU {learner}: {len(loader)} + {steps - len(loader)} OOV steps of "
+            f"{E_DAU_B} rows, {wall / steps * 1e3:.2f} ms per step (wall, host included), mean "
+            f"loss {loss / len(loader):.5f}, kernel 6 launches {k6}")
+        require(math.isfinite(loss) and oov_loss is not None and math.isfinite(oov_loss)
+                and {"user_embedding.weight", "item_embedding.weight"} <= moved,
+                f"E4 {learner}: training, moved {sorted(moved)}")
+        require(k6 == (2 * len(loader) if learner == "sparse_adam" else 0),
+                f"E4 {learner}: kernel 6 launches {k6} over {len(loader)} steps")
+    model, sparse = trainer.model, state_of(trainer)
+    del trainer, before
+    # the plain write-back (xla) from the same seed: the same bits; the
+    # comparison runs' gathers are not counted
+    gathers = embed_grad.scatter_rows_kernel.launches
+    other, loader = e4_trainer(e4_cfg("sparse_adam", sparse_update_impl="xla"), rows)
+    other.fit(loader, None, saved=False)
+    got = state_of(other)
+    same = [n for n in sparse if torch.equal(sparse[n], got[n])]
+    log(f"E4 DirectAU sparse_adam (xla): {len(same)} of {len(sparse)} parameters and moments "
+        "equal the kernel-6 run bit for bit")
+    require(len(same) == len(sparse), "E4: the xla run differs from the kernel-6 run")
+    del other, got, sparse
+    # the row-sparse step vs the dense lazy sweep over COMPARE_STEPS steps
+    runs = [recorded_run(*e4_trainer(e4_cfg("sparse_adam", sparse_update_impl=impl,
+                                            train_oov=False), rows, COMPARE_STEPS))
+            for impl in ("auto", "dense")]
+    compare_trajectories("E4 DirectAU row-sparse step (kernel 6) vs dense lazy-Adam sweep",
+                         ("sparse", "dense"), runs[0][0], runs[1][0], runs[0][1], runs[1][1],
+                         runs[0][2], runs[1][2])
+    del runs
+    embed_grad.scatter_rows_kernel.launches = gathers
+    spec = model.spec
+    mapper = RandomOOVMapper(spec, N_OLD_USERS, N_OLD_ITEMS, N_OLD_USERS + N_NEW_USERS,
+                             N_OLD_ITEMS + N_NEW_ITEMS)
+    mapper.set_eval()
+    model.eval()
+    t0 = time.perf_counter()
+    ind_splits, iv_splits = synth_interactions(model, mapper)
+    log(f"E4 serving data: {len(ind_splits[1])} test positives, "
+        f"{time.perf_counter() - t0:.1f} s")
+    k1 = seven_slices_fused_vs_dense(model, mapper, ind_splits, serving_cfg,
+                                     what="E4 DirectAU 7-slice eval")
+    k1 += full_sort_fused_vs_dense(model, iv_splits, what="E4 DirectAU full-sort eval")
+    out = cli_out("e4")
+    sync()
+    t0 = time.perf_counter()
+    res = cli_run.main(["--model=DirectAU", "--dataset=synth-ind", "--data_path=dataset",
+                        SYNTH_LOAD_COL, *CLI_OOV, f"--epochs={E_EPOCHS_CLI}", *cli_flags(out)])
+    sync()
+    wall = time.perf_counter() - t0
+    finite_metrics(res["test_result"], "E4 DirectAU test")
+    slices_finite(res["inductive_results"], "E4 DirectAU synth-ind")
+    again = cli_run.main([f"--eval_only={res['trainer'].saved_model_file}",
+                          "--inductive_eval=True"])
+    agree(res["test_result"], again["test_result"], "E4 eval_only test", tol=1e-9)
+    agree_slices(res["inductive_results"], again["inductive_results"], "E4 eval_only slices",
+                 tol=1e-9)
+    log(f"E4: cli.run.main (DirectAU, synth-ind, {E_EPOCHS_CLI} epochs) {wall:.1f} s (wall); "
+        "--eval_only == the run (1e-9)")
+    return {"fused_topk_scores": k1, "sparse_adam_rows_kernel": k6}
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -2886,6 +3412,22 @@ def main():
             and on_d["D3"]["fused_topk_scores"] > 0 and on_d["D4"]["sparse_adam_rows_kernel"] > 0
             and all(on_d[p]["scatter_rows_kernel"] > 0 for p in ("D1", "D2")),
             f"phase D launches {on_d}")
+    # phase E, the paper's other three models; counted by part as D is
+    t0 = time.perf_counter()
+    on_e = {}
+    for part, run in (("E1", e1_ranking_track), ("E2", e2_dcnv2),
+                      ("E3", lambda: e3_ranking(ind, mapper)), ("E4", e4_directau)):
+        reset_kernel_counts()
+        sync()
+        t1 = time.perf_counter()
+        seen = run()
+        sync()
+        on_e[part] = {**kernel_counts(), **seen}
+        log(f"phase {part}: {time.perf_counter() - t1:.1f} s, kernel launches {on_e[part]}")
+    log(f"phase E: {time.perf_counter() - t0:.1f} s")
+    require(on_e["E4"]["fused_topk_scores"] > 0 and on_e["E4"]["sparse_adam_rows_kernel"] > 0
+            and all(on_e[p]["scatter_rows_kernel"] > 0 for p in ("E1", "E2", "E3")),
+            f"phase E launches {on_e}")
     cli = {  # each kernel's launches on the CLI paths (A launches none)
         "fused_topk_scores": {"C": k1_c},
         "cin_layer_pooled": {"B": cli_b["cin_layer_pooled"]},
@@ -2951,6 +3493,7 @@ def main():
     for k in kernels:
         k["launches_cli"] = cli[k["name"]]
         k["launches_d"] = {part: c[k["name"]] for part, c in on_d.items()}
+        k["launches_e"] = {part: c[k["name"]] for part, c in on_e.items()}
     log("gathers' backward (ops/embed_grad.py, not a Pallas kernel): " + json.dumps({
             "ms": gathers, "bound_ms": gather_bound,
             "device_epoch": GATHER_RESULTS.get("device_epoch")}))

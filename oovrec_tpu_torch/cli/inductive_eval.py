@@ -8,9 +8,10 @@ Port of `oovrec_tpu/cli/inductive_eval.py:34-173`:
   * rebuild the model with the ORIGINAL user / item counts and its
     embedder state in 'inductive' mode over the `_ind` corpus (feature
     matrices and knn neighbors of every entity), load the checkpoint's
-    parameters (the port's `torch.save` file) and of its state only the
-    LSH planes and DHE keys (`:116-150` of the JAX module), build the
-    random mapper over the extended id space and run the
+    parameters (the port's `torch.save` file), its BatchNorm running
+    statistics (DCNv2; the JAX module's `extra_vars`, `:136-145`) and of
+    its embedder state only the LSH planes and DHE keys (`:116-150`),
+    build the random mapper over the extended id space and run the
     `InductiveEvaluator`.
 """
 

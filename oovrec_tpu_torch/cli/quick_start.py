@@ -69,6 +69,15 @@ def _coerce(value, default):
     return value
 
 
+def model_kwargs(config, cls) -> Dict[str, Any]:
+    """The constructor arguments of `cls` that come from `config`: each
+    named parameter that `build_model_and_state` does not set itself,
+    where the config holds a value, in the type of the parameter's default
+    (`mlp_hidden_size` a tuple, `mixed` a bool)."""
+    return {name: _coerce(config[name], p.default) for name, p in _ctor_params(cls).items()
+            if name not in _CLAIMED and name in config.keys() and config[name] is not None}
+
+
 def build_model_and_state(config, dataset, mode: str = "transductive",
                           n_entities=None, fields_from=None):
     """The model for `config["model"]` on `config["device"]`, its weights
@@ -116,10 +125,7 @@ def build_model_and_state(config, dataset, mode: str = "transductive",
     else:
         kwargs.update(n_users=n_users, n_items=n_items, neg_prefix=config["NEG_PREFIX"],
                       embedding_size=int(config.get("embedding_size", 64)))
-    for name, p in _ctor_params(cls).items():
-        if name in _CLAIMED or name not in config.keys() or config[name] is None:
-            continue
-        kwargs[name] = _coerce(config[name], p.default)
+    kwargs.update(model_kwargs(config, cls))
     return cls(**kwargs)
 
 

@@ -96,9 +96,10 @@ def dhe_hashes_for(batch: Batch, field: str, estate) -> Optional[torch.Tensor]:
 
 def load_params(model: nn.Module, params: Mapping[str, torch.Tensor],
                 restore: tuple = RESTORED_KEYS) -> None:
-    """Load a saved `state_dict` into `model`: every parameter, and of the
-    embedder state only the `restore` keys (a model rebuilt over another
-    corpus keeps its own feature matrices and neighbors)."""
+    """Load a saved `state_dict` into `model`: every parameter and
+    BatchNorm running statistic, and of the embedder state only the
+    `restore` keys (a model rebuilt over another corpus keeps its own
+    feature matrices and neighbors)."""
     own = model.state_dict()
     take = {}
     for k, v in params.items():
@@ -209,6 +210,58 @@ class GeneralRecommender(nn.Module):
     # Methods models must provide:
     def predict(self, batch: Batch):
         raise NotImplementedError
+
+
+class IDTowerRecommender(GeneralRecommender):
+    """Two ID-table towers (`user_embedding`, `item_embedding`) with OOV
+    routing on both sides, and the retrieval methods the evaluators call:
+    the routed lookups, IV-only full-sort scores, the embedding of the
+    whole (IV + OOV) item range and the two towers of the fused top-k
+    kernel (`bpr.py:48-162`, `directau.py:37-125` of the JAX package)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.user_embedding = self._embed_table(self.n_users)
+        self.item_embedding = self._embed_table(self.n_items)
+        self._setup_oov()
+
+    def user_e(self, ids, batch: Batch):
+        return self._route_side("user", self.user_embedding, ids, batch, self.uid_field)
+
+    def item_e(self, ids, batch: Batch, field=None):
+        return self._route_side("item", self.item_embedding, ids, batch,
+                                field or self.iid_field)
+
+    def full_sort_scores(self, batch: Batch):
+        """IV-only full-corpus scores of the unnormalised embeddings."""
+        u = self.user_e(batch[self.uid_field], batch)
+        return u @ self.item_embedding.weight.T
+
+    def all_item_embeddings(self, item_ids, item_buckets=None, item_dhe=None,
+                            item_dhe_ids=None):
+        """Embed the full (IV+OOV) item range once per eval pass (the item
+        half of `ind_full_sort_predict`): `item_dhe` are host hashes,
+        `item_dhe_ids` the ids hashed on the model's device."""
+        batch = {self.iid_field: item_ids}
+        if item_buckets is not None:
+            batch[self.iid_field + "_bucket"] = item_buckets
+        if item_dhe is not None:
+            batch[self.iid_field + "_dhe"] = item_dhe
+        if item_dhe_ids is not None:
+            batch[self.iid_field + "_dhe_id"] = item_dhe_ids
+        return self.item_e(item_ids, batch)
+
+    def user_tower(self, batch: Batch):
+        """(B, D) user embeddings for the fused retrieval kernel."""
+        return self.user_e(batch[self.uid_field], batch)
+
+    def item_tower(self):
+        """(n_items, D) IV item table for the fused retrieval kernel."""
+        return self.item_embedding.weight
+
+    def score_against(self, batch: Batch, all_item_e):
+        """user_e @ all_item_eᵀ."""
+        return self.user_e(batch[self.uid_field], batch) @ all_item_e.T
 
 
 MODEL_REGISTRY: Dict[str, Any] = {}

@@ -10,11 +10,21 @@ Layout (as the JAX package):
     field order starts [user_id, item_id, ...], so the OOV cells are 0/1;
   * numerical float fields embed as value × table[bucket + offset], the
     bucket defaulting to 1;
-  * the concat output is [token ∥ float] along the field axis;
+  * each token_seq field has its own table `token_seq_table_<name>`, its
+    rows pooled over the sequence (mean, max or sum; the mask is id != 0;
+    max takes 1e9 off the pads, so an all-pad row picks a pad row); each
+    float_seq field its own `float_seq_table_<name>`, the values scaling
+    the rows of their `<name>__bucket` indices (the values cast to int32
+    where no bucket column rides the batch), pooled alike;
+  * the concat output is [token_seq ∥ token ∥ float_seq ∥ float] along the
+    field axis;
   * a first-order twin of the whole structure with output dim 1 + bias.
 
 The token fields go through `ops/embed_grad.py:packed_gather`, whose
-backward sums a small-vocabulary field's repeated rows by segment.
+backward sums a small-vocabulary field's repeated rows by segment; the
+float and sequence fields through `gather_rows`, whose backward does the
+same for the pads that all hit row 0 (and skips them where pooling gives
+them no gradient: the mean and sum modes).
 Inductive routing: cells 0/1 of the packed lookup are replaced with the
 OOV-routed embeddings of `inductive.routing.route` over the IV slice of
 the packed table, with the model's embedder state (`embedder_state`
@@ -31,9 +41,6 @@ module's mode unless `train` is given, as the flax models take `train`,
 and `calculate_loss` always runs in train mode, as the JAX package's does.
 
 `field_spec_from_dataset` derives the `FieldSpec` from a `Dataset`.
-
-Not ported yet: token_seq / float_seq fields (no serving configuration
-has them).
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ from oovrec_tpu_torch.models.base import (
     tower_inputs,
 )
 from oovrec_tpu_torch.models.init import xavier_normal_
+from oovrec_tpu_torch.models.layers import masked_mean_pool
 from oovrec_tpu_torch.ops.embed_grad import gather_rows, packed_gather
 from oovrec_tpu_torch.utils.device import resolve_device
 from oovrec_tpu_torch.utils.enums import FeatureSource, FeatureType, InputType, ModelType
@@ -146,10 +154,22 @@ def field_spec_from_dataset(dataset, config) -> FieldSpec:
     )
 
 
+def pool_sequence(emb: torch.Tensor, mask: torch.Tensor, mode: str = "mean") -> torch.Tensor:
+    """(B, L, dim) rows of a sequence field, (B, L) mask → (B, dim): mean,
+    max or sum over the live positions (`context.py:280-333` of the JAX
+    package)."""
+    m = mask[..., None]
+    if mode == "max":  # amax splits the gradient among ties, as jnp.max does
+        return torch.amax(emb - (1 - m) * 1e9, dim=1)
+    if mode == "sum":
+        return (emb * m).sum(dim=1)
+    return masked_mean_pool(emb, mask)
+
+
 class _FieldEmbedding(nn.Module):
-    """The packed token/float embedding block at a given output dim: at
-    `embedding_size` for the towers and at dim 1 for the first-order
-    twin."""
+    """The packed token/float and sequence embedding block at a given
+    output dim: at `embedding_size` for the towers and at dim 1 for the
+    first-order twin."""
 
     def __init__(
         self,
@@ -163,12 +183,6 @@ class _FieldEmbedding(nn.Module):
         tower_in: Optional[dict] = None,
     ):
         super().__init__()
-        if fields.token_seq_names or fields.float_seq_names:
-            raise NotImplementedError(
-                "token_seq / float_seq fields "
-                f"{fields.token_seq_names + fields.float_seq_names} come with "
-                "the slice that ports the sequence-feature dataset"
-            )
         self.fields = fields
         self.dim = dim
         self.spec = spec
@@ -184,6 +198,10 @@ class _FieldEmbedding(nn.Module):
             self.token_embedding_table = table(int(sum(fields.token_dims)))
         if fields.float_dims:
             self.float_embedding_table = table(int(sum(fields.float_dims)))
+        for kind in ("token_seq", "float_seq"):
+            for name, vocab in zip(getattr(fields, f"{kind}_names"),
+                                   getattr(fields, f"{kind}_dims")):
+                setattr(self, f"{kind}_table_{name}", table(vocab))
         if spec is not None and spec.active:
             if spec.needs_buckets:
                 self.user_oov_buckets = table(spec.n_user_buckets)
@@ -276,9 +294,53 @@ class _FieldEmbedding(nn.Module):
                           buckets + self._float_offsets[None, :])
         return values[..., None] * emb  # (B, F, dim)
 
+    def embed_token_seq_fields(self, batch: Batch, mode: str = "mean") -> Optional[torch.Tensor]:
+        """(B, F_token_seq, dim): each field's rows pooled over its ids."""
+        names = self.fields.token_seq_names
+        if not names:
+            return None
+        outs = []
+        for name in names:
+            seq = batch[name].long()  # (B, L)
+            live = seq != 0
+            rows = gather_rows(getattr(self, f"token_seq_table_{name}").weight, seq,
+                               None if mode == "max" else live)
+            outs.append(pool_sequence(rows, live.float(), mode))
+        return torch.stack(outs, dim=1)
+
+    def embed_float_seq_fields(self, batch: Batch, mode: str = "mean") -> Optional[torch.Tensor]:
+        """(B, F_float_seq, dim): each field's value-scaled rows pooled over
+        its bucket indices."""
+        names = self.fields.float_seq_names
+        if not names:
+            return None
+        outs = []
+        for name in names:
+            values = batch[name].float()  # (B, L)
+            idx = batch.get(name + "__bucket")
+            idx = values.to(torch.int32) if idx is None else idx
+            idx = idx.long()
+            live = idx != 0
+            rows = gather_rows(getattr(self, f"float_seq_table_{name}").weight, idx,
+                               None if mode == "max" else live)
+            outs.append(pool_sequence(values[..., None] * rows, live.float(), mode))
+        return torch.stack(outs, dim=1)
+
     def forward(self, batch: Batch, estate=None):
-        """→ (sparse (B, F_token, dim) | None, dense (B, F_float, dim) | None)."""
-        return self.embed_token_fields(batch, estate), self.embed_float_fields(batch)
+        """→ (sparse (B, F_sparse, dim) | None, dense (B, F_dense, dim) |
+        None): sparse [token_seq ∥ token], dense [float_seq ∥ float]
+        (`embed_input_fields` of the reference)."""
+        sparse = _cat([self.embed_token_seq_fields(batch),
+                       self.embed_token_fields(batch, estate)])
+        dense = _cat([self.embed_float_seq_fields(batch), self.embed_float_fields(batch)])
+        return sparse, dense
+
+
+def _cat(parts):
+    parts = [p for p in parts if p is not None]
+    if not parts:
+        return None
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
 class FirstOrderLinear(nn.Module):
@@ -345,7 +407,10 @@ class ContextRecommender(nn.Module):
     def n_items(self) -> int:
         return self.fields.token_dims[1]
 
-    def _setup_context(self):
+    def _setup_context(self, first_order: bool = True):
+        """The field embedding and, unless `first_order` is false (a model
+        that never calls it: the flax tree then has no such params), the
+        first-order twin."""
         spec = self.spec
         tower_in = (tower_inputs(spec, self.embedder_state)
                     if spec is not None and spec.active and spec.trainable_embedder else None)
@@ -353,7 +418,8 @@ class ContextRecommender(nn.Module):
                   iid_field=self.iid_field, device=self.device,
                   generator=self.generator, tower_in=tower_in)
         self.field_embedding = _FieldEmbedding(self.fields, self.embedding_size, **kw)
-        self.first_order_linear = FirstOrderLinear(self.fields, **kw)
+        if first_order:
+            self.first_order_linear = FirstOrderLinear(self.fields, **kw)
 
     def concat_embed_input_fields(self, batch: Batch) -> torch.Tensor:
         sparse, dense = self.field_embedding(batch, self.embedder_state)

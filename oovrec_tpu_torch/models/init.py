@@ -20,3 +20,16 @@ def xavier_normal_(weight: torch.Tensor, generator: torch.Generator = None):
     fan_out, fan_in = weight.shape[0], weight.shape[-1]
     std = (2.0 / (fan_in + fan_out)) ** 0.5
     return weight.normal_(0.0, std, generator=generator)
+
+
+def normal_init(std: float):
+    """An in-place normal(0, std) initializer, `f(weight, generator)`,
+    drawn from the caller's generator (`normal_init` of the JAX package;
+    DCNv2's cross weights take `normal_init(1.0)`, the reference's
+    `torch.randn`)."""
+
+    @torch.no_grad()
+    def init(weight: torch.Tensor, generator: torch.Generator = None):
+        return weight.normal_(0.0, std, generator=generator)
+
+    return init

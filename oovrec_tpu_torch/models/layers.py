@@ -1,9 +1,18 @@
 """Shared model layers.
 
-Port of `oovrec_tpu/models/layers.py:13-53`: the activation lookup and the
-Dropout → Dense → activation stacks of `MLPLayers`. Each Dense is an
-`nn.Linear` named `Dense_<j>` as in the flax tree, so the weight bridge
-(`utils/jax_params.py`) maps names one to one.
+Port of `oovrec_tpu/models/layers.py:13-62`: the activation lookup, the
+Dropout → Dense → (BatchNorm) → activation stacks of `MLPLayers` and
+`masked_mean_pool`. Each Dense is an `nn.Linear` named `Dense_<j>` and each
+batch norm a `BatchNorm` named `BatchNorm_<j>`, as in the flax tree, so the
+weight bridge (`utils/jax_params.py`) maps names one to one.
+
+`BatchNorm` is flax's `nn.BatchNorm` (flax 0.12), not
+`torch.nn.BatchNorm1d`: running averages as `ra = 0.99·ra + 0.01·batch`,
+the biased batch variance `mean(x²) − mean(x)²` clipped at 0, statistics
+in f32 whatever the compute dtype, epsilon 1e-5, parameters `scale` /
+`bias` and running buffers `mean` / `var` (flax's `batch_stats`). Every
+row of the batch counts in its statistics, the padded rows of a last
+batch included, as the JAX package's fixed-shape batches count them.
 
 Dropout draws its masks from an explicit `torch.Generator` that the
 trainer owns and seeds (`set_dropout_generator`), never from the global
@@ -35,18 +44,51 @@ def activation_fn(name: Optional[str]):
     }.get(name.lower(), torch.relu)
 
 
+class BatchNorm(nn.Module):
+    """flax's `nn.BatchNorm` over the last axis of a (B, features) input:
+    train mode normalises with the batch's statistics and moves the
+    running ones (under `torch.no_grad()`), eval mode uses the running
+    ones. The statistics and the normalisation run in f32; the output
+    takes the input's dtype."""
+
+    def __init__(self, features: int, momentum: float = 0.99, epsilon: float = 1e-5,
+                 device=None):
+        super().__init__()
+        self.momentum = momentum
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.register_buffer("mean", torch.zeros(features, device=device))
+        self.register_buffer("var", torch.ones(features, device=device))
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        xf = x.float()
+        if train:
+            mean = xf.mean(dim=0)
+            # jnp.maximum's gradient at a tie: half to each side
+            var = torch.maximum((xf * xf).mean(dim=0) - mean * mean, torch.zeros_like(mean))
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        y = (xf - mean) * (torch.rsqrt(var + self.epsilon) * self.scale) + self.bias
+        return y.to(x.dtype)
+
+
 class MLPLayers(nn.Module):
-    """Dropout → Dense → activation stacks (`layers.py:33-95` of the
-    reference).
+    """Dropout → Dense → (BatchNorm) → activation stacks (`layers.py:33-95`
+    of the reference).
 
     `layers` lists every width including the input width; the activation
-    follows every Dense, the last one included, exactly like the
-    reference's module list. Dense layers compute in the precision policy
-    (`utils/precision.py`) and the output is f32. Dropout keeps each
-    input with probability 1 - `dropout` and scales it by 1 / (1 -
-    `dropout`) when `train` (the module's mode unless given), drawing from
-    `self.generator`. (The JAX layer's batch norm comes with the first
-    ported model that uses it.)
+    (and the batch norm, `use_bn`) follow every Dense, the last one
+    included, exactly like the reference's module list. Dense layers
+    compute in the precision policy (`utils/precision.py`) and the output
+    is f32. Dropout keeps each input with probability 1 - `dropout` and
+    scales it by 1 / (1 - `dropout`) when `train` (the module's mode
+    unless given), drawing from `self.generator`; the batch norms follow
+    the same `train`.
     """
 
     def __init__(
@@ -54,6 +96,7 @@ class MLPLayers(nn.Module):
         layers: Sequence[int],
         dropout: float = 0.0,
         activation: str = "relu",
+        use_bn: bool = False,
         device=None,
         generator: Optional[torch.Generator] = None,
     ):
@@ -62,12 +105,17 @@ class MLPLayers(nn.Module):
         self.dropout = float(dropout)
         self.generator: Optional[torch.Generator] = None
         self.dense = []
+        self.bn = []
         for j, (n_in, n_out) in enumerate(zip(layers[:-1], layers[1:])):
             lin = nn.Linear(n_in, n_out, device=device)
             xavier_normal_(lin.weight, generator)
             nn.init.zeros_(lin.bias)
             self.add_module(f"Dense_{j}", lin)
             self.dense.append(lin)
+            if use_bn:
+                bn = BatchNorm(n_out, device=device)
+                self.add_module(f"BatchNorm_{j}", bn)
+                self.bn.append(bn)
 
     def _drop(self, x: torch.Tensor) -> torch.Tensor:
         if self.generator is None:
@@ -81,12 +129,21 @@ class MLPLayers(nn.Module):
     def forward(self, x: torch.Tensor, train: Optional[bool] = None) -> torch.Tensor:
         train = self.training if train is None else train
         dt = compute_dtype()
-        for lin in self.dense:
+        for j, lin in enumerate(self.dense):
             if train and self.dropout > 0:
                 x = self._drop(x)
             x = nn.functional.linear(x.to(dt), lin.weight.to(dt), lin.bias.to(dt))
+            if self.bn:
+                x = self.bn[j](x, train)
             x = self.act(x)
         return x.float()
+
+
+def masked_mean_pool(emb: torch.Tensor, mask: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """(B, L, D) × (B, L) → (B, D): the reference's token_seq mean mode
+    (`abstract_recommender.py:553-566`)."""
+    m = mask.to(emb.dtype)[..., None]
+    return (emb * m).sum(dim=1) / (mask.to(emb.dtype).sum(dim=1, keepdim=True) + eps)
 
 
 def set_dropout_generator(module: nn.Module, generator: Optional[torch.Generator]) -> None:

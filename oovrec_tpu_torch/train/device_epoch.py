@@ -51,13 +51,7 @@ import torch
 from oovrec_tpu_torch.data.alias import alias_draw, build_alias_table
 from oovrec_tpu_torch.data.sampler import _MAX_RESAMPLE_ROUNDS
 from oovrec_tpu_torch.ops.inthash_device import sim_buckets_device
-from oovrec_tpu_torch.train.sparse_update import (
-    SparseTableState,
-    gather_rows_for_batch,
-    resolve_sparse_impl,
-    sparse_adam_update_table,
-    sparse_epoch_table_map,
-)
+from oovrec_tpu_torch.train.sparse_update import resolve_sparse_impl, sparse_epoch_table_map
 from oovrec_tpu_torch.utils.seeding import host_rng, torch_generator
 
 AUTO_MIN_ROWS = 100_000
@@ -124,7 +118,8 @@ class DeviceEpoch:
     def __init__(self, trainer, loader, oov: bool = False, frozen: bool = False):
         if loader.mode != "pairwise":
             raise NotImplementedError(
-                f"device_epoch: the device-resident epoch's {loader.mode} mode is not ported")
+                f"device_epoch: the device-resident epoch's {loader.mode} mode is not ported "
+                "(ROADMAP.md queue 1, item 8)")
         self.trainer = trainer
         model = trainer.model
         self.device = device = model.device
@@ -177,7 +172,6 @@ class DeviceEpoch:
         self.trainable = trainer.oov_params if frozen else None
         self.sparse_tables = sparse_epoch_table_map(trainer, model, spec, frozen)
         self.sparse_impl = resolve_sparse_impl(cfg) if self.sparse_tables else None
-        self.table_params = {name + ".weight" for name, _f in (self.sparse_tables or {}).values()}
         self._zero = torch.zeros((), device=device)
 
     # ----------------------------------------------------------- sampling
@@ -239,29 +233,8 @@ class DeviceEpoch:
         trainer's parameters and optimizer state update in place. → the
         detached loss."""
         if self.sparse_tables:
-            return self._sparse_step(batch)
+            return self.trainer._sparse_step(batch, self.sparse_tables, self.sparse_impl)
         return self.trainer._apply_step(batch, self.trainable)
-
-    def _sparse_step(self, batch):
-        tr = self.trainer
-        params, state, opt = tr.params, tr.opt_state, tr.optimizer
-        stm = self.sparse_tables
-        rest = [n for n in params if n not in self.table_params]
-        rows, nb, gathered = gather_rows_for_batch(params, batch, stm)
-        for side, r in rows.items():
-            nb["_sparse_rows_" + side] = r
-        loss = tr.model.calculate_loss(nb)
-        leaves = [rows[s] for s in stm] + [params[n] for n in rest]
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
-        opt.step({n: params[n] for n in rest}, dict(zip(rest, grads[len(stm):])), state)
-        for (side, (name, _f)), g_rows in zip(stm.items(), grads):
-            p = name + ".weight"
-            sparse_adam_update_table(
-                params[p], SparseTableState(state["mu"][p], state["nu"][p]),
-                gathered[side], g_rows, state["count"], opt.learning_rate,
-                impl=self.sparse_impl)
-        return loss.detach()
 
     # -------------------------------------------------------------- epoch
 

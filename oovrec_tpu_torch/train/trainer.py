@@ -16,6 +16,18 @@ Port of `oovrec_tpu/train/trainer.py`:
     `oov_freeze_skip_optim` a rollback of the optimizer state to a true
     copy taken before the sub-epoch;
   * mixed mode (`oov_only_epoch: false`): `_augment_batch` :563-581;
+  * BatchNorm running statistics (DCNv2) move in every training step's
+    forward, the frozen sub-epoch's included (the JAX freeze mask covers
+    params only), and ride the checkpoint as buffers of the model's
+    `state_dict`;
+  * the host path's batches come through `data/prefetch.py:maybe_prefetch`
+    (a thread assembling them ahead when `worker` > 0, :391);
+  * `learner: sparse_adam` on the host path: for a model that declares
+    its ID tables as pure row lookups (`sparse_table_fields`: BPR,
+    DirectAU) an unfrozen step takes the row-sparse form of the lazy rule
+    (`_sparse_step`: the batch's rows gathered, row gradients, kernel 6 on
+    the touched rows), as the device epoch does; the JAX host path sweeps
+    the whole tables with the same rule;
   * the device-resident epoch (`train/device_epoch.py`) for the normal
     epoch and the OOV-only sub-epoch of pairwise loaders, chosen by the
     JAX package's gates (`_train_epoch` :374-389, `_maybe_device_epoch`
@@ -56,6 +68,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from oovrec_tpu_torch.data.prefetch import maybe_prefetch
 from oovrec_tpu_torch.eval.collector import calculate_valid_score
 from oovrec_tpu_torch.eval.runner import EvalRunner, to_device_batch
 from oovrec_tpu_torch.inductive.dhe import model_hasher
@@ -68,6 +81,13 @@ from oovrec_tpu_torch.train.device_epoch import (
 )
 from oovrec_tpu_torch.train.early_stopping import early_stopping
 from oovrec_tpu_torch.train.optimizers import build_optimizer, clone_state
+from oovrec_tpu_torch.train.sparse_update import (
+    SparseTableState,
+    gather_rows_for_batch,
+    resolve_sparse_impl,
+    sparse_adam_update_table,
+    sparse_epoch_table_map,
+)
 from oovrec_tpu_torch.utils.logging import init_logger
 from oovrec_tpu_torch.utils.seeding import host_rng, torch_generator
 
@@ -133,6 +153,10 @@ class Trainer:
         self._global_step = 0
         self._device_epochs: Dict[tuple, DeviceEpoch] = {}
         self.dhe_hasher = model_hasher(model, config)
+        # the host path's row-sparse tables (learner: sparse_adam), unfrozen
+        self.sparse_tables = sparse_epoch_table_map(
+            self, model, getattr(model, "spec", None), frozen=False)
+        self.sparse_impl = resolve_sparse_impl(config) if self.sparse_tables else None
 
     @staticmethod
     def _refuse_unported(config, model) -> None:
@@ -147,7 +171,10 @@ class Trainer:
     # ------------------------------------------------------------ steps
 
     def _step(self, batch: Dict[str, torch.Tensor], frozen: bool) -> torch.Tensor:
-        loss = self._apply_step(batch, self.oov_params if frozen else None)
+        if frozen or not self.sparse_tables:
+            loss = self._apply_step(batch, self.oov_params if frozen else None)
+        else:
+            loss = self._sparse_step(batch, self.sparse_tables, self.sparse_impl)
         self._global_step += 1
         return loss
 
@@ -162,6 +189,32 @@ class Trainer:
         grads = {n: torch.zeros_like(self.params[n]) if g is None else g
                  for n, g in zip(names, grads)}
         self.optimizer.step(self.params, grads, self.opt_state, trainable=trainable)
+        return loss.detach()
+
+    def _sparse_step(self, batch: Dict[str, torch.Tensor], tables: dict,
+                     impl: str) -> torch.Tensor:
+        """One step with the row-sparse lazy Adam on the `tables`
+        (`sparse_table_fields`): their rows for this batch gathered into
+        leaves, the loss through the model's `_sparse_rows_<side>`
+        override, the other parameters stepped by the optimizer, then each
+        table's touched rows by kernel 6 (`impl` 'pallas') or its plain
+        write-back ('xla'), with the optimizer's shared count."""
+        params, state, opt = self.params, self.opt_state, self.optimizer
+        names = {name + ".weight" for name, _f in tables.values()}
+        rest = [n for n in params if n not in names]
+        rows, nb, gathered = gather_rows_for_batch(params, batch, tables)
+        for side, r in rows.items():
+            nb["_sparse_rows_" + side] = r
+        loss = self.model.calculate_loss(nb)
+        leaves = [rows[s] for s in tables] + [params[n] for n in rest]
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+        opt.step({n: params[n] for n in rest}, dict(zip(rest, grads[len(tables):])), state)
+        for (side, (name, _f)), g_rows in zip(tables.items(), grads):
+            p = name + ".weight"
+            sparse_adam_update_table(
+                params[p], SparseTableState(state["mu"][p], state["nu"][p]),
+                gathered[side], g_rows, state["count"], opt.learning_rate, impl=impl)
         return loss.detach()
 
     # ------------------------------------------------------------ epochs
@@ -184,6 +237,7 @@ class Trainer:
             de = self._maybe_device_epoch(train_loader, oov=True, frozen=frozen)
             if de is not None:
                 return self._run_device_epoch(de, epoch_idx)
+        train_loader = maybe_prefetch(train_loader, self.config)
         self.model.train()
         device = self.model.device
         losses = []
@@ -233,7 +287,7 @@ class Trainer:
             if device_epoch_flag(self.config) is True:
                 raise NotImplementedError(
                     f"device_epoch: the device-resident epoch's {train_loader.mode} "
-                    "mode is not ported")
+                    "mode is not ported (ROADMAP.md queue 1, item 8)")
             return None
         if oov:
             spec = getattr(self.model, "spec", None)

@@ -10,7 +10,12 @@ follow `oovrec_tpu/utils/torch_import.py:10-14`:
   * a flax ``nn.Dense`` ``{"kernel": K (in, out), "bias": b}`` is an
     ``nn.Linear``'s ``<path>.weight`` (Kᵀ, (out, in)) and ``<path>.bias``;
   * every other leaf (xDeepFM's ``CinConv`` ``kernel`` (H·F, L) and
-    ``bias``, the first-order ``bias``) keeps its name and its array.
+    ``bias``, the first-order ``bias``, a BatchNorm's ``scale`` and
+    ``bias``) keeps its name and its array; so does a raw leaf at the top
+    of the tree (DCNv2's ``cross_layer_w`` (L, d, d), used as (out, in),
+    ``cross_layer_u/v/c`` and ``cross_bias``).
+
+DCNv2's ``gating_<i>`` Denses are ``nn.Linear``s and cross transposed.
 
 The embedder towers (``user_oov_mlp`` / ``item_oov_mlp``, flax
 ``Dense_<j>``) are ``nn.Linear``s, so their kernels cross transposed.
@@ -25,6 +30,12 @@ dict of numpy arrays (``estate``), the port holds it as the model's
 `set_embedder_state` cross it (the uint64 DHE keys as their int64 bits on
 the port's side, int32 knn tables as int64), so both packages run from the
 same planes, keys and neighbors; the param bridge leaves it alone.
+
+BatchNorm running statistics are not parameters either: flax keeps them
+in the ``batch_stats`` collection (``{.../BatchNorm_j: {mean, var}}``), the
+port as the ``mean`` / ``var`` buffers of its ``BatchNorm`` modules, which
+ride the model's ``state_dict``. `batch_stats_from_module` and
+`load_batch_stats` cross them; the param bridge leaves them alone.
 
 A ``kernel`` leaf is a Dense or a stored kernel depending on the port's
 module, so trees with kernels cross with the target `module` given. A
@@ -46,6 +57,13 @@ STATE = "embedder_state"
 
 def _is_state(key: str) -> bool:
     return key.split(".")[-2:-1] == [STATE]
+
+
+def _is_stat(key: str) -> bool:
+    """A BatchNorm running statistic (`BatchNorm_<j>.mean` / `.var`, the
+    flax module names the port keeps)."""
+    parts = key.split(".")
+    return len(parts) >= 2 and parts[-2].startswith("BatchNorm_") and parts[-1] in ("mean", "var")
 
 
 def _renames(module: Optional[nn.Module]):
@@ -76,10 +94,10 @@ def state_dict_from_flax(
                 top = from_flax.get(name, name) if not path else name
                 walk(value, f"{path}.{top}" if path else top)
                 continue
-            if not path:
-                raise ValueError(f"flax leaf [{name}] has no module")
             arr = np.array(value, dtype=np.float32)
-            if name == "embedding":
+            if not path:  # a raw parameter of the model itself
+                sd[name] = torch.from_numpy(arr)
+            elif name == "embedding":
                 sd[f"{path}.weight"] = torch.from_numpy(arr)
             elif name == "kernel":
                 sub = _submodule(module, path)
@@ -107,10 +125,13 @@ def flax_from_state_dict(
     to_flax, _ = _renames(module)
     out: Dict[str, Any] = {}
     for key, value in sd.items():
-        if _is_state(key):
+        if _is_state(key) or _is_stat(key):
+            continue
+        arr = value.detach().cpu().numpy()
+        if "." not in key:
+            out[key] = arr
             continue
         path, leaf = key.rsplit(".", 1)
-        arr = value.detach().cpu().numpy()
         if leaf == "weight":
             if isinstance(_submodule(module, path), nn.Linear):
                 leaf, arr = "kernel", arr.T.copy()
@@ -127,15 +148,46 @@ def flax_from_state_dict(
 
 def load_flax_params(module: nn.Module, params: FlaxParams) -> nn.Module:
     """Load a flax param tree into `module` (every parameter must match;
-    the embedder state buffers stay as they are)."""
+    the embedder state and the BatchNorm statistics stay as they are)."""
     sd = state_dict_from_flax(params, module)
     device = next(module.parameters()).device
     missing, unexpected = module.load_state_dict(
         {k: v.to(device) for k, v in sd.items()}, strict=False)
-    missing = [k for k in missing if not _is_state(k)]
+    missing = [k for k in missing if not _is_state(k) and not _is_stat(k)]
     if missing or unexpected:
         raise KeyError(f"flax tree and module differ: missing {missing}, "
                        f"unexpected {unexpected}")
+    return module
+
+
+def batch_stats_from_module(module: nn.Module) -> Dict[str, Any]:
+    """A copy of the port's BatchNorm running statistics as flax's
+    ``batch_stats`` tree (``{"mlp_layers": {"BatchNorm_0": {"mean",
+    "var"}}}``)."""
+    to_flax, _ = _renames(module)
+    sd = module.state_dict()
+    out: Dict[str, Any] = {}
+    for key in filter(_is_stat, sd):
+        parts = key.split(".")
+        parts[0] = to_flax.get(parts[0], parts[0])
+        node = out
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = sd[key].detach().cpu().numpy().copy()
+    return out
+
+
+def load_batch_stats(module: nn.Module, stats: FlaxParams) -> nn.Module:
+    """Give `module`'s BatchNorms flax's ``batch_stats`` (every BatchNorm
+    must have its pair, and the tree nothing else)."""
+    flat = state_dict_from_flax(stats, module)
+    sd = module.state_dict()
+    want = set(filter(_is_stat, sd))
+    if set(flat) != want:
+        raise KeyError(f"batch_stats and module differ: {sorted(set(flat) ^ want)}")
+    with torch.no_grad():
+        for k, v in flat.items():
+            sd[k].copy_(v)
     return module
 
 

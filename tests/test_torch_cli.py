@@ -3,10 +3,13 @@ package's `oovrec_tpu.cli.run`, on the CPU.
 
 Both CLIs run the verify-skill commands on the toy-ind fixture: the
 retrieval track (BPR, random-mapper OOV buckets, OOV training, the paper
-protocol's uni250 eval, the 7-slice inductive eval) and the ranking track
-with xDeepFM in place of WideDeep, each with the random mapper and with
-the lsh embedder, and the retrieval track with fdhe (host hashing, one key
-file under the test's directory that both CLIs read). The embedder state
+protocol's uni250 eval, the 7-slice inductive eval), the ranking track
+verbatim (WideDeep with `--inductive_embedder=lsh`, dropout 0 added) and
+with xDeepFM, each with the random mapper and with the lsh embedder, the
+retrieval track with fdhe (host hashing, one key file under the test's
+directory that both CLIs read) and with DirectAU, and the ranking track
+with DCNv2 (under SGD at 1e-2, its N(0, 1) cross weights starting at 1/10:
+`tests/test_torch_trainer.py:_dcnv2_cfg` says why). The embedder state
 each CLI builds (feature matrices, planes, keys; in 'inductive' mode over
 the `_ind` corpus for the 7 slices) is its own. The port runs with `--device=cpu`, xDeepFM's
 CIN through the kernel wrapper's plain version (`--fused_cin=True`), and
@@ -56,6 +59,15 @@ RANKING = ["--model=xDeepFM", "--model_eval_type=ranking",
            "--numerical_features=['age','price']", "--threshold={'rating': 4}",
            "--dropout_prob=0.0", "--mlp_hidden_size=[16,8]", "--cin_layer_size=[8,8]"]
 MAPPER = ["--inductive_mapper=random"]
+# the verify skill's ranking command, verbatim
+SKILL_RANKING = [
+    "--model=WideDeep", "--dataset=toy-ind", f"--data_path={ASSETS}", "--epochs=2",
+    "--train_batch_size=16", "--embedding_size=8", "--inductive_mapper=random",
+    "--add_oov_buckets=True", "--n_user_oov_buckets=8", "--n_item_oov_buckets=8",
+    "--train_oov=True", "--inductive_eval=True", "--checkpoint_dir=/tmp/vfy/saved",
+    LOAD_COL, "--model_eval_type=ranking", "--inductive_embedder=lsh",
+    "--numerical_features=['age','price']", "--threshold={'rating': 4}",
+]
 TRACKS = {
     "retrieval": RETRIEVAL + MAPPER,
     "ranking": RANKING + MAPPER,
@@ -63,7 +75,14 @@ TRACKS = {
     "retrieval-fdhe": RETRIEVAL + ["--inductive_embedder=fdhe", "--dhe_num_hashes=8",
                                    "--dhe_layer_size=16"],
     "ranking-lsh": RANKING + ["--inductive_embedder=lsh"],
+    "ranking-widedeep-lsh": SKILL_RANKING + ["--dropout_prob=0.0"],
+    "ranking-dcnv2": ["--model=DCNV2", *RANKING[1:], *MAPPER, "--cross_layer_num=2",
+                      "--learner=sgd", "--learning_rate=0.01"],
+    "retrieval-directau": ["--model=DirectAU", *MAPPER],
 }
+# the embedder each track runs with
+EMBEDDER = {"retrieval-lsh": "lsh", "retrieval-fdhe": "fdhe", "ranking-lsh": "lsh",
+            "ranking-widedeep-lsh": "lsh"}
 TOL = 1e-5
 
 
@@ -119,7 +138,8 @@ def _run_pair(track, tmp_path, monkeypatch):
             # from), float-field tables scaled down
             params = jax.tree_util.tree_map_with_path(
                 lambda p, v: np.array(v) * np.float32(
-                    0.01 if p[-2].key == "float_embedding_table" else 1),
+                    0.01 if p[-2:-1] and p[-2].key == "float_embedding_table"
+                    else 0.1 if p[-1].key.startswith("cross_layer_") else 1),
                 variables["params"])
             recorded.setdefault("params", params)
             variables = dict(variables, params=jax.tree_util.tree_map(np.array, params))
@@ -135,7 +155,9 @@ def _run_pair(track, tmp_path, monkeypatch):
 
     monkeypatch.setattr(jax_quick_start, "build_model_and_state", recording)
     monkeypatch.setattr(port_quick_start, "build_model_and_state", bridged)
-    argv = COMMON + TRACKS[track] + [f"--hash_key_dir={tmp_path / 'keys'}"]
+    argv = (TRACKS[track] if "widedeep" in track else COMMON + TRACKS[track]) + [
+        f"--hash_key_dir={tmp_path / 'keys'}", "--log_tensorboard=False",
+        "--metric_decimal_place=12"]
     for side in ("jax", "port"):
         (tmp_path / side).mkdir()
     monkeypatch.chdir(tmp_path / "jax")
@@ -144,7 +166,7 @@ def _run_pair(track, tmp_path, monkeypatch):
     results_json = tmp_path / "port" / "results.json"
     extra = ["--device=cpu", f"--checkpoint_dir={tmp_path / 'port' / 'saved'}",
              f"--results_json={results_json}"]
-    if track.startswith("ranking"):
+    if track in ("ranking", "ranking-lsh"):
         extra.append("--fused_cin=True")
     pres = port_main(argv + extra)
     return jres, pres, pres["trainer"].saved_model_file, results_json
@@ -154,8 +176,8 @@ def _run_pair(track, tmp_path, monkeypatch):
 def test_port_cli_matches_the_jax_cli(track, tmp_path, monkeypatch):
     jres, pres, ckpt, results_json = _run_pair(track, tmp_path, monkeypatch)
     assert pres["config"]["eval_args"]["mode"] == {"valid": "uni250", "test": "uni250"}
-    assert pres["trainer"].model.spec.embedder == (
-        track.split("-")[1] if "-" in track else None)
+    assert pres["trainer"].model.spec.embedder == EMBEDDER.get(track)
+    assert type(pres["trainer"].model).__name__ == pres["config"]["model"]
     _agree(jres["test_result"], pres["test_result"], TOL, f"{track} test result")
     _slices_agree(jres["inductive_results"], pres["inductive_results"], TOL,
                   f"{track} inductive slices")

@@ -22,8 +22,10 @@ from oovrec_tpu.cli.run import apply_paper_protocol as jax_protocol  # noqa: E40
 from oovrec_tpu.cli.run import merge_dataset_config as jax_merge  # noqa: E402
 from oovrec_tpu.config import Config as JaxConfig  # noqa: E402
 from oovrec_tpu.config import parse_cli_args as jax_parse  # noqa: E402
+from oovrec_tpu_torch.cli.quick_start import model_kwargs  # noqa: E402
 from oovrec_tpu_torch.cli.run import apply_paper_protocol, merge_dataset_config  # noqa: E402
 from oovrec_tpu_torch.config import PORT_DEFAULTS, Config, parse_cli_args  # noqa: E402
+from oovrec_tpu_torch.models import get_model_class  # noqa: E402
 
 SKILL_LOAD_COL = ("--load_col={'inter': ['user_id','item_id','rating','timestamp','is_new'], "
                   "'user': ['user_id','age','gender'], 'item': ['item_id','price','category']}")
@@ -50,8 +52,12 @@ PHASE_B = PHASE_A[1:-2] + [
     "--model=xDeepFM", "--model_eval_type=ranking", "--numerical_features=['age','price']",
     "--epochs=3",
 ]
+SKILL_RANKING = RETRIEVAL[1:] + [
+    "--model=WideDeep", "--model_eval_type=ranking", "--inductive_embedder=lsh",
+    "--numerical_features=['age','price']", "--threshold={'rating': 4}",
+]
 COMMANDS = {"skill_retrieval": RETRIEVAL, "skill_ranking": RANKING,
-            "phase_a": PHASE_A, "phase_b": PHASE_B}
+            "skill_ranking_widedeep": SKILL_RANKING, "phase_a": PHASE_A, "phase_b": PHASE_B}
 
 
 def plain(value):
@@ -109,7 +115,32 @@ def test_config_files_layer_as_in_jax(tmp_path):
 
 
 def test_unported_model_defaults_to_pointwise():
-    port = Config({"model": "WideDeep"})
+    port = Config({"model": "LightGCN"})
     assert port["MODEL_INPUT_TYPE"].name == "POINTWISE"
     assert Config({"model": "BPR"})["MODEL_INPUT_TYPE"].name == "PAIRWISE"
     assert Config()["device"] == "cuda"
+
+
+# the constructor arguments `model_kwargs` takes from each model file: YAML
+# lists as tuples, YAML ints as floats where the default is one, a CLI
+# string as a bool
+MODEL_KWARGS = {
+    "WideDeep": ({}, {"mlp_hidden_size": (32, 16, 8), "dropout_prob": 0.1}),
+    "DCNV2": ({}, {"mixed": False, "structure": "stacked", "cross_layer_num": 3,
+                   "expert_num": 4, "low_rank": 128, "mlp_hidden_size": (768, 768),
+                   "reg_weight": 2.0, "dropout_prob": 0.2}),
+    "DCNV2-mixed": ({"mixed": "True", "mlp_hidden_size": [8, 4]},
+                    {"mixed": True, "structure": "stacked", "cross_layer_num": 3,
+                     "expert_num": 4, "low_rank": 128, "mlp_hidden_size": (8, 4),
+                     "reg_weight": 2.0, "dropout_prob": 0.2}),
+    "DirectAU": ({}, {"gamma": 1.0}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MODEL_KWARGS))
+def test_model_kwargs_from_the_model_files(name):
+    model = name.split("-")[0]
+    over, want = MODEL_KWARGS[name]
+    kw = model_kwargs(Config(dict(over, model=model)), get_model_class(model))
+    assert kw == want
+    assert all(type(kw[k]) is type(v) for k, v in want.items()), kw

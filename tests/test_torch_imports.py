@@ -56,6 +56,8 @@ def test_scan_sees_the_whole_port():
     assert "oovrec_tpu_torch/cli/inductive_eval.py" in names
     assert "chip_smoke.py" in names
     for module in ("ops/embed_grad.py", "ops/siphash.py", "ops/siphash_device.py",
-                   "inductive/dhe.py", "inductive/factory.py"):
+                   "inductive/dhe.py", "inductive/factory.py",
+                   "models/context_aware/widedeep.py", "models/context_aware/dcnv2.py",
+                   "models/directau.py", "data/prefetch.py"):
         assert f"oovrec_tpu_torch/{module}" in names, module
     assert len(names) >= 25

@@ -9,7 +9,13 @@ path), with the frozen OOV-only sub-epoch, in mixed mode
 torch-faithful Adam plus decay and clipping, and under `learner:
 sparse_adam`; then with the embedders: BPR with lsh, dnn and fdhe (host
 hashing, a key file under the test's directory) and xDeepFM with lsh, the
-port's model holding the JAX run's embedder state as its buffers. The JAX
+port's model holding the JAX run's embedder state as its buffers; then
+the other paper models: WideDeep (also with lsh), DCNv2 stacked, parallel
+(in mixed mode) and with mixed experts (under SGD: `_dcnv2_cfg`), whose BatchNorm running statistics
+must end equal to the JAX run's `batch_stats` to 1e-5 and move in the
+frozen sub-epoch too, and DirectAU (also under `learner: sparse_adam`,
+where the port's host path takes the row-sparse step of kernel 6's plain
+version and the JAX one sweeps the whole tables). The JAX
 side runs its host per-batch path (`device_epoch:
 false`, `host_scan_steps: 1`), as `tests/test_host_scan.py:_train` builds
 it. Epoch losses must agree to 1e-5 relative, the final parameters to
@@ -47,10 +53,15 @@ from oovrec_tpu_torch.data import (  # noqa: E402
     TrainBatcher,
 )
 from oovrec_tpu_torch.inductive import InductiveSpec  # noqa: E402
-from oovrec_tpu_torch.models import BPR, FieldSpec, xDeepFM  # noqa: E402
+from oovrec_tpu_torch.cli.quick_start import model_kwargs  # noqa: E402
+from oovrec_tpu_torch.models import BPR, DirectAU, FieldSpec, get_model_class  # noqa: E402
 from oovrec_tpu_torch.train import Trainer  # noqa: E402
 from oovrec_tpu_torch.utils.enums import InputType  # noqa: E402
-from oovrec_tpu_torch.utils.jax_params import flax_from_state_dict, load_flax_params  # noqa: E402
+from oovrec_tpu_torch.utils.jax_params import (  # noqa: E402
+    batch_stats_from_module,
+    flax_from_state_dict,
+    load_flax_params,
+)
 
 from tests.test_context_models import _ranking_cfg  # noqa: E402
 from tests.test_inductive import _ind_cfg  # noqa: E402
@@ -101,14 +112,33 @@ def _bpr_cfg(tmp, **over):
     return _ind_cfg(**d)
 
 
-def _xdfm_cfg(tmp, **over):
+def _xdfm_cfg(tmp, model="xDeepFM", **over):
     d = dict(OOV, epochs=2, train_batch_size=8, metrics=["AUC", "LogLoss"],
              valid_metric="AUC", cin_layer_size=[8, 8], dropout_prob=0.0,
              eval_args={"split": {"RS": [0.8, 0.1, 0.1]}, "order": "TO",
                         "group_by": None, "mode": "labeled"},
              checkpoint_dir=str(tmp), hash_key_dir=str(tmp / "keys"), **HOST_PATH)
     d.update(over)
-    return _ranking_cfg("xDeepFM", **d)
+    return _ranking_cfg(model, **d)
+
+
+def _widedeep_cfg(tmp, **over):
+    return _xdfm_cfg(tmp, model="WideDeep", **over)
+
+
+def _dcnv2_cfg(tmp, **over):
+    """DCNv2 under SGD, its cross weights starting at 1/10 of their N(0, 1)
+    draw (`_setup`). Each Dense bias before a BatchNorm has a gradient that
+    is zero in exact arithmetic (the norm removes any shift), so its
+    gradient is rounding noise, which Adam scales up to whole steps that
+    differ between the packages (losses 1e-4 apart after two epochs); and
+    N(0, 1) cross weights over d = 56 make SGD at this rate diverge."""
+    return _xdfm_cfg(tmp, model="DCNV2", cross_layer_num=2, reg_weight=0.01, expert_num=2,
+                     low_rank=4, learner="sgd", learning_rate=0.01, **over)
+
+
+def _directau_cfg(tmp, **over):
+    return _bpr_cfg(tmp, model="DirectAU", **over)
 
 
 def _setup(cfg_dict, fused="auto"):
@@ -122,10 +152,14 @@ def _setup(cfg_dict, fused="auto"):
     jtrain, jvalid, jtest = data_preparation(jcfg, ds)
     jm, variables, estate = build_model_and_state(jcfg, ds, template_batch=template)
     estate = {k: np.array(v) for k, v in estate.items()}
-    # float-field tables scaled down: ages and prices of ~20 saturate xDeepFM
-    params = jax.tree_util.tree_map_with_path(
-        lambda p, v: np.asarray(v) * (np.float32(0.01) if p[-2].key == "float_embedding_table"
-                                      else np.float32(1)), variables["params"])
+    # float-field tables scaled down: ages and prices of ~20 saturate
+    # xDeepFM; DCNv2's N(0, 1) cross weights by 1/10 (`_dcnv2_cfg`)
+    def scaled(p, v):
+        if p[-2:-1] and p[-2].key == "float_embedding_table":
+            return np.asarray(v) * np.float32(0.01)
+        return np.asarray(v) * np.float32(0.1 if p[-1].key.startswith("cross_layer_") else 1)
+
+    params = jax.tree_util.tree_map_with_path(scaled, variables["params"])
 
     cfg = Config(jcfg.as_dict())
     splits = [_port_split(s) for s in ds.build()[:3]]
@@ -135,19 +169,23 @@ def _setup(cfg_dict, fused="auto"):
                       alpha=nsa.get("alpha", 1.0), seed=int(jcfg["seed"]),
                       repeatable=bool(jcfg["repeatable"]))
     spec = InductiveSpec.from_config(cfg)
-    if jcfg["model"] == "BPR":
-        model = BPR(ds.user_num, ds.item_num, int(jcfg["embedding_size"]), spec, device="cpu",
-                    embedder_state=estate or None)
-        input_type = InputType.PAIRWISE
+    cls = get_model_class(jcfg["model"])
+    # the model's hyper-parameters from the config, as the port's CLI
+    # takes them; each equal to the JAX model's
+    kw = model_kwargs(cfg, cls)
+    assert all(v == getattr(jm, n) for n, v in kw.items() if hasattr(jm, n)), kw
+    if "fused_cin" in kw:
+        kw["fused_cin"] = fused
+    if jcfg["model"] in ("BPR", "DirectAU"):
+        model = cls(ds.user_num, ds.item_num, int(jcfg["embedding_size"]), spec, device="cpu",
+                    embedder_state=estate or None, **kw)
+        input_type = cls.input_type
         valid = FullSortEvalBatcher(splits[1], sampler, cfg, phase="valid")
         test = FullSortEvalBatcher(splits[2], sampler, cfg, phase="test")
     else:
-        model = xDeepFM(
-            FieldSpec(**dataclasses.asdict(jm.fields)), embedding_size=jm.embedding_size,
-            spec=spec, mlp_hidden_size=jm.mlp_hidden_size, reg_weight=jm.reg_weight,
-            dropout_prob=jm.dropout_prob, direct=jm.direct, cin_layer_size=jm.cin_layer_size,
-            fused_cin=fused, label_field=jm.label_field, device="cpu",
-            embedder_state=estate or None)
+        model = cls(FieldSpec(**dataclasses.asdict(jm.fields)), embedding_size=jm.embedding_size,
+                    spec=spec, label_field=jm.label_field, device="cpu",
+                    embedder_state=estate or None, **kw)
         input_type = InputType.POINTWISE
         valid, test = PlainEvalBatcher(splits[1], cfg), PlainEvalBatcher(splits[2], cfg)
     load_flax_params(model, params)
@@ -183,6 +221,17 @@ CASES = {
     "bpr-dnn": (_bpr_cfg, EMB["dnn"], "auto"),
     "bpr-fdhe-frozen": (_bpr_cfg, dict(oov_freeze_embedding=True, **EMB["fdhe"]), "auto"),
     "xdeepfm-lsh-kernel": (_xdfm_cfg, dict(oov_freeze_embedding=True, **EMB["lsh"]), True),
+    # the other paper models
+    "widedeep-frozen": (_widedeep_cfg, dict(oov_freeze_embedding=True), "auto"),
+    "widedeep-lsh": (_widedeep_cfg, EMB["lsh"], "auto"),
+    "dcnv2-stacked-frozen": (_dcnv2_cfg, dict(oov_freeze_embedding=True), "auto"),
+    "dcnv2-parallel-mixed": (_dcnv2_cfg, dict(structure="parallel", oov_only_epoch=False),
+                             "auto"),
+    "dcnv2-experts-frozen": (_dcnv2_cfg, dict(mixed=True, oov_freeze_embedding=True), "auto"),
+    "directau-frozen": (_directau_cfg, dict(oov_freeze_embedding=True), "auto"),
+    "directau-sparse-adam": (_directau_cfg, dict(oov_freeze_embedding=True,
+                                                 learner="sparse_adam", learning_rate=1e-2),
+                             "auto"),
 }
 
 
@@ -196,6 +245,20 @@ def test_fit_trajectory_matches_jax(case, tmp_path):
 
     cfg, model, train, valid, _ = s["port"]
     pt = Trainer(cfg, model)
+    assert bool(pt.sparse_tables) == (cfg["learner"] == "sparse_adam"), pt.sparse_tables
+    moved = []
+    inner = pt._train_epoch
+
+    def watched(loader, epoch_idx, oov_transform=None, keep_ratio=None, frozen=False):
+        before = batch_stats_from_module(model)
+        total = inner(loader, epoch_idx, oov_transform, keep_ratio, frozen)
+        if frozen:
+            after = batch_stats_from_module(model)
+            moved.append(any(not np.array_equal(a, b) for a, b in zip(
+                _flat(before).values(), _flat(after).values())))
+        return total
+
+    pt._train_epoch = watched
     best = pt.fit(train, valid, saved=False)
 
     assert list(pt.train_loss_dict) == list(jt.train_loss_dict) == [0, 1]
@@ -212,6 +275,12 @@ def test_fit_trajectory_matches_jax(case, tmp_path):
         np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-5, err_msg=k)
     if "mixed" not in case:
         assert pt.oov_loss_dict  # the OOV sub-epoch ran
+    stats, jstats = _flat(batch_stats_from_module(model)), _flat(jt.variables.get("batch_stats", {}))
+    assert set(stats) == set(jstats) and bool(stats) == case.startswith("dcnv2")
+    for k in jstats:
+        np.testing.assert_allclose(stats[k], jstats[k], rtol=0, atol=1e-5, err_msg=k)
+    if stats and "frozen" in case:  # the running statistics move in the frozen sub-epoch
+        assert moved and all(moved)
 
 
 def test_frozen_sub_epoch_rollback_restores_a_true_copy(tmp_path):
@@ -320,3 +389,31 @@ def test_trainer_refuses_what_is_not_ported(over, match):
         loader = TrainBatcher(split, Sampler(["train"], [split], seed=1), cfg,
                               InputType.POINTWISE)
         trainer._train_epoch(loader, 0)
+
+
+@pytest.mark.parametrize("flag", ["auto", True])
+def test_ranking_models_take_the_host_path(flag):
+    """WideDeep and DCNv2 declare `supports_device_epoch` as the JAX models
+    do; the port's device epoch has no pointwise mode yet, so `auto` takes
+    the host path (at any size) and `true` raises, naming the ROADMAP item."""
+    from oovrec_tpu_torch.models import DCNV2, WideDeep
+    from oovrec_tpu_torch.train import device_epoch
+
+    fields = FieldSpec(token_names=("user_id", "item_id"), token_dims=(7, 11))
+    split = DatasetSplit({"user_id": np.arange(1, 7), "item_id": np.arange(1, 7),
+                          "label": np.ones(6, np.float32)}, 7, 11)
+    cfg = Config({"device_epoch": flag})
+    for cls in (WideDeep, DCNV2):
+        trainer = Trainer(cfg, cls(fields, embedding_size=4, device="cpu"))
+        loader = TrainBatcher(split, Sampler(["train"], [split], seed=1), cfg,
+                              InputType.POINTWISE)
+        assert cls.supports_device_epoch and loader.mode == "pointwise"
+        if flag == "auto":
+            orig, device_epoch.AUTO_MIN_ROWS = device_epoch.AUTO_MIN_ROWS, 1
+            try:
+                assert trainer._maybe_device_epoch(loader) is None
+            finally:
+                device_epoch.AUTO_MIN_ROWS = orig
+        else:
+            with pytest.raises(NotImplementedError, match="pointwise mode.*item 8"):
+                trainer._maybe_device_epoch(loader)

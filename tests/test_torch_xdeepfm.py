@@ -182,9 +182,6 @@ def test_unported_parts_raise():
     # dropout in train mode draws only from a generator the trainer gives
     with pytest.raises(RuntimeError, match="generator"):
         model.calculate_loss(_torch_batch(_batch()))
-    with pytest.raises(NotImplementedError, match="token_seq"):
-        xDeepFM(FieldSpec(**FIELDS, token_seq_names=("tags",), token_seq_dims=(9,)),
-                device="cpu")
     with pytest.raises(ValueError, match="needs its state"):
         xDeepFM(FieldSpec(**FIELDS), spec=InductiveSpec(embedder="dnn"), device="cpu")
     with pytest.raises(KeyError, match="cat"):

@@ -100,6 +100,8 @@ def test_outside_the_subset_raises(text):
         yaml_subset.load(text)
 
 
-@pytest.mark.parametrize("name", ["defaults.yaml", "model/BPR.yaml", "model/xDeepFM.yaml"])
+@pytest.mark.parametrize("name", ["defaults.yaml", "model/BPR.yaml", "model/xDeepFM.yaml",
+                                  "model/WideDeep.yaml", "model/DCNV2.yaml",
+                                  "model/DirectAU.yaml"])
 def test_port_copies_are_byte_equal(name):
     assert (PORT_CONFIG / name).read_bytes() == (JAX_CONFIG / name).read_bytes()
