@@ -101,6 +101,42 @@ Phases (any failure exits non-zero; no phase failure is caught):
          the host path); the serving cell's corpus, fused == dense on the 7
          slices and the full sort (1e-9); DirectAU on synth-ind through
          `cli.run.main`, `--eval_only` equal to 1e-9.
+ 10. phase F, the device-resident and scanned paths, each dense step
+     replayed from its captured CUDA graph (`train/cuda_graph.py`):
+     F1. xDeepFM at the ranking cell's shape on the plain device epoch
+         through `Trainer.fit` (`device_epoch: true`; the frozen OOV
+         sub-epoch on the host path): the loss falls, held-out AUC rises,
+         CIN kernels 4 and 5 (3 + 3 a step) and the gathers' backward
+         launched by their wrappers at the warm-ups and the captures;
+         16 graphed steps against 16 eager ones on the same
+         batches from the same weights, bit for bit (losses, parameters,
+         moments); eager vs graphed ms a step, wall and device, with the
+         busy share, and the kernels in each pass's profiler trace: the
+         graphed pass calls no wrapper and its trace holds each kernel as
+         often as the eager trace, which holds it as often as the eager
+         wrappers launched it; a whole epoch's ms a step;
+     F2. WideDeep and DCNv2 on the pointwise device epoch (uniform, one
+         negative a row) at the same shape: the loss falls, DCNv2's
+         BatchNorm statistics move; graphed == eager over 8 steps; times;
+     F3. BPR with fdhe (128 hashes, towers of 512) hashed on the card
+         (`dhe_on_device`) on the pairwise device epoch with `learner:
+         sparse_adam` (kernel 6, eager by rule) and its OOV sub-epoch at
+         the sparse phase's shape; one OOV batch's codes == the host
+         hasher's; then BPR's dense step graphed == eager, and times; a
+         dropped trainer's captures do not break the next capture;
+     F4. `host_scan_steps` 64 against 1 on xDeepFM's host path: the same
+         losses and weights bit for bit; then over 3 groups of 64
+         batches K = 64 against K = 1 (both replaying) and K = 1 eagerly
+         (what the grouping adds beyond the graph), wall, device and busy
+         share, the replays' kernels counted in the traces;
+     F5. the scanned eval against the per-batch eval over phase 3's
+         900,000 IV items: the full sort on kernel 1 and uni100, the same
+         metrics; walls and host syncs of each pass.
+     Phases 5, 6, E3 and E4 and the sparse phase pin `device_epoch: False`
+     and `host_scan_steps: 1` where they measure or watch the host path,
+     and run its dense steps eagerly (`eager_steps`: they count launches a
+     step, swap a kernel's route between steps, or time the eager step);
+     the serving phases pin `device_eval: False` (`serving_cfg`).
 Phase 2 also holds the gathers' backward kernel (`csrc/embed_grad.cu`)
 against its plain version (bit for bit on integer-valued cotangents, to
 1e-5 on random ones, against a repeat run) and times it; phase 6 profiles
@@ -111,8 +147,12 @@ bit for bit on integer inputs and gradients (and against itself on a
 repeat run), and times it per layer and for the 3-layer stack.
 The last line is the device record; the line before it lists the kernels,
 each with its launches on the earlier phases' paths (`launches`), on the
-CLI phases (`launches_cli`) and on phase D's and E's parts (`launches_d`,
-`launches_e`).
+CLI phases (`launches_cli`) and on phase D's, E's and F's parts
+(`launches_d`, `launches_e`, `launches_f`), each counted by the kernel's
+wrapper where it launches (`ops/launches.py`; a CUDA graph's replays run
+no wrapper), and the kernels that phase F's graphed passes replayed, as
+their profiler traces show them (`launches_f_trace`); before them, phase
+F's times as one JSON line (`phase F times`).
 
 TF32 is switched off for matmuls and cuDNN below: the plain versions and
 the dense path must compute in full f32, as the kernel does.
@@ -126,6 +166,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -139,19 +180,20 @@ from oovrec_tpu_torch.cli import run as cli_run
 from oovrec_tpu_torch.cli.inductive_eval import perform_inductive_eval
 from oovrec_tpu_torch.config import Config
 from oovrec_tpu_torch.data import dataset as dataset_module
+from oovrec_tpu_torch.data.transfer import to_device_batch
 from oovrec_tpu_torch.data.utils import data_preparation
 from oovrec_tpu_torch.data import (
     DatasetSplit,
     FullSortEvalBatcher,
+    NegSampleEvalBatcher,
     PlainEvalBatcher,
     Sampler,
     TrainBatcher,
 )
 from oovrec_tpu_torch.eval import EvalRunner, InductiveEvaluator
-from oovrec_tpu_torch.eval.runner import to_device_batch
 from oovrec_tpu_torch.inductive import DHEHasher, InductiveSpec, RandomOOVMapper
 from oovrec_tpu_torch.models import BPR, FieldSpec, get_model_class, xDeepFM
-from oovrec_tpu_torch.ops import embed_grad, topk_score
+from oovrec_tpu_torch.ops import embed_grad, launches, topk_score
 from oovrec_tpu_torch.ops.cin_fused import (
     cin_layer,
     cin_layer_bwd,
@@ -579,10 +621,13 @@ def agree(a, b, what, tol=1e-9):
             require(abs(x - y) < tol, f"{what}[{key}]: {x} vs {y}")
 
 
-def serving_cfg(fused, n_items):
+def serving_cfg(fused, n_items, device_eval=False):
+    """The serving eval's config; the per-batch eval unless `device_eval`
+    (phase 3 times it a batch; phase F5 holds the scanned eval to it)."""
     return Config({
         "topk": TOPK, "seed": SEED, "eval_batch_size": B * n_items,
         "use_perturbed_hits": False, "use_fused_topk": "auto" if fused else False,
+        "device_eval": device_eval,
     })
 
 
@@ -601,6 +646,7 @@ def serving():
     cfg = serving_cfg
     launches = seven_slices_fused_vs_dense(model, mapper, ind_splits, cfg)
     full_sort_fused_vs_dense(model, iv_splits)
+    SERVING.update(model=model, iv_splits=iv_splits)  # phase F5
     # after the counted runs: where the time of the default (perturbed)
     # fused inductive eval goes on the device
     c = cfg(True, N_OLD_ITEMS + N_NEW_ITEMS)
@@ -684,6 +730,17 @@ GATHER_NODE = "_GatherRowsBackward"
 GATHER_RESULTS = {}
 
 
+def trace_launches(rows):
+    """Each registered kernel's launches in a profiler trace's device
+    rows (time, name, count), by the name of its `__global__` function."""
+    out = {fn.kernel: 0 for fn in launches.WRAPPERS.values()}
+    for _, key, n in rows:
+        for kernel in out:
+            if re.search(rf"(^|[\s:]){kernel}[<(]", key):
+                out[kernel] += n
+    return out
+
+
 def profiled(run, what, shares=(), quiet=False):
     """torch.profiler around `run()`: the wall, the device's busy share of
     it, the largest device kernels and, for each (label, name prefixes) of
@@ -708,6 +765,7 @@ def profiled(run, what, shares=(), quiet=False):
          if e.device_type != torch.autograd.DeviceType.CPU and device_us(e) > 0),
         reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
+    profiled.kernels = trace_launches(rows)
     log(f"{what}, wall {wall_ms:.1f} ms, device busy "
         f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %)")
     # the row gathers' backward (ops/embed_grad.py): the device time of the
@@ -1287,6 +1345,9 @@ def ctr_train_cfg(**over):
         "epochs": 1, "train_neg_sample_args": {"distribution": "none"},
         "train_oov": True, "oov_only_epoch": True, "oov_train_ratio": 0.2,
         "oov_feature_mask_rate": 0.2, "oov_freeze_embedding": True,
+        # the host per-batch path (phases 5 and E3 measure it): `auto` would
+        # take the plain device epoch at these 700,000+ rows
+        "device_epoch": False, "host_scan_steps": 1,
     }
     d.update(over)
     return Config(d)
@@ -1321,7 +1382,7 @@ def ranking_training(ind, mapper):
     model = build_ranking_model(SEED + 7)
     auc0 = EvalRunner(model, cfg).evaluate(PlainEvalBatcher(held_iv, cfg))["auc"]
 
-    trainer = Trainer(cfg, model)
+    trainer = eager_steps(Trainer(cfg, model))
     loader = TrainBatcher(train, None, cfg, InputType.POINTWISE)
     require(loader.mode == "plain" and len(loader) > 1, f"train loader {loader.mode}")
     iv_names = [n for n in trainer.params if n not in trainer.oov_params]
@@ -1488,12 +1549,12 @@ def kernel_vs_plain_training(train, steps=None, cin_sizes=CIN_SIZES, seed=SEED +
         model = build_ranking_model(seed, cin_sizes)
         require(model.fused_cin == "auto", f"fused_cin {model.fused_cin}")
         model.fused_cin = cfg["fused_cin"] if fused else False
-        trainer = Trainer(cfg, model)
+        trainer = eager_steps(Trainer(cfg, model))
         grads, step = [], trainer.optimizer.step
 
-        def recording(params, g, state, trainable=None, grads=grads, step=step):
+        def recording(params, g, state, trainable=None, grads=grads, step=step, **kw):
             grads.append({n: t.detach().clone() for n, t in g.items()})
-            return step(params, g, state, trainable)
+            return step(params, g, state, trainable, **kw)
 
         trainer.optimizer.step = recording
         cin_layer_pooled.launches = cin_layer_pooled_bwd.launches = 0
@@ -1581,8 +1642,9 @@ def retrieval_training():
     cfg = Config({"seed": SEED, "topk": TOPK, "train_batch_size": BPR_TRAIN_B,
                   "learner": "adam", "learning_rate": 1e-3, "epochs": 1,
                   "train_oov": True, "oov_only_epoch": True, "oov_train_ratio": 0.2,
-                  "oov_feature_mask_rate": 0.2, "device_epoch": False})
-    trainer = Trainer(cfg, model)
+                  "oov_feature_mask_rate": 0.2, "device_epoch": False,
+                  "host_scan_steps": 1})
+    trainer = eager_steps(Trainer(cfg, model))
     loader = TrainBatcher(train, sampler, cfg, InputType.PAIRWISE)
     require(loader.mode == "pairwise" and len(loader) == BPR_TRAIN_STEPS, "BPR loader")
     require(trainer._maybe_device_epoch(loader) is None, "the host path is not driven")
@@ -1893,7 +1955,7 @@ def sparse_cfg(impl, **over):
     d = {"seed": SEED, "train_batch_size": SP_B, "learner": "sparse_adam",
          "learning_rate": SP_LR, "epochs": 1, "train_oov": True, "oov_only_epoch": True,
          "oov_train_ratio": 0.2, "oov_feature_mask_rate": 0.2, "device_epoch": True,
-         "sparse_update_impl": impl}
+         "sparse_update_impl": impl, "host_scan_steps": 1}
     d.update(over)
     return Config(d)
 
@@ -1945,11 +2007,24 @@ def state_of(trainer):
     return out
 
 
+def eager_steps(trainer):
+    """`trainer` with its dense steps run eagerly, uncaptured: for the
+    phases that count a kernel's launches a step, swap a kernel's route
+    between steps of one trainer, or time the eager step against the
+    numbers recorded for it (a replayed graph runs no wrapper and keeps
+    the route it was captured with). → trainer."""
+    trainer.step_graphs.step = lambda batch, trainable=None: trainer._apply_step(
+        batch, trainable)
+    return trainer
+
+
 def recorded_run(trainer, loader):
     """One epoch of `trainer` over `loader` (no OOV sub-epoch) with every
     step's gradients kept: the tables' (ids, row gradients) on the sparse
     path, the dense gradients otherwise. → (losses, parameters, gradient of
-    element (name, flat index) at each step)."""
+    element (name, flat index) at each step). A dense device-epoch step
+    runs eagerly here: a replayed CUDA graph runs no Python, so it could
+    not hand each step's gradients over."""
     from oovrec_tpu_torch.train import trainer as trainer_mod
 
     tables_seen, rest_seen = {}, []
@@ -1964,12 +2039,12 @@ def recorded_run(trainer, loader):
     try:
         step = trainer.optimizer.step
 
-        def recording_step(params, g, state, trainable=None):
+        def recording_step(params, g, state, trainable=None, **kw):
             rest_seen.append({n: t.detach().clone() for n, t in g.items()})
-            return step(params, g, state, trainable)
+            return step(params, g, state, trainable, **kw)
 
         trainer.optimizer.step = recording_step
-        trainer._train_epoch(loader, 0)
+        eager_steps(trainer)._train_epoch(loader, 0)
     finally:
         trainer_mod.sparse_adam_update_table = update
 
@@ -2217,8 +2292,8 @@ def retrieval_sparse_training():
     # (`Trainer._sparse_step`, kernel 6) and the dense lazy-Adam sweep, each
     # warmed by an epoch, then timed an epoch at a time in the order
     # sparse, dense, dense, sparse
-    hosts = {impl: Trainer(sparse_cfg(impl, device_epoch=False, train_oov=False),
-                           sparse_model()) for impl in ("auto", "dense")}
+    hosts = {impl: eager_steps(Trainer(sparse_cfg(impl, device_epoch=False, train_oov=False),
+                                       sparse_model())) for impl in ("auto", "dense")}
     host_ms = {impl: [] for impl in hosts}
     for impl, host in hosts.items():
         require(bool(host.sparse_tables) == (impl == "auto"), f"host path {impl}: sparse tables")
@@ -2324,15 +2399,16 @@ def cli_retrieval():
     return wall
 
 
+CIN_WRAPPERS = ("cin_layer_pooled", "cin_layer", "cin_layer_pooled_bwd", "cin_layer_bwd")
+
+
 def cin_counts():
-    return {"cin_layer_pooled": cin_layer_pooled.launches, "cin_layer": cin_layer.launches,
-            "cin_layer_pooled_bwd": cin_layer_pooled_bwd.launches,
-            "cin_layer_bwd": cin_layer_bwd.launches}
+    return {k: launches.WRAPPERS[k].launches for k in CIN_WRAPPERS}
 
 
 def reset_cin_counts():
-    cin_layer_pooled.launches = cin_layer.launches = 0
-    cin_layer_pooled_bwd.launches = cin_layer_bwd.launches = 0
+    for k in CIN_WRAPPERS:
+        launches.WRAPPERS[k].launches = 0
 
 
 def hold_cin_at(model, db, seed):
@@ -2649,17 +2725,12 @@ D_LSH_STEPS = 8
 
 
 def kernel_counts():
-    """Every kernel wrapper's launch count."""
-    return {"fused_topk_scores": topk_score.fused_topk_scores.launches, **cin_counts(),
-            "sparse_adam_rows_kernel": sparse_adam_rows_kernel.launches,
-            "scatter_rows_kernel": embed_grad.scatter_rows_kernel.launches}
+    """Every kernel wrapper's launch count (`ops/launches.py`)."""
+    return launches.launch_counts()
 
 
 def reset_kernel_counts():
-    topk_score.fused_topk_scores.launches = 0
-    reset_cin_counts()
-    sparse_adam_rows_kernel.launches = 0
-    embed_grad.scatter_rows_kernel.launches = 0
+    launches.reset_launch_counts()
 
 
 def write_hash_keys(counts):
@@ -3050,7 +3121,7 @@ def e3_train(tag, model, mapper, train, held, held_iv):
     same rows inside a batch of CTR_B (1e-6)."""
     cfg = ctr_train_cfg()
     auc0 = EvalRunner(model, cfg).evaluate(PlainEvalBatcher(held_iv, cfg))["auc"]
-    trainer = Trainer(cfg, model)
+    trainer = eager_steps(Trainer(cfg, model))
     loader = TrainBatcher(train, None, cfg, InputType.POINTWISE)
     iv_names = [n for n in trainer.params if n not in trainer.oov_params]
     inner, seen = trainer._train_epoch, {}
@@ -3141,7 +3212,7 @@ def e3_prefetch(train, models=("WideDeep", "DCNV2")):
     out = {}
     cfg = ctr_train_cfg(train_oov=False)
     for i, name in enumerate(models):
-        trainer = Trainer(cfg, e_ranking_model(name, SEED + 330 + i))
+        trainer = eager_steps(Trainer(cfg, e_ranking_model(name, SEED + 330 + i)))
         loader = TrainBatcher(train, None, cfg, InputType.POINTWISE)
         trainer._train_epoch(loader, 0)
         out[name] = {0: [], 2: []}
@@ -3173,7 +3244,7 @@ def e3_tags_step_launches(fields, item_feat, train, seed):
     rows = DatasetSplit(rows.inter, N_CTR_OLD_USERS, N_CTR_OLD_ITEMS,
                         user_feat=rows.user_feat, item_feat=item_feat)
     cfg = ctr_train_cfg(train_oov=False)
-    trainer = Trainer(cfg, e_ranking_model("WideDeep", seed, fields))
+    trainer = eager_steps(Trainer(cfg, e_ranking_model("WideDeep", seed, fields)))
     loader = TrainBatcher(rows, None, cfg, InputType.POINTWISE)
     require(len(loader) == E_TAGS_STEPS, f"E3 tags: {len(loader)} steps")
     embed_grad.scatter_rows_kernel.launches = 0
@@ -3225,7 +3296,8 @@ def e3_ranking(ind, mapper):
 def e4_cfg(learner, **over):
     d = {"seed": SEED, "topk": TOPK, "train_batch_size": E_DAU_B, "learner": learner,
          "learning_rate": 1e-3, "epochs": 1, "train_oov": True, "oov_only_epoch": True,
-         "oov_train_ratio": 0.2, "oov_feature_mask_rate": 0.2, "oov_freeze_embedding": True}
+         "oov_train_ratio": 0.2, "oov_feature_mask_rate": 0.2, "oov_freeze_embedding": True,
+         "host_scan_steps": 1}
     d.update(over)
     return Config(d)
 
@@ -3246,7 +3318,7 @@ def e4_trainer(cfg, rows, steps=None):
     train = DatasetSplit({k: v[:n] for k, v in rows.items()}, N_OLD_USERS, N_OLD_ITEMS)
     loader = TrainBatcher(train, Sampler(["train"], [train], seed=SEED), cfg,
                           InputType.POINTWISE)
-    trainer = Trainer(cfg, model)
+    trainer = eager_steps(Trainer(cfg, model))
     require(loader.mode == "pointwise" and len(loader) == steps
             and trainer._maybe_device_epoch(loader) is None,
             f"E4: the host path's {len(loader)} pointwise steps are not driven")
@@ -3349,6 +3421,555 @@ def e4_directau():
 # -------------------------------------------------------------------- main
 
 
+# ---------------------------------------------------------------- phase F
+#
+# The device-resident and scanned paths: the plain and pointwise
+# device epochs of the ranking models, DHE ids on the device epoch,
+# `host_scan_steps`, the scanned eval, and the dense step replayed as a
+# captured CUDA graph (train/cuda_graph.py) on each of them.
+
+F_COMPARE_STEPS = 16   # graphed against eager steps, bit for bit
+F_TIME_STEPS = 16      # steps a timed pass, eager and graphed in turns
+F_BPR_STEPS = 16       # F3: steps of SP_B rows
+F_SCAN_K = 64          # F4: host_scan_steps
+F_SCAN_GROUPS = 3      # F4: groups an epoch in the grouping's timing
+F_TRACE_STEPS = 16     # steps of a traced pass whose kernels are counted
+F_UNI_N, F_UNI_ROWS = 100, 100_000  # F5: uni-N negatives, rows a batch
+F_POINTWISE = {"distribution": "uniform", "sample_num": 1}
+
+
+def f_batches(de, n):
+    """The first n batches of `de`'s epoch 0, cloned."""
+    out = []
+    for _, batch in de.batches(0):
+        out.append({k: v.clone() for k, v in batch.items()})
+        if len(out) == n:
+            break
+    return out
+
+
+def f_state(trainer):
+    """Parameters, Adam moments, BatchNorm statistics and the count."""
+    return {**state_of(trainer), **{f"bn:{k}": v.clone() for k, v in bn_stats(trainer.model).items()}}
+
+
+def graph_vs_eager(make, what, steps=F_COMPARE_STEPS):
+    """Two trainers from one seed (`make()` → (trainer, loader)): the same
+    `steps` device-epoch batches through the captured graph (the first
+    step is the warm-up, eager on a side stream; the others replays) and
+    through the eager `_apply_step`. Losses, parameters, moments and
+    BatchNorm statistics bit for bit; the kernel wrappers of the graphed
+    run launched at the warm-up and the capture only, the eager run's at
+    every step. → (graphed trainer, its device epoch, eager trainer, the
+    batches)."""
+    (a, loader), (b, _) = make(), make()
+    de = a._maybe_device_epoch(loader)
+    require(de is not None and not de.sparse_tables, f"{what}: the dense device epoch")
+    batches = f_batches(de, steps)
+    a.model.train()
+    b.model.train()
+    reset_kernel_counts()
+    sync()
+    la = torch.stack([de.train_step(x) for x in batches])
+    sync()
+    ca = kernel_counts()
+    reset_kernel_counts()
+    lb = torch.stack([b._apply_step(x) for x in batches])
+    sync()
+    cb = kernel_counts()
+    g = a.step_graphs
+    require(g.captures == 1 and g.replays == steps - 1, f"{what}: {g.captures} captures, "
+            f"{g.replays} replays")
+    require(a.opt_state.get("count") == b.opt_state.get("count"), f"{what}: Adam counts")
+    sa, sb = f_state(a), f_state(b)
+    differ = {n: float((sa[n] - sb[n]).abs().max()) for n in sa if not torch.equal(sa[n], sb[n])}
+    log(f"{what}: {steps} steps graphed ({g.replays} replays) vs eager: losses "
+        f"{'equal' if torch.equal(la, lb) else 'DIFFER'} ({float(la[0]):.6f} -> "
+        f"{float(la[-1]):.6f}), {len(sa) - len(differ)} of {len(sa)} tensors equal bit for bit; "
+        f"launches graphed {ca}, eager {cb}")
+    require(torch.equal(la, lb) and not differ, f"{what}: graph vs eager differ {differ}")
+    require(all(ca[k] * steps == 2 * cb[k] for k in cb),
+            f"{what}: wrapper launches graphed {ca} (a warm-up and a capture) vs eager {cb} "
+            f"({steps} steps)")
+    return a, de, b, batches
+
+
+def graph_trace_check(eager_counts, eager_trace, graph_counts, graph_trace, what):
+    """The kernels a graphed pass ran, as its profiler trace shows them,
+    against an eager pass over the same batches: the eager trace (where it
+    was taken) has each kernel as often as its wrappers counted launches,
+    the graphed trace has them as often as the eager wrappers, and the
+    graphed pass called no wrapper (its steps were replays). → each
+    wrapper's kernel launches in the graphed trace (the eager pass says
+    which wrapper of a shared kernel ran)."""
+    by_kernel = {k: 0 for k in graph_trace}
+    users = {k: [] for k in graph_trace}
+    for name, fn in launches.WRAPPERS.items():
+        by_kernel[fn.kernel] += eager_counts[name]
+        if eager_counts[name]:
+            users[fn.kernel].append(name)
+    log(f"{what}: kernels in the traces, eager {eager_trace}, graph {graph_trace}; wrapper "
+        f"launches eager {eager_counts}, graph {graph_counts}")
+    require(eager_trace in (None, by_kernel), f"{what}: eager trace {eager_trace} vs its "
+            f"wrappers' launches {by_kernel}")
+    require(graph_trace == by_kernel, f"{what}: graphed trace {graph_trace} vs the eager "
+            f"wrappers' launches {by_kernel}")
+    require(not any(graph_counts.values()), f"{what}: a replayed pass called wrappers "
+            f"{graph_counts}")
+    require(all(len(u) <= 1 for u in users.values()), f"{what}: wrappers sharing a kernel "
+            f"both ran {users}")
+    return {name: graph_trace[fn.kernel] if eager_counts[name] else 0
+            for name, fn in launches.WRAPPERS.items()}
+
+
+F_TRACE = {}  # phase F part → each wrapper's kernel launches in its graphed traces
+
+
+def add_trace(part, seen):
+    F_TRACE[part] = {k: F_TRACE.get(part, {}).get(k, 0) + n for k, n in seen.items()}
+
+
+def dead_capture_check(make, batch, what):
+    """A trainer's captures, dropped in a reference cycle (the trainer and
+    its `StepGraphs` hold each other), do not break a later trainer's
+    capture. The collector is off until the second capture begins and then
+    runs at every allocation, so the dropped graphs are freed before the
+    capture (`StepGraphs` collects first) or inside it, which the capture
+    refuses."""
+    import gc
+
+    a, _ = make()
+    a.step_graphs.step(batch)
+    require(a.step_graphs.captures == 1, f"{what}: no capture")
+    threshold = gc.get_threshold()
+    begin, end = torch.cuda.CUDAGraph.capture_begin, torch.cuda.CUDAGraph.capture_end
+
+    def collecting_begin(self, *args, **kw):
+        begin(self, *args, **kw)
+        gc.set_threshold(1, 1, 1)
+        gc.enable()
+
+    def collecting_end(self, *args, **kw):
+        gc.disable()
+        gc.set_threshold(*threshold)
+        end(self, *args, **kw)
+
+    gc.disable()
+    del a
+    b, _ = make()
+    torch.cuda.CUDAGraph.capture_begin = collecting_begin
+    torch.cuda.CUDAGraph.capture_end = collecting_end
+    b.step_graphs.step(batch)
+    torch.cuda.CUDAGraph.capture_begin, torch.cuda.CUDAGraph.capture_end = begin, end
+    gc.enable()
+    sync()
+    require(b.step_graphs.captures == 1, f"{what}: no second capture")
+    log(f"{what}: a dropped trainer's captures are collected before the next capture")
+
+
+def graph_vs_eager_times(de, eager, batches, what, part):
+    """Wall ms a step (host clock around a synchronised pass) of the
+    graphed and the eager step on the same batches, in the order eager,
+    graph, graph, eager; then one pass of each under the profiler: device
+    ms a step, the device's busy share, and the kernels each trace shows
+    (`graph_trace_check`, added to `part`'s in F_TRACE). → the numbers,
+    also logged."""
+    runs = {"eager": lambda: [eager._apply_step(x) for x in batches],
+            "graph": lambda: [de.train_step(x) for x in batches]}
+    n = len(batches)
+    wall = {"eager": [], "graph": []}
+    for name in ("eager", "graph", "graph", "eager"):
+        sync()
+        t0 = time.perf_counter()
+        runs[name]()
+        sync()
+        wall[name].append((time.perf_counter() - t0) * 1e3 / n)
+    out, seen = {}, {}
+    for name in ("eager", "graph"):
+        reset_kernel_counts()
+        w, busy = profiled(runs[name], f"profile {n} {what} steps, {name}", quiet=True)
+        out[name] = {"wall_ms": wall[name], "device_ms": busy / n,
+                     "busy_pct": 100 * busy / max(w, 1e-9)}
+        seen[name] = (kernel_counts(), profiled.kernels)
+    add_trace(part, graph_trace_check(*seen["eager"], *seen["graph"], what))
+    log(f"{what}, ms a step of {batches[0]['weight'].numel()} rows (wall, host included; "
+        f"order eager, graph, graph, eager): eager "
+        f"{', '.join(f'{t:.3f}' for t in wall['eager'])}, graph "
+        f"{', '.join(f'{t:.3f}' for t in wall['graph'])}; device ms a step eager "
+        f"{out['eager']['device_ms']:.3f} (busy {out['eager']['busy_pct']:.1f} %), graph "
+        f"{out['graph']['device_ms']:.3f} (busy {out['graph']['busy_pct']:.1f} %)")
+    F_TIMES[what] = out
+    return out
+
+
+F_TIMES = {}
+
+
+def f_epoch_times(de, what):
+    """A whole device epoch after the fit, its batches assembled on the
+    card and its dense steps replayed: wall ms a step (host clock around a
+    synchronised epoch; no profiler: a whole epoch's events take it tens of
+    seconds to sum on a slow host)."""
+    sync()
+    t0 = time.perf_counter()
+    de.run(1)
+    sync()
+    wall = (time.perf_counter() - t0) * 1e3 / de.n_steps
+    F_TIMES[f"{what} epoch"] = {"wall_ms": wall}
+    log(f"{what}: a device epoch of {de.n_steps} steps, {wall:.3f} ms a step (wall)")
+
+
+def f_fit(trainer, loader, what, falls=True):
+    """`Trainer.fit` for one epoch + the OOV sub-epoch, each sub-epoch's
+    losses and steps kept; the loss must fall where `falls`. → (normal,
+    oov records, wall s)."""
+    inner, seen = trainer._train_epoch, {}
+
+    def watched(ldr, epoch_idx, oov_transform=None, keep_ratio=None, frozen=False):
+        steps = trainer._global_step
+        total = inner(ldr, epoch_idx, oov_transform, keep_ratio, frozen)
+        seen["oov" if keep_ratio is not None else "normal"] = {
+            "losses": trainer.last_losses, "steps": trainer._global_step - steps}
+        return total
+
+    trainer._train_epoch = watched
+    sync()
+    t0 = time.perf_counter()
+    trainer.fit(loader, None, saved=False)
+    sync()
+    wall = time.perf_counter() - t0
+    trainer._train_epoch = inner
+    normal = seen["normal"]
+    losses = normal["losses"]
+    tenth = max(1, len(losses) // 10)
+    first, last = float(losses[:tenth].mean()), float(losses[-tenth:].mean())
+    require(np.isfinite(losses).all() and np.isfinite(seen["oov"]["losses"]).all(),
+            f"{what}: loss not finite")
+    log(f"{what}: {normal['steps']} device-epoch steps + {seen['oov']['steps']} OOV steps in "
+        f"{wall:.2f} s ({wall * 1e3 / trainer._global_step:.2f} ms a step, wall, host and set-up "
+        f"included); loss first tenth {first:.5f} last tenth {last:.5f}")
+    require(last < first or not falls, f"{what}: the loss did not fall ({first} -> {last})")
+    return normal, seen["oov"], wall
+
+
+def f1_xdeepfm_plain(ind):
+    """F1: xDeepFM at the ranking cell's shape on the plain device epoch
+    through `Trainer.fit` (`device_epoch: true`; the frozen OOV sub-epoch
+    on the host path, as in JAX): the loss falls, held-out AUC rises, the
+    CIN kernels 4 and 5 launched by their wrappers (3 + 3 a step) at the
+    warm-ups and captures of the epoch's step and the OOV step, and the
+    gathers' backward; then 16 graphed steps against 16 eager ones, bit for
+    bit, and their times, the replayed kernels counted in the trace. → the
+    fit's kernel launches."""
+    train, _, held_iv = ctr_splits(ind)
+    cfg = ctr_train_cfg(device_epoch=True)
+    trainer = Trainer(cfg, build_ranking_model(SEED + 501))
+    auc0 = EvalRunner(trainer.model, cfg).evaluate(PlainEvalBatcher(held_iv, cfg))["auc"]
+    loader = TrainBatcher(train, None, cfg, InputType.POINTWISE)
+    reset_kernel_counts()
+    normal, oov, _ = f_fit(trainer, loader, "F1 xDeepFM, plain device epoch")
+    counts = kernel_counts()
+    de = trainer._device_epochs[(id(loader), False, False)]
+    steps = trainer._global_step
+    g = trainer.step_graphs
+    require(de.mode == "plain" and normal["steps"] == de.n_steps == len(loader)
+            and (id(loader), True, True) not in trainer._device_epochs,
+            "F1: the plain device epoch, the OOV sub-epoch on the host path")
+    # one capture for the epoch's step; the frozen OOV steps one for each
+    # signature the simulator gives (user ids OOV, item ids, or both)
+    require(2 <= g.captures <= 4 and g.replays == steps - g.captures,
+            f"F1: {g.captures} captures, {g.replays} replays for {steps} steps")
+    eager = 2 * g.captures  # each capture's warm-up step and the capture
+    require(counts["cin_layer_pooled"] == 3 * eager and counts["cin_layer_pooled_bwd"] == 3 * eager
+            and counts["scatter_rows_kernel"] > 0,
+            f"F1: wrapper launches {counts} over {steps} steps, {eager} of them not replays")
+    auc1 = trainer.evaluate(PlainEvalBatcher(held_iv, cfg), load_best_model=False)["auc"]
+    log(f"F1: held-out IV AUC {auc0:.5f} before, {auc1:.5f} after; launches {counts}")
+    require(auc1 > auc0, f"F1: held-out AUC {auc0} -> {auc1}")
+    f_epoch_times(de, "F1 xDeepFM plain")
+    del trainer, de
+
+    def make():
+        c = ctr_train_cfg(device_epoch=True, train_oov=False)
+        return Trainer(c, build_ranking_model(SEED + 502)), TrainBatcher(
+            train, None, c, InputType.POINTWISE)
+
+    a, gde, b, batches = graph_vs_eager(make, "F1 xDeepFM")
+    graph_vs_eager_times(gde, b, batches[:F_TIME_STEPS], "F1 xDeepFM plain", "F1")
+    return counts
+
+
+def f2_pointwise(ind):
+    """F2: WideDeep and DCNv2 on the pointwise device epoch (uniform, one
+    negative a row, 4,096 positives + 4,096 negatives a step) at the
+    ranking cell's shape through `Trainer.fit`: the loss falls, DCNv2's
+    BatchNorm statistics move; then graphed against eager steps, bit for
+    bit, and their times. → the fits' kernel launches."""
+    train, _, _ = ctr_splits(ind)
+    sampler = Sampler(["train"], [train], seed=SEED)
+    counts = {}
+    for i, name in enumerate(("WideDeep", "DCNV2")):
+        cfg = ctr_train_cfg(device_epoch=True, train_neg_sample_args=F_POINTWISE)
+        model = e_ranking_model(name, SEED + 510 + i)
+        trainer = Trainer(cfg, model)
+        loader = TrainBatcher(train, sampler, cfg, InputType.POINTWISE)
+        stats = {k: v.clone() for k, v in bn_stats(model).items()}
+        reset_kernel_counts()
+        f_fit(trainer, loader, f"F2 {name}, pointwise device epoch")
+        counts = {k: counts.get(k, 0) + n for k, n in kernel_counts().items()}
+        de = trainer._device_epochs[(id(loader), False, False)]
+        require(de.mode == "pointwise" and de.times == 2 and de.B * 2 == CTR_B,
+                f"F2 {name}: the pointwise device epoch")
+        moved = [k for k, v in bn_stats(model).items() if not torch.equal(v, stats[k])]
+        require(len(moved) == len(stats), f"F2 {name}: statistics moved {moved} of {list(stats)}")
+        log(f"F2 {name}: {len(moved)} BatchNorm statistics moved")
+        f_epoch_times(de, f"F2 {name} pointwise")
+        del trainer, de
+
+        def make(name=name, i=i):
+            c = ctr_train_cfg(device_epoch=True, train_oov=False,
+                              train_neg_sample_args=F_POINTWISE)
+            return Trainer(c, e_ranking_model(name, SEED + 520 + i)), TrainBatcher(
+                train, sampler, c, InputType.POINTWISE)
+
+        a, gde, b, batches = graph_vs_eager(make, f"F2 {name}", steps=8)
+        graph_vs_eager_times(gde, b, batches, f"F2 {name} pointwise", "F2")
+        del a, gde, b, batches
+    return counts
+
+
+def f3_bpr_fdhe():
+    """F3: BPR with fdhe (128 hashes, towers of 512, D 64) hashed on the
+    card (`dhe_on_device`) on the pairwise device epoch with `learner:
+    sparse_adam` (kernel 6, eager by rule) at the sparse phase's shape,
+    the OOV sub-epoch included; one OOV batch's ids hashed on the card equal
+    the host hasher's codes. Then BPR's dense step (`sparse_update_impl:
+    dense`) graphed against eager at the same shape, and its times. → the
+    fit's kernel launches."""
+    write_hash_keys((D_HASHES,))
+    keys = DHEHasher(D_HASHES, D_KEYS).keys
+    rng = np.random.default_rng(SEED + 600)
+    users, items = structured_pairs(rng, F_BPR_STEPS * SP_B)
+    split = DatasetSplit({"user_id": users, "item_id": items}, SP_USERS, SP_ITEMS)
+    sampler = Sampler(["train"], [split], seed=SEED)
+    state = {"dhe_keys": keys}
+    for side, n in (("user", SP_USERS), ("item", SP_ITEMS)):
+        m = rng.standard_normal((n, D_FEATS)).astype(np.float32)
+        state[f"{side}_feat_mat"] = m / np.linalg.norm(m, axis=1, keepdims=True)
+    spec = InductiveSpec(embedder="fdhe", dhe_num_hashes=D_HASHES, dhe_layer_size=D_LAYER,
+                         embedding_size=D, add_oov_buckets=True, n_user_buckets=SP_BUCKETS,
+                         n_item_buckets=SP_BUCKETS)
+    cfg = sparse_cfg("auto", dhe_on_device=True, hash_key_dir=D_KEYS, oov_train_ratio=1.0)
+    trainer = Trainer(cfg, BPR(SP_USERS, SP_ITEMS, D, spec, device=DEVICE,
+                               generator=torch_generator(SEED + 601, DEVICE),
+                               embedder_state=state))
+    require(trainer.dhe_hasher is not None and trainer.dhe_hasher.on_device, "F3: hasher")
+    loader = TrainBatcher(split, sampler, cfg, InputType.PAIRWISE)
+    reset_kernel_counts()
+    normal, oov, _ = f_fit(trainer, loader, "F3 BPR fdhe, pairwise device epoch, sparse adam",
+                           falls=False)
+    counts = kernel_counts()
+    des = trainer._device_epochs
+    de, ode = des[(id(loader), False, False)], des[(id(loader), True, False)]
+    ran = de.steps_run + ode.steps_run
+    require(de.sparse_impl == ode.sparse_impl == "pallas" and de.dhe_pad == spec.prime_pad,
+            "F3: the sparse device epochs with DHE ids")
+    require(counts["sparse_adam_rows_kernel"] == 2 * ran,
+            f"F3: kernel 6 launches {counts} for {ran} steps")
+    _, batch = next(ode.batches(1))
+    host = {k: v.cpu().numpy() for k, v in batch.items() if not k.endswith("_dhe_id")}
+    hasher = DHEHasher(D_HASHES, D_KEYS, keys_u64=keys)
+    key_t = trainer.model.embedder_state["dhe_keys"]
+    flagged = 0
+    for f in ("user_id", "item_id", "neg_item_id"):
+        hasher.annotate_batch(host, f, spec.prime_pad, padded_when_flagged=True)
+        got = dhe_codes_device(batch[f + "_dhe_id"], key_t).cpu().numpy()
+        require(np.array_equal(got, host[f + "_dhe"]), f"F3: {f} codes differ from the host's")
+        flagged += int((host.get(f + "_oov", np.zeros(1)) > 0).sum())
+    require(flagged > 0, "F3: no flagged id in the OOV batch")
+    log(f"F3: one OOV batch's user, item and negative ids hashed on the card == the host "
+        f"hasher ({flagged} flagged ids padded by prime_pad); launches {counts}")
+    del trainer, des, de, ode
+
+    def make():
+        c = sparse_cfg("dense", train_oov=False)
+        return Trainer(c, sparse_model()), TrainBatcher(split, sampler, c, InputType.PAIRWISE)
+
+    a, gde, b, batches = graph_vs_eager(make, "F3 BPR dense step", steps=8)
+    graph_vs_eager_times(gde, b, batches, "F3 BPR dense lazy-Adam step", "F3")
+    del a, gde, b
+    dead_capture_check(make, batches[0], "F3 BPR dense step")
+    return counts
+
+
+def f4_host_scan(ind):
+    """F4: xDeepFM on the host path, one epoch at `host_scan_steps`
+    F_SCAN_K (one group stacked and copied at once; the remainder per step)
+    against 1, every step but the first replayed from the captured graph:
+    the same losses and weights bit for bit. Then what the grouping adds
+    beyond the graph (`f4_grouping`). → the K run's kernel launches."""
+    train, _, _ = ctr_splits(ind)
+    runs = {}
+    for k in (F_SCAN_K, 1):
+        reset_kernel_counts()
+        cfg = ctr_train_cfg(train_oov=False, host_scan_steps=k)
+        trainer = Trainer(cfg, build_ranking_model(SEED + 530))
+        loader = TrainBatcher(train, None, cfg, InputType.POINTWISE)
+        require(trainer._host_scan_k(loader) == k, f"F4: K {trainer._host_scan_k(loader)}")
+        sync()
+        t0 = time.perf_counter()
+        trainer.fit(loader, None, saved=False)
+        sync()
+        wall = time.perf_counter() - t0
+        g = trainer.step_graphs
+        runs[k] = (trainer.last_losses, f_state(trainer), wall, g.replays, kernel_counts())
+        log(f"F4: host_scan_steps {k}: {len(loader)} steps in {wall:.2f} s "
+            f"({wall * 1e3 / len(loader):.2f} ms a step, wall, the capture included), "
+            f"{g.captures} capture, {g.replays} replays")
+        require(g.captures == 1 and g.replays == len(loader) - 1,
+                f"F4 K {k}: {g.captures} captures, {g.replays} replays")
+        del trainer
+    (lk, sk, _, _, counts), (l1, s1, _, _, _) = runs[F_SCAN_K], runs[1]
+    same = [n for n in s1 if torch.equal(sk[n], s1[n])]
+    log(f"F4: K {F_SCAN_K} vs 1: losses {'equal' if np.array_equal(lk, l1) else 'DIFFER'}, "
+        f"{len(same)} of {len(s1)} tensors equal bit for bit")
+    require(np.array_equal(lk, l1) and len(same) == len(s1), "F4: the trajectories differ")
+    f4_grouping(train)
+    return counts
+
+
+def f4_grouping(train):
+    """What `host_scan_steps` adds beyond the graph, on an epoch of
+    F_SCAN_GROUPS groups of F_SCAN_K batches (the rows of `train` repeated):
+    wall ms a step at K = F_SCAN_K (a group stacked, one copy, replays), at
+    K = 1 (a copy a batch, replays) and at K = 1 with the steps eager
+    (`eager_steps`, the uncaptured step), the graphed trainers after
+    an untimed epoch that captures, in the order K, 1 graphed, 1 eager, 1
+    eager, 1 graphed, K. Then the replayed kernels: an epoch of
+    F_TRACE_STEPS batches at K = F_TRACE_STEPS (one group) and at K = 1
+    under the profiler (a trace of 64 steps or more has lost kernel
+    records), counted in the trace against an eager epoch's wrappers over
+    the same batches, with the device's busy share."""
+    n_rows = len(train.inter[train.uid_field])
+    pick = np.arange(F_SCAN_GROUPS * F_SCAN_K * CTR_B) % n_rows
+    rows = DatasetSplit({k: v[pick] for k, v in train.inter.items()}, N_CTR_OLD_USERS,
+                        N_CTR_OLD_ITEMS, user_feat=train.user_feat, item_feat=train.item_feat)
+    steps = F_SCAN_GROUPS * F_SCAN_K
+    order = (f"K {F_SCAN_K}", "1 graphed", "1 eager")
+    out = {}
+    for name, k in zip(order, (F_SCAN_K, 1, 1)):
+        cfg = ctr_train_cfg(train_oov=False, host_scan_steps=k)
+        trainer = Trainer(cfg, build_ranking_model(SEED + 531))
+        loader = TrainBatcher(rows, None, cfg, InputType.POINTWISE)
+        require(len(loader) == steps, f"F4: {len(loader)} batches")
+        if name == "1 eager":
+            eager_steps(trainer)
+        else:
+            trainer._train_epoch(loader, 0)
+        out[name] = {"trainer": trainer, "loader": loader, "wall_ms": []}
+    for i, name in enumerate(order + order[::-1]):
+        sync()
+        t0 = time.perf_counter()
+        out[name]["trainer"]._train_epoch(out[name]["loader"], 1 + i)
+        sync()
+        out[name]["wall_ms"].append((time.perf_counter() - t0) * 1e3 / steps)
+    for rec in out.values():
+        del rec["trainer"], rec["loader"]
+    short = rows_of(rows, np.arange(len(pick)) < F_TRACE_STEPS * CTR_B, N_CTR_OLD_USERS,
+                    N_CTR_OLD_ITEMS)
+    seen = {}
+    for name, k in (("1 eager", 1), (f"K {F_SCAN_K}", F_TRACE_STEPS), ("1 graphed", 1)):
+        cfg = ctr_train_cfg(train_oov=False, host_scan_steps=k)
+        trainer = Trainer(cfg, build_ranking_model(SEED + 532))
+        loader = TrainBatcher(short, None, cfg, InputType.POINTWISE)
+        require(len(loader) == F_TRACE_STEPS, f"F4: {len(loader)} batches")
+        if name == "1 eager":
+            eager_steps(trainer)
+            reset_kernel_counts()
+            trainer._train_epoch(loader, 0)
+            seen[name] = (kernel_counts(), None)
+            continue
+        trainer._train_epoch(loader, 0)  # the capture
+        reset_kernel_counts()
+        w, busy = profiled(lambda: trainer._train_epoch(loader, 1),
+                           f"profile F4 {name}: an epoch of {F_TRACE_STEPS} steps (K {k})",
+                           quiet=True)
+        seen[name] = (kernel_counts(), profiled.kernels)
+        out[name].update(device_ms=busy / F_TRACE_STEPS, busy_pct=100 * busy / max(w, 1e-9))
+    replayed = {name: graph_trace_check(*seen["1 eager"], *seen[name], f"F4 {name}")
+                for name in order[:2]}
+    add_trace("F4", replayed[order[0]])
+    log(f"F4 host path, ms a step of {CTR_B} rows over {steps} steps (wall, host included; "
+        f"order {', '.join(order + order[::-1])}): " + "; ".join(
+            f"{name} {', '.join(f'{t:.3f}' for t in out[name]['wall_ms'])}" + (
+                f" (device {out[name]['device_ms']:.3f}, busy {out[name]['busy_pct']:.1f} % "
+                f"over {F_TRACE_STEPS} steps)" if "busy_pct" in out[name] else "")
+            for name in order))
+    F_TIMES["F4 host path"] = out
+
+
+def f5_scanned_eval():
+    """F5: phase 3's BPR over its 900,000 IV items: the scanned full sort
+    (kernel 1, by the per-batch rule) against the per-batch one, and the
+    scanned uni-N eval against the per-batch one, the same metrics; each
+    pass run in the order scanned, per batch, per batch, scanned after an
+    untimed warm-up pass, with its wall and host syncs. → kernel 1's
+    launches in the scanned full sort."""
+    import warnings
+
+    model, iv_splits = SERVING["model"], SERVING["iv_splits"]
+    out = {}
+
+    def run(what, make_loader, scanned):
+        cfg = serving_cfg(True, N_OLD_ITEMS, device_eval=scanned)
+        ldr = make_loader(cfg)
+        runner = EvalRunner(model, cfg)
+        topk_score.fused_topk_scores.launches = 0
+        sync()
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            result = runner.evaluate(ldr)
+            sync()
+            wall = time.perf_counter() - t0
+        torch.cuda.set_sync_debug_mode(0)
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        n = topk_score.fused_topk_scores.launches
+        log(f"F5 {what} {'scanned' if scanned else 'per batch'}: {len(ldr)} batches in "
+            f"{wall * 1e3:.1f} ms, {syncs} host syncs, kernel 1 launches {n}")
+        rec = out.setdefault((what, scanned), {"ms": [], "syncs": syncs, "launches": n})
+        rec["ms"].append(wall * 1e3)
+        return result, n
+
+    def neg_loader(cfg):
+        train, test = iv_splits
+        sampler = Sampler(["train", "test"], [train, test], seed=SEED)
+        return NegSampleEvalBatcher(test, sampler, cfg, "test", {"sample_num": F_UNI_N},
+                                    batch_size=F_UNI_ROWS)
+
+    results = {}
+    for what, make_loader in (("full sort", lambda c: loader(iv_splits, c)),
+                              (f"uni{F_UNI_N}", neg_loader)):
+        run(what, make_loader, True)  # warm-up: the allocator, the libraries
+        out.clear()
+        for scanned in (True, False, False, True):
+            result = run(what, make_loader, scanned)
+            first = results.setdefault((what, scanned), result)
+            agree(result[0], first[0], f"F5 {what} repeat", tol=1e-12)
+        agree(results[(what, True)][0], results[(what, False)][0], f"F5 {what} scanned vs per "
+              "batch", tol=1e-12)
+        log(f"F5 {what}: scanned == per batch {dict(results[(what, True)][0])}")
+        F_TIMES[f"F5 {what}"] = {("scanned" if s else "per batch"): v
+                                 for (w, s), v in out.items() if w == what}
+    k1 = results[("full sort", True)][1]
+    require(k1 > 0 and k1 == results[("full sort", False)][1], f"F5: kernel 1 launches {k1}")
+    return {"fused_topk_scores": k1}
+
+
+SERVING = {}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -3428,6 +4049,32 @@ def main():
     require(on_e["E4"]["fused_topk_scores"] > 0 and on_e["E4"]["sparse_adam_rows_kernel"] > 0
             and all(on_e[p]["scatter_rows_kernel"] > 0 for p in ("E1", "E2", "E3")),
             f"phase E launches {on_e}")
+    # phase F, the device-resident and scanned paths; counted by part
+    t0 = time.perf_counter()
+    on_f = {}
+    for part, run in (("F1", lambda: f1_xdeepfm_plain(ind)), ("F2", lambda: f2_pointwise(ind)),
+                      ("F3", f3_bpr_fdhe), ("F4", lambda: f4_host_scan(ind)),
+                      ("F5", f5_scanned_eval)):
+        reset_kernel_counts()
+        sync()
+        t1 = time.perf_counter()
+        seen = run()
+        sync()
+        on_f[part] = {**kernel_counts(), **seen}
+        log(f"phase {part}: {time.perf_counter() - t1:.1f} s, kernel launches {on_f[part]}")
+    log(f"phase F: {time.perf_counter() - t0:.1f} s")
+    require(on_f["F1"]["cin_layer_pooled"] > 0 and on_f["F1"]["cin_layer_pooled_bwd"] > 0
+            and on_f["F4"]["cin_layer_pooled"] > 0 and on_f["F3"]["sparse_adam_rows_kernel"] > 0
+            and on_f["F5"]["fused_topk_scores"] > 0
+            and all(on_f[p]["scatter_rows_kernel"] > 0 for p in ("F1", "F2", "F4")),
+            f"phase F launches {on_f}")
+    # the graphed passes' kernels, as their profiler traces show them
+    require(all(F_TRACE[p]["cin_layer_pooled"] > 0 and F_TRACE[p]["cin_layer_pooled_bwd"] > 0
+                for p in ("F1", "F4"))
+            and all(F_TRACE[p]["scatter_rows_kernel"] > 0 for p in ("F1", "F2", "F3", "F4")),
+            f"phase F graphed traces {F_TRACE}")
+    log("phase F kernels replayed, from the traces: " + json.dumps(F_TRACE))
+    log("phase F times: " + json.dumps(F_TIMES))
     cli = {  # each kernel's launches on the CLI paths (A launches none)
         "fused_topk_scores": {"C": k1_c},
         "cin_layer_pooled": {"B": cli_b["cin_layer_pooled"]},
@@ -3494,6 +4141,8 @@ def main():
         k["launches_cli"] = cli[k["name"]]
         k["launches_d"] = {part: c[k["name"]] for part, c in on_d.items()}
         k["launches_e"] = {part: c[k["name"]] for part, c in on_e.items()}
+        k["launches_f"] = {part: c[k["name"]] for part, c in on_f.items()}
+        k["launches_f_trace"] = {part: c[k["name"]] for part, c in F_TRACE.items()}
     log("gathers' backward (ops/embed_grad.py, not a Pallas kernel): " + json.dumps({
             "ms": gathers, "bound_ms": gather_bound,
             "device_epoch": GATHER_RESULTS.get("device_epoch")}))

@@ -7,7 +7,10 @@ travel back to the host. The sampled-negative path scatters the scored
 rows into a (U, N) matrix that is −inf where unscored
 (`sampled_matrices`) and takes the top-k of that (`matrix_topk`,
 `variant_matrix_topk`). Top-k is stable (ties to the lowest column), as
-`lax.top_k` is.
+`lax.top_k` is. No step reads the device from the host: padded history
+and positive slots write to column 0, which is masked (or cleared)
+anyway, and unscored rows scatter into a spare cell, in place of boolean
+indexing, whose shapes would need the count of true values.
 """
 
 from __future__ import annotations
@@ -27,10 +30,10 @@ def apply_masks(scores, hist_items, hist_len):
     """PAD + history −inf masking (a masked copy of `scores`)."""
     U, H = hist_items.shape
     scores = scores.clone()
-    scores[:, 0] = NEG_INF
     valid = _arange(H, hist_items)[None, :] < hist_len[:, None]
     rows = _arange(U, hist_items)[:, None].expand(U, H)
-    scores[rows[valid], hist_items[valid].long()] = NEG_INF
+    scores[rows, torch.where(valid, hist_items.long(), 0)] = NEG_INF
+    scores[:, 0] = NEG_INF
     return scores
 
 
@@ -40,7 +43,7 @@ def _positives(pos_items, pos_len, n_items):
     pos_valid = _arange(P, pos_items)[None, :] < pos_len[:, None]
     pos_matrix = torch.zeros((U, n_items), dtype=torch.int32, device=pos_items.device)
     rows = _arange(U, pos_items)[:, None].expand(U, P)
-    pos_matrix[rows[pos_valid], pos_items[pos_valid].long()] = 1
+    pos_matrix[rows, torch.where(pos_valid, pos_items.long(), 0)] = 1
     pos_matrix[:, 0] = 0
     return pos_valid, pos_matrix
 
@@ -150,18 +153,18 @@ def scatter_scores(row_user, item_ids, scores, weight, n_users: int, n_items: in
     """The rows' scores scattered into a (n_users, n_items) −inf matrix,
     the max where a (user, item) cell repeats; padded rows (weight 0) go
     nowhere."""
-    mat = torch.full((n_users, n_items), NEG_INF, dtype=scores.dtype, device=scores.device)
-    real = weight > 0
-    flat = row_user[real].long() * n_items + item_ids[real].long()
-    mat.view(-1).scatter_reduce_(0, flat, scores[real], reduce="amax")
-    return mat
+    cells = n_users * n_items
+    mat = torch.full((cells + 1,), NEG_INF, dtype=scores.dtype, device=scores.device)
+    flat = torch.where(weight > 0, row_user.long() * n_items + item_ids.long(), cells)
+    mat.scatter_reduce_(0, flat, scores, reduce="amax")
+    return mat[:cells].view(n_users, n_items)
 
 
 def positives_matrix(positive_u, positive_i, positive_weight, n_users: int, n_items: int):
     """(n_users, n_items) int32, 1 at each real positive, column 0 zero."""
     mat = torch.zeros((n_users, n_items), dtype=torch.int32, device=positive_u.device)
     real = positive_weight > 0
-    mat[positive_u[real].long(), positive_i[real].long()] = 1
+    mat[torch.where(real, positive_u.long(), 0), torch.where(real, positive_i.long(), 0)] = 1
     mat[:, 0] = 0
     return mat
 

@@ -48,13 +48,14 @@ import numpy as np
 import torch
 
 from oovrec_tpu_torch.data.dataloader import NegSampleEvalBatcher
+from oovrec_tpu_torch.data.transfer import to_device_batch
 from oovrec_tpu_torch.eval.collector import Collector, Evaluator
 from oovrec_tpu_torch.eval.full_sort import (
     sampled_matrices,
     variant_matrix_topk,
     variant_topk,
 )
-from oovrec_tpu_torch.eval.runner import fused_hits, fused_topk_rule, to_device_batch
+from oovrec_tpu_torch.eval.runner import fused_hits, fused_topk_rule
 from oovrec_tpu_torch.inductive.dhe import model_hasher
 from oovrec_tpu_torch.ops.topk_score import (
     NEG_INF as K_NEG_INF,

@@ -44,6 +44,7 @@ from typing import NamedTuple
 
 import torch
 
+from oovrec_tpu_torch.ops.launches import register
 from oovrec_tpu_torch.utils.cuda_build import check, load_kernel
 
 
@@ -516,7 +517,7 @@ def cin_layer_pooled_bwd(a, b0, w, bias, gh, gp, mxu_dtype="float32",
                           _counted(_launch_bwd, cin_layer_pooled_bwd))
 
 
-cin_layer_pooled_bwd.launches = 0
+register(cin_layer_pooled_bwd, "cin_bwd_rows_kernel")
 
 
 def cin_layer_bwd(a, b0, w, bias, g, mxu_dtype="float32"):
@@ -530,7 +531,7 @@ def cin_layer_bwd(a, b0, w, bias, g, mxu_dtype="float32"):
                           _counted(_launch_bwd, cin_layer_bwd))
 
 
-cin_layer_bwd.launches = 0
+register(cin_layer_bwd, "cin_bwd_rows_kernel")
 
 
 def _contiguous(t):
@@ -606,7 +607,7 @@ def cin_layer_pooled(a, b0, w, bias, mxu_dtype="float32",
     return (hidden if n_hidden else None), pooled
 
 
-cin_layer_pooled.launches = 0
+register(cin_layer_pooled, "cin_fused_kernel")
 
 
 def cin_layer(a, b0, w, bias, mxu_dtype="float32") -> torch.Tensor:
@@ -617,7 +618,7 @@ def cin_layer(a, b0, w, bias, mxu_dtype="float32") -> torch.Tensor:
     return _CinLayer.apply(a, b0, w, bias, mxu_dtype)
 
 
-cin_layer.launches = 0
+register(cin_layer, "cin_fused_kernel")
 
 
 @functools.lru_cache(maxsize=None)

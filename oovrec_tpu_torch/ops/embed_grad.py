@@ -41,6 +41,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from oovrec_tpu_torch.ops.launches import register
 from oovrec_tpu_torch.utils.cuda_build import check, load_kernel
 
 def scatter_rows_plain(g: torch.Tensor, ids: torch.Tensor, n_rows: int,
@@ -100,7 +101,7 @@ def scatter_rows_kernel(g: torch.Tensor, ids: torch.Tensor, n_rows: int,
     return out
 
 
-scatter_rows_kernel.launches = 0
+register(scatter_rows_kernel, "segment_runs")
 
 
 @functools.lru_cache(maxsize=None)

@@ -33,6 +33,7 @@ import functools
 import numpy as np
 import torch
 
+from oovrec_tpu_torch.ops.launches import register
 from oovrec_tpu_torch.utils.cuda_build import check, load_kernel
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -123,7 +124,7 @@ def sparse_adam_rows_kernel(p, mu, nu, ids, g, count: int, lr: float,
     return p, mu, nu
 
 
-sparse_adam_rows_kernel.launches = 0
+register(sparse_adam_rows_kernel, "sparse_adam_rows_kernel")
 
 
 @functools.lru_cache(maxsize=None)

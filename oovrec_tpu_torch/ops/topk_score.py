@@ -27,6 +27,7 @@ import functools
 
 import torch
 
+from oovrec_tpu_torch.ops.launches import register
 from oovrec_tpu_torch.utils.cuda_build import check, load_kernel
 
 NEG_INF = float(-3.0e38)
@@ -262,7 +263,7 @@ def fused_topk_scores(
     return merge_candidates(vals, idx, k)
 
 
-fused_topk_scores.launches = 0
+register(fused_topk_scores, "topk_range_kernel")
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,9 +1,11 @@
 """Device-resident training epochs: the host out of the loop.
 
-Port of `oovrec_tpu/train/device_epoch.py`, pairwise mode (the retrieval
-track, BPR-family). The epoch's split columns, its padding weights and the
-used-pair bitmap live on the card; each step slices its batch from a
-per-epoch permutation, draws its negatives on the card and trains:
+Port of `oovrec_tpu/train/device_epoch.py`, in its three loader modes:
+pairwise (the retrieval track, BPR-family), pointwise (ranking models
+with sampled negatives) and plain (labelled rows, no negatives). The
+epoch's split columns, its padding weights, the used-pair bitmap and the
+user / item feature tables live on the card; each step slices its batch
+from a per-epoch permutation, draws its negatives on the card and trains:
 
   * negatives: bounded masked resampling against a packed
     (n_users, ⌈n_items/32⌉) bitmap, the host sampler's semantics
@@ -13,22 +15,39 @@ per-epoch permutation, draws its negatives on the card and trains:
     a torch loop's would). Repeatable samplers draw once, without the
     bitmap; the popularity distribution draws from an alias table
     (`data/alias.py`);
-  * the OOV-simulation sub-epoch: option-of-3 flags, bucket hashes of the
-    ids before masking (`ops/inthash_device.py`), id masking that clears
-    flags, and the Bernoulli step keep, drawn for the whole epoch at its
-    start and read once;
+  * pointwise (`:528-558`), the host batcher's layout
+    (`data/dataloader.py:_make_batch`): every inter column tiled × T
+    (`times`: 1 positive + T - 1 negatives), the negatives drawn for
+    `tile(users, T - 1)`, the item column [positives ∥ negatives], labels
+    [weight ∥ 0], `weight` tiled × T, and the user and item features
+    joined by row gathers from the tables on the card;
+  * plain (`:518-521`): the split's columns and `weight`, with the
+    features joined as the host batcher joins them (the JAX plain epoch
+    joins none, and a context model over feature tables fails there:
+    ROADMAP.md §3);
+  * DHE / fDHE under `dhe_on_device` (`:195-224, :554-579`): each batch
+    carries `<field>_dhe_id`, the effective id as one int64 column that
+    the model hashes on the card; in the OOV sub-epoch a flagged user or
+    item id is padded by `prime_pad` after the transform, and the negative
+    column carries its raw id (the JAX package ships uint32 halves);
+  * the OOV-simulation sub-epoch (pairwise loaders): option-of-3 flags,
+    bucket hashes of the ids before masking (`ops/inthash_device.py`), id
+    masking that clears flags, and the Bernoulli step keep, drawn for the
+    whole epoch at its start and read once;
   * a frozen sub-epoch updates only the OOV parameters (the trainer's
     frozen step);
   * under `learner: sparse_adam` the ID tables take the row-sparse step
     (`train/sparse_update.py`): rows gathered per step, row gradients,
     touched-row lazy Adam through kernel 6.
 
-The parameters and the optimizer state are the trainer's own tensors,
-updated in place under `torch.no_grad()` (the JAX epoch donates them to
-one compiled program). The JAX epoch is one `lax.scan`; here the steps are
-a Python loop that never reads the device: the keep decisions are read
-once at the epoch's start and the losses once at its end, where the NaN
-check runs.
+The parameters, the optimizer state and the BatchNorm statistics are the
+trainer's own tensors, updated in place (the JAX epoch donates them to one
+compiled program and carries `batch_stats` through its scan). The JAX
+epoch is one `lax.scan`; here the steps are a Python loop that never reads
+the device: the keep decisions are read once at the epoch's start and the
+losses once at its end, where the NaN check runs. Each dense step replays
+the trainer's captured CUDA graph of `_apply_step` on the card
+(`train/cuda_graph.py`); the row-sparse step runs eagerly.
 
 Randomness: `jax.random` streams cannot be matched. The epoch draws from a
 `torch.Generator` on the epoch's device seeded from `seed` and the epoch
@@ -36,14 +55,12 @@ index (the counterpart of `fold_in(dropout_key, 1_000_000 + epoch)`); the
 normal epoch and the OOV sub-epoch of one epoch index share the seed, as
 they share the key in JAX.
 
-Not ported: the pointwise and plain modes (ranking and sequential
-tracks; `device_epoch: true` raises for them, `auto` takes the host path),
-DHE id halves and the mesh.
+Not ported: the mesh.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -55,6 +72,8 @@ from oovrec_tpu_torch.train.sparse_update import resolve_sparse_impl, sparse_epo
 from oovrec_tpu_torch.utils.seeding import host_rng, torch_generator
 
 AUTO_MIN_ROWS = 100_000
+AUTO_MAX_BUCKETS = 1 << 16  # the JAX package's device mod bound (OOV sub-epoch)
+DEVICE_HASHES = ("mod", "fast", "3round", "64bit")
 
 
 def build_used_bitmap(per_user_used, n_users: int, n_items: int,
@@ -88,11 +107,11 @@ def device_epoch_flag(config):
 def device_epoch_eligible(trainer, loader, config) -> bool:
     """The JAX package's gates (`device_epoch.py:609-664`): a `TrainBatcher`
     with uniform or popularity sampling (one negative a row pairwise, any
-    number pointwise, none plain) and a model whose loss reads only what the
+    number pointwise, none plain), no DHE hasher or one that hashes on the
+    device (`dhe_on_device`), and a model whose loss reads only what the
     epoch provides (`supports_device_epoch`); under `auto`, at least
     AUTO_MIN_ROWS rows. The port's batcher, trainer and models refuse the
-    other gates' cases (transforms, dynamic negatives, the mesh); the
-    trainer keeps DHE off the device epoch (`_maybe_device_epoch`)."""
+    other gates' cases (transforms, dynamic negatives, the mesh)."""
     from oovrec_tpu_torch.data.dataloader import TrainBatcher
 
     flag = device_epoch_flag(config)
@@ -105,7 +124,9 @@ def device_epoch_eligible(trainer, loader, config) -> bool:
         sampling_ok = loader.times >= 2 and dist_ok
     else:
         sampling_ok = loader.mode == "plain"
-    if not (sampling_ok and getattr(trainer.model, "supports_device_epoch", False)):
+    hasher = getattr(trainer, "dhe_hasher", None)
+    dhe_ok = hasher is None or hasher.on_device
+    if not (sampling_ok and dhe_ok and getattr(trainer.model, "supports_device_epoch", False)):
         return False
     if flag == "auto":
         return len(loader.split) >= AUTO_MIN_ROWS
@@ -113,13 +134,12 @@ def device_epoch_eligible(trainer, loader, config) -> bool:
 
 
 class DeviceEpoch:
-    """A whole-epoch runner bound to a trainer and a pairwise loader."""
+    """A whole-epoch runner bound to a trainer and a loader."""
 
     def __init__(self, trainer, loader, oov: bool = False, frozen: bool = False):
-        if loader.mode != "pairwise":
-            raise NotImplementedError(
-                f"device_epoch: the device-resident epoch's {loader.mode} mode is not ported "
-                "(ROADMAP.md queue 1, item 8)")
+        self.mode = loader.mode  # "pairwise" | "pointwise" | "plain"
+        if oov and self.mode != "pairwise":
+            raise ValueError("the OOV sub-epoch runs on the device for pairwise loaders only")
         self.trainer = trainer
         model = trainer.model
         self.device = device = model.device
@@ -127,6 +147,9 @@ class DeviceEpoch:
         split = loader.split
         self.uid_field, self.iid_field = loader.uid_field, loader.iid_field
         self.neg_field = loader.neg_prefix + loader.iid_field
+        self.label_field = loader.label_field
+        # pointwise expansion: 1 positive + (times - 1) negatives a row
+        self.times = int(getattr(loader, "times", 2) or 2)
         self.n_real = len(split)
         self.B = B = loader.step
         self.n_steps = max(-(-self.n_real // B), 1)
@@ -146,20 +169,29 @@ class DeviceEpoch:
         self.columns = {k: pad_col(v) for k, v in split.inter.items()}
         self.n_items = split.item_num
         sampler = loader.sampler
+        sampled = self.mode in ("pairwise", "pointwise")
         self.bitmap = None
-        if not getattr(sampler, "repeatable", False):
+        if sampled and not getattr(sampler, "repeatable", False):
             self.bitmap = build_used_bitmap(
                 sampler.used_ids[loader.phase], split.user_num, split.item_num, device)
         self.pop_tab = None
-        pop_p = getattr(sampler, "_pop_p", None)
+        pop_p = getattr(sampler, "_pop_p", None) if sampled else None
         if pop_p is not None:
             prob, alias = build_alias_table(pop_p)
             self.pop_tab = (torch.from_numpy(prob).to(device),
                             torch.from_numpy(alias).to(device))
         cfg = trainer.config
         self.rounds = int(cfg["device_epoch_rounds"] or _MAX_RESAMPLE_ROUNDS)
+        # the feature tables, once on the card (the id column and `_len`
+        # columns left out, f64 as f32), joined per step by row gathers
+        self.user_feat = self.item_feat = None
+        if self.mode in ("pointwise", "plain"):
+            self.user_feat = _feature_tables(loader.user_feat, self.uid_field, device)
+            self.item_feat = _feature_tables(loader.item_feat, self.iid_field, device)
 
         spec = getattr(model, "spec", None)
+        # DHE / fDHE: the effective id ships for the model to hash on the card
+        self.dhe_pad = int(spec.prime_pad) if trainer.dhe_hasher is not None else None
         if oov:
             sim = trainer.oov_simulator
             self.mask_rate = float(sim.mask_rate)
@@ -226,15 +258,61 @@ class DeviceEpoch:
                 i: bi, i + "_oov": iflag, i + "_bucket": ib,
                 self.neg_field: neg, "weight": bw}
 
+    def add_dhe_ids(self, batch: Dict[str, torch.Tensor], field: str, flagged: bool) -> None:
+        """`<field>_dhe_id`: the id, or where `flagged` and its OOV flag is
+        set the id + prime_pad (`DHEHasher.annotate_batch` on the card)."""
+        ids = batch.get(field)
+        if ids is None:
+            return
+        flags = batch.get(field + "_oov") if flagged else None
+        batch[field + "_dhe_id"] = ids if flags is None else torch.where(
+            flags > 0, ids + self.dhe_pad, ids)
+
+    def make_batch(self, bc: Dict[str, torch.Tensor], bw: torch.Tensor,
+                   neg: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One normal (not OOV) step's batch from its rows `bc`, their
+        weights `bw` and the drawn negatives `neg` (pairwise: one a row;
+        pointwise: (T - 1)·B for `tile(users, T - 1)`; plain: None)."""
+        uidf, iidf = self.uid_field, self.iid_field
+        if self.mode == "pairwise":
+            batch = dict(bc, weight=bw)
+            batch[self.neg_field] = neg
+            fields = (uidf, iidf, self.neg_field)
+        elif self.mode == "pointwise":
+            T = self.times
+            batch = {k: v.repeat((T,) + (1,) * (v.dim() - 1)) for k, v in bc.items()}
+            batch[iidf] = torch.cat([bc[iidf], neg])
+            batch[self.label_field] = torch.cat([bw, bw.new_zeros((T - 1) * bw.shape[0])])
+            batch["weight"] = bw.repeat(T)
+            self.join_features(batch, batch[uidf], batch[iidf])
+            fields = (uidf, iidf)
+        else:
+            batch = dict(bc, weight=bw)
+            self.join_features(batch, bc[uidf], bc[iidf])
+            fields = (uidf, iidf)
+        if self.dhe_pad is not None:
+            for f in fields:
+                self.add_dhe_ids(batch, f, flagged=False)
+        return batch
+
+    def join_features(self, batch, users, items) -> None:
+        """The item then the user feature columns of each row, gathered
+        from the tables on the card (`_join_features`' order)."""
+        for table, ids in ((self.item_feat, items), (self.user_feat, users)):
+            for f, t in (table or {}).items():
+                batch[f] = t[ids]
+
     # -------------------------------------------------------------- steps
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """One training step on `batch` (tensors on the device): the
-        trainer's parameters and optimizer state update in place. → the
-        detached loss."""
+        trainer's parameters, optimizer state and BatchNorm statistics
+        update in place. The dense step replays its captured graph on the
+        card; the row-sparse step runs eagerly, by rule: `coalesce_rows`
+        has data-dependent shapes. → the loss."""
         if self.sparse_tables:
             return self.trainer._sparse_step(batch, self.sparse_tables, self.sparse_impl)
-        return self.trainer._apply_step(batch, self.trainable)
+        return self.trainer.step_graphs.step(batch, self.trainable)
 
     # -------------------------------------------------------------- epoch
 
@@ -258,14 +336,22 @@ class DeviceEpoch:
             if not keep[i]:
                 continue
             bc = {k: v[i] for k, v in cols.items()}
-            neg = self.sample_negs(gen, bc[uidf])
+            neg = None
+            if self.mode == "pairwise":
+                neg = self.sample_negs(gen, bc[uidf])
+            elif self.mode == "pointwise":
+                neg = self.sample_negs(gen, bc[uidf].repeat(self.times - 1))
             if self.oov:
                 extras = {k: v for k, v in bc.items() if k not in (uidf, iidf)}
                 batch = dict(extras, **self.oov_transform(
                     gen, options[i], bc[uidf], bc[iidf], neg, w[i]))
+                if self.dhe_pad is not None:
+                    # after the transform: the padded id where flagged; the
+                    # negative column carries no flag, so its raw id
+                    for f, flagged in ((uidf, True), (iidf, True), (self.neg_field, False)):
+                        self.add_dhe_ids(batch, f, flagged)
             else:
-                batch = dict(bc, weight=w[i])
-                batch[self.neg_field] = neg
+                batch = self.make_batch(bc, w[i], neg)
             yield i, batch
 
     def run(self, epoch_idx: int) -> torch.Tensor:
@@ -278,3 +364,20 @@ class DeviceEpoch:
             losses[i] = self.train_step(batch)
             self.steps_run += 1
         return torch.stack(losses)
+
+
+def _feature_tables(feat, id_field: str, device) -> Optional[Dict[str, torch.Tensor]]:
+    """A loader's feature tables on `device`, without the id column and
+    the `_len` columns, int64 kept and f64 as f32; None when there are
+    none."""
+    if feat is None:
+        return None
+    out = {}
+    for f, t in feat.items():
+        if f == id_field or f.endswith("_len"):
+            continue
+        t = np.asarray(t)
+        if t.dtype == np.float64:
+            t = t.astype(np.float32)
+        out[f] = torch.from_numpy(t).to(device)
+    return out or None

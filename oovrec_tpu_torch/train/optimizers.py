@@ -29,17 +29,68 @@ The state updates in place. A frozen step (`trainable` given) leaves the
 other leaves' parameters, moments and per-leaf counts as they were, while
 the shared count advances: `trainer.py:250-259` with `_select_opt_state`.
 `adagrad`, `rmsprop` and `optimizer_mu_dtype` are not ported.
+
+The shared count is a Python int in the state, and the bias corrections
+are host floats. A step captured in a CUDA graph (`train/cuda_graph.py`)
+cannot read either: it passes `count`, a 0-dim int64 tensor on the
+parameters' device that the step advances there, and the corrections come
+from device tables of the same host floats (`correction_tables`). They
+give the eager step's bits: on a CUDA tensor `m / float` multiplies by the
+f32 reciprocal (PyTorch's division by a CPU scalar), so the device path
+multiplies by the tabled reciprocal there; on the CPU both divide.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional
+import functools
+from typing import Dict, Iterable, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from oovrec_tpu_torch.ops.sparse_rows import B1, B2, EPS, bias_correction
 
 NOT_PORTED = ("adagrad", "rmsprop")
+# counts whose corrections are tabled; from far below this count on both
+# corrections are exactly 1.0 in f32 (checked where the tables are built)
+CORRECTION_STEPS = 1 << 15
+
+# a bias correction: a host float (eager), or (c, 1 / c) as 0-dim tensors
+Correction = Union[float, Tuple[torch.Tensor, torch.Tensor]]
+
+
+@functools.lru_cache(maxsize=None)
+def correction_tables(device: str) -> torch.Tensor:
+    """(2, 2, CORRECTION_STEPS) f32 on `device`: [b1, b2] × [c, 1 / c] of
+    `bias_correction` at every count below CORRECTION_STEPS (each the same
+    host float the eager step uses; count 0 holds c = 0)."""
+    out = np.zeros((2, 2, CORRECTION_STEPS), np.float32)
+    for j, decay in enumerate((B1, B2)):
+        c = np.array([bias_correction(decay, k) for k in range(CORRECTION_STEPS)], np.float32)
+        if c[-1] != 1.0:
+            raise AssertionError(f"bias correction of {decay} not 1.0 at the table's end")
+        out[j, 0] = c
+        with np.errstate(divide="ignore"):
+            out[j, 1] = np.float32(1) / c
+    return torch.from_numpy(out).to(device)
+
+
+def device_corrections(count: torch.Tensor) -> Tuple[Correction, Correction]:
+    """The b1 and b2 corrections at the (already advanced) 0-dim device
+    `count`, read from `correction_tables` with no host read."""
+    tab = correction_tables(str(count.device))
+    idx = count.clamp(max=CORRECTION_STEPS - 1).view(1)
+    sel = tab.index_select(2, idx)
+    return ((sel[0, 0].view(()), sel[0, 1].view(())),
+            (sel[1, 0].view(()), sel[1, 1].view(())))
+
+
+def unbias(m: torch.Tensor, corr: Correction) -> torch.Tensor:
+    """m / corr, with the eager step's bits on either device."""
+    if isinstance(corr, float):
+        return m / corr
+    c, inv = corr
+    return m * inv if m.device.type == "cuda" else m / c
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -62,30 +113,39 @@ def add_decayed_weights(updates: List[torch.Tensor], params: List[torch.Tensor],
     return [g + weight_decay * p for g, p in zip(updates, params)]
 
 
-def adam_direction(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, count: int,
+def _corrections(count, b1: float, b2: float) -> Tuple[Correction, Correction]:
+    if isinstance(count, tuple):
+        return count  # already the (b1, b2) corrections
+    return bias_correction(b1, count), bias_correction(b2, count)
+
+
+def adam_direction(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, count,
                    b1: float = B1, b2: float = B2, eps: float = EPS) -> torch.Tensor:
     """optax `scale_by_adam` on one leaf with the already incremented shared
-    `count`: updates mu and nu in place, returns mu_hat / (sqrt(nu_hat) + eps)."""
+    `count` (or its `device_corrections`): updates mu and nu in place,
+    returns mu_hat / (sqrt(nu_hat) + eps)."""
+    c1, c2 = _corrections(count, b1, b2)
     mu.copy_((1 - b1) * g + b1 * mu)
     nu.copy_((1 - b2) * (g * g) + b2 * nu)
-    mu_hat = mu / bias_correction(b1, count)
-    nu_hat = nu / bias_correction(b2, count)
+    mu_hat = unbias(mu, c1)
+    nu_hat = unbias(nu, c2)
     return mu_hat / (torch.sqrt(nu_hat) + eps)
 
 
-def lazy_adam_direction(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, count: int,
+def lazy_adam_direction(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, count,
                         b1: float = B1, b2: float = B2, eps: float = EPS) -> torch.Tensor:
     """`scale_by_lazy_adam` on one leaf with the already incremented shared
-    `count`. A 2-D leaf's rows with an all-zero gradient keep their moments
-    and get a zero step; any other leaf takes dense Adam. Moments update in
-    place. No host sync."""
+    `count` (or its `device_corrections`). A 2-D leaf's rows with an
+    all-zero gradient keep their moments and get a zero step; any other leaf
+    takes dense Adam. Moments update in place. No host sync."""
     if g.dim() != 2:
         return adam_direction(g, mu, nu, count, b1, b2, eps)
+    c1, c2 = _corrections(count, b1, b2)
     touched = (g != 0).any(dim=1, keepdim=True)
     mu.copy_(torch.where(touched, b1 * mu + (1 - b1) * g, mu))
     nu.copy_(torch.where(touched, b2 * nu + (1 - b2) * g * g, nu))
-    mu_hat = mu / bias_correction(b1, count)
-    nu_hat = nu / bias_correction(b2, count)
+    mu_hat = unbias(mu, c1)
+    nu_hat = unbias(nu, c2)
     return torch.where(touched, mu_hat / (torch.sqrt(nu_hat) + eps), 0.0)
 
 
@@ -145,27 +205,42 @@ class Optimizer:
                               for n, p in params.items()}, **moments}
         return {"count": 0, **moments}
 
+    @property
+    def shared_count(self) -> bool:
+        """Whether the rule advances one count for every leaf."""
+        return self.rule in ("adam", "lazy_adam")
+
     @torch.no_grad()
     def step(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
-             state: dict, trainable: Optional[set] = None) -> None:
+             state: dict, trainable: Optional[set] = None,
+             count: Optional[torch.Tensor] = None) -> None:
         """One update of every parameter in place. `trainable` (a set of
         names) freezes the others: no update, moments and per-leaf counts
-        kept; the shared count advances all the same."""
+        kept; the shared count advances all the same. `count`, a 0-dim
+        int64 tensor on the parameters' device, stands in for the state's
+        shared count and advances there; the caller then advances the
+        state's count itself."""
         names = list(params)
         g = [grads[n] for n in names]
         if self.max_norm is not None:
             g = clip_by_global_norm(g, self.max_norm)
         if self.weight_decay:
             g = add_decayed_weights(g, [params[n] for n in names], self.weight_decay)
-        if self.rule in ("adam", "lazy_adam"):
-            state["count"] += 1
+        corr = None
+        if self.shared_count:
+            if count is None:
+                state["count"] += 1
+                corr = state["count"]
+            else:
+                count.add_(1)
+                corr = device_corrections(count)
         for n, gn in zip(names, g):
             if trainable is not None and n not in trainable:
                 continue
             if self.rule == "adam":
-                u = adam_direction(gn, state["mu"][n], state["nu"][n], state["count"])
+                u = adam_direction(gn, state["mu"][n], state["nu"][n], corr)
             elif self.rule == "lazy_adam":
-                u = lazy_adam_direction(gn, state["mu"][n], state["nu"][n], state["count"])
+                u = lazy_adam_direction(gn, state["mu"][n], state["nu"][n], corr)
             elif self.rule == "torch_adam":
                 u = torch_adam_direction(gn, state["count"][n], state["mu"][n], state["nu"][n])
             else:

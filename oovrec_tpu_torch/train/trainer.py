@@ -28,14 +28,22 @@ Port of `oovrec_tpu/train/trainer.py`:
     (`_sparse_step`: the batch's rows gathered, row gradients, kernel 6 on
     the touched rows), as the device epoch does; the JAX host path sweeps
     the whole tables with the same rule;
-  * the device-resident epoch (`train/device_epoch.py`) for the normal
-    epoch and the OOV-only sub-epoch of pairwise loaders, chosen by the
-    JAX package's gates (`_train_epoch` :374-389, `_maybe_device_epoch`
-    :508-537: `device_epoch: true`, or `auto` at >= 100,000 rows); under
-    `learner: sparse_adam` its ID tables take the row-sparse step through
-    kernel 6. `device_epoch: true` on a pointwise or plain loader, or with
-    the DHE / fDHE hasher, raises (those are not ported: ROADMAP.md queue
-    1, item 8); `auto` takes the host path for them;
+  * the device-resident epoch (`train/device_epoch.py`: pairwise,
+    pointwise and plain loaders, DHE / fDHE ids under `dhe_on_device`)
+    for the normal epoch, and for the OOV-only sub-epoch of pairwise
+    loaders, chosen by the JAX package's gates (`_train_epoch` :374-389,
+    `_maybe_device_epoch` :508-537: `device_epoch: true`, or `auto` at >=
+    100,000 rows); under `learner: sparse_adam` its ID tables take the
+    row-sparse step through kernel 6;
+  * `host_scan_steps` (`_host_scan_k` :339-364, the buffer and flush
+    :437-470): K host batches of one signature stacked, copied to the
+    device in one transfer and stepped in order; a remainder or a change
+    of signature takes the per-step path. The trajectory is K = 1's: the
+    same steps in the same order, dropout and the global step per step;
+  * every dense step (the device epoch's, the host scan's and the
+    per-step host path's) runs as a captured CUDA graph on the card
+    (`train/cuda_graph.py`), the counterpart of the JAX package's compiled
+    step and scan bodies; the row-sparse step runs eagerly;
   * DHE / fDHE (`:150-167`, `:462-470`): a `DHEHasher` over the model's
     keys annotates each host batch after its OOV transform with the hashes
     of the (prime-padded when flagged) user, item and negative ids, or
@@ -54,8 +62,8 @@ bit; dropout draws from the trainer's `torch.Generator`, seeded from
 `seed + 101`, which cannot match `jax.random`.
 
 Raises NotImplementedError where a config asks for what is not ported:
-`host_scan_steps` > 1 (the same math, TPU dispatch amortisation; `auto`
-takes the host path here), a mesh and dynamic hard negatives. Tensorboard and wandb are not ported and log nothing.
+a mesh and dynamic hard negatives. Tensorboard and wandb are not ported
+and log nothing.
 """
 
 from __future__ import annotations
@@ -70,14 +78,17 @@ import torch
 
 from oovrec_tpu_torch.data.prefetch import maybe_prefetch
 from oovrec_tpu_torch.eval.collector import calculate_valid_score
-from oovrec_tpu_torch.eval.runner import EvalRunner, to_device_batch
+from oovrec_tpu_torch.data.transfer import host_signature, stack_to_device, to_device_batch
+from oovrec_tpu_torch.eval.runner import EvalRunner
 from oovrec_tpu_torch.inductive.dhe import model_hasher
 from oovrec_tpu_torch.inductive.transform import OOVSimulator
 from oovrec_tpu_torch.models.layers import set_dropout_generator
+from oovrec_tpu_torch.train.cuda_graph import StepGraphs
 from oovrec_tpu_torch.train.device_epoch import (
+    AUTO_MAX_BUCKETS,
+    DEVICE_HASHES,
     DeviceEpoch,
     device_epoch_eligible,
-    device_epoch_flag,
 )
 from oovrec_tpu_torch.train.early_stopping import early_stopping
 from oovrec_tpu_torch.train.optimizers import build_optimizer, clone_state
@@ -152,6 +163,7 @@ class Trainer:
         set_dropout_generator(model, self.dropout_generator)
         self._global_step = 0
         self._device_epochs: Dict[tuple, DeviceEpoch] = {}
+        self.step_graphs = StepGraphs(self)
         self.dhe_hasher = model_hasher(model, config)
         # the host path's row-sparse tables (learner: sparse_adam), unfrozen
         self.sparse_tables = sparse_epoch_table_map(
@@ -160,9 +172,6 @@ class Trainer:
 
     @staticmethod
     def _refuse_unported(config, model) -> None:
-        scan = config["host_scan_steps"]
-        if scan not in (None, False, 0, 1, "auto"):
-            raise NotImplementedError(f"host_scan_steps={scan} is not ported")
         if config["use_mesh"]:
             raise NotImplementedError("mesh training (use_mesh) is not ported")
         if (config["train_neg_sample_args"] or {}).get("dynamic"):
@@ -171,24 +180,31 @@ class Trainer:
     # ------------------------------------------------------------ steps
 
     def _step(self, batch: Dict[str, torch.Tensor], frozen: bool) -> torch.Tensor:
+        """One training step. The dense step goes through its captured
+        graph (`train/cuda_graph.py`; eagerly on the CPU); the row-sparse
+        step always runs eagerly: its touched-row sort has data-dependent
+        shapes."""
         if frozen or not self.sparse_tables:
-            loss = self._apply_step(batch, self.oov_params if frozen else None)
+            loss = self.step_graphs.step(batch, self.oov_params if frozen else None)
         else:
             loss = self._sparse_step(batch, self.sparse_tables, self.sparse_impl)
         self._global_step += 1
         return loss
 
     def _apply_step(self, batch: Dict[str, torch.Tensor],
-                    trainable: Optional[set] = None) -> torch.Tensor:
+                    trainable: Optional[set] = None,
+                    count: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Loss, gradient of every parameter and one optimizer update (only
-        `trainable` moves when it is given). → the detached loss."""
+        `trainable` moves when it is given; `count`, the optimizer's shared
+        count on the device, for a captured step). → the detached loss."""
         loss = self.model.calculate_loss(batch)
         names = list(self.params)
         grads = torch.autograd.grad(loss, [self.params[n] for n in names],
                                     allow_unused=True)
         grads = {n: torch.zeros_like(self.params[n]) if g is None else g
                  for n, g in zip(names, grads)}
-        self.optimizer.step(self.params, grads, self.opt_state, trainable=trainable)
+        self.optimizer.step(self.params, grads, self.opt_state, trainable=trainable,
+                            count=count)
         return loss.detach()
 
     def _sparse_step(self, batch: Dict[str, torch.Tensor], tables: dict,
@@ -237,12 +253,29 @@ class Trainer:
             de = self._maybe_device_epoch(train_loader, oov=True, frozen=frozen)
             if de is not None:
                 return self._run_device_epoch(de, epoch_idx)
+        K = self._host_scan_k(train_loader)
         train_loader = maybe_prefetch(train_loader, self.config)
         self.model.train()
         device = self.model.device
         losses = []
         n_examples = 0
         t_epoch = time.time()
+        buf: list = []
+        buf_sig = None
+
+        def flush():
+            """A full group: stacked, one copy to the device, stepped in
+            order; a remainder (or a group cut by a change of signature):
+            the per-step path, as K = 1."""
+            if len(buf) == K:
+                stacked = stack_to_device(buf, device)
+                for i in range(K):
+                    losses.append(self._step({k: v[i] for k, v in stacked.items()}, frozen))
+            else:
+                for b in buf:
+                    losses.append(self._step(to_device_batch(b, device), frozen))
+            buf.clear()
+
         for batch in train_loader:
             if keep_ratio is not None and self._oov_rng.random() > keep_ratio:
                 continue
@@ -256,9 +289,20 @@ class Trainer:
                         self.dhe_hasher.annotate_batch(batch, f, model.spec.prime_pad,
                                                        padded_when_flagged=True)
             n_examples += int(np.asarray(batch["weight"]).sum())
-            losses.append(self._step(to_device_batch(batch, device), frozen))
+            if K == 1:
+                losses.append(self._step(to_device_batch(batch, device), frozen))
+            else:
+                sig = host_signature(batch)
+                if buf and sig != buf_sig:
+                    flush()
+                buf_sig = sig
+                buf.append(batch)
+                if len(buf) == K:
+                    flush()
             if self.config["oov_debug_skip_train"]:
                 break
+        if buf:
+            flush()
         total_loss = None
         self.last_losses = np.zeros(0)
         if losses:
@@ -270,30 +314,36 @@ class Trainer:
         self.last_examples_per_sec = n_examples / max(time.time() - t_epoch, 1e-9)
         return total_loss
 
+    def _host_scan_k(self, loader) -> int:
+        """Batches a group on the host path (`trainer.py:339-364` of the
+        JAX package): `host_scan_steps` K as given, or under `auto` 64 for
+        loaders of at least 128 batches (1 below); 1 for dynamic negatives
+        and under `oov_debug_skip_train`."""
+        flag = self.config.get("host_scan_steps", "auto")
+        if flag in (False, 0, 1, None):
+            return 1
+        if getattr(loader, "dynamic", False) or self.config["oov_debug_skip_train"]:
+            return 1
+        k = 64 if flag == "auto" else max(1, int(flag))
+        if flag == "auto" and len(loader) < 2 * k:
+            return 1
+        return k
+
     def _maybe_device_epoch(self, train_loader, oov: bool = False,
                             frozen: bool = False) -> Optional[DeviceEpoch]:
         """The device-resident epoch for this loader, or None (the host
-        path), by the JAX package's gates; a loader whose mode the port has
-        not ported raises under `device_epoch: true`."""
+        path), by the JAX package's gates (`trainer.py:508-537`): the OOV
+        sub-epoch takes the device only on a pairwise loader, with a hash
+        function the device computes and at most 2^16 buckets a side."""
         if not device_epoch_eligible(self, train_loader, self.config):
-            return None
-        if self.dhe_hasher is not None:
-            if device_epoch_flag(self.config) is True:
-                raise NotImplementedError(
-                    "device_epoch: DHE / fDHE on the device-resident epoch is not ported "
-                    "(ROADMAP.md queue 1, item 8)")
-            return None
-        if train_loader.mode != "pairwise":
-            if device_epoch_flag(self.config) is True:
-                raise NotImplementedError(
-                    f"device_epoch: the device-resident epoch's {train_loader.mode} "
-                    "mode is not ported (ROADMAP.md queue 1, item 8)")
             return None
         if oov:
             spec = getattr(self.model, "spec", None)
-            if spec is None or spec.hash_function not in ("mod", "fast", "3round", "64bit"):
+            if train_loader.mode != "pairwise":
                 return None
-            if max(spec.n_user_buckets or 0, spec.n_item_buckets or 0) > (1 << 16):
+            if spec is None or spec.hash_function not in DEVICE_HASHES:
+                return None
+            if max(spec.n_user_buckets or 0, spec.n_item_buckets or 0) > AUTO_MAX_BUCKETS:
                 return None  # the JAX package's device mod bound, kept for the same path
         key = (id(train_loader), oov, frozen)
         if key not in self._device_epochs:
@@ -368,7 +418,8 @@ class Trainer:
                     keep_ratio=self.oov_train_ratio, frozen=self.oov_freeze_embedding,
                 )
                 if snapshot is not None:
-                    self.opt_state = snapshot
+                    # into the live tensors, which the captured steps update
+                    _copy_into(self.opt_state, snapshot)
                 if oov_loss is not None:
                     self.oov_loss_dict[epoch_idx] = oov_loss
             self.logger.info(

@@ -14,9 +14,10 @@ eligibility gates against `device_epoch_eligible`. Then the embedders:
 lsh, slsh, dnn, knn, zero and mean take the device epoch (the sparse path
 with lsh, slsh and dnn equal to the dense sweep, which checks that the
 feature lookups read entity ids and not row positions; kernel 6's route
-and the plain route bit for bit), while DHE and fDHE raise under
-`device_epoch: true` (ROADMAP queue 1, item 8) and take the host path under
-`auto`.
+and the plain route bit for bit), while DHE and fDHE hashed on the host
+(`dhe_on_device: false`) keep to the host path under `device_epoch: true`
+and `auto`, as the JAX gate keeps them (`test_torch_device_epoch_modes.py`
+holds them on the device epoch under `dhe_on_device`).
 """
 
 import numpy as np
@@ -449,8 +450,8 @@ class _FakeTrainer:
 def test_eligibility_gates_match_jax(flag, monkeypatch):
     """`device_epoch_eligible` on the same loaders (pairwise, pointwise,
     plain) and flags gives the JAX package's answer; under `auto` at the
-    row threshold too. The trainer then raises for a non-pairwise mode
-    under `true` and takes the host path under `auto`."""
+    row threshold too. The trainer then builds the device epoch of that
+    mode wherever the gate lets it."""
     if flag == "auto-large":
         monkeypatch.setattr(jde, "AUTO_MIN_ROWS", 1)
         monkeypatch.setattr(pde, "AUTO_MIN_ROWS", 1)
@@ -471,11 +472,8 @@ def test_eligibility_gates_match_jax(flag, monkeypatch):
         if mode != "pairwise" and got:
             trainer = Trainer(pcfg, BPR(pl.split.user_num, pl.split.item_num, 8,
                                         InductiveSpec(), device="cpu"))
-            if value is True:
-                with pytest.raises(NotImplementedError, match=mode):
-                    trainer._maybe_device_epoch(pl)
-            else:
-                assert trainer._maybe_device_epoch(pl) is None
+            de = trainer._maybe_device_epoch(pl)
+            assert de is not None and de.mode == mode
     assert answers == {m: flag in (True, "auto-large") for m in answers}
 
 
@@ -558,15 +556,17 @@ def test_embedders_take_the_device_epoch(embedder):
 
 @pytest.mark.parametrize("embedder", ["dhe", "fdhe"])
 def test_dhe_keeps_off_the_device_epoch(embedder, monkeypatch):
-    """`device_epoch: true` raises, naming ROADMAP queue 1 item 8; `auto`
-    takes the host path, which hashes each batch and trains."""
+    """Hashed on the host (`dhe_on_device: false`), DHE and fDHE fail the
+    JAX package's `dhe_ok` gate: `device_epoch: true` and `auto` take the
+    host path, which hashes each batch and trains."""
     split = _toy()
     trainer, loader = _emb_trainer(split, embedder)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        trainer._maybe_device_epoch(loader)
+    assert not trainer.dhe_hasher.on_device
+    assert not pde.device_epoch_eligible(trainer, loader, trainer.config)
+    assert trainer._maybe_device_epoch(loader) is None
     monkeypatch.setattr(pde, "AUTO_MIN_ROWS", 1)
     trainer, loader = _emb_trainer(split, embedder, device_epoch="auto", epochs=1)
-    assert pde.device_epoch_eligible(trainer, loader, trainer.config)
+    assert not pde.device_epoch_eligible(trainer, loader, trainer.config)
     assert trainer._maybe_device_epoch(loader) is None
     trainer.fit(loader, None, saved=False)
     assert not trainer._device_epochs and trainer.oov_loss_dict

@@ -58,6 +58,7 @@ def test_scan_sees_the_whole_port():
     for module in ("ops/embed_grad.py", "ops/siphash.py", "ops/siphash_device.py",
                    "inductive/dhe.py", "inductive/factory.py",
                    "models/context_aware/widedeep.py", "models/context_aware/dcnv2.py",
-                   "models/directau.py", "data/prefetch.py"):
+                   "models/directau.py", "data/prefetch.py", "train/cuda_graph.py",
+                   "data/transfer.py", "ops/launches.py"):
         assert f"oovrec_tpu_torch/{module}" in names, module
     assert len(names) >= 25

@@ -25,8 +25,9 @@ parameters, the optimizer
 rollback of `oov_freeze_skip_optim`, which the JAX trainer cannot run (its
 `fit` raises NameError at `trainer.py:675`: `jnp` is bound only inside the
 dynamic-negatives branch above), a checkpoint save → resume round trip,
-and the configurations the port refuses (`device_epoch: true` refuses a
-pointwise loader: only the pairwise device epoch is ported).
+the configurations the port refuses, and the ranking models' routes to the
+pointwise device epoch (`test_torch_device_epoch_modes.py` holds that
+epoch against the JAX package).
 """
 
 import dataclasses
@@ -371,8 +372,6 @@ def test_checkpoint_round_trip(tmp_path):
 
 
 @pytest.mark.parametrize("over,match", [
-    (dict(device_epoch=True), "device_epoch: the device-resident epoch's pointwise mode"),
-    (dict(host_scan_steps=4), "host_scan_steps"),
     (dict(use_mesh=True), "mesh"),
     (dict(train_neg_sample_args={"distribution": "uniform", "sample_num": 1,
                                  "dynamic": True}), "dynamic"),
@@ -394,8 +393,8 @@ def test_trainer_refuses_what_is_not_ported(over, match):
 @pytest.mark.parametrize("flag", ["auto", True])
 def test_ranking_models_take_the_host_path(flag):
     """WideDeep and DCNv2 declare `supports_device_epoch` as the JAX models
-    do; the port's device epoch has no pointwise mode yet, so `auto` takes
-    the host path (at any size) and `true` raises, naming the ROADMAP item."""
+    do: `auto` takes the host path below AUTO_MIN_ROWS rows and the
+    pointwise device epoch at it, `true` the device epoch at any size."""
     from oovrec_tpu_torch.models import DCNV2, WideDeep
     from oovrec_tpu_torch.train import device_epoch
 
@@ -409,11 +408,12 @@ def test_ranking_models_take_the_host_path(flag):
                               InputType.POINTWISE)
         assert cls.supports_device_epoch and loader.mode == "pointwise"
         if flag == "auto":
+            assert trainer._maybe_device_epoch(loader) is None
             orig, device_epoch.AUTO_MIN_ROWS = device_epoch.AUTO_MIN_ROWS, 1
             try:
-                assert trainer._maybe_device_epoch(loader) is None
+                trainer = Trainer(cfg, cls(fields, embedding_size=4, device="cpu"))
+                assert trainer._maybe_device_epoch(loader).mode == "pointwise"
             finally:
                 device_epoch.AUTO_MIN_ROWS = orig
         else:
-            with pytest.raises(NotImplementedError, match="pointwise mode.*item 8"):
-                trainer._maybe_device_epoch(loader)
+            assert trainer._maybe_device_epoch(loader).mode == "pointwise"
