@@ -137,6 +137,32 @@ Phases (any failure exits non-zero; no phase failure is caught):
      and run its dense steps eagerly (`eager_steps`: they count launches a
      step, swap a kernel's route between steps, or time the eager step);
      the serving phases pin `device_eval: False` (`serving_cfg`).
+ 11. phase G, the trainer's leftovers and the first four context models:
+     G1. xDeepFM at the ranking cell's shape under `adagrad`, `rmsprop`
+         and adam with bf16 first moments (`optimizer_mu_dtype`), and adam
+         with f32 ones to compare: 16 graphed steps == 16 eager ones bit
+         for bit on the plain device epoch (moments and sums included),
+         eager vs graphed wall and device ms a step; under each new rule
+         16 steps on the CIN kernels against the slab path (losses 1e-5,
+         parameters 1e-4), the loss falling;
+     G2. BPR at D 64 over phase 3's 900,000 IV items on the host path,
+         32 steps of 2,048 rows, without dynamic negatives and with 4 and
+         16 candidates a slot: ms a step and the scorer's share; the picks
+         == the argmax of a plain f64 scorer over the same candidates
+         (near-ties excepted); then the 7-slice eval on kernel 1, fused ==
+         dense;
+     G3. `import_torch_checkpoint`: a `.pth` this phase writes in
+         RecBole's key names seeds BPR (the `-m` entry, a subprocess) and
+         xDeepFM (`cli.run.main`) on synth-ind, the import equal to the
+         file bit for bit, 1 epoch, `--eval_only` == the run to 1e-9; then
+         the committed JAX checkpoint (`tests/assets/jax_checkpoints/`,
+         BPR, sparse_adam) read without flax through `load_data_and_model`
+         and trained on for one epoch, kernel 6 on the resumed moments;
+     G4. LR, FM, DeepFM and FFM at their YAML widths at the ranking cell's
+         shape: a short fit (LR, FM, DeepFM on the pointwise device epoch,
+         FFM on the host path) and the value eval; graphed == eager on the
+         pointwise epoch (LR, FM, DeepFM) and on the host path (all four),
+         and the ms a step of each.
 Phase 2 also holds the gathers' backward kernel (`csrc/embed_grad.cu`)
 against its plain version (bit for bit on integer-valued cotangents, to
 1e-5 on random ones, against a repeat run) and times it; phase 6 profiles
@@ -147,12 +173,13 @@ bit for bit on integer inputs and gradients (and against itself on a
 repeat run), and times it per layer and for the 3-layer stack.
 The last line is the device record; the line before it lists the kernels,
 each with its launches on the earlier phases' paths (`launches`), on the
-CLI phases (`launches_cli`) and on phase D's, E's and F's parts
-(`launches_d`, `launches_e`, `launches_f`), each counted by the kernel's
-wrapper where it launches (`ops/launches.py`; a CUDA graph's replays run
-no wrapper), and the kernels that phase F's graphed passes replayed, as
-their profiler traces show them (`launches_f_trace`); before them, phase
-F's times as one JSON line (`phase F times`).
+CLI phases (`launches_cli`) and on phase D's, E's, F's and G's parts
+(`launches_d`, `launches_e`, `launches_f`, `launches_g`), each counted by
+the kernel's wrapper where it launches (`ops/launches.py`; a CUDA graph's
+replays run no wrapper), and the kernels that phase F's and G's graphed
+passes replayed, as their profiler traces show them (`launches_f_trace`,
+`launches_g_trace`); before them, phase F's and G's times as JSON lines
+(`phase F times`, `phase G times`).
 
 TF32 is switched off for matmuls and cuDNN below: the plain versions and
 the dense path must compute in full f32, as the kernel does.
@@ -171,6 +198,7 @@ import shutil
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -181,7 +209,7 @@ from oovrec_tpu_torch.cli.inductive_eval import perform_inductive_eval
 from oovrec_tpu_torch.config import Config
 from oovrec_tpu_torch.data import dataset as dataset_module
 from oovrec_tpu_torch.data.transfer import to_device_batch
-from oovrec_tpu_torch.data.utils import data_preparation
+from oovrec_tpu_torch.data.utils import create_dataset, data_preparation
 from oovrec_tpu_torch.data import (
     DatasetSplit,
     FullSortEvalBatcher,
@@ -741,33 +769,87 @@ def trace_launches(rows):
     return out
 
 
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cuGraphLaunch")
+RUN_SPAN = "chip_smoke.run"  # the span of a profiled run in its trace
+LEAD_LAUNCHES = 256          # kernels a trace window opens with
+EDGE_PAUSE_S = 0.1           # host pause between the window's edges and the run
+
+
+def run_calls(events):
+    """The CUDA API calls (launches, copies) inside a trace's RUN_SPAN:
+    correlation id → name. A device record carries its call's correlation
+    id (a graph replay's kernels, the replay's), so no device timestamp is
+    compared with a host one."""
+    cpu = torch.autograd.DeviceType.CPU
+    spans = [(e.start_ns(), e.end_ns()) for e in events
+             if e.device_type() == cpu and e.name() == RUN_SPAN]
+    return {e.correlation_id(): e.name() for e in events
+            if e.device_type() == cpu and e.name().startswith("cu")
+            and any(t0 <= e.start_ns() <= t1 for t0, t1 in spans)}
+
+
+def lost_records(events):
+    """The kernel-launch calls of a profiled run whose kernels left no
+    device record: records the trace dropped, so it undercounts the
+    kernels that ran."""
+    on_device = {e.correlation_id() for e in events
+                 if e.device_type() != torch.autograd.DeviceType.CPU}
+    return sum(1 for c, name in run_calls(events).items()
+               if name.startswith(LAUNCH_CALLS) and c not in on_device)
+
+
+def device_rows(events):
+    """(µs, name, count) of the device activities (kernels, copies) of a
+    profiled run's calls, by name, the longest first."""
+    calls = run_calls(events)
+    rows = {}
+    for e in events:
+        if (e.device_type() != torch.autograd.DeviceType.CPU and e.name() != RUN_SPAN
+                and e.correlation_id() in calls):
+            us, n = rows.get(e.name(), (0.0, 0))
+            rows[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    return sorted(((us, name, n) for name, (us, n) in rows.items() if us > 0), reverse=True)
+
+
 def profiled(run, what, shares=(), quiet=False):
     """torch.profiler around `run()`: the wall, the device's busy share of
     it, the largest device kernels and, for each (label, name prefixes) of
     `shares`, those kernels' share of the device time, launches and device
-    ms a launch."""
-    from torch.profiler import ProfilerActivity, profile
+    ms a launch. `profiled.lost` is the run's `lost_records`."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        sync()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        # the trace keeps the device records that fall inside its window
+        # by their timestamps, which can be off from the host's clock by
+        # milliseconds: a run's first kernels lost their records when the
+        # window opened at the run (tools/torch_trace_records.py). The run
+        # starts after LEAD_LAUNCHES small kernels, a synchronise and a
+        # pause, and ends a pause before the window does.
+        if DEVICE == "cuda":
+            lead = torch.zeros(1, device=DEVICE)
+            for _ in range(LEAD_LAUNCHES):
+                lead.add_(1)
+            sync()
+            time.sleep(EDGE_PAUSE_S)
+        with record_function(RUN_SPAN):
+            t0 = time.perf_counter()
+            run()
+            sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        if DEVICE == "cuda":
+            time.sleep(EDGE_PAUSE_S)
+    events = prof.profiler.kineto_results.events()
+    profiled.lost = lost_records(events)
 
-    def device_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0)
-
-    # device-side events only (kernels, copies): an aten op's row repeats
-    # the device time of the kernels it launched
-    rows = sorted(
-        ((device_us(e), e.key, e.count) for e in prof.key_averages()
-         if e.device_type != torch.autograd.DeviceType.CPU and device_us(e) > 0),
-        reverse=True)
+    # device activities only (kernels, copies), the lead-in's excluded: an
+    # aten op's row repeats the device time of the kernels it launched
+    rows = device_rows(events)
     busy_ms = sum(r[0] for r in rows) / 1e3
     profiled.kernels = trace_launches(rows)
+    profiled.rows = rows
     log(f"{what}, wall {wall_ms:.1f} ms, device busy "
-        f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %)")
+        f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %)"
+        + (f"; {profiled.lost} launch calls lost their kernel records" if profiled.lost else ""))
     # the row gathers' backward (ops/embed_grad.py): the device time of the
     # kernels its autograd node launched, sort and segment sums included
     spans = [(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0), e.count)
@@ -1482,7 +1564,7 @@ def wide_cin_training(train):
     plain version at each trained layer's shape on one batch; then one
     batch served through the forward kernel (two column passes), equal to
     the slab path to CIN_TOL."""
-    model, counts, wall, wall_plain, part, cfg = kernel_vs_plain_training(
+    model, counts, wall, wall_plain, part, cfg, _ = kernel_vs_plain_training(
         train, WIDE_STEPS, WIDE_CIN_SIZES, SEED + 9)
     shapes = model.cin_layer_shapes(CTR_B)
     launches_bwd = sum(len(c) * len(s) for c, s in (bwd_plan(*x) for x in shapes))
@@ -1522,13 +1604,13 @@ def wide_cin_training(train):
     require(err <= CIN_TOL, f"wide CIN serving: max |kernel - slab| {err}")
 
 
-def kernel_vs_plain_training(train, steps=None, cin_sizes=CIN_SIZES, seed=SEED + 7):
+def kernel_vs_plain_training(train, steps=None, cin_sizes=CIN_SIZES, seed=SEED + 7, **over):
     """`steps` (default COMPARE_STEPS) training steps of xDeepFM at
     `cin_sizes` on the CIN kernel path and on the plain slab path from
     identical weights and dropout generators: per-step losses to LOSS_RTOL
     relative, parameters to PARAM_ATOL absolute. Returns the kernel path's
     model, CIN launch counts and wall seconds, the plain path's wall
-    seconds, the rows and the config.
+    seconds, the rows, the config and the kernel path's losses.
 
     Adam scales each element's step by that element's own gradient history,
     so an element whose gradient at some step is decided by more than
@@ -1543,7 +1625,7 @@ def kernel_vs_plain_training(train, steps=None, cin_sizes=CIN_SIZES, seed=SEED +
     steps = steps or COMPARE_STEPS
     part = rows_of(train, np.arange(len(train)) < steps * CTR_B,
                    N_CTR_OLD_USERS, N_CTR_OLD_ITEMS)
-    cfg = ctr_train_cfg(train_oov=False)
+    cfg = ctr_train_cfg(train_oov=False, **over)
     runs = {}
     for fused in (True, False):
         model = build_ranking_model(seed, cin_sizes)
@@ -1576,11 +1658,13 @@ def kernel_vs_plain_training(train, steps=None, cin_sizes=CIN_SIZES, seed=SEED +
     require(len(lk) == len(lp) == steps, f"steps {len(lk)}, {len(lp)}")
     what = ("kernel vs plain training" if cin_sizes == CIN_SIZES
             else f"kernel vs plain training (cin_layer_size {cin_sizes})")
+    if over:
+        what += f" {over}"
     compare_trajectories(
         what, ("kernel", "plain"), lk, lp, pk, pp,
         lambda n, i: torch.stack([g[n].flatten()[i] for g in gk]),
         lambda n, i: torch.stack([g[n].flatten()[i] for g in gp]))
-    return fused_run + (plain_run[2], part, cfg)
+    return fused_run + (plain_run[2], part, cfg, lk)
 
 
 def compare_trajectories(what, names, la, lb, pa, pb, grad_a, grad_b):
@@ -2000,10 +2084,12 @@ def sparse_fit(loader, impl, **over):
 
 
 def state_of(trainer):
-    """Parameters and Adam moments, cloned."""
+    """Parameters and the optimizer state's tensors (Adam's moments,
+    adagrad's sums, per-leaf counts), cloned."""
     out = {n: p.detach().clone() for n, p in trainer.params.items()}
-    for part in ("mu", "nu"):
-        out.update({f"{part}:{n}": t.clone() for n, t in trainer.opt_state[part].items()})
+    for part, tree in trainer.opt_state.items():
+        if isinstance(tree, dict):
+            out.update({f"{part}:{n}": t.clone() for n, t in tree.items()})
     return out
 
 
@@ -3522,6 +3608,24 @@ def graph_trace_check(eager_counts, eager_trace, graph_counts, graph_trace, what
             for name, fn in launches.WRAPPERS.items()}
 
 
+TRACE_TAKES = 3  # takes of a counted trace whose records were lost
+
+
+def counted_trace(run, what):
+    """`profiled(run, what)` with the counts of the wrappers `run` called;
+    a trace that lost kernel records (`lost_records`) counts nothing and
+    is taken again, `run` with it, up to TRACE_TAKES times. → wall ms,
+    device busy ms, (the wrappers' launches, the trace's kernels)."""
+    for take in range(1, TRACE_TAKES + 1):
+        reset_kernel_counts()
+        wall, busy = profiled(run, what, quiet=True)
+        if not profiled.lost:
+            return wall, busy, (kernel_counts(), profiled.kernels)
+        log(f"{what}: take {take} of the trace lost the kernel records of {profiled.lost} "
+            "launch calls")
+    raise AssertionError(f"{what}: {TRACE_TAKES} takes of the trace lost kernel records")
+
+
 F_TRACE = {}  # phase F part → each wrapper's kernel launches in its graphed traces
 
 
@@ -3586,11 +3690,9 @@ def graph_vs_eager_times(de, eager, batches, what, part):
         wall[name].append((time.perf_counter() - t0) * 1e3 / n)
     out, seen = {}, {}
     for name in ("eager", "graph"):
-        reset_kernel_counts()
-        w, busy = profiled(runs[name], f"profile {n} {what} steps, {name}", quiet=True)
+        w, busy, seen[name] = counted_trace(runs[name], f"profile {n} {what} steps, {name}")
         out[name] = {"wall_ms": wall[name], "device_ms": busy / n,
                      "busy_pct": 100 * busy / max(w, 1e-9)}
-        seen[name] = (kernel_counts(), profiled.kernels)
     add_trace(part, graph_trace_check(*seen["eager"], *seen["graph"], what))
     log(f"{what}, ms a step of {batches[0]['weight'].numel()} rows (wall, host included; "
         f"order eager, graph, graph, eager): eager "
@@ -3890,11 +3992,9 @@ def f4_grouping(train):
             seen[name] = (kernel_counts(), None)
             continue
         trainer._train_epoch(loader, 0)  # the capture
-        reset_kernel_counts()
-        w, busy = profiled(lambda: trainer._train_epoch(loader, 1),
-                           f"profile F4 {name}: an epoch of {F_TRACE_STEPS} steps (K {k})",
-                           quiet=True)
-        seen[name] = (kernel_counts(), profiled.kernels)
+        w, busy, seen[name] = counted_trace(
+            lambda: trainer._train_epoch(loader, 1),
+            f"profile F4 {name}: an epoch of {F_TRACE_STEPS} steps (K {k})")
         out[name].update(device_ms=busy / F_TRACE_STEPS, busy_pct=100 * busy / max(w, 1e-9))
     replayed = {name: graph_trace_check(*seen["1 eager"], *seen[name], f"F4 {name}")
                 for name in order[:2]}
@@ -3965,6 +4065,391 @@ def f5_scanned_eval():
     k1 = results[("full sort", True)][1]
     require(k1 > 0 and k1 == results[("full sort", False)][1], f"F5: kernel 1 launches {k1}")
     return {"fused_topk_scores": k1}
+
+
+# ---------------------------------------------------------------- phase G
+
+G_STEPS = 16           # G1: graphed against eager steps; kernel against plain
+# G1: the learners at the ranking cell's shape. rmsprop from its zero
+# state, with no bias correction, first moves each element by about
+# lr / sqrt(0.1), 3.16 times Adam's lr, and its sign-like steps carry
+# rounding-level gradient differences between the kernel and slab paths
+# into the weights: at 1e-3 its 16-step comparison differed by 2.4e-5 in
+# loss (PERF.md, phase G). At 3e-4 its steps are Adam's at 1e-3, the size the
+# comparison's bounds were set at
+G_RULES = (
+    ("adagrad", {"learner": "adagrad", "learning_rate": 1e-2}),
+    ("rmsprop", {"learner": "rmsprop", "learning_rate": 3e-4}),
+    ("adam-bf16", {"optimizer_mu_dtype": "bfloat16"}),
+    ("adam-f32", {}),
+)
+G_BPR_STEPS, G_CANDIDATES = 32, (4, 16)  # G2: host steps of BPR_TRAIN_B rows
+G_ZOO = ("LR", "FM", "DeepFM", "FFM")   # G4, at their YAML widths
+G_ZOO_STEPS = 8
+G_FIXTURE = os.path.join("tests", "assets", "jax_checkpoints", "BPR-synth-ind.ckpt")
+G_TIMES = {}
+
+
+def g_times(what):
+    """Phase G's entry of F_TIMES (`graph_vs_eager_times` writes there)."""
+    G_TIMES[what] = F_TIMES.pop(what)
+    return G_TIMES[what]
+
+
+def g1_learners(ind):
+    """G1: xDeepFM at `xDeepFM.yaml` widths, 8,192 rows a step, under
+    adagrad, rmsprop and adam with bf16 first moments (and f32, to compare
+    on this card): 16 graphed steps == 16 eager ones bit for bit (moments
+    and sums included) on the plain device epoch, then eager vs graphed
+    wall and device ms a step; the CIN kernels against the slab path over
+    16 steps under the same rule (losses 1e-5, parameters 1e-4), the loss
+    falling. → the kernel runs' launches."""
+    train, _, _ = ctr_splits(ind)
+    counts = {}
+    for i, (rule, over) in enumerate(G_RULES):
+        def make(over=over, i=i):
+            c = ctr_train_cfg(device_epoch=True, train_oov=False, **over)
+            return Trainer(c, build_ranking_model(SEED + 610 + i)), TrainBatcher(
+                train, None, c, InputType.POINTWISE)
+
+        a, gde, b, batches = graph_vs_eager(make, f"G1 xDeepFM {rule}", steps=G_STEPS)
+        if "optimizer_mu_dtype" in over:
+            require(all(t.dtype == torch.bfloat16 for t in a.opt_state["mu"].values()),
+                    "G1: bf16 first moments")
+        graph_vs_eager_times(gde, b, batches, f"G1 xDeepFM {rule}", "G1")
+        g_times(f"G1 xDeepFM {rule}")
+        del a, gde, b, batches
+        if rule == "adam-f32":
+            continue  # phase 5 holds adam's kernel path
+        reset_kernel_counts()
+        # phase 5's model and rows, where the comparison's bounds were set:
+        # how many elements cross them depends on the initial weights, with
+        # f32 moments as with bf16 ones (PERF.md, phase G)
+        model, run, wall, wall_plain, _, _, losses = kernel_vs_plain_training(
+            train, G_STEPS, **over)
+        # the CIN counts are the kernel run's (the slab run resets them)
+        counts = {k: counts.get(k, 0) + n for k, n in {**kernel_counts(), **run}.items()}
+        del model
+        g_losses(losses, f"G1 {rule} on the kernels", falls=True)
+        log(f"G1 {rule}: {G_STEPS} eager steps kernel {wall * 1e3 / G_STEPS:.2f} ms a step, "
+            f"slab {wall_plain * 1e3 / G_STEPS:.2f} (wall)")
+    bf16, f32 = G_TIMES["G1 xDeepFM adam-bf16"], G_TIMES["G1 xDeepFM adam-f32"]
+    log(f"G1 adam bf16 vs f32 first moments, graphed: device ms a step "
+        f"{bf16['graph']['device_ms']:.3f} vs {f32['graph']['device_ms']:.3f}, wall "
+        f"{np.mean(bf16['graph']['wall_ms']):.3f} vs {np.mean(f32['graph']['wall_ms']):.3f}")
+    return counts
+
+
+def g_losses(losses, what, falls=False):
+    """Finite losses, falling from the first 4 steps to the last 4 where
+    `falls`; logged."""
+    first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+    log(f"{what}: loss first 4 steps {first:.5f}, last 4 {last:.5f}")
+    require(np.isfinite(losses).all(), f"{what}: loss not finite")
+    require(last < first or not falls, f"{what}: the loss did not fall")
+
+
+def g2_dynamic():
+    """G2: BPR at D 64 over the serving corpus (900,000 IV items) on the
+    host path, steps of 2,048 rows, one negative a row: without dynamic
+    negatives and with 4 and 16 candidates a slot, each through
+    `Trainer.fit` (its first step captures the graph), then one more epoch
+    timed: ms a step and the scorer's share of it; the picks == the argmax
+    of a plain f64 scorer over the same candidates (near-ties excepted and
+    counted); then the 7-slice eval (kernel 1) on the trained weights,
+    fused == dense. → the part's launches of kernel 1."""
+    rng = np.random.default_rng(SEED + 700)
+    n_rows = G_BPR_STEPS * BPR_TRAIN_B
+    train = DatasetSplit({"user_id": rng.integers(1, N_OLD_USERS, n_rows),
+                          "item_id": rng.integers(1, N_OLD_ITEMS, n_rows)},
+                         N_OLD_USERS, N_OLD_ITEMS)
+    walls, model, trainer, loader = {}, None, None, None
+    for cand in (None,) + G_CANDIDATES:
+        nsa = {"distribution": "uniform", "sample_num": 1}
+        if cand:
+            nsa.update(dynamic=True, candidate_num=cand)
+        cfg = Config({"seed": SEED, "topk": TOPK, "train_batch_size": BPR_TRAIN_B,
+                      "learner": "adam", "learning_rate": 1e-3, "epochs": 1,
+                      "train_oov": False, "device_epoch": False, "host_scan_steps": 1,
+                      "train_neg_sample_args": nsa})
+        del model, trainer, loader
+        model = build_model()
+        trainer = Trainer(cfg, model)
+        loader = TrainBatcher(train, Sampler(["train"], [train], seed=SEED), cfg,
+                              InputType.PAIRWISE)
+        require(loader.dynamic == bool(cand) and trainer._maybe_device_epoch(loader) is None
+                and trainer._host_scan_k(loader) == 1, "G2: the dynamic host path")
+        score, spent = trainer._score_candidates, []
+
+        def timed(users, items, score=score, spent=spent):
+            sync()
+            t0 = time.perf_counter()
+            out = score(users, items)
+            spent.append(time.perf_counter() - t0)
+            return out
+
+        trainer._score_candidates = timed
+        trainer.fit(loader, None, saved=False)
+        del spent[:]
+        sync()
+        t0 = time.perf_counter()
+        trainer._train_epoch(loader, 1)
+        sync()
+        wall = time.perf_counter() - t0
+        steps = len(trainer.last_losses)
+        require(steps == G_BPR_STEPS and len(spent) == (steps if cand else 0)
+                and trainer.step_graphs.captures == (1 if DEVICE == "cuda" else 0),
+                f"G2: {steps} steps, {len(spent)} scorer calls")
+        g_losses(trainer.last_losses, f"G2 BPR candidates {cand}")
+        walls[cand] = {"ms_a_step": wall * 1e3 / steps,
+                       "scorer_ms_a_step": sum(spent) * 1e3 / steps,
+                       "scorer_share_pct": 100 * sum(spent) / wall}
+        log(f"G2 BPR, {BPR_TRAIN_B} rows a step, candidates {cand}: "
+            f"{walls[cand]['ms_a_step']:.2f} ms a step (wall, an epoch after the fit), scorer "
+            f"{walls[cand]['scorer_ms_a_step']:.2f} ms ({walls[cand]['scorer_share_pct']:.1f} %)")
+    G_TIMES["G2 BPR dynamic"] = walls
+    # the picks of the last loader (16 candidates) against a plain scorer
+    drawn, draw = [], loader.sampler.sample_negatives
+
+    def keep(*args):
+        out = draw(*args)
+        drawn.append(out)
+        return out
+
+    loader.sampler.sample_negatives = keep
+    users = train.inter["user_id"][:BPR_TRAIN_B]
+    picks = loader._sample_negs(users)[:, 0]
+    loader.sampler.sample_negatives = draw
+    cand = torch.from_numpy(drawn[0]).to(DEVICE)
+    with torch.no_grad():
+        u = model.user_embedding.weight.double()[torch.from_numpy(users).to(DEVICE)]
+        s = (u[:, None, :] * model.item_embedding.weight.double()[cand]).sum(-1)
+    top2 = s.topk(2, dim=1).values
+    plain = cand.gather(1, s.argmax(1, keepdim=True))[:, 0].cpu().numpy()
+    near = ((top2[:, 0] - top2[:, 1]) <= 1e-5 * top2[:, 0].abs()).cpu().numpy()
+    same_item = (cand == torch.from_numpy(picks).to(DEVICE)[:, None]).sum(1).cpu().numpy() > 1
+    differ = picks != plain
+    log(f"G2 picks of {len(users)} slots of {G_CANDIDATES[-1]} candidates: "
+        f"{int(differ.sum())} differ from the plain f64 argmax, {int(near.sum())} near-ties")
+    require(not (differ & ~near & ~same_item).any(), "G2: picks differ from the plain argmax")
+    mapper = RandomOOVMapper(model.spec, N_OLD_USERS, N_OLD_ITEMS,
+                             N_OLD_USERS + N_NEW_USERS, N_OLD_ITEMS + N_NEW_ITEMS)
+    mapper.set_eval()
+    ind_splits, _ = synth_interactions(model, mapper)
+    k1 = seven_slices_fused_vs_dense(model, mapper, ind_splits, serving_cfg,
+                                     what="G2 BPR (16 candidates) inductive eval")
+    return {"fused_topk_scores": k1}
+
+
+def reference_layout(model):
+    """The port model's weights under the reference's (RecBole's) state_dict
+    names, as `utils/torch_import.py` maps them back (BPR, xDeepFM)."""
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()
+          if ".embedder_state." not in k and not k.startswith("embedder_state.")}
+    if isinstance(model, BPR):
+        return sd
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("field_embedding."):
+            k = k[len("field_embedding."):]
+        elif k.startswith("first_order_linear.fo."):
+            k = "first_order_linear." + k[len("first_order_linear.fo."):]
+        m = re.match(r"conv1d_(\d+)\.(kernel|bias)$", k)
+        if m:
+            i, leaf = m.groups()
+            out[f"conv1d_list.{i}.weight" if leaf == "kernel" else k.replace(
+                f"conv1d_{i}", f"conv1d_list.{i}")] = v.T[:, :, None] if leaf == "kernel" else v
+            continue
+        m = re.match(r"mlp_layers\.Dense_(\d+)\.(weight|bias)$", k)
+        if m:
+            out[f"mlp_layers.mlp_layers.{3 * int(m.group(1)) + 1}.{m.group(2)}"] = v
+            continue
+        if k.endswith("embedding_table.weight"):
+            k = k[:-len("weight")] + "embedding.weight"
+        out[k] = v
+    return out
+
+
+def cli_model(argv, seed):
+    """The model `cli.run` builds for `argv`, its weights from `seed`."""
+    args = cli_run.merge_dataset_config(cli_run.apply_paper_protocol(
+        cli_run.parse_cli_args(argv)))
+    args["seed"], args["device"] = seed, DEVICE
+    config = Config(args, model=args["model"], dataset=args["dataset"])
+    return quick_start.build_model_and_state(config, create_dataset(config))
+
+
+def g3_import(name, argv, subprocess_run):
+    """A reference `.pth` of `name` in RecBole's key names (this model's
+    weights from another seed) seeds `cli.run` (`import_torch_checkpoint`):
+    the import gives the model the file's weights bit for bit; a 1-epoch
+    run from it (the `-m` entry as a subprocess, or `cli.run.main`), then
+    `--eval_only` on its checkpoint reproduces its test metrics and 7
+    slices to 1e-9. → the run's wall seconds."""
+    out = cli_out(f"g3-{name.lower()}")
+    ref = os.path.join(out, "reference.pth")
+    torch.save({"state_dict": reference_layout(cli_model(argv, SEED + 800))}, ref)
+    seeded = cli_model(argv, SEED)
+    quick_start.import_torch_checkpoint(seeded, name, ref)
+    want = torch.load(ref, weights_only=True)["state_dict"]
+    got = reference_layout(seeded)
+    require(got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in want),
+            f"G3 {name}: imported weights differ from the .pth")
+    argv = argv + [f"--import_torch_checkpoint={ref}", "--epochs=1", *cli_flags(out)]
+    t0 = time.perf_counter()
+    if subprocess_run:
+        proc = subprocess.run([sys.executable, "-m", "oovrec_tpu_torch.cli.run", *argv],
+                              capture_output=True, text=True, timeout=600)
+        lines = (proc.stdout + proc.stderr).splitlines()
+        require(proc.returncode == 0, f"G3 {name}: rc {proc.returncode}: " +
+                "\n".join(lines[-30:]))
+        require(any("imported reference checkpoint" in x for x in lines),
+                f"G3 {name}: no import logged")
+        with open(os.path.join(out, "results.json")) as f:
+            res = json.load(f)
+        test, slices = res["test_result"], res["inductive"]
+    else:
+        res = cli_run.main(argv)
+        test, slices = res["test_result"], res["inductive_results"]
+    wall = time.perf_counter() - t0
+    finite_metrics(test, f"G3 {name} test")
+    again = cli_run.main([f"--eval_only={os.path.join(out, f'{name}-synth-ind.pth')}",
+                          "--inductive_eval=True"])
+    agree(dict(test), dict(again["test_result"]), f"G3 {name} eval_only test", tol=1e-9)
+    agree_slices(slices, again["inductive_results"], f"G3 {name} eval_only slices", tol=1e-9)
+    log(f"G3 {name}: seeded from a reference .pth, 1 epoch in {wall:.1f} s (wall); "
+        f"--eval_only == the run (1e-9); test {dict(test)}")
+    return wall
+
+
+def g3_resume():
+    """The committed JAX checkpoint (BPR on synth-ind, sparse_adam, one
+    epoch), read with no flax: `load_data_and_model` restores it (params
+    == the file's bit for bit, the lazy-Adam moments and count), and one
+    more epoch trains on the host path, kernel 6 on the resumed moments."""
+    from oovrec_tpu_torch.utils.jax_checkpoint import read_jax_checkpoint
+    from oovrec_tpu_torch.utils.jax_params import state_dict_from_flax
+
+    out = cli_out("g3-resume")
+    run = quick_start.load_data_and_model(G_FIXTURE, {"device": DEVICE, "checkpoint_dir": out})
+    trainer, model = run.trainer, run.model
+    state = read_jax_checkpoint(G_FIXTURE)
+    want = state_dict_from_flax(state["params"], model)
+    require(all(torch.equal(model.state_dict()[k].cpu(), v) for k, v in want.items()),
+            "G3 resume: params differ from the JAX checkpoint")
+    count = trainer.opt_state["count"]
+    require(trainer.optimizer.rule == "lazy_adam" and trainer.start_epoch == 1
+            and count == int(state["opt_state"]["0"]["count"]) and trainer.sparse_tables,
+            "G3 resume: the lazy-Adam state and the row-sparse host path")
+    trainer.epochs = 2
+    sparse_adam_rows_kernel.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    trainer.fit(run.train_loader, run.valid_loader, saved=False)
+    sync()
+    wall = time.perf_counter() - t0
+    k6 = sparse_adam_rows_kernel.launches
+    loss = trainer.train_loss_dict.get(1)
+    require(list(trainer.train_loss_dict) == [1] and loss is not None and math.isfinite(loss)
+            and trainer.opt_state["count"] > count and k6 > 0,
+            f"G3 resume: epoch 1 loss {loss}, count {trainer.opt_state['count']}, k6 {k6}")
+    finite_metrics(trainer.best_valid_result, "G3 resume valid")
+    log(f"G3 resume of {G_FIXTURE}: epoch 1 in {wall:.2f} s, loss {loss:.4f}, "
+        f"count {count} -> {trainer.opt_state['count']}, kernel 6 launches {k6}")
+    return {"sparse_adam_rows_kernel": k6}
+
+
+def g3_cli():
+    """G3: the CLI seeded from reference `.pth` files (BPR by the `-m`
+    entry, xDeepFM by `cli.run.main`), and a JAX checkpoint resumed. →
+    the part's kernel 6 launches."""
+    bpr = ["--model=BPR", "--dataset=synth-ind", "--data_path=dataset", SYNTH_LOAD_COL,
+           *CLI_OOV]
+    xdfm = ["--model=xDeepFM", "--model_eval_type=ranking", "--dataset=synth-ind",
+            "--data_path=dataset", SYNTH_LOAD_COL, *CLI_OOV,
+            "--numerical_features=['age','price']"]
+    g3_import("BPR", bpr, subprocess_run=True)
+    counts = kernel_counts()
+    g3_import("xDeepFM", xdfm, subprocess_run=False)
+    counts = {k: counts[k] + n for k, n in kernel_counts().items()}
+    # the CLI's paper protocol evaluates uni250, which takes no top-k kernel
+    require(counts["cin_layer_pooled"] > 0 and counts["cin_layer_pooled_bwd"] > 0
+            and counts["scatter_rows_kernel"] > 0, f"G3 launches {counts}")
+    reset_kernel_counts()
+    return {**counts, **g3_resume()}
+
+
+def host_graph_vs_eager(make, what, steps):
+    """`graph_vs_eager` on the host path: `steps` host batches through the
+    trainer's captured step and through the eager `_apply_step`, bit for
+    bit; then their times. → the times."""
+    (a, loader), (b, _) = make(), make()
+    require(a._maybe_device_epoch(loader) is None, f"{what}: the host path")
+    batches = []
+    for hb in loader:
+        batches.append(to_device_batch(hb, DEVICE))
+        if len(batches) == steps:
+            break
+    a.model.train()
+    b.model.train()
+    la = torch.stack([a.step_graphs.step(x) for x in batches])
+    lb = torch.stack([b._apply_step(x) for x in batches])
+    sync()
+    g = a.step_graphs
+    sa, sb = f_state(a), f_state(b)
+    differ = [n for n in sa if not torch.equal(sa[n], sb[n])]
+    log(f"{what}: {steps} host steps graphed ({g.replays} replays) vs eager: losses "
+        f"{'equal' if torch.equal(la, lb) else 'DIFFER'}, {len(sa) - len(differ)} of "
+        f"{len(sa)} tensors equal bit for bit")
+    require(g.captures == 1 and g.replays == steps - 1 and torch.equal(la, lb) and not differ,
+            f"{what}: graph vs eager differ {differ[:5]}")
+    graph_vs_eager_times(SimpleNamespace(train_step=a.step_graphs.step), b, batches, what, "G4")
+    return g_times(what)
+
+
+def g4_zoo(ind):
+    """G4: LR, FM, DeepFM and FFM at their YAML widths at the ranking
+    cell's shape: LR, FM and DeepFM on the pointwise device epoch (8
+    graphed steps == 8 eager ones) and each on the host path (graphed ==
+    eager), ms a step of each; a short fit on the device epoch (LR, FM,
+    DeepFM) or the host path (FFM), then the value eval on the held-out
+    IV rows. → the part's launches."""
+    train, _, held_iv = ctr_splits(ind)
+    sampler = Sampler(["train"], [train], seed=SEED)
+    counts = {}
+    for i, name in enumerate(G_ZOO):
+        device = name != "FFM"
+        cfg = ctr_train_cfg(device_epoch=device, train_oov=False,
+                            train_neg_sample_args=F_POINTWISE)
+        trainer = Trainer(cfg, e_ranking_model(name, SEED + 900 + i))
+        loader = TrainBatcher(rows_of(train, np.arange(len(train)) < 16 * CTR_B // 2,
+                                      N_CTR_OLD_USERS, N_CTR_OLD_ITEMS),
+                              sampler, cfg, InputType.POINTWISE)
+        reset_kernel_counts()
+        trainer.fit(loader, None, saved=False)
+        counts = {k: counts.get(k, 0) + n for k, n in kernel_counts().items()}
+        des = list(trainer._device_epochs.values())
+        require(bool(des) == device and all(d.mode == "pointwise" for d in des),
+                f"G4 {name}: the device epoch {[d.mode for d in des]}")
+        g_losses(trainer.last_losses, f"G4 {name} ({'device epoch' if device else 'host'})")
+        res = EvalRunner(trainer.model, cfg).evaluate(PlainEvalBatcher(held_iv, cfg))
+        finite_metrics(res, f"G4 {name} value eval")
+        log(f"G4 {name}: value eval on {len(held_iv)} held-out IV rows {dict(res)}")
+        del trainer, loader
+
+        def make(name=name, i=i, dev=False):
+            c = ctr_train_cfg(device_epoch=dev, train_oov=False, train_neg_sample_args=F_POINTWISE)
+            return Trainer(c, e_ranking_model(name, SEED + 910 + i)), TrainBatcher(
+                train, sampler, c, InputType.POINTWISE)
+
+        if device:
+            a, gde, b, batches = graph_vs_eager(lambda: make(dev=True), f"G4 {name}",
+                                                steps=G_ZOO_STEPS)
+            graph_vs_eager_times(gde, b, batches, f"G4 {name} pointwise", "G4")
+            g_times(f"G4 {name} pointwise")
+            del a, gde, b, batches
+        host_graph_vs_eager(make, f"G4 {name} host", G_ZOO_STEPS)
+    return counts
 
 
 SERVING = {}
@@ -4075,6 +4560,30 @@ def main():
             f"phase F graphed traces {F_TRACE}")
     log("phase F kernels replayed, from the traces: " + json.dumps(F_TRACE))
     log("phase F times: " + json.dumps(F_TIMES))
+    # phase G, the trainer's leftovers and LR / FM / DeepFM / FFM; counted
+    # by part as F is (a part whose checks reset counts returns its own)
+    t0 = time.perf_counter()
+    on_g, f_trace = {}, dict(F_TRACE)
+    for part, run in (("G1", lambda: g1_learners(ind)), ("G2", g2_dynamic), ("G3", g3_cli),
+                      ("G4", lambda: g4_zoo(ind))):
+        reset_kernel_counts()
+        sync()
+        t1 = time.perf_counter()
+        seen = run()
+        sync()
+        on_g[part] = {**kernel_counts(), **seen}
+        log(f"phase {part}: {time.perf_counter() - t1:.1f} s, kernel launches {on_g[part]}")
+    log(f"phase G: {time.perf_counter() - t0:.1f} s")
+    g_trace = {p: c for p, c in F_TRACE.items() if p not in f_trace}
+    require(on_g["G1"]["cin_layer_pooled"] > 0 and on_g["G1"]["cin_layer_pooled_bwd"] > 0
+            and on_g["G2"]["fused_topk_scores"] > 0 and on_g["G3"]["cin_layer_pooled_bwd"] > 0
+            and on_g["G3"]["sparse_adam_rows_kernel"] > 0
+            and all(on_g[p]["scatter_rows_kernel"] > 0 for p in ("G1", "G3", "G4")),
+            f"phase G launches {on_g}")
+    require(g_trace["G1"]["cin_layer_pooled"] > 0 and g_trace["G1"]["cin_layer_pooled_bwd"] > 0
+            and g_trace["G4"]["scatter_rows_kernel"] > 0, f"phase G graphed traces {g_trace}")
+    log("phase G kernels replayed, from the traces: " + json.dumps(g_trace))
+    log("phase G times: " + json.dumps(G_TIMES))
     cli = {  # each kernel's launches on the CLI paths (A launches none)
         "fused_topk_scores": {"C": k1_c},
         "cin_layer_pooled": {"B": cli_b["cin_layer_pooled"]},
@@ -4142,7 +4651,9 @@ def main():
         k["launches_d"] = {part: c[k["name"]] for part, c in on_d.items()}
         k["launches_e"] = {part: c[k["name"]] for part, c in on_e.items()}
         k["launches_f"] = {part: c[k["name"]] for part, c in on_f.items()}
-        k["launches_f_trace"] = {part: c[k["name"]] for part, c in F_TRACE.items()}
+        k["launches_f_trace"] = {part: c[k["name"]] for part, c in f_trace.items()}
+        k["launches_g"] = {part: c[k["name"]] for part, c in on_g.items()}
+        k["launches_g_trace"] = {part: c[k["name"]] for part, c in g_trace.items()}
     log("gathers' backward (ops/embed_grad.py, not a Pallas kernel): " + json.dumps({
             "ms": gathers, "bound_ms": gather_bound,
             "device_epoch": GATHER_RESULTS.get("device_epoch")}))

@@ -2,13 +2,18 @@
 
 Port of `oovrec_tpu/cli/quick_start.py:28-342`: config → dataset →
 loaders → model → `Trainer.fit` → test evaluation, and the one-call
-restore of a saved run. Everything runs on `config["device"]` ("cuda"
+restore of a saved run (a checkpoint of the port's, or one the JAX
+package's trainer wrote). Everything runs on `config["device"]` ("cuda"
 unless the caller asks for "cpu"; CUDA asked for and absent raises).
 
-What the JAX driver does and the port refuses: the migration from a
-reference `.pth` (`import_torch_checkpoint`, ROADMAP.md queue 1 "Trainer
-leftovers") and the multi-host bootstrap (`coordinator_address` /
-`num_processes`, ROADMAP.md queue 1 "Parallelism").
+`import_torch_checkpoint: <file.pth>` seeds the model from a reference
+RecBole checkpoint before training (`:207-233` there,
+`utils/torch_import.py`): the leaves its map names are replaced, the
+others keep their initial values.
+
+What the JAX entry does and the port refuses: the multi-host bootstrap
+(`coordinator_address` / `num_processes`, ROADMAP.md queue 1
+"Parallelism").
 """
 
 from __future__ import annotations
@@ -30,9 +35,17 @@ from oovrec_tpu_torch.models import get_model_class
 from oovrec_tpu_torch.models.context import ContextRecommender, field_spec_from_dataset
 from oovrec_tpu_torch.train.trainer import Trainer
 from oovrec_tpu_torch.utils.device import resolve_device
+from oovrec_tpu_torch.utils.jax_checkpoint import is_jax_checkpoint, read_jax_checkpoint
+from oovrec_tpu_torch.utils.jax_params import (
+    batch_stats_from_module,
+    flax_from_state_dict,
+    load_batch_stats,
+    load_flax_params,
+)
 from oovrec_tpu_torch.utils.logging import init_logger
 from oovrec_tpu_torch.utils.precision import set_policy
 from oovrec_tpu_torch.utils.seeding import init_seed, torch_generator
+from oovrec_tpu_torch.utils.torch_import import import_reference_checkpoint, merge_params
 
 # constructor arguments the driver sets itself; the others come from the
 # config where it holds them (`mlp_hidden_size`, `fused_cin`, ...)
@@ -130,14 +143,22 @@ def build_model_and_state(config, dataset, mode: str = "transductive",
 
 
 def _refuse_unported(config) -> None:
-    if config["import_torch_checkpoint"]:
-        raise NotImplementedError(
-            "import_torch_checkpoint (seeding from a reference .pth) is not ported "
-            "(ROADMAP.md, queue 1: trainer leftovers)")
     if config["coordinator_address"] or (config["num_processes"] or 0) > 1:
         raise NotImplementedError(
             "the multi-host bootstrap (coordinator_address / num_processes) is not "
             "ported (ROADMAP.md, queue 1: parallelism)")
+
+
+def import_torch_checkpoint(model: nn.Module, model_name: str, path: str) -> nn.Module:
+    """Seed `model` from the reference `.pth` at `path`: the params (and
+    BatchNorm statistics) that the import map names replace the model's,
+    every other leaf keeps its value."""
+    params, stats = import_reference_checkpoint(model_name, path)
+    load_flax_params(model, merge_params(flax_from_state_dict(model.state_dict(), model),
+                                         params))
+    if stats:
+        load_batch_stats(model, merge_params(batch_stats_from_module(model), stats))
+    return model
 
 
 def _draw_template(train_loader) -> None:
@@ -168,6 +189,9 @@ def run(
     train_loader, valid_loader, test_loader = data_preparation(config, ds)
     _draw_template(train_loader)
     model_obj = build_model_and_state(config, ds)
+    if config["import_torch_checkpoint"]:
+        import_torch_checkpoint(model_obj, config["model"], config["import_torch_checkpoint"])
+        logger.info(f"imported reference checkpoint [{config['import_torch_checkpoint']}]")
     n_params = sum(p.numel() for p in model_obj.parameters())
     logger.info(f"model: {config['model']}  trainable params: {n_params:,}")
     trainer = Trainer(config, model_obj)
@@ -220,9 +244,15 @@ def load_data_and_model(model_file: str,
     loaders and model, and the checkpoint's parameters and trainer state
     are loaded. The same seed re-derives the loaders' streams, so
     `trainer.evaluate(test_loader)` reproduces the run's test metrics
-    (the uni-N candidates included)."""
-    state = torch.load(model_file, map_location="cpu", weights_only=True)
-    cfg_dict = {k: v for k, v in state["config"].items() if k not in DERIVED_KEYS}
+    (the uni-N candidates included). A checkpoint of the JAX package's
+    trainer is restored too (`Trainer.resume_checkpoint`)."""
+    if is_jax_checkpoint(model_file):
+        state = read_jax_checkpoint(model_file)
+    else:
+        state = torch.load(model_file, map_location="cpu", weights_only=True)
+    # a JAX run without a device in its config leaves `device` to the port
+    cfg_dict = {k: v for k, v in state["config"].items()
+                if k not in DERIVED_KEYS and not (k == "device" and v is None)}
     if config_overrides:
         cfg_dict.update(config_overrides)
     config = Config(cfg_dict)

@@ -63,7 +63,15 @@ class TrainBatcher:
     the JAX batcher's key for key. The feature tables are the split's
     `user_feat` / `item_feat`; the process pair comes from the caller.
     Only the identity transform (`transform` None / 'Equal',
-    `data/transform.py`) is ported, and dynamic hard negatives are not.
+    `data/transform.py`) is ported.
+
+    Dynamic hard negatives (`train_neg_sample_args: {dynamic: true,
+    candidate_num: C}`, `dataloader.py:103-107, 147-171` of the JAX
+    package): each slot's C candidates come from the sampler's stream as
+    one draw of sample_num · C, the scorer the trainer registers
+    (`set_model_scorer`) scores them against the row's user, and the
+    highest score wins, the first candidate on a tie (`numpy.argmax`).
+    Without a scorer, or with C ≤ 1, the draw is the plain one.
     """
 
     def __init__(
@@ -96,9 +104,9 @@ class TrainBatcher:
         self.sample_num = (
             int(nsa.get("sample_num", 0)) if self.distribution != "none" else 0
         )
-        if nsa.get("dynamic", False):
-            raise NotImplementedError(
-                "dynamic hard negatives (train_neg_sample_args.dynamic) are not ported")
+        self.dynamic = bool(nsa.get("dynamic", False))
+        self.candidate_num = int(nsa.get("candidate_num", 0) or 0)
+        self._scorer = None  # fn(users, items) -> scores, set_model_scorer
         if self.distribution == "none" or self.sample_num == 0:
             self.times = 1
             self.mode = "plain"
@@ -132,6 +140,23 @@ class TrainBatcher:
         self.item_feat = split.item_feat
         self.transform = construct_transform(config, n_items=split.item_num)
 
+    def set_model_scorer(self, fn) -> None:
+        """Register the scorer of dynamic negative sampling: `fn(users,
+        items)` (two int arrays of one length) → their scores."""
+        self._scorer = fn
+
+    def _sample_negs(self, users: np.ndarray) -> np.ndarray:
+        """(len(users), sample_num) negatives; in dynamic mode the
+        highest-scoring of candidate_num draws a slot."""
+        if not (self.dynamic and self.candidate_num > 1 and self._scorer):
+            return self.sampler.sample_negatives(self.phase, users, self.sample_num)
+        n, c = self.sample_num, self.candidate_num
+        cand = self.sampler.sample_negatives(self.phase, users, n * c)
+        cand = cand.reshape(len(users), n, c)
+        scores = np.asarray(self._scorer(np.repeat(users, n * c), cand.reshape(-1)))
+        pick = scores.reshape(len(users), n, c).argmax(axis=2)
+        return np.take_along_axis(cand, pick[:, :, None], axis=2)[:, :, 0]
+
     def __len__(self) -> int:
         n = len(self.split)
         if not n:
@@ -163,7 +188,7 @@ class TrainBatcher:
         n_real = len(idx)
 
         if self.mode == "pairwise":
-            neg = self.sampler.sample_negatives(self.phase, users, self.sample_num)
+            neg = self._sample_negs(users)
             batch: Batch = {
                 k: np.tile(v, (self.times,) + (1,) * (v.ndim - 1))
                 for k, v in rows.items()
@@ -178,7 +203,7 @@ class TrainBatcher:
             weight[: n_real * self.times] = 1.0
             total = self.local_step * self.times
         elif self.mode == "pointwise":
-            neg = self.sampler.sample_negatives(self.phase, users, self.sample_num)
+            neg = self._sample_negs(users)
             batch = {
                 k: np.tile(v, (self.times,) + (1,) * (v.ndim - 1))
                 for k, v in rows.items()

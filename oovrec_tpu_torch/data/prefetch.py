@@ -9,7 +9,9 @@ streams are the unwrapped loader's, since the SAME iterator runs; what the
 trainer draws per batch (the OOV keep draw, the simulator) stays on the
 consumer side, so `worker` > 0 gives the batches and the run of `worker:
 0` bit for bit. An exception in the thread is raised on the consumer
-side.
+side. A loader with dynamic hard negatives is never run ahead: its batch
+n + 1 must be scored with the parameters after step n (the JAX package's
+prefetcher would score it with older ones).
 """
 
 from __future__ import annotations
@@ -54,8 +56,9 @@ class PrefetchIterator:
 
 
 def maybe_prefetch(loader, config):
-    """Wrap a train loader in a prefetcher when `worker` > 0."""
+    """Wrap a train loader in a prefetcher when `worker` > 0 and its
+    batches do not depend on the live parameters (dynamic negatives)."""
     workers = int(config.get("worker", 0) or 0)
-    if workers > 0:
+    if workers > 0 and not getattr(loader, "dynamic", False):
         return PrefetchIterator(loader, depth=max(2, workers))
     return loader

@@ -3,7 +3,7 @@
 from oovrec_tpu_torch.models.base import MODEL_REGISTRY, GeneralRecommender
 from oovrec_tpu_torch.models.bpr import BPR
 from oovrec_tpu_torch.models.context import ContextRecommender, FieldSpec
-from oovrec_tpu_torch.models.context_aware import DCNV2, WideDeep, xDeepFM
+from oovrec_tpu_torch.models.context_aware import DCNV2, FFM, FM, LR, DeepFM, WideDeep, xDeepFM
 from oovrec_tpu_torch.models.directau import DirectAU
 
 
@@ -14,6 +14,6 @@ def get_model_class(name: str):
 
 
 __all__ = [
-    "BPR", "ContextRecommender", "DCNV2", "DirectAU", "FieldSpec", "GeneralRecommender",
-    "MODEL_REGISTRY", "WideDeep", "get_model_class", "xDeepFM",
+    "BPR", "ContextRecommender", "DCNV2", "DeepFM", "DirectAU", "FFM", "FM", "FieldSpec",
+    "GeneralRecommender", "LR", "MODEL_REGISTRY", "WideDeep", "get_model_class", "xDeepFM",
 ]

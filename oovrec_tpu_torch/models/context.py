@@ -407,17 +407,18 @@ class ContextRecommender(nn.Module):
     def n_items(self) -> int:
         return self.fields.token_dims[1]
 
-    def _setup_context(self, first_order: bool = True):
-        """The field embedding and, unless `first_order` is false (a model
-        that never calls it: the flax tree then has no such params), the
-        first-order twin."""
+    def _setup_context(self, first_order: bool = True, fields: bool = True):
+        """The field embedding and the first-order twin, each unless its
+        flag is false (a model that never calls it: the flax tree then has
+        no such params; LR has only the twin)."""
         spec = self.spec
         tower_in = (tower_inputs(spec, self.embedder_state)
                     if spec is not None and spec.active and spec.trainable_embedder else None)
         kw = dict(spec=spec, uid_field=self.uid_field,
                   iid_field=self.iid_field, device=self.device,
                   generator=self.generator, tower_in=tower_in)
-        self.field_embedding = _FieldEmbedding(self.fields, self.embedding_size, **kw)
+        if fields:
+            self.field_embedding = _FieldEmbedding(self.fields, self.embedding_size, **kw)
         if first_order:
             self.first_order_linear = FirstOrderLinear(self.fields, **kw)
 

@@ -25,8 +25,8 @@ from oovrec_tpu_torch.models.losses import bce_with_logits
 
 @register_model
 class WideDeep(ContextRecommender):
-    # as the JAX model declares; the port's device epoch has no pointwise
-    # mode yet (train/device_epoch.py), so `auto` takes the host path
+    # as the JAX model declares: the device epoch's pointwise and plain
+    # modes provide what its loss reads (train/device_epoch.py)
     supports_device_epoch = True
 
     def __init__(

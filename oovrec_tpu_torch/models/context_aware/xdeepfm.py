@@ -67,8 +67,8 @@ class CinConv(nn.Module):
 @register_model
 class xDeepFM(ContextRecommender):
     # as the JAX model declares: its loss reads only split columns and
-    # joined features (the device epoch's pointwise and plain modes, which
-    # the port has not ported: train/device_epoch.py)
+    # joined features, which the device epoch's pointwise and plain modes
+    # provide (train/device_epoch.py)
     supports_device_epoch = True
 
     def __init__(

@@ -28,8 +28,10 @@ host launches one graph a step instead of the step's hundreds of kernels.
 
 On a CPU model the same step runs eagerly, with the device count. The
 row-sparse step (`Trainer._sparse_step`, `learner: sparse_adam`) is never
-captured: `coalesce_rows` sorts the touched ids and its output shape
-depends on them. Its callers run it eagerly.
+captured: kernel 6 takes its two bias corrections as host floats passed
+by value at each launch (`ops/sparse_rows.py:sparse_adam_rows_kernel`), so
+a replay would repeat the captured step's corrections. Its callers run it
+eagerly.
 """
 
 from __future__ import annotations

@@ -110,14 +110,16 @@ def device_epoch_eligible(trainer, loader, config) -> bool:
     number pointwise, none plain), no DHE hasher or one that hashes on the
     device (`dhe_on_device`), and a model whose loss reads only what the
     epoch provides (`supports_device_epoch`); under `auto`, at least
-    AUTO_MIN_ROWS rows. The port's batcher, trainer and models refuse the
-    other gates' cases (transforms, dynamic negatives, the mesh)."""
+    AUTO_MIN_ROWS rows. Dynamic hard negatives need the live scorer per
+    batch and stay on the host path. The port's batcher, trainer and models
+    refuse the other gates' cases (transforms, the mesh)."""
     from oovrec_tpu_torch.data.dataloader import TrainBatcher
 
     flag = device_epoch_flag(config)
     if flag is False or not isinstance(loader, TrainBatcher):
         return False
     dist_ok = getattr(loader.sampler, "distribution", None) in ("uniform", "popularity")
+    dist_ok = dist_ok and not loader.dynamic
     if loader.mode == "pairwise":
         sampling_ok = loader.times == 1 and dist_ok
     elif loader.mode == "pointwise":
@@ -308,8 +310,8 @@ class DeviceEpoch:
         """One training step on `batch` (tensors on the device): the
         trainer's parameters, optimizer state and BatchNorm statistics
         update in place. The dense step replays its captured graph on the
-        card; the row-sparse step runs eagerly, by rule: `coalesce_rows`
-        has data-dependent shapes. → the loss."""
+        card; the row-sparse step runs eagerly, by rule: kernel 6 takes
+        its bias corrections as host floats at each launch. → the loss."""
         if self.sparse_tables:
             return self.trainer._sparse_step(batch, self.sparse_tables, self.sparse_impl)
         return self.trainer.step_graphs.step(batch, self.trainable)

@@ -4,11 +4,12 @@ Port of `oovrec_tpu/train/optimizers.py:75-178` and of the chain the JAX
 trainer builds (`trainer.py:67-88, 215-218`). One step is the optax chain
 
     clip_by_global_norm (clip_grad_norm) → add_decayed_weights (weight_decay)
-    → scale_by_adam | scale_by_lazy_adam | scale_by_torch_adam | nothing (sgd)
+    → scale_by_adam | scale_by_lazy_adam | scale_by_torch_adam
+      | scale_by_rss (adagrad) | scale_by_rms (rmsprop) | nothing (sgd)
     → scale(-lr)
 
-applied to every parameter, then `p + update`. Not `torch.optim.Adam`,
-whose semantics differ:
+applied to every parameter, then `p + update`. Not `torch.optim`, whose
+semantics differ:
   * optax's Adam (the default) advances ONE shared count every step and
     steps every leaf, zero-gradient leaves included (momentum glide on the
     bucket tables between OOV sub-epochs); its update is
@@ -22,13 +23,30 @@ whose semantics differ:
   * `optimizer_skip_zero_grads: true` is the torch-faithful Adam of
     `scale_by_torch_adam`: per-leaf counts, and a leaf whose gradient is
     all zero this step neither moves nor advances its moments or count;
+  * `learner: adagrad` is `optax.scale_by_rss()`: the sum of squares
+    starts at 0.1 and the update is g · rsqrt(sum + 1e-7) where the sum is
+    positive, else 0 (`torch.optim.Adagrad` starts at 0 and adds eps
+    outside the root);
+  * `learner: rmsprop` is `optax.scale_by_rms()`: nu = 0.9 · nu + 0.1 · g²
+    from 0, the update g · rsqrt(nu + 1e-8), no bias correction
+    (`torch.optim.RMSprop` decays by 0.99 and adds eps outside the root);
+  * `optimizer_mu_dtype` stores the first moment of `adam` and of the
+    torch-faithful Adam in that dtype (`bfloat16`); `sparse_adam` and an
+    unknown learner's fallback Adam take no `mu_dtype`, as in JAX. The
+    update uses the new moment in f32 and only the stored moment is
+    rounded (`tree_cast` after the update). For `adam` the new moment is
+    (1 - b1) · g + b1' · mu in f32, b1' being b1 in the moment's dtype:
+    optax multiplies the stored moment by the weak-typed b1, and the
+    compiled step keeps that product in f32; the torch-faithful Adam
+    promotes the moment to f32 first (`scale_by_torch_adam`);
   * clipping is optax's: scale by max_norm / ‖g‖ only when ‖g‖ ≥ max_norm
     (`torch.nn.utils.clip_grad_norm_` adds 1e-6 and always rescales);
-  * weight decay adds wd · p to the gradient before the moments.
-The state updates in place. A frozen step (`trainable` given) leaves the
-other leaves' parameters, moments and per-leaf counts as they were, while
-the shared count advances: `trainer.py:250-259` with `_select_opt_state`.
-`adagrad`, `rmsprop` and `optimizer_mu_dtype` are not ported.
+  * weight decay adds wd · p to the gradient before the rule.
+The state updates in place, on the parameters' device, and no rule reads
+it back, so a captured step (`train/cuda_graph.py`) takes any of them. A
+frozen step (`trainable` given) leaves the other leaves' parameters and
+state as they were, while the shared count advances: `trainer.py:250-259`
+with `_select_opt_state`.
 
 The shared count is a Python int in the state, and the bias corrections
 are host floats. A step captured in a CUDA graph (`train/cuda_graph.py`)
@@ -50,7 +68,9 @@ import torch
 
 from oovrec_tpu_torch.ops.sparse_rows import B1, B2, EPS, bias_correction
 
-NOT_PORTED = ("adagrad", "rmsprop")
+# optax's defaults: scale_by_rss (adagrad) and scale_by_rms (rmsprop)
+ADAGRAD_INIT, ADAGRAD_EPS = 0.1, 1e-7
+RMS_DECAY, RMS_EPS = 0.9, 1e-8
 # counts whose corrections are tabled; from far below this count on both
 # corrections are exactly 1.0 in f32 (checked where the tables are built)
 CORRECTION_STEPS = 1 << 15
@@ -120,14 +140,22 @@ def _corrections(count, b1: float, b2: float) -> Tuple[Correction, Correction]:
 
 
 def adam_direction(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, count,
-                   b1: float = B1, b2: float = B2, eps: float = EPS) -> torch.Tensor:
+                   b1: float = B1, b2: float = B2, eps: float = EPS,
+                   b1_in_mu: Optional[float] = None) -> torch.Tensor:
     """optax `scale_by_adam` on one leaf with the already incremented shared
     `count` (or its `device_corrections`): updates mu and nu in place,
-    returns mu_hat / (sqrt(nu_hat) + eps)."""
+    returns mu_hat / (sqrt(nu_hat) + eps). A `mu` stored in a lower
+    precision (`optimizer_mu_dtype`) takes the new moment rounded to it; the
+    step uses the f32 moment, with `b1_in_mu` (b1 rounded to mu's dtype)
+    for b1."""
     c1, c2 = _corrections(count, b1, b2)
-    mu.copy_((1 - b1) * g + b1 * mu)
+    if mu.dtype == g.dtype:
+        m = (1 - b1) * g + b1 * mu
+    else:
+        m = (1 - b1) * g + b1_in_mu * mu.to(g.dtype)
+    mu.copy_(m)
     nu.copy_((1 - b2) * (g * g) + b2 * nu)
-    mu_hat = unbias(mu, c1)
+    mu_hat = unbias(m, c1)
     nu_hat = unbias(nu, c2)
     return mu_hat / (torch.sqrt(nu_hat) + eps)
 
@@ -154,15 +182,45 @@ def torch_adam_direction(g: torch.Tensor, count: torch.Tensor, mu: torch.Tensor,
                          eps: float = EPS) -> torch.Tensor:
     """`scale_by_torch_adam` on one leaf: a leaf touched this step (any
     non-zero gradient) advances its own `count` and moments in place; an
-    untouched leaf keeps them and gets a zero step. No host sync."""
+    untouched leaf keeps them and gets a zero step. A lower-precision `mu`
+    is promoted to f32 for the step and the new moment rounded to it for
+    the state. No host sync."""
     touched = torch.any(g != 0)
     count.add_(touched.to(count.dtype))
-    mu.copy_(torch.where(touched, b1 * mu + (1 - b1) * g, mu))
+    m_old = mu.to(g.dtype)
+    m = torch.where(touched, b1 * m_old + (1 - b1) * g, m_old)
+    mu.copy_(m)
     nu.copy_(torch.where(touched, b2 * nu + (1 - b2) * g * g, nu))
     k = torch.clamp(count, min=1).to(g.dtype)
-    mu_hat = mu / (1 - b1 ** k)
+    mu_hat = m / (1 - b1 ** k)
     nu_hat = nu / (1 - b2 ** k)
     return torch.where(touched, mu_hat / (torch.sqrt(nu_hat) + eps), torch.zeros_like(g))
+
+
+def adagrad_direction(g: torch.Tensor, acc: torch.Tensor,
+                      eps: float = ADAGRAD_EPS) -> torch.Tensor:
+    """optax `scale_by_rss` on one leaf: the sum of squares `acc` grows by
+    g² in place; → g · rsqrt(acc + eps) where acc > 0, else 0."""
+    acc.copy_(g * g + acc)
+    return torch.where(acc > 0, torch.rsqrt(acc + eps), 0.0) * g
+
+
+def rmsprop_direction(g: torch.Tensor, nu: torch.Tensor, decay: float = RMS_DECAY,
+                      eps: float = RMS_EPS) -> torch.Tensor:
+    """optax `scale_by_rms` on one leaf (eps inside the root, no bias
+    correction): nu decays toward g² in place; → g · rsqrt(nu + eps)."""
+    nu.copy_((1 - decay) * (g * g) + decay * nu)
+    return torch.rsqrt(nu + eps) * g
+
+
+def resolve_mu_dtype(name) -> Optional[torch.dtype]:
+    """`optimizer_mu_dtype` as a torch dtype (None: the parameters')."""
+    if not name:
+        return None
+    dtype = getattr(torch, str(name), None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"optimizer_mu_dtype [{name}] is not a floating dtype")
+    return dtype
 
 
 class Optimizer:
@@ -173,20 +231,23 @@ class Optimizer:
                  weight_decay: float = 0.0, clip_grad_norm: Optional[dict] = None,
                  skip_zero_grads: bool = False, mu_dtype=None):
         learner = (learner or "adam").lower()
-        if learner in NOT_PORTED:
-            raise NotImplementedError(f"learner [{learner}] is not ported")
-        if mu_dtype:
-            raise NotImplementedError("optimizer_mu_dtype is not ported")
         # the JAX trainer's torch-faithful Adam replaces the whole chain,
         # whatever the learner; an unknown learner falls back to adam
         if skip_zero_grads:
             self.rule = "torch_adam"
-        elif learner == "sgd":
-            self.rule = "sgd"
         elif learner == "sparse_adam":
             self.rule = "lazy_adam"
+        elif learner in ("sgd", "adagrad", "rmsprop"):
+            self.rule = learner
         else:
             self.rule = "adam"
+        mu_dtype = resolve_mu_dtype(mu_dtype)
+        # JAX hands `mu_dtype` to `learner: adam` and to the torch-faithful
+        # Adam only (not to lazy Adam, nor to the unknown learner's Adam)
+        self.mu_dtype = mu_dtype if (skip_zero_grads or learner == "adam") else None
+        # b1 as a weak-typed scalar meets a moment of that dtype in JAX,
+        # rounded here once: a captured step must not read a tensor back
+        self.b1_in_mu = float(torch.tensor(B1, dtype=self.mu_dtype)) if self.mu_dtype else None
         self.learning_rate = float(learning_rate)
         self.weight_decay = float(weight_decay or 0.0)
         self.max_norm = None
@@ -196,10 +257,14 @@ class Optimizer:
     def init(self, params: Dict[str, torch.Tensor]) -> dict:
         if self.rule == "sgd":
             return {}
-        moments = {
-            "mu": {n: torch.zeros_like(p) for n, p in params.items()},
-            "nu": {n: torch.zeros_like(p) for n, p in params.items()},
-        }
+        if self.rule == "adagrad":
+            return {"sum_of_squares": {n: torch.full_like(p, ADAGRAD_INIT)
+                                       for n, p in params.items()}}
+        nu = {n: torch.zeros_like(p) for n, p in params.items()}
+        if self.rule == "rmsprop":
+            return {"nu": nu}
+        moments = {"mu": {n: torch.zeros_like(p, dtype=self.mu_dtype) for n, p in params.items()},
+                   "nu": nu}
         if self.rule == "torch_adam":
             return {"count": {n: torch.zeros((), dtype=torch.int32, device=p.device)
                               for n, p in params.items()}, **moments}
@@ -215,11 +280,11 @@ class Optimizer:
              state: dict, trainable: Optional[set] = None,
              count: Optional[torch.Tensor] = None) -> None:
         """One update of every parameter in place. `trainable` (a set of
-        names) freezes the others: no update, moments and per-leaf counts
-        kept; the shared count advances all the same. `count`, a 0-dim
-        int64 tensor on the parameters' device, stands in for the state's
-        shared count and advances there; the caller then advances the
-        state's count itself."""
+        names) freezes the others: no update, their state kept; the shared
+        count advances all the same. `count`, a 0-dim int64 tensor on the
+        parameters' device, stands in for the state's shared count and
+        advances there; the caller then advances the state's count
+        itself."""
         names = list(params)
         g = [grads[n] for n in names]
         if self.max_norm is not None:
@@ -238,11 +303,16 @@ class Optimizer:
             if trainable is not None and n not in trainable:
                 continue
             if self.rule == "adam":
-                u = adam_direction(gn, state["mu"][n], state["nu"][n], corr)
+                u = adam_direction(gn, state["mu"][n], state["nu"][n], corr,
+                                   b1_in_mu=self.b1_in_mu)
             elif self.rule == "lazy_adam":
                 u = lazy_adam_direction(gn, state["mu"][n], state["nu"][n], corr)
             elif self.rule == "torch_adam":
                 u = torch_adam_direction(gn, state["count"][n], state["mu"][n], state["nu"][n])
+            elif self.rule == "adagrad":
+                u = adagrad_direction(gn, state["sum_of_squares"][n])
+            elif self.rule == "rmsprop":
+                u = rmsprop_direction(gn, state["nu"][n])
             else:
                 u = gn
             params[n].add_(u * -self.learning_rate)

@@ -49,12 +49,20 @@ Port of `oovrec_tpu/train/trainer.py`:
     of the (prime-padded when flagged) user, item and negative ids, or
     with the id columns that the model hashes on the card
     (`dhe_on_device`);
+  * dynamic hard negatives (`fit` :600-621): the loader's scorer is
+    `model.predict` under `no_grad` on the live parameter tensors (the
+    ones each step, captured or not, updates in place), run between steps
+    and outside any capture, the module's train/eval mode untouched; such
+    a loader takes the host path, one batch at a time, never prefetched;
   * validation through the port's `EvalRunner`, early stopping, the
     epoch log lines of the JAX trainer (`utils/logging.py`), the
-    best-model checkpoint (the port's own `torch.save` format: the JAX
-    package's flax/msgpack file cannot be read where JAX is absent; the
+    best-model checkpoint (the port's own `torch.save` format; the
     embedder state rides in it as the model's buffers) and the JSONL
-    `metrics_log_path`.
+    `metrics_log_path`;
+  * `resume_checkpoint` also reads the JAX package's pickle checkpoints
+    (`trainer.py:851-915`) without flax: `utils/jax_checkpoint.py` decodes
+    their msgpack trees and maps params, `batch_stats`, the embedder
+    state and the optimizer state of every chain onto the port's.
 Randomness: batches, the keep draws, the simulator and the negatives come
 from the JAX package's numpy streams (`host_rng(seed, "oov_regime")`,
 `"train_shuffle_train"`, `"valid_sampling"`, the sampler's seed) bit for
@@ -62,8 +70,7 @@ bit; dropout draws from the trainer's `torch.Generator`, seeded from
 `seed + 101`, which cannot match `jax.random`.
 
 Raises NotImplementedError where a config asks for what is not ported:
-a mesh and dynamic hard negatives. Tensorboard and wandb are not ported
-and log nothing.
+a mesh. Tensorboard and wandb are not ported and log nothing.
 """
 
 from __future__ import annotations
@@ -98,6 +105,13 @@ from oovrec_tpu_torch.train.sparse_update import (
     resolve_sparse_impl,
     sparse_adam_update_table,
     sparse_epoch_table_map,
+)
+from oovrec_tpu_torch.utils.jax_checkpoint import is_jax_checkpoint, read_jax_checkpoint
+from oovrec_tpu_torch.utils.jax_params import (
+    load_batch_stats,
+    load_flax_params,
+    opt_state_from_flax,
+    set_embedder_state,
 )
 from oovrec_tpu_torch.utils.logging import init_logger
 from oovrec_tpu_torch.utils.seeding import host_rng, torch_generator
@@ -174,16 +188,14 @@ class Trainer:
     def _refuse_unported(config, model) -> None:
         if config["use_mesh"]:
             raise NotImplementedError("mesh training (use_mesh) is not ported")
-        if (config["train_neg_sample_args"] or {}).get("dynamic"):
-            raise NotImplementedError("dynamic hard negatives are not ported")
 
     # ------------------------------------------------------------ steps
 
     def _step(self, batch: Dict[str, torch.Tensor], frozen: bool) -> torch.Tensor:
         """One training step. The dense step goes through its captured
         graph (`train/cuda_graph.py`; eagerly on the CPU); the row-sparse
-        step always runs eagerly: its touched-row sort has data-dependent
-        shapes."""
+        step always runs eagerly: kernel 6 takes its bias corrections as
+        host floats at each launch."""
         if frozen or not self.sparse_tables:
             loss = self.step_graphs.step(batch, self.oov_params if frozen else None)
         else:
@@ -232,6 +244,16 @@ class Trainer:
                 params[p], SparseTableState(state["mu"][p], state["nu"][p]),
                 gathered[side], g_rows, state["count"], opt.learning_rate, impl=impl)
         return loss.detach()
+
+    @torch.no_grad()
+    def _score_candidates(self, users: np.ndarray, items: np.ndarray) -> np.ndarray:
+        """The dynamic sampler's scorer: `model.predict` on (user, item)
+        pairs with the live parameters (the JAX scorer's batch: the two id
+        columns only). Its read-back orders it after the last step."""
+        model, device = self.model, self.model.device
+        batch = {model.uid_field: torch.from_numpy(users.astype(np.int64)).to(device),
+                 model.iid_field: torch.from_numpy(items.astype(np.int64)).to(device)}
+        return model.predict(batch).float().cpu().numpy()
 
     # ------------------------------------------------------------ epochs
 
@@ -393,6 +415,9 @@ class Trainer:
                 uid_field=self.model.uid_field, iid_field=self.model.iid_field,
             )
         valid_rng = host_rng(int(self.config["seed"] or 0), "valid_sampling")
+        if ((self.config["train_neg_sample_args"] or {}).get("dynamic")
+                and hasattr(train_loader, "set_model_scorer")):
+            train_loader.set_model_scorer(self._score_candidates)
         self.eval_runner.train_split = getattr(train_loader, "split", None)
 
         for epoch_idx in range(self.start_epoch, self.epochs):
@@ -499,14 +524,43 @@ class Trainer:
         torch.save(state, path)
 
     def resume_checkpoint(self, path: str, params_only: bool = False) -> dict:
+        """Restore the model (and unless `params_only` the optimizer and
+        early-stopping state) from the port's checkpoint or from one the
+        JAX package's trainer wrote (`_resume_jax_checkpoint`). → the
+        checkpoint's dict."""
+        if is_jax_checkpoint(path):
+            return self._resume_jax_checkpoint(path, params_only)
         state = torch.load(path, map_location="cpu", weights_only=True)
         self.model.load_state_dict(state["params"])
         if not params_only:
             _copy_into(self.opt_state, state["opt_state"])
-            self.start_epoch = state["epoch"] + 1
-            self.cur_step = state["cur_step"]
-            self.best_valid_score = state["best_valid_score"]
+            self._resume_progress(state)
         return state
+
+    def _resume_jax_checkpoint(self, path: str, params_only: bool) -> dict:
+        """A JAX package checkpoint (`trainer.py:883-915` there): the params
+        through the weight bridge, `batch_stats` as the BatchNorm
+        statistics, `estate` as the embedder state, the optimizer state of
+        the chain this trainer's rule builds in JAX, and the epoch, patience
+        and best score."""
+        state = read_jax_checkpoint(path)
+        model = self.model
+        load_flax_params(model, state["params"])
+        if state["extra_vars"].get("batch_stats"):
+            load_batch_stats(model, state["extra_vars"]["batch_stats"])
+        if state["estate"]:
+            set_embedder_state(model, state["estate"])
+        if not params_only:
+            _copy_into(self.opt_state,
+                       opt_state_from_flax(state["opt_state"], self.optimizer.rule, model))
+            self._resume_progress(state)
+        return state
+
+    def _resume_progress(self, state: dict) -> None:
+        self.start_epoch = int(state["epoch"]) + 1
+        self.cur_step = int(state["cur_step"])
+        best = state["best_valid_score"]
+        self.best_valid_score = None if best is None else float(best)
 
 
 def _to_device(state, device):

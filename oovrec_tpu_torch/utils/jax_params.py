@@ -20,9 +20,13 @@ DCNv2's ``gating_<i>`` Denses are ``nn.Linear``s and cross transposed.
 The embedder towers (``user_oov_mlp`` / ``item_oov_mlp``, flax
 ``Dense_<j>``) are ``nn.Linear``s, so their kernels cross transposed.
 
-An optimizer state crosses too: `lazy_adam_state_from_flax` turns the JAX
-package's ``chain(scale_by_lazy_adam(), scale(-lr))`` state (count, mu and
-nu trees) into the port's ``{"count", "mu", "nu"}``.
+An optimizer state crosses too: `opt_state_from_flax` turns the state of
+any chain the JAX trainer builds (`train/optimizers.py:build_optimizer`,
+the clip wrapper, the torch-faithful Adam) into the port's state for the
+same rule (`train/optimizers.py:Optimizer`): adam and lazy adam
+``{"count", "mu", "nu"}`` with the shared count, the torch-faithful Adam
+with a count a leaf, adagrad ``{"sum_of_squares"}``, rmsprop ``{"nu"}``,
+sgd ``{}``.
 
 The embedder state is not a parameter: the JAX package passes it as a
 dict of numpy arrays (``estate``), the port holds it as the model's
@@ -222,17 +226,63 @@ def set_embedder_state(module: nn.Module, estate: Mapping[str, Any]) -> nn.Modul
     return module
 
 
-def lazy_adam_state_from_flax(opt_state, module: nn.Module) -> Dict[str, Any]:
-    """A JAX ``chain(scale_by_lazy_adam(), scale(-lr))`` state (its first
-    element has ``count``, ``mu`` and ``nu``: the moments as param-shaped
-    trees of arrays) → the port's lazy-Adam state for `module`: the shared
-    count as an int and the moments as name → tensor dicts on the module's
-    device."""
-    lazy = opt_state[0] if isinstance(opt_state, (tuple, list)) else opt_state
+# the state each rule of the port keeps: its keys in the JAX chain's
+# element, and whether `count` there is one scalar (shared) or a tree
+RULE_STATE = {
+    "adam": ("count", "mu", "nu"),
+    "lazy_adam": ("count", "mu", "nu"),
+    "torch_adam": ("count", "mu", "nu"),
+    "adagrad": ("sum_of_squares",),
+    "rmsprop": ("nu",),
+    "sgd": (),
+}
+
+
+def _state_dict(tree) -> Any:
+    """An optax state as flax's `to_state_dict` gives it: a NamedTuple as
+    a dict of its fields, a tuple as a dict of "0", "1", ...; a decoded
+    checkpoint tree is already so."""
+    if hasattr(tree, "_fields"):
+        return {k: _state_dict(getattr(tree, k)) for k in tree._fields}
+    if isinstance(tree, (tuple, list)):
+        return {str(i): _state_dict(v) for i, v in enumerate(tree)}
+    if isinstance(tree, Mapping):
+        return {k: _state_dict(v) for k, v in tree.items()}
+    return tree
+
+
+def _rule_node(tree, keys):
+    """The first element of the (nested) chain whose fields are `keys`."""
+    if not isinstance(tree, Mapping):
+        return None
+    if set(tree) == set(keys):
+        return tree
+    for k in sorted(tree, key=lambda k: (len(k), k)):
+        found = _rule_node(tree[k], keys)
+        if found is not None:
+            return found
+    return None
+
+
+def opt_state_from_flax(opt_state, rule: str, module: nn.Module) -> Dict[str, Any]:
+    """A JAX optimizer state (the optax objects or a decoded checkpoint
+    tree) of the chain for `rule` → the port's state for `module`: each
+    param-shaped tree as a name → tensor dict on the module's device (the
+    stored dtype's values; a bf16 first moment arrives as its f32 values),
+    the shared count as an int, per-leaf counts as int32 tensors."""
+    keys = RULE_STATE[rule]
+    if not keys:
+        return {}
+    node = _rule_node(_state_dict(opt_state), keys)
+    if node is None:
+        raise KeyError(f"no {keys} element in the JAX optimizer state for rule [{rule}]")
     device = next(module.parameters()).device
-    moments = {
-        part: {k: v.to(device) for k, v in
-               state_dict_from_flax(getattr(lazy, part), module).items()}
-        for part in ("mu", "nu")
-    }
-    return {"count": int(np.asarray(lazy.count)), **moments}
+    out: Dict[str, Any] = {}
+    for part in keys:
+        if part == "count" and rule != "torch_adam":
+            out[part] = int(np.asarray(node[part]))
+            continue
+        tree = state_dict_from_flax(node[part], module)
+        dtype = torch.int32 if part == "count" else torch.float32
+        out[part] = {k: v.to(device=device, dtype=dtype) for k, v in tree.items()}
+    return out

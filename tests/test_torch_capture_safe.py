@@ -5,7 +5,7 @@ dense step. A capture refuses an op that reads the device from the host
 (`.item()`, `bool(t)`, `torch.equal`) or whose output shape depends on the
 data (`nonzero`, boolean indexing, `unique`, `masked_select`), and a random
 draw from a generator the graph does not know. The CPU cannot capture, so
-here each model and embedder trains one CLI epoch on toy-ind on the CPU
+here each model, embedder and learner trains one CLI epoch on toy-ind on the CPU
 while a dispatch mode records, inside `_apply_step` only, every such op
 and every draw from a generator other than the trainer's dropout
 generator (the one `StepGraphs` registers with its graphs). None may
@@ -40,6 +40,17 @@ TRACKS = {
                        "--structure=parallel"],
     "dcnv2-mixed": ["--model=DCNV2", *RANKING[1:], *MAPPER, "--cross_layer_num=2",
                     "--mixed=True"],
+    # adagrad, rmsprop, bf16 first moments; LR, FM, DeepFM and FFM
+    "bpr-adagrad": RETRIEVAL + MAPPER + ["--learner=adagrad"],
+    "bpr-rmsprop": RETRIEVAL + MAPPER + ["--learner=rmsprop"],
+    "bpr-adam-bf16": RETRIEVAL + MAPPER + ["--optimizer_mu_dtype=bfloat16"],
+    "bpr-torch-adam-bf16": RETRIEVAL + MAPPER + ["--optimizer_mu_dtype=bfloat16",
+                                                 "--optimizer_skip_zero_grads=True"],
+    "xdeepfm-adagrad": RANKING + MAPPER + ["--fused_cin=True", "--learner=adagrad"],
+    **{name.lower(): [f"--model={name}", *RANKING[1:], *MAPPER]
+       for name in ("LR", "FM", "DeepFM", "FFM")},
+    "deepfm-lsh": ["--model=DeepFM", *RANKING[1:4], "--inductive_embedder=lsh",
+                   "--dropout_prob=0.2"],
 }
 
 
@@ -95,7 +106,7 @@ def test_dense_step_reads_nothing_back(track, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("embedder", ["random", "lsh"])
 @pytest.mark.parametrize("case", ["WideDeep", "DCNV2-stacked", "DCNV2-parallel",
-                                  "DCNV2-mixed", "xDeepFM"])
+                                  "DCNV2-mixed", "xDeepFM", "LR", "FM", "DeepFM", "FFM"])
 def test_sequence_fields_read_nothing_back(case, embedder):
     """The context models over token_seq / float_seq fields (which toy-ind
     lacks), on a batch with padded rows: the loss and its gradient."""
@@ -103,12 +114,18 @@ def test_sequence_fields_read_nothing_back(case, embedder):
     from oovrec_tpu_torch.models import FieldSpec, get_model_class
     from tests import test_torch_context_models as ctx
 
-    name, kw = ctx.MODELS[case] if case in ctx.MODELS else ("xDeepFM", dict(
-        mlp_hidden_size=(16, 8), cin_layer_size=(6, 6), fused_cin=False))
+    from tests import test_torch_context_zoo as zoo
+
+    common = ctx.COMMON
+    if case in zoo.MODELS:
+        name, kw, common = case, zoo.MODELS[case], dict(embedding_size=8)
+    else:
+        name, kw = ctx.MODELS[case] if case in ctx.MODELS else ("xDeepFM", dict(
+            mlp_hidden_size=(16, 8), cin_layer_size=(6, 6), fused_cin=False))
     spec = InductiveSpec(**ctx.SPECS[embedder])
     model = get_model_class(name)(FieldSpec(**ctx.FIELDS), spec=spec, device="cpu",
                                   embedder_state=ctx._estate(embedder) or None,
-                                  **ctx.COMMON, **kw)
+                                  **common, **kw)
     batch = ctx._torch_batch(ctx._batch(embedder, seed=5, n_pad=ctx.N_PAD))
     params = [p for _, p in model.named_parameters()]
     with _Recorder(torch.Generator()) as rec:

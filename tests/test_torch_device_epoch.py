@@ -50,7 +50,7 @@ from oovrec_tpu_torch.train import device_epoch as pde  # noqa: E402
 from oovrec_tpu_torch.utils.enums import InputType  # noqa: E402
 from oovrec_tpu_torch.utils.jax_params import (  # noqa: E402
     flax_from_state_dict,
-    lazy_adam_state_from_flax,
+    opt_state_from_flax,
 )
 from oovrec_tpu_torch.utils.seeding import host_rng, torch_generator  # noqa: E402
 
@@ -254,7 +254,7 @@ def test_sparse_step_matches_jax_step_by_step(tmp_path):
                                                      jnp.float32), state0[0].nu)),
     ) + tuple(state0[1:])
     trainer = Trainer(cfg, model)
-    trainer.opt_state = lazy_adam_state_from_flax(opt_state, model)
+    trainer.opt_state = opt_state_from_flax(opt_state, "lazy_adam", model)
     de = pde.DeviceEpoch(trainer, train)
     assert de.sparse_tables == {s: (n, f) for s, (n, f) in model.sparse_table_fields().items()}
     seed = int(jcfg["seed"])

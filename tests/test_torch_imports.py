@@ -1,5 +1,6 @@
 """The port stands alone: no module under `oovrec_tpu_torch/`, and not
-`chip_smoke.py`, imports JAX, flax, pandas, PyYAML or the JAX package.
+`chip_smoke.py`, imports JAX, flax, msgpack, orbax, pandas, PyYAML or the
+JAX package.
 The card's machine has none of them."""
 
 import ast
@@ -10,7 +11,8 @@ import pytest
 pytest.importorskip("jax")  # tests/conftest.py needs it; the scan does not
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pandas", "yaml", "oovrec_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "orbax", "pandas", "yaml",
+             "oovrec_tpu")
 SOURCES = sorted((ROOT / "oovrec_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -59,6 +61,8 @@ def test_scan_sees_the_whole_port():
                    "inductive/dhe.py", "inductive/factory.py",
                    "models/context_aware/widedeep.py", "models/context_aware/dcnv2.py",
                    "models/directau.py", "data/prefetch.py", "train/cuda_graph.py",
-                   "data/transfer.py", "ops/launches.py"):
+                   "data/transfer.py", "ops/launches.py", "utils/flax_msgpack.py",
+                   "utils/jax_checkpoint.py", "utils/torch_import.py",
+                   "models/context_aware/basic.py", "models/context_aware/ffm.py"):
         assert f"oovrec_tpu_torch/{module}" in names, module
     assert len(names) >= 25

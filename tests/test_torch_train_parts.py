@@ -261,8 +261,8 @@ def test_train_batcher_refuses_what_is_not_ported():
         TrainBatcher(pl.split, None, cfg, InputType.POINTWISE)
     cfg = Config(dict(pl.config.as_dict(), train_neg_sample_args={
         "distribution": "uniform", "sample_num": 1, "dynamic": True, "candidate_num": 4}))
-    with pytest.raises(NotImplementedError, match="dynamic"):
-        TrainBatcher(pl.split, None, cfg, InputType.PAIRWISE)
+    loader = TrainBatcher(pl.split, None, cfg, InputType.PAIRWISE)
+    assert loader.dynamic and loader.candidate_num == 4
 
 
 # --------------------------------------------------------------- optimizer
@@ -317,11 +317,15 @@ def test_optimizer_matches_optax_step_for_step(rule, wd, clip):
 
 
 def test_optimizer_refuses_what_is_not_ported():
+    """Every learner and float `mu_dtype` of the JAX trainer is ported
+    (tests/test_torch_trainer_extras.py); a `mu_dtype` that names no float
+    dtype raises."""
     for learner in ("adagrad", "rmsprop"):
-        with pytest.raises(NotImplementedError, match=learner):
-            Optimizer(learner)
-    with pytest.raises(NotImplementedError, match="mu_dtype"):
-        Optimizer("adam", mu_dtype="bfloat16")
+        assert Optimizer(learner).rule == learner
+    assert Optimizer("adam", mu_dtype="bfloat16").mu_dtype == torch.bfloat16
+    for bad in ("int8", "bool", "no_such_dtype"):
+        with pytest.raises(ValueError, match="mu_dtype"):
+            Optimizer("adam", mu_dtype=bad)
 
 
 def test_frozen_parameter_set_matches_jax():
