@@ -163,6 +163,23 @@ Phases (any failure exits non-zero; no phase failure is caught):
          FFM on the host path) and the value eval; graphed == eager on the
          pointwise epoch (LR, FM, DeepFM) and on the host path (all four),
          and the ms a step of each.
+ 12. phase H, the rest of the context zoo:
+     H1. DCN, AutoInt, FNN, PNN, AFM, FwFM, DSSM, FiGNN, EulerNet, NFM and
+         KD_DAGFM (in `distillation`) at their YAML widths at the ranking
+         cell's shape, the pointwise traffic of G4: 16 host steps (the
+         graphed dense step) + the frozen OOV sub-epoch, finite losses,
+         the gathers' backward launched, every non-OOV parameter the model
+         reads moved (DCN's cross weights drawn at 1/10 of N(0, 1)),
+         BatchNorm statistics moved (DCN, NFM), KD_DAGFM's teacher
+         unchanged; the value eval on the
+         held-out IV rows and the 7 value slices finite; 8 graphed host
+         steps == 8 eager ones bit for bit, and the ms a step of each
+         (wall, device, busy share);
+     H2. `python -m oovrec_tpu_torch.cli.run --model=AutoInt
+         --model_eval_type=ranking` on dataset/synth-ind for 1 epoch in
+         a child process that prints its kernel launch counts as it ends
+         (the gathers' backward launched there), `--eval_only` == the run
+         to 1e-9.
 Phase 2 also holds the gathers' backward kernel (`csrc/embed_grad.cu`)
 against its plain version (bit for bit on integer-valued cotangents, to
 1e-5 on random ones, against a repeat run) and times it; phase 6 profiles
@@ -173,13 +190,14 @@ bit for bit on integer inputs and gradients (and against itself on a
 repeat run), and times it per layer and for the 3-layer stack.
 The last line is the device record; the line before it lists the kernels,
 each with its launches on the earlier phases' paths (`launches`), on the
-CLI phases (`launches_cli`) and on phase D's, E's, F's and G's parts
-(`launches_d`, `launches_e`, `launches_f`, `launches_g`), each counted by
-the kernel's wrapper where it launches (`ops/launches.py`; a CUDA graph's
-replays run no wrapper), and the kernels that phase F's and G's graphed
-passes replayed, as their profiler traces show them (`launches_f_trace`,
-`launches_g_trace`); before them, phase F's and G's times as JSON lines
-(`phase F times`, `phase G times`).
+CLI phases (`launches_cli`) and on phase D's, E's, F's, G's and H's
+parts (`launches_d`, `launches_e`, `launches_f`, `launches_g`,
+`launches_h`), each counted by the kernel's wrapper where it launches
+(`ops/launches.py`; a CUDA graph's replays run no wrapper), and the
+kernels that phase F's, G's and H's graphed passes replayed, as their
+profiler traces show them (`launches_f_trace`, `launches_g_trace`,
+`launches_h_trace`); before them, phase F's, G's and H's times as JSON
+lines (`phase F times`, `phase G times`, `phase H times`).
 
 TF32 is switched off for matmuls and cuDNN below: the plain versions and
 the dense path must compute in full f32, as the kernel does.
@@ -221,6 +239,7 @@ from oovrec_tpu_torch.data import (
 from oovrec_tpu_torch.eval import EvalRunner, InductiveEvaluator
 from oovrec_tpu_torch.inductive import DHEHasher, InductiveSpec, RandomOOVMapper
 from oovrec_tpu_torch.models import BPR, FieldSpec, get_model_class, xDeepFM
+from oovrec_tpu_torch.models.layers import BatchNorm
 from oovrec_tpu_torch.ops import embed_grad, launches, topk_score
 from oovrec_tpu_torch.ops.cin_fused import (
     cin_layer,
@@ -3071,9 +3090,11 @@ def published(model):
 
 
 def bn_stats(model):
-    """The BatchNorm running statistics of `model`, by state_dict name."""
-    return {k: v for k, v in model.state_dict().items()
-            if ".BatchNorm_" in k and k.endswith((".mean", ".var"))}
+    """The BatchNorm running statistics of `model`, by state_dict name
+    (every `BatchNorm` module's, whatever its name: MLPLayers'
+    `BatchNorm_<j>`, NFM's `bn` and `mlp_bn_<i>`)."""
+    return {f"{name}.{b}": getattr(m, b) for name, m in model.named_modules()
+            if isinstance(m, BatchNorm) for b in ("mean", "var")}
 
 
 def require_trained_stats(model, what):
@@ -3722,9 +3743,10 @@ def f_epoch_times(de, what):
 
 
 def f_fit(trainer, loader, what, falls=True):
-    """`Trainer.fit` for one epoch + the OOV sub-epoch, each sub-epoch's
-    losses and steps kept; the loss must fall where `falls`. → (normal,
-    oov records, wall s)."""
+    """`Trainer.fit` for one epoch + the OOV sub-epoch (on the device
+    epoch or the host path), each sub-epoch's losses and steps kept, both
+    finite; the loss must fall where `falls`. → (normal, oov records,
+    wall s)."""
     inner, seen = trainer._train_epoch, {}
 
     def watched(ldr, epoch_idx, oov_transform=None, keep_ratio=None, frozen=False):
@@ -3747,7 +3769,7 @@ def f_fit(trainer, loader, what, falls=True):
     first, last = float(losses[:tenth].mean()), float(losses[-tenth:].mean())
     require(np.isfinite(losses).all() and np.isfinite(seen["oov"]["losses"]).all(),
             f"{what}: loss not finite")
-    log(f"{what}: {normal['steps']} device-epoch steps + {seen['oov']['steps']} OOV steps in "
+    log(f"{what}: {normal['steps']} steps + {seen['oov']['steps']} OOV steps in "
         f"{wall:.2f} s ({wall * 1e3 / trainer._global_step:.2f} ms a step, wall, host and set-up "
         f"included); loss first tenth {first:.5f} last tenth {last:.5f}")
     require(last < first or not falls, f"{what}: the loss did not fall ({first} -> {last})")
@@ -4379,10 +4401,11 @@ def g3_cli():
     return {**counts, **g3_resume()}
 
 
-def host_graph_vs_eager(make, what, steps):
+def host_graph_vs_eager(make, what, steps, part="G4", times=G_TIMES):
     """`graph_vs_eager` on the host path: `steps` host batches through the
     trainer's captured step and through the eager `_apply_step`, bit for
-    bit; then their times. → the times."""
+    bit; then their times (the traces' kernels added to `part`'s). → the
+    times, kept in `times`."""
     (a, loader), (b, _) = make(), make()
     require(a._maybe_device_epoch(loader) is None, f"{what}: the host path")
     batches = []
@@ -4403,8 +4426,9 @@ def host_graph_vs_eager(make, what, steps):
         f"{len(sa)} tensors equal bit for bit")
     require(g.captures == 1 and g.replays == steps - 1 and torch.equal(la, lb) and not differ,
             f"{what}: graph vs eager differ {differ[:5]}")
-    graph_vs_eager_times(SimpleNamespace(train_step=a.step_graphs.step), b, batches, what, "G4")
-    return g_times(what)
+    graph_vs_eager_times(SimpleNamespace(train_step=a.step_graphs.step), b, batches, what, part)
+    times[what] = F_TIMES.pop(what)
+    return times[what]
 
 
 def g4_zoo(ind):
@@ -4449,6 +4473,148 @@ def g4_zoo(ind):
             g_times(f"G4 {name} pointwise")
             del a, gde, b, batches
         host_graph_vs_eager(make, f"G4 {name} host", G_ZOO_STEPS)
+    return counts
+
+
+H_ZOO = (("DCN", {}), ("AutoInt", {}), ("FNN", {}), ("PNN", {}), ("AFM", {}), ("FwFM", {}),
+         ("DSSM", {}), ("FiGNN", {}), ("EulerNet", {}), ("NFM", {}),
+         ("KD_DAGFM", {"phase": "distillation"}))  # H1, at their YAML widths
+# H1: the non-OOV parameters a model's forward never reads (DSSM's towers
+# read only the token fields); KD_DAGFM's teacher is held unchanged apart
+H_UNREAD = {"DSSM": ("field_embedding.float_embedding_table.weight",)}
+H_FIT_STEPS = 16      # H1: pointwise host steps of CTR_B rows before the OOV sub-epoch
+H_COMPARE_STEPS = 8   # H1: graphed against eager host steps
+H_EPOCHS_CLI = 1      # H2
+H_TIMES = {}
+H_GATHERS = {}        # H1: the gathers' backward launches of each model's fit
+
+
+def h_model(name, seed, **over):
+    """`e_ranking_model` for H1; DCN's N(0, 1) cross weights scaled by 1/10
+    (as the trainer tests scale them), else its sigmoid saturates and most
+    rows take no gradient."""
+    model = e_ranking_model(name, seed, **over)
+    if name == "DCN":
+        with torch.no_grad():
+            model.cross_w.mul_(0.1)
+    return model
+
+
+def h1_zoo(ind, mapper):
+    """H1: the rest of the context zoo at its YAML widths at the ranking
+    cell's shape (phase 4's fields and rows, random-mapper buckets, the
+    pointwise traffic of G4): each model fits H_FIT_STEPS host steps (the
+    graphed dense step) + the frozen OOV sub-epoch, the losses finite;
+    every non-OOV parameter the model reads moved; KD_DAGFM in
+    `distillation`, its teacher unchanged bit for bit; the value eval on the held-out IV rows and the 7 value slices (as E3 runs
+    them) finite; then H_COMPARE_STEPS graphed host steps == eager ones bit
+    for bit (BatchNorm statistics included), and the ms a step of each.
+    → the part's launches (the fits')."""
+    train, held, held_iv = ctr_splits(ind)
+    sampler = Sampler(["train"], [train], seed=SEED)
+    few = rows_of(train, np.arange(len(train)) < H_FIT_STEPS * CTR_B // 2,
+                  N_CTR_OLD_USERS, N_CTR_OLD_ITEMS)
+    counts = {}
+    for i, (name, over) in enumerate(H_ZOO):
+        what = f"H1 {name}"
+        cfg = ctr_train_cfg(train_neg_sample_args=F_POINTWISE)
+        model = h_model(name, SEED + 1000 + i, **over)
+        trainer = Trainer(cfg, model)
+        loader = TrainBatcher(few, sampler, cfg, InputType.POINTWISE)
+        require(trainer._maybe_device_epoch(loader) is None, f"{what}: the host path")
+        teacher = {k: v.clone() for k, v in model.state_dict().items() if k.startswith("teacher.")}
+        read = [n for n in trainer.params if n not in trainer.oov_params
+                and n not in H_UNREAD.get(name, ()) and not n.startswith("teacher.")]
+        before = {n: trainer.params[n].detach().clone() for n in read}
+        stats = {k: v.clone() for k, v in bn_stats(model).items()}
+        reset_kernel_counts()
+        normal, oov, _ = f_fit(trainer, loader, what, falls=False)
+        seen = kernel_counts()
+        counts = {k: counts.get(k, 0) + n for k, n in seen.items()}
+        H_GATHERS[name] = seen["scatter_rows_kernel"]
+        require(normal["steps"] == H_FIT_STEPS and oov["steps"] > 0,
+                f"{what}: {normal['steps']} + {oov['steps']} steps")
+        require(seen["scatter_rows_kernel"] > 0, f"{what}: the gathers' backward {seen}")
+        still = [n for n in read if torch.equal(before[n], trainer.params[n])]
+        require(not still, f"{what}: parameters did not move over the fit: {still}")
+        del before
+        if name == "KD_DAGFM":
+            require(len(teacher) == 6 and all(torch.equal(v, model.state_dict()[k])
+                                              for k, v in teacher.items()),
+                    f"{what}: distillation moved the teacher")
+        require(all(not torch.equal(v, bn_stats(model)[k]) for k, v in stats.items()),
+                f"{what}: BatchNorm statistics did not move")
+        res = EvalRunner(model, cfg).evaluate(PlainEvalBatcher(held_iv, cfg))
+        finite_metrics(res, f"{what} value eval")
+        ev = InductiveEvaluator(model, cfg, N_CTR_OLD_USERS, N_CTR_OLD_ITEMS, mapper=mapper)
+        slices = ev.evaluate_model(PlainEvalBatcher(held, cfg))
+        require(tuple(slices) == SLICE_NAMES, f"{what}: slices {list(slices)}")
+        for sname, r in slices.items():
+            require(list(r) == ["auc", "logloss"] and all(math.isfinite(v) for v in r.values()),
+                    f"{what} slice {sname}: {dict(r)}")
+        log(f"{what}: {len(read)} parameters moved; gathers' backward launches "
+            f"{seen['scatter_rows_kernel']}; held-out IV "
+            f"{dict(res)}; 7 slices AUC " + ", ".join(f"{n} {r['auc']:.4f}"
+                                                    for n, r in slices.items()))
+        del trainer, loader, model
+
+        def make(name=name, i=i, over=over):
+            c = ctr_train_cfg(train_oov=False, train_neg_sample_args=F_POINTWISE)
+            return Trainer(c, h_model(name, SEED + 1100 + i, **over)), TrainBatcher(
+                train, sampler, c, InputType.POINTWISE)
+
+        host_graph_vs_eager(make, what, H_COMPARE_STEPS, part="H1", times=H_TIMES)
+    log("H1 gathers' backward launches by model: " + json.dumps(H_GATHERS))
+    return counts
+
+
+# H2's child: `python -m oovrec_tpu_torch.cli.run` (runpy runs the module as
+# `__main__` with the same argv), then the child's kernel launch counts
+H2_CHILD = ("import json, runpy\n"
+            "from oovrec_tpu_torch.ops import launches\n"
+            "runpy.run_module('oovrec_tpu_torch.cli.run', run_name='__main__', alter_sys=True)\n"
+            "print('H2 launches ' + json.dumps(launches.launch_counts()))\n")
+
+
+def h2_cli():
+    """H2: `python -m oovrec_tpu_torch.cli.run --model=AutoInt
+    --model_eval_type=ranking` as a subprocess on dataset/synth-ind (the
+    random mapper, the OOV regime, H_EPOCHS_CLI epoch): rc 0, finite test
+    metrics and 7 slices, the gathers' backward launched in the child (it
+    prints its counts as it ends); `--eval_only` on its checkpoint, in this
+    process, reproduces them to 1e-9. → the child's launches."""
+    argv = ["--model=AutoInt", "--model_eval_type=ranking", "--dataset=synth-ind",
+            "--data_path=dataset", SYNTH_LOAD_COL, *CLI_OOV, f"--epochs={H_EPOCHS_CLI}"]
+    out = cli_out("h2")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", H2_CHILD, *argv, *cli_flags(out)],
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = (proc.stdout + proc.stderr).splitlines()
+    for line in lines:
+        if "training [" in line or "test result" in line:
+            log(f"  [H2] {line.split(' INFO ')[-1][:160]}")
+    require(proc.returncode == 0, f"H2: rc {proc.returncode}: " + "\n".join(lines[-30:]))
+    said = [x[len("H2 launches "):] for x in proc.stdout.splitlines()
+            if x.startswith("H2 launches ")]
+    require(len(said) == 1, "H2: the child printed no launch counts")
+    child = json.loads(said[0])
+    counts = {k: child.get(k, 0) for k in kernel_counts()}
+    require(counts["scatter_rows_kernel"] > 0, f"H2: the gathers' backward in the run {child}")
+    with open(os.path.join(out, "results.json")) as f:
+        res = json.load(f)
+    finite_metrics(res["test_result"], "H2 test")
+    value_slices_finite(res["inductive"], "H2 AutoInt")
+    log(f"H2: python -m oovrec_tpu_torch.cli.run --model=AutoInt --model_eval_type=ranking "
+        f"({H_EPOCHS_CLI} epoch) rc 0 in {wall:.1f} s (wall, process start and the corpus "
+        f"included), test {res['test_result']}")
+    again = cli_run.main([f"--eval_only={os.path.join(out, 'AutoInt-synth-ind.pth')}",
+                          "--inductive_eval=True"])
+    require(type(again["trainer"].model).__name__ == "AutoInt", "H2: the model")
+    agree(res["test_result"], again["test_result"], "H2 eval_only test", tol=1e-9)
+    agree_slices(res["inductive"], again["inductive_results"], "H2 eval_only slices", tol=1e-9)
+    log(f"H2: --eval_only == the run on AUC, RMSE and the 7 slices (1e-9); the run's "
+        f"launches {counts}")
     return counts
 
 
@@ -4584,6 +4750,24 @@ def main():
             and g_trace["G4"]["scatter_rows_kernel"] > 0, f"phase G graphed traces {g_trace}")
     log("phase G kernels replayed, from the traces: " + json.dumps(g_trace))
     log("phase G times: " + json.dumps(G_TIMES))
+    # phase H, the rest of the context zoo; counted by part as G is
+    t0 = time.perf_counter()
+    on_h, g_done = {}, dict(F_TRACE)
+    for part, run in (("H1", lambda: h1_zoo(ind, mapper)), ("H2", h2_cli)):
+        reset_kernel_counts()
+        sync()
+        t1 = time.perf_counter()
+        seen = run()
+        sync()
+        on_h[part] = {**kernel_counts(), **seen}
+        log(f"phase {part}: {time.perf_counter() - t1:.1f} s, kernel launches {on_h[part]}")
+    log(f"phase H: {time.perf_counter() - t0:.1f} s")
+    h_trace = {p: c for p, c in F_TRACE.items() if p not in g_done}
+    require(all(on_h[p]["scatter_rows_kernel"] > 0 for p in ("H1", "H2")),
+            f"phase H launches {on_h}")
+    require(h_trace["H1"]["scatter_rows_kernel"] > 0, f"phase H graphed traces {h_trace}")
+    log("phase H kernels replayed, from the traces: " + json.dumps(h_trace))
+    log("phase H times: " + json.dumps(H_TIMES))
     cli = {  # each kernel's launches on the CLI paths (A launches none)
         "fused_topk_scores": {"C": k1_c},
         "cin_layer_pooled": {"B": cli_b["cin_layer_pooled"]},
@@ -4654,6 +4838,8 @@ def main():
         k["launches_f_trace"] = {part: c[k["name"]] for part, c in f_trace.items()}
         k["launches_g"] = {part: c[k["name"]] for part, c in on_g.items()}
         k["launches_g_trace"] = {part: c[k["name"]] for part, c in g_trace.items()}
+        k["launches_h"] = {part: c[k["name"]] for part, c in on_h.items()}
+        k["launches_h_trace"] = {part: c[k["name"]] for part, c in h_trace.items()}
     log("gathers' backward (ops/embed_grad.py, not a Pallas kernel): " + json.dumps({
             "ms": gathers, "bound_ms": gather_bound,
             "device_epoch": GATHER_RESULTS.get("device_epoch")}))

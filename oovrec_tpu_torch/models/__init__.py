@@ -3,7 +3,26 @@
 from oovrec_tpu_torch.models.base import MODEL_REGISTRY, GeneralRecommender
 from oovrec_tpu_torch.models.bpr import BPR
 from oovrec_tpu_torch.models.context import ContextRecommender, FieldSpec
-from oovrec_tpu_torch.models.context_aware import DCNV2, FFM, FM, LR, DeepFM, WideDeep, xDeepFM
+from oovrec_tpu_torch.models.context_aware import (
+    AFM,
+    DCN,
+    DCNV2,
+    DSSM,
+    FFM,
+    FM,
+    FNN,
+    KD_DAGFM,
+    LR,
+    NFM,
+    PNN,
+    AutoInt,
+    DeepFM,
+    EulerNet,
+    FiGNN,
+    FwFM,
+    WideDeep,
+    xDeepFM,
+)
 from oovrec_tpu_torch.models.directau import DirectAU
 
 
@@ -14,6 +33,7 @@ def get_model_class(name: str):
 
 
 __all__ = [
-    "BPR", "ContextRecommender", "DCNV2", "DeepFM", "DirectAU", "FFM", "FM", "FieldSpec",
-    "GeneralRecommender", "LR", "MODEL_REGISTRY", "WideDeep", "get_model_class", "xDeepFM",
+    "AFM", "AutoInt", "BPR", "ContextRecommender", "DCN", "DCNV2", "DSSM", "DeepFM", "DirectAU",
+    "EulerNet", "FFM", "FM", "FNN", "FieldSpec", "FiGNN", "FwFM", "GeneralRecommender",
+    "KD_DAGFM", "LR", "MODEL_REGISTRY", "NFM", "PNN", "WideDeep", "get_model_class", "xDeepFM",
 ]

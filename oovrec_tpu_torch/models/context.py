@@ -63,6 +63,7 @@ from oovrec_tpu_torch.models.base import (
 )
 from oovrec_tpu_torch.models.init import xavier_normal_
 from oovrec_tpu_torch.models.layers import masked_mean_pool
+from oovrec_tpu_torch.models.losses import bce_with_logits
 from oovrec_tpu_torch.ops.embed_grad import gather_rows, packed_gather
 from oovrec_tpu_torch.utils.device import resolve_device
 from oovrec_tpu_torch.utils.enums import FeatureSource, FeatureType, InputType, ModelType
@@ -430,3 +431,48 @@ class ContextRecommender(nn.Module):
     @property
     def in_feature_num(self) -> int:
         return self.fields.num_feature_field * self.embedding_size
+
+
+def dense(module: ContextRecommender, n_in: int, n_out: int, bias: bool = True) -> nn.Linear:
+    """A flax `nn.Dense(kernel_init=xavier_normal)`: xavier-normal weight,
+    zero bias."""
+    lin = nn.Linear(n_in, n_out, bias=bias, device=module.device)
+    xavier_normal_(lin.weight, module.generator)
+    if bias:
+        nn.init.zeros_(lin.bias)
+    return lin
+
+
+def raw_param(module: ContextRecommender, *shape, init=xavier_normal_) -> nn.Parameter:
+    """A raw flax leaf of `shape` (no module around it), drawn by `init`."""
+    p = nn.Parameter(torch.empty(shape, device=module.device))
+    init(p, module.generator)
+    return p
+
+
+class PairMixin:
+    """The upper-triangle field pairs (i < j) as buffers `pair_i` /
+    `pair_j`, in `triu_indices(F, 1)` order, built once (a host copy in
+    `forward` would break graph capture)."""
+
+    def _register_pairs(self) -> int:
+        f = self.fields.num_feature_field
+        iu, ju = torch.triu_indices(f, f, 1, device=self.device)
+        self.register_buffer("pair_i", iu, persistent=False)
+        self.register_buffer("pair_j", ju, persistent=False)
+        return f * (f - 1) // 2
+
+    def _pairs(self, emb: torch.Tensor):
+        return emb[:, self.pair_i, :], emb[:, self.pair_j, :]
+
+
+class LogitModel(ContextRecommender):
+    """A model whose forward gives logits: BCE on them in train mode,
+    their sigmoid in eval mode."""
+
+    def calculate_loss(self, batch: Batch) -> torch.Tensor:
+        return bce_with_logits(self.forward(batch, train=True), batch[self.label_field],
+                               batch.get("weight"))
+
+    def predict(self, batch: Batch) -> torch.Tensor:
+        return torch.sigmoid(self.forward(batch, train=False))

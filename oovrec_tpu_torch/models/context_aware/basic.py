@@ -20,14 +20,12 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
-from torch import nn
 
 from oovrec_tpu_torch.inductive.spec import InductiveSpec
 from oovrec_tpu_torch.models.base import Batch, register_model
-from oovrec_tpu_torch.models.context import ContextRecommender, FieldSpec
-from oovrec_tpu_torch.models.init import xavier_normal_
+from oovrec_tpu_torch.models.context import ContextRecommender, FieldSpec, LogitModel, dense
 from oovrec_tpu_torch.models.layers import MLPLayers
-from oovrec_tpu_torch.models.losses import bce, bce_with_logits
+from oovrec_tpu_torch.models.losses import bce
 
 
 def fm_second_order(emb: torch.Tensor) -> torch.Tensor:
@@ -80,7 +78,7 @@ class FM(ContextRecommender):
 
 
 @register_model
-class DeepFM(ContextRecommender):
+class DeepFM(LogitModel):
     supports_device_epoch = True
 
     def __init__(
@@ -98,9 +96,7 @@ class DeepFM(ContextRecommender):
             (self.in_feature_num,) + tuple(mlp_hidden_size), dropout=dropout_prob,
             device=self.device, generator=self.generator,
         )
-        self.deep_predict_layer = nn.Linear(int(mlp_hidden_size[-1]), 1, device=self.device)
-        xavier_normal_(self.deep_predict_layer.weight, self.generator)
-        nn.init.zeros_(self.deep_predict_layer.bias)
+        self.deep_predict_layer = dense(self, int(mlp_hidden_size[-1]), 1)
 
     def forward(self, batch: Batch, train: Optional[bool] = None) -> torch.Tensor:
         emb = self.concat_embed_input_fields(batch)
@@ -108,10 +104,3 @@ class DeepFM(ContextRecommender):
         y_deep = self.deep_predict_layer(
             self.mlp_layers(emb.reshape(emb.shape[0], -1), train=train))
         return (y_fm + y_deep).squeeze(-1)
-
-    def calculate_loss(self, batch: Batch) -> torch.Tensor:
-        return bce_with_logits(self.forward(batch, train=True), batch[self.label_field],
-                               batch.get("weight"))
-
-    def predict(self, batch: Batch) -> torch.Tensor:
-        return torch.sigmoid(self.forward(batch, train=False))

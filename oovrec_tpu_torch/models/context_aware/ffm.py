@@ -20,13 +20,12 @@ from torch import nn
 
 from oovrec_tpu_torch.inductive.spec import InductiveSpec
 from oovrec_tpu_torch.models.base import Batch, register_model
-from oovrec_tpu_torch.models.context import ContextRecommender, FieldSpec
+from oovrec_tpu_torch.models.context import FieldSpec, LogitModel, PairMixin
 from oovrec_tpu_torch.models.init import xavier_normal_
-from oovrec_tpu_torch.models.losses import bce_with_logits
 
 
 @register_model
-class FFM(ContextRecommender):
+class FFM(PairMixin, LogitModel):
     def __init__(self, fields: FieldSpec, embedding_size: int = 10,
                  spec: Optional[InductiveSpec] = None, **kwargs):
         super().__init__(fields, embedding_size, spec, **kwargs)
@@ -34,9 +33,7 @@ class FFM(ContextRecommender):
         f, d = fields.num_feature_field, embedding_size
         self.field_proj = nn.Parameter(torch.empty(f, f, d, d, device=self.device))
         xavier_normal_(self.field_proj, self.generator)
-        iu, ju = torch.triu_indices(f, f, 1, device=self.device)
-        self.register_buffer("pair_i", iu, persistent=False)
-        self.register_buffer("pair_j", ju, persistent=False)
+        self._register_pairs()
 
     def forward(self, batch: Batch, train: Optional[bool] = None) -> torch.Tensor:
         emb = self.concat_embed_input_fields(batch)  # (B, F, D)
@@ -45,10 +42,3 @@ class FFM(ContextRecommender):
         b = proj[:, self.pair_j, self.pair_i, :]
         second = (a * b).sum(dim=(1, 2))
         return self.first_order_linear(batch, self.embedder_state).squeeze(-1) + second
-
-    def calculate_loss(self, batch: Batch) -> torch.Tensor:
-        return bce_with_logits(self.forward(batch, train=True), batch[self.label_field],
-                               batch.get("weight"))
-
-    def predict(self, batch: Batch) -> torch.Tensor:
-        return torch.sigmoid(self.forward(batch, train=False))

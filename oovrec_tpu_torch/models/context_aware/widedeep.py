@@ -13,18 +13,15 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
-from torch import nn
 
 from oovrec_tpu_torch.inductive.spec import InductiveSpec
 from oovrec_tpu_torch.models.base import Batch, register_model
-from oovrec_tpu_torch.models.context import ContextRecommender, FieldSpec
-from oovrec_tpu_torch.models.init import xavier_normal_
+from oovrec_tpu_torch.models.context import FieldSpec, LogitModel, dense
 from oovrec_tpu_torch.models.layers import MLPLayers
-from oovrec_tpu_torch.models.losses import bce_with_logits
 
 
 @register_model
-class WideDeep(ContextRecommender):
+class WideDeep(LogitModel):
     # as the JAX model declares: the device epoch's pointwise and plain
     # modes provide what its loss reads (train/device_epoch.py)
     supports_device_epoch = True
@@ -44,19 +41,10 @@ class WideDeep(ContextRecommender):
             (self.in_feature_num,) + tuple(mlp_hidden_size), dropout=dropout_prob,
             device=self.device, generator=self.generator,
         )
-        self.deep_predict_layer = nn.Linear(int(mlp_hidden_size[-1]), 1, device=self.device)
-        xavier_normal_(self.deep_predict_layer.weight, self.generator)
-        nn.init.zeros_(self.deep_predict_layer.bias)
+        self.deep_predict_layer = dense(self, int(mlp_hidden_size[-1]), 1)
 
     def forward(self, batch: Batch, train: Optional[bool] = None) -> torch.Tensor:
         emb = self.concat_embed_input_fields(batch)
         wide = self.first_order_linear(batch, self.embedder_state)
         deep = self.deep_predict_layer(self.mlp_layers(emb.reshape(emb.shape[0], -1), train=train))
         return (wide + deep).squeeze(-1)
-
-    def calculate_loss(self, batch: Batch) -> torch.Tensor:
-        out = self.forward(batch, train=True)
-        return bce_with_logits(out, batch[self.label_field], batch.get("weight"))
-
-    def predict(self, batch: Batch) -> torch.Tensor:
-        return torch.sigmoid(self.forward(batch, train=False))

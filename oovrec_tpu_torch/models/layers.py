@@ -6,6 +6,23 @@ Dropout → Dense → (BatchNorm) → activation stacks of `MLPLayers` and
 batch norm a `BatchNorm` named `BatchNorm_<j>`, as in the flax tree, so the
 weight bridge (`utils/jax_params.py`) maps names one to one.
 
+Two flax layers the context zoo calls, written out so that their
+parameters are flax's (flax 0.12):
+  * `MultiHeadDotProductAttention`: `query` / `key` / `value` projections
+    with a kernel (in, H, hd) and a bias (H, hd), `out` with a kernel
+    (H, hd, out) and a bias (out) (`DenseGeneral`, raw leaves the bridge
+    passes through); the query scaled by 1/√hd, the softmax over the keys,
+    no dropout (the JAX call sites pass `deterministic=True`).
+    `torch.nn.MultiheadAttention` packs its projections and lays out its
+    heads otherwise;
+  * `GRUCell`: the six Denses `ir`, `iz`, `in` (with a bias), `hr`, `hz`
+    (without) and `hn` (with), r = σ(ir(x) + hr(h)), z = σ(iz(x) + hz(h)),
+    n = tanh(in(x) + r·hn(h)), h' = (1 − z)·n + z·h; called as
+    `(carry, inputs)`. `torch.nn.GRUCell` has two more biases, which
+    would train.
+`Dropout` is flax's `nn.Dropout` for a model's own dropout outside
+`MLPLayers`: each call draws a new mask.
+
 `BatchNorm` is flax's `nn.BatchNorm` (flax 0.12), not
 `torch.nn.BatchNorm1d`: running averages as `ra = 0.99·ra + 0.01·batch`,
 the biased batch variance `mean(x²) − mean(x)²` clipped at 0, statistics
@@ -77,6 +94,33 @@ class BatchNorm(nn.Module):
         return y.to(x.dtype)
 
 
+def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Keep each element with probability 1 − `rate`, scaled by 1 / (1 −
+    `rate`), the mask drawn from `generator`."""
+    if generator is None:
+        raise RuntimeError(
+            "dropout in train mode draws from an explicit generator: call "
+            "set_dropout_generator(model, generator) first")
+    keep = 1.0 - rate
+    mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
+    return x * mask / keep
+
+
+class Dropout(nn.Module):
+    """flax's `nn.Dropout(rate)`, called with `train`: identity in eval
+    mode or at rate 0."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        if not train or self.rate == 0:
+            return x
+        return _dropout(x, self.rate, self.generator)
+
+
 class MLPLayers(nn.Module):
     """Dropout → Dense → (BatchNorm) → activation stacks (`layers.py:33-95`
     of the reference).
@@ -118,13 +162,7 @@ class MLPLayers(nn.Module):
                 self.bn.append(bn)
 
     def _drop(self, x: torch.Tensor) -> torch.Tensor:
-        if self.generator is None:
-            raise RuntimeError(
-                "MLPLayers dropout in train mode draws from an explicit "
-                "generator: call set_dropout_generator(model, generator) first")
-        keep = 1.0 - self.dropout
-        mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
-        return x * mask / keep
+        return _dropout(x, self.dropout, self.generator)
 
     def forward(self, x: torch.Tensor, train: Optional[bool] = None) -> torch.Tensor:
         train = self.training if train is None else train
@@ -139,6 +177,93 @@ class MLPLayers(nn.Module):
         return x.float()
 
 
+def _lecun_normal_(weight: torch.Tensor, fan_in: int, generator=None) -> torch.Tensor:
+    """N(0, 1/fan_in), the scale of flax's default `lecun_normal` kernels
+    (the draws cannot match `jax.random`'s; parity goes through the
+    bridge)."""
+    with torch.no_grad():
+        return weight.normal_(0.0, fan_in ** -0.5, generator=generator)
+
+
+class DenseGeneral(nn.Module):
+    """flax's `nn.DenseGeneral` as `MultiHeadDotProductAttention` uses it:
+    x contracted over its last `contract` axes with the first ones of
+    `kernel`, plus `bias`. The kernel keeps flax's layout (a raw leaf)."""
+
+    def __init__(self, kernel_shape, bias_shape, contract: int = 1, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.contract = contract
+        self.kernel = nn.Parameter(torch.empty(kernel_shape, device=device))
+        fan_in = 1
+        for n in kernel_shape[:contract]:
+            fan_in *= int(n)
+        _lecun_normal_(self.kernel, fan_in, generator)
+        self.bias = nn.Parameter(torch.zeros(bias_shape, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.tensordot(x, self.kernel, dims=self.contract) + self.bias
+
+
+class MultiHeadDotProductAttention(nn.Module):
+    """flax's `nn.MultiHeadDotProductAttention(num_heads, qkv_features)`
+    in deterministic mode over (B, L, in) inputs; `out` maps back to
+    `out_features` (flax's default: the query's last dim)."""
+
+    def __init__(self, in_features: int, num_heads: int, qkv_features: int,
+                 out_features: Optional[int] = None, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if qkv_features % num_heads:
+            raise ValueError(f"qkv_features {qkv_features} is not a multiple of "
+                             f"num_heads {num_heads}")
+        h, hd = num_heads, qkv_features // num_heads
+        out = in_features if out_features is None else out_features
+        for name in ("query", "key", "value"):
+            self.add_module(name, DenseGeneral((in_features, h, hd), (h, hd), 1,
+                                               device, generator))
+        self.out = DenseGeneral((h, hd, out), (out,), 2, device, generator)
+        self.head_dim = hd
+
+    def forward(self, inputs_q: torch.Tensor,
+                inputs_kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+        kv = inputs_q if inputs_kv is None else inputs_kv
+        q = self.query(inputs_q) / self.head_dim ** 0.5  # (B, Lq, H, hd)
+        k, v = self.key(kv), self.value(kv)
+        w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
+        return self.out(torch.einsum("bhqk,bkhd->bqhd", w, v))
+
+
+class GRUCell(nn.Module):
+    """flax's `nn.GRUCell(features)`: `(carry (N, features), inputs (N,
+    in)) → (h', h')`. Input kernels at flax's lecun-normal scale, recurrent
+    kernels orthogonal, biases zero."""
+
+    def __init__(self, in_features: int, features: int, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        for name, n_in, bias in (("ir", in_features, True), ("iz", in_features, True),
+                                 ("in", in_features, True), ("hr", features, False),
+                                 ("hz", features, False), ("hn", features, True)):
+            lin = nn.Linear(n_in, features, bias=bias, device=device)
+            if name.startswith("i"):
+                _lecun_normal_(lin.weight, n_in, generator)
+            else:
+                with torch.no_grad():
+                    nn.init.orthogonal_(lin.weight, generator=generator)
+            if bias:
+                nn.init.zeros_(lin.bias)
+            self.add_module(name, lin)
+
+    def forward(self, carry: torch.Tensor, inputs: torch.Tensor):
+        h = carry
+        r = torch.sigmoid(self.ir(inputs) + self.hr(h))
+        z = torch.sigmoid(self.iz(inputs) + self.hz(h))
+        n = torch.tanh(getattr(self, "in")(inputs) + r * self.hn(h))
+        new_h = (1.0 - z) * n + z * h
+        return new_h, new_h
+
+
 def masked_mean_pool(emb: torch.Tensor, mask: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     """(B, L, D) × (B, L) → (B, D): the reference's token_seq mean mode
     (`abstract_recommender.py:553-566`)."""
@@ -147,8 +272,8 @@ def masked_mean_pool(emb: torch.Tensor, mask: torch.Tensor, eps: float = 1e-8) -
 
 
 def set_dropout_generator(module: nn.Module, generator: Optional[torch.Generator]) -> None:
-    """Give every `MLPLayers` under `module` the generator its dropout
-    masks draw from."""
+    """Give every `MLPLayers` and `Dropout` under `module` the generator
+    their dropout masks draw from."""
     for m in module.modules():
-        if isinstance(m, MLPLayers):
+        if isinstance(m, (MLPLayers, Dropout)):
             m.generator = generator

@@ -30,9 +30,16 @@ def bpr_loss(pos_score, neg_score, weight=None, gamma: float = 1e-10):
 
 
 def bce_with_logits(logits, labels, weight=None):
-    """Numerically stable binary cross entropy on logits."""
+    """Numerically stable binary cross entropy on logits, with the JAX
+    function's gradient at a logit of exactly 0 (a dead ReLU head with a
+    zero bias): there `jnp.maximum` splits its gradient (½) and `jnp.abs`
+    takes the + side (−½ through the log term), so the row's gradient is
+    −label, where the clamp (1) and `torch.abs` (0) give 1 − label. The
+    last term is 0 in value and moves the gradient by −1 where the logit
+    is 0; elsewhere it adds an exact 0, so every other gradient keeps the
+    bits of the three terms' sum."""
     loss = (torch.clamp(logits, min=0) - logits * labels
-            + torch.log1p(torch.exp(-torch.abs(logits))))
+            + torch.log1p(torch.exp(-torch.abs(logits))) - (logits == 0) * logits)
     return _wmean(loss, weight)
 
 

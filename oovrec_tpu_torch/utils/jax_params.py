@@ -36,10 +36,19 @@ the port's side, int32 knn tables as int64), so both packages run from the
 same planes, keys and neighbors; the param bridge leaves it alone.
 
 BatchNorm running statistics are not parameters either: flax keeps them
-in the ``batch_stats`` collection (``{.../BatchNorm_j: {mean, var}}``), the
-port as the ``mean`` / ``var`` buffers of its ``BatchNorm`` modules, which
-ride the model's ``state_dict``. `batch_stats_from_module` and
-`load_batch_stats` cross them; the param bridge leaves them alone.
+in the ``batch_stats`` collection (``{.../BatchNorm_j: {mean, var}}``, or
+under the module's own name: NFM's ``bn`` and ``mlp_bn_<i>``), the port as
+the ``mean`` / ``var`` buffers of its ``BatchNorm`` modules, which ride the
+model's ``state_dict``. They are told by the owning module's type
+(`_stat_keys`), whatever its name; without a module, by the leaf name
+(no flax parameter is named ``mean`` or ``var``). `batch_stats_from_module`
+and `load_batch_stats` cross them; the param bridge leaves them alone.
+
+Nested trees cross by path: KD_DAGFM's ``student`` (raw ``connect_layer``,
+``p_<i>``, ``q_<i>`` and a Dense ``out``) and ``teacher`` (Dense
+``cross_<i>`` and ``out``), the attention layers' ``query`` / ``key`` /
+``value`` / ``out`` (raw 3-D kernels, `models/layers.py:DenseGeneral`)
+and the GRU cell's six Denses.
 
 A ``kernel`` leaf is a Dense or a stored kernel depending on the port's
 module, so trees with kernels cross with the target `module` given. A
@@ -63,11 +72,18 @@ def _is_state(key: str) -> bool:
     return key.split(".")[-2:-1] == [STATE]
 
 
-def _is_stat(key: str) -> bool:
-    """A BatchNorm running statistic (`BatchNorm_<j>.mean` / `.var`, the
-    flax module names the port keeps)."""
-    parts = key.split(".")
-    return len(parts) >= 2 and parts[-2].startswith("BatchNorm_") and parts[-1] in ("mean", "var")
+def _stat_keys(module: Optional[nn.Module], keys=()) -> set:
+    """The state_dict keys that are BatchNorm running statistics: the
+    ``mean`` / ``var`` buffers of every `models/layers.py:BatchNorm` in
+    `module`, whatever the module's name; without a module, those of
+    `keys` whose leaf is named ``mean`` or ``var``."""
+    if module is None:
+        return {k for k in keys if k.rsplit(".", 1)[-1] in ("mean", "var")}
+    from oovrec_tpu_torch.models.layers import BatchNorm
+
+    return {f"{name}.{b}" if name else b
+            for name, m in module.named_modules() if isinstance(m, BatchNorm)
+            for b in ("mean", "var")}
 
 
 def _renames(module: Optional[nn.Module]):
@@ -127,9 +143,10 @@ def flax_from_state_dict(
     """torch state_dict → flax param tree. Without `module` every
     ``weight`` is an embedding table."""
     to_flax, _ = _renames(module)
+    stats = _stat_keys(module, sd)
     out: Dict[str, Any] = {}
     for key, value in sd.items():
-        if _is_state(key) or _is_stat(key):
+        if _is_state(key) or key in stats:
             continue
         arr = value.detach().cpu().numpy()
         if "." not in key:
@@ -157,7 +174,8 @@ def load_flax_params(module: nn.Module, params: FlaxParams) -> nn.Module:
     device = next(module.parameters()).device
     missing, unexpected = module.load_state_dict(
         {k: v.to(device) for k, v in sd.items()}, strict=False)
-    missing = [k for k in missing if not _is_state(k) and not _is_stat(k)]
+    stats = _stat_keys(module)
+    missing = [k for k in missing if not _is_state(k) and k not in stats]
     if missing or unexpected:
         raise KeyError(f"flax tree and module differ: missing {missing}, "
                        f"unexpected {unexpected}")
@@ -167,11 +185,11 @@ def load_flax_params(module: nn.Module, params: FlaxParams) -> nn.Module:
 def batch_stats_from_module(module: nn.Module) -> Dict[str, Any]:
     """A copy of the port's BatchNorm running statistics as flax's
     ``batch_stats`` tree (``{"mlp_layers": {"BatchNorm_0": {"mean",
-    "var"}}}``)."""
+    "var"}}}``, NFM's ``{"bn": ..., "mlp_bn_0": ...}``)."""
     to_flax, _ = _renames(module)
     sd = module.state_dict()
     out: Dict[str, Any] = {}
-    for key in filter(_is_stat, sd):
+    for key in sorted(_stat_keys(module)):
         parts = key.split(".")
         parts[0] = to_flax.get(parts[0], parts[0])
         node = out
@@ -186,7 +204,7 @@ def load_batch_stats(module: nn.Module, stats: FlaxParams) -> nn.Module:
     must have its pair, and the tree nothing else)."""
     flat = state_dict_from_flax(stats, module)
     sd = module.state_dict()
-    want = set(filter(_is_stat, sd))
+    want = _stat_keys(module)
     if set(flat) != want:
         raise KeyError(f"batch_stats and module differ: {sorted(set(flat) ^ want)}")
     with torch.no_grad():

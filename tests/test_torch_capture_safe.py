@@ -51,6 +51,19 @@ TRACKS = {
        for name in ("LR", "FM", "DeepFM", "FFM")},
     "deepfm-lsh": ["--model=DeepFM", *RANKING[1:4], "--inductive_embedder=lsh",
                    "--dropout_prob=0.2"],
+    # the rest of the zoo; AutoInt's MLP and EulerNet's two Dropout modules
+    # draw masks at their YAML rates, AFM's and NFM's Dropout at 0.3
+    **{name.lower(): [f"--model={name}", *RANKING[1:], *MAPPER]
+       for name in ("DCN", "AutoInt", "FNN", "PNN", "AFM", "FwFM", "DSSM", "FiGNN", "EulerNet",
+                    "NFM")},
+    "pnn-outer": ["--model=PNN", *RANKING[1:], *MAPPER, "--use_outer=True"],
+    "afm-dropout": ["--model=AFM", *RANKING[1:4], *MAPPER, "--dropout_prob=0.3"],
+    "nfm-dropout-lsh": ["--model=NFM", *RANKING[1:4], "--inductive_embedder=lsh",
+                        "--dropout_prob=0.3"],
+    **{f"kd_dagfm-{phase}": ["--model=KD_DAGFM", *RANKING[1:], *MAPPER, f"--phase={phase}"]
+       for phase in ("teacher_training", "distillation", "finetuning")},
+    "kd_dagfm-outer": ["--model=KD_DAGFM", *RANKING[1:], *MAPPER, "--phase=distillation",
+                       "--interaction_type=outer"],
 }
 
 
@@ -106,7 +119,10 @@ def test_dense_step_reads_nothing_back(track, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("embedder", ["random", "lsh"])
 @pytest.mark.parametrize("case", ["WideDeep", "DCNV2-stacked", "DCNV2-parallel",
-                                  "DCNV2-mixed", "xDeepFM", "LR", "FM", "DeepFM", "FFM"])
+                                  "DCNV2-mixed", "xDeepFM", "LR", "FM", "DeepFM", "FFM",
+                                  "DCN", "AutoInt", "FNN", "PNN", "PNN-outer", "AFM", "FwFM",
+                                  "DSSM", "FiGNN", "EulerNet", "NFM", "KD_DAGFM",
+                                  "KD_DAGFM-outer"])
 def test_sequence_fields_read_nothing_back(case, embedder):
     """The context models over token_seq / float_seq fields (which toy-ind
     lacks), on a batch with padded rows: the loss and its gradient."""
@@ -118,7 +134,7 @@ def test_sequence_fields_read_nothing_back(case, embedder):
 
     common = ctx.COMMON
     if case in zoo.MODELS:
-        name, kw, common = case, zoo.MODELS[case], dict(embedding_size=8)
+        name, kw, common = zoo._name(case), zoo.MODELS[case], dict(embedding_size=8)
     else:
         name, kw = ctx.MODELS[case] if case in ctx.MODELS else ("xDeepFM", dict(
             mlp_hidden_size=(16, 8), cin_layer_size=(6, 6), fused_cin=False))

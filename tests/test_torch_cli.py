@@ -9,7 +9,9 @@ with xDeepFM, each with the random mapper and with the lsh embedder, the
 retrieval track with fdhe (host hashing, one key file under the test's
 directory that both CLIs read) and with DirectAU, and the ranking track
 with DCNv2 (under SGD at 1e-2, its N(0, 1) cross weights starting at 1/10:
-`tests/test_torch_trainer.py:_dcnv2_cfg` says why). The embedder state
+`tests/test_torch_trainer.py:_dcnv2_cfg` says why) and with AutoInt (two
+attention layers, under SGD at 1e-2: `test_torch_context_zoo.py` says
+why). The embedder state
 each CLI builds (feature matrices, planes, keys; in 'inductive' mode over
 the `_ind` corpus for the 7 slices) is its own. The port runs with `--device=cpu`, xDeepFM's
 CIN through the kernel wrapper's plain version (`--fused_cin=True`), and
@@ -79,6 +81,11 @@ TRACKS = {
     "ranking-dcnv2": ["--model=DCNV2", *RANKING[1:], *MAPPER, "--cross_layer_num=2",
                       "--learner=sgd", "--learning_rate=0.01"],
     "retrieval-directau": ["--model=DirectAU", *MAPPER],
+    # under SGD: the attention's key bias has a gradient that is rounding
+    # noise, which Adam scales up to whole steps (test_torch_context_zoo.py)
+    "ranking-autoint": ["--model=AutoInt", *RANKING[1:], *MAPPER, "--attention_size=8",
+                        "--n_layers=2", "--dropout_probs=[0.0,0.0,0.0]", "--learner=sgd",
+                        "--learning_rate=0.01"],
 }
 # the embedder each track runs with
 EMBEDDER = {"retrieval-lsh": "lsh", "retrieval-fdhe": "fdhe", "ranking-lsh": "lsh",

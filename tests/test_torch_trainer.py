@@ -154,11 +154,12 @@ def _setup(cfg_dict, fused="auto"):
     jm, variables, estate = build_model_and_state(jcfg, ds, template_batch=template)
     estate = {k: np.array(v) for k, v in estate.items()}
     # float-field tables scaled down: ages and prices of ~20 saturate
-    # xDeepFM; DCNv2's N(0, 1) cross weights by 1/10 (`_dcnv2_cfg`)
+    # xDeepFM; DCNv2's and DCN's N(0, 1) cross weights by 1/10 (`_dcnv2_cfg`)
     def scaled(p, v):
         if p[-2:-1] and p[-2].key == "float_embedding_table":
             return np.asarray(v) * np.float32(0.01)
-        return np.asarray(v) * np.float32(0.1 if p[-1].key.startswith("cross_layer_") else 1)
+        cross = p[-1].key.startswith("cross_layer_") or p[-1].key == "cross_w"
+        return np.asarray(v) * np.float32(0.1 if cross else 1)
 
     params = jax.tree_util.tree_map_with_path(scaled, variables["params"])
 

@@ -100,8 +100,9 @@ def test_outside_the_subset_raises(text):
         yaml_subset.load(text)
 
 
-@pytest.mark.parametrize("name", ["defaults.yaml", "model/BPR.yaml", "model/xDeepFM.yaml",
-                                  "model/WideDeep.yaml", "model/DCNV2.yaml",
-                                  "model/DirectAU.yaml"])
+PORT_FILES = sorted(str(p.relative_to(PORT_CONFIG)) for p in PORT_CONFIG.rglob("*.yaml"))
+
+
+@pytest.mark.parametrize("name", PORT_FILES)
 def test_port_copies_are_byte_equal(name):
     assert (PORT_CONFIG / name).read_bytes() == (JAX_CONFIG / name).read_bytes()
