@@ -82,7 +82,7 @@ Phases (any failure exits non-zero; no phase failure is caught):
   9. phase E, the paper's other three models at their published widths
      (WideDeep.yaml, DCNV2.yaml, DirectAU.yaml):
      E1. EXPERIMENTS.md:79, the ranking track (WideDeep, lsh over the
-         *_vector columns, 200 buckets a side, OOV ratio 0.3; 3 epochs of
+         *_vector columns, 200 buckets a side, OOV ratio 0.3; 2 epochs of
          8) through `python -m oovrec_tpu_torch.cli.run` as a subprocess:
          the training loss falls, the 7 slices are finite, `--eval_only`
          equal to 1e-9; then the same command through `cli.run.main`;
@@ -172,14 +172,37 @@ Phases (any failure exits non-zero; no phase failure is caught):
          reads moved (DCN's cross weights drawn at 1/10 of N(0, 1)),
          BatchNorm statistics moved (DCN, NFM), KD_DAGFM's teacher
          unchanged; the value eval on the
-         held-out IV rows and the 7 value slices finite; 8 graphed host
-         steps == 8 eager ones bit for bit, and the ms a step of each
+         held-out IV rows and the 7 value slices finite; 4 graphed host
+         steps == 4 eager ones bit for bit, and the ms a step of each
          (wall, device, busy share);
      H2. `python -m oovrec_tpu_torch.cli.run --model=AutoInt
          --model_eval_type=ranking` on dataset/synth-ind for 1 epoch in
          a child process that prints its kernel launch counts as it ends
          (the gathers' backward launched there), `--eval_only` == the run
          to 1e-9.
+ 13. phase I, the sequential family:
+     I1. GRU4Rec, SASRec, NARM, STAMP, FPMC and BERT4Rec at their YAML
+         widths (embedding 64, GRU4Rec and NARM hidden 128, SASRec and
+         BERT4Rec 2 layers of 2 heads, inner 256) on a corpus at
+         MovieLens-1M's shape written here as an atomic `.inter` file
+         (6,040 users, 3,706 items, 1,000,209 rows) and loaded through
+         `create_dataset` and `data_preparation` (MAX_ITEM_LIST_LENGTH
+         50: 994,169 examples, leave-one-out, the full-sort loaders,
+         the write and the load timed apart): 64 steps of 2,048 rows through `Trainer.fit`
+         (GRU4Rec, SASRec, NARM and STAMP on the plain device epoch that
+         `auto` takes, FPMC and BERT4Rec on the host path, BERT4Rec's
+         batches masked by MaskItemSequence), finite falling losses,
+         every parameter moved, the gathers' backward launched; the
+         scanned full-sort test pass over 6,040 examples, 256 a batch
+         (GRU4Rec and SASRec: == the per-batch pass); 8 graphed steps ==
+         8 eager ones bit for bit and the ms a step of each over 4 of
+         them; also
+         MaskItemSequence's host ms a batch and GRU4Rec's valid pass at
+         `eval_batch_size` 4,096 (one row a batch), stopped at 1,024 rows
+         when it would pass 20 s;
+     I2. `python -m oovrec_tpu_torch.cli.run --model=GRU4Rec` on
+         dataset/synth-ind for 1 epoch in a child that prints its launch
+         counts, `--eval_only` == the run to 1e-9.
 Phase 2 also holds the gathers' backward kernel (`csrc/embed_grad.cu`)
 against its plain version (bit for bit on integer-valued cotangents, to
 1e-5 on random ones, against a repeat run) and times it; phase 6 profiles
@@ -190,14 +213,15 @@ bit for bit on integer inputs and gradients (and against itself on a
 repeat run), and times it per layer and for the 3-layer stack.
 The last line is the device record; the line before it lists the kernels,
 each with its launches on the earlier phases' paths (`launches`), on the
-CLI phases (`launches_cli`) and on phase D's, E's, F's, G's and H's
-parts (`launches_d`, `launches_e`, `launches_f`, `launches_g`,
-`launches_h`), each counted by the kernel's wrapper where it launches
-(`ops/launches.py`; a CUDA graph's replays run no wrapper), and the
-kernels that phase F's, G's and H's graphed passes replayed, as their
-profiler traces show them (`launches_f_trace`, `launches_g_trace`,
-`launches_h_trace`); before them, phase F's, G's and H's times as JSON
-lines (`phase F times`, `phase G times`, `phase H times`).
+CLI phases (`launches_cli`) and on phase D's, E's, F's, G's, H's and
+I's parts (`launches_d`, `launches_e`, `launches_f`, `launches_g`,
+`launches_h`, `launches_i`), each counted by the kernel's wrapper where
+it launches (`ops/launches.py`; a CUDA graph's replays run no wrapper),
+and the kernels that phase F's, G's, H's and I's graphed passes replayed,
+as their profiler traces show them (`launches_f_trace`,
+`launches_g_trace`, `launches_h_trace`, `launches_i_trace`); before them,
+phase F's to I's times as JSON lines (`phase F times` ... `phase I
+times`).
 
 TF32 is switched off for matmuls and cuDNN below: the plain versions and
 the dense path must compute in full f32, as the kernel does.
@@ -226,6 +250,11 @@ from oovrec_tpu_torch.cli import run as cli_run
 from oovrec_tpu_torch.cli.inductive_eval import perform_inductive_eval
 from oovrec_tpu_torch.config import Config
 from oovrec_tpu_torch.data import dataset as dataset_module
+from oovrec_tpu_torch.data.sequential import (
+    SeqDatasetSplit,
+    SeqFullSortEvalBatcher,
+    SequentialDataset,
+)
 from oovrec_tpu_torch.data.transfer import to_device_batch
 from oovrec_tpu_torch.data.utils import create_dataset, data_preparation
 from oovrec_tpu_torch.data import (
@@ -3070,7 +3099,7 @@ def lsh_device_epoch():
 # cross layers, MLP 768/768 with BatchNorm, dropout 0.2, reg_weight 2; mixed:
 # 4 experts of rank 128) and DirectAU (embedding 64, gamma 1).
 
-E_EPOCHS_RANK = 3  # EXPERIMENTS.md:79 runs 8 epochs; cut as phase B is
+E_EPOCHS_RANK = 2  # EXPERIMENTS.md:79 runs 8 epochs; cut as phase B is (3 until phase I)
 E_EPOCHS_CLI = 2
 E_BN_ROWS = 64
 E_TAGS_VOCAB, E_TAGS_LEN, E_TAGS_STEPS = 1000, 16, 16
@@ -3743,10 +3772,10 @@ def f_epoch_times(de, what):
 
 
 def f_fit(trainer, loader, what, falls=True):
-    """`Trainer.fit` for one epoch + the OOV sub-epoch (on the device
-    epoch or the host path), each sub-epoch's losses and steps kept, both
-    finite; the loss must fall where `falls`. → (normal, oov records,
-    wall s)."""
+    """`Trainer.fit` for one epoch + the OOV sub-epoch where the config
+    trains one (on the device epoch or the host path), each sub-epoch's
+    losses and steps kept, both finite; the loss must fall where `falls`.
+    → (normal, oov records, wall s)."""
     inner, seen = trainer._train_epoch, {}
 
     def watched(ldr, epoch_idx, oov_transform=None, keep_ratio=None, frozen=False):
@@ -3764,16 +3793,17 @@ def f_fit(trainer, loader, what, falls=True):
     wall = time.perf_counter() - t0
     trainer._train_epoch = inner
     normal = seen["normal"]
+    oov = seen.get("oov", {"losses": np.zeros(0), "steps": 0})
     losses = normal["losses"]
     tenth = max(1, len(losses) // 10)
     first, last = float(losses[:tenth].mean()), float(losses[-tenth:].mean())
-    require(np.isfinite(losses).all() and np.isfinite(seen["oov"]["losses"]).all(),
+    require(np.isfinite(losses).all() and np.isfinite(oov["losses"]).all(),
             f"{what}: loss not finite")
-    log(f"{what}: {normal['steps']} steps + {seen['oov']['steps']} OOV steps in "
+    log(f"{what}: {normal['steps']} steps + {oov['steps']} OOV steps in "
         f"{wall:.2f} s ({wall * 1e3 / trainer._global_step:.2f} ms a step, wall, host and set-up "
         f"included); loss first tenth {first:.5f} last tenth {last:.5f}")
     require(last < first or not falls, f"{what}: the loss did not fall ({first} -> {last})")
-    return normal, seen["oov"], wall
+    return normal, oov, wall
 
 
 def f1_xdeepfm_plain(ind):
@@ -4107,7 +4137,7 @@ G_RULES = (
 )
 G_BPR_STEPS, G_CANDIDATES = 32, (4, 16)  # G2: host steps of BPR_TRAIN_B rows
 G_ZOO = ("LR", "FM", "DeepFM", "FFM")   # G4, at their YAML widths
-G_ZOO_STEPS = 8
+G_ZOO_STEPS = 4       # G4: graphed against eager steps (8 until phase I)
 G_FIXTURE = os.path.join("tests", "assets", "jax_checkpoints", "BPR-synth-ind.ckpt")
 G_TIMES = {}
 
@@ -4401,11 +4431,12 @@ def g3_cli():
     return {**counts, **g3_resume()}
 
 
-def host_graph_vs_eager(make, what, steps, part="G4", times=G_TIMES):
+def host_graph_vs_eager(make, what, steps, part="G4", times=G_TIMES, time_steps=None):
     """`graph_vs_eager` on the host path: `steps` host batches through the
     trainer's captured step and through the eager `_apply_step`, bit for
-    bit; then their times (the traces' kernels added to `part`'s). → the
-    times, kept in `times`."""
+    bit; then their times over the first `time_steps` of them (all where
+    None; the traces' kernels added to `part`'s). → the times, kept in
+    `times`."""
     (a, loader), (b, _) = make(), make()
     require(a._maybe_device_epoch(loader) is None, f"{what}: the host path")
     batches = []
@@ -4426,15 +4457,16 @@ def host_graph_vs_eager(make, what, steps, part="G4", times=G_TIMES):
         f"{len(sa)} tensors equal bit for bit")
     require(g.captures == 1 and g.replays == steps - 1 and torch.equal(la, lb) and not differ,
             f"{what}: graph vs eager differ {differ[:5]}")
-    graph_vs_eager_times(SimpleNamespace(train_step=a.step_graphs.step), b, batches, what, part)
+    graph_vs_eager_times(SimpleNamespace(train_step=a.step_graphs.step), b,
+                         batches[:time_steps], what, part)
     times[what] = F_TIMES.pop(what)
     return times[what]
 
 
 def g4_zoo(ind):
     """G4: LR, FM, DeepFM and FFM at their YAML widths at the ranking
-    cell's shape: LR, FM and DeepFM on the pointwise device epoch (8
-    graphed steps == 8 eager ones) and each on the host path (graphed ==
+    cell's shape: LR, FM and DeepFM on the pointwise device epoch (4
+    graphed steps == 4 eager ones) and each on the host path (graphed ==
     eager), ms a step of each; a short fit on the device epoch (LR, FM,
     DeepFM) or the host path (FFM), then the value eval on the held-out
     IV rows. → the part's launches."""
@@ -4483,7 +4515,7 @@ H_ZOO = (("DCN", {}), ("AutoInt", {}), ("FNN", {}), ("PNN", {}), ("AFM", {}), ("
 # read only the token fields); KD_DAGFM's teacher is held unchanged apart
 H_UNREAD = {"DSSM": ("field_embedding.float_embedding_table.weight",)}
 H_FIT_STEPS = 16      # H1: pointwise host steps of CTR_B rows before the OOV sub-epoch
-H_COMPARE_STEPS = 8   # H1: graphed against eager host steps
+H_COMPARE_STEPS = 4   # H1: graphed against eager host steps (8 until phase I)
 H_EPOCHS_CLI = 1      # H2
 H_TIMES = {}
 H_GATHERS = {}        # H1: the gathers' backward launches of each model's fit
@@ -4568,12 +4600,41 @@ def h1_zoo(ind, mapper):
     return counts
 
 
-# H2's child: `python -m oovrec_tpu_torch.cli.run` (runpy runs the module as
-# `__main__` with the same argv), then the child's kernel launch counts
-H2_CHILD = ("import json, runpy\n"
-            "from oovrec_tpu_torch.ops import launches\n"
-            "runpy.run_module('oovrec_tpu_torch.cli.run', run_name='__main__', alter_sys=True)\n"
-            "print('H2 launches ' + json.dumps(launches.launch_counts()))\n")
+# H2's and I2's child: `python -m oovrec_tpu_torch.cli.run` (runpy runs the
+# module as `__main__` with the same argv), then the child's kernel launch
+# counts
+CLI_CHILD = ("import json, runpy\n"
+             "from oovrec_tpu_torch.ops import launches\n"
+             "runpy.run_module('oovrec_tpu_torch.cli.run', run_name='__main__', alter_sys=True)\n"
+             "print('CLI launches ' + json.dumps(launches.launch_counts()))\n")
+
+
+def cli_child(part, argv, out):
+    """`python -m oovrec_tpu_torch.cli.run` with `argv` in a child
+    (`CLI_CHILD`) writing to `out`: rc 0, its training and test lines
+    logged, the gathers' backward launched there (it prints its wrappers'
+    counts as it ends), finite test metrics. → (its launches, its
+    results.json, wall s)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CLI_CHILD, *argv, *cli_flags(out)],
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = (proc.stdout + proc.stderr).splitlines()
+    for line in lines:
+        if "training [" in line or "test result" in line:
+            log(f"  [{part}] {line.split(' INFO ')[-1][:160]}")
+    require(proc.returncode == 0, f"{part}: rc {proc.returncode}: " + "\n".join(lines[-30:]))
+    said = [x[len("CLI launches "):] for x in proc.stdout.splitlines()
+            if x.startswith("CLI launches ")]
+    require(len(said) == 1, f"{part}: the child printed no launch counts")
+    child = json.loads(said[0])
+    counts = {k: child.get(k, 0) for k in kernel_counts()}
+    require(counts["scatter_rows_kernel"] > 0,
+            f"{part}: the gathers' backward in the run {child}")
+    with open(os.path.join(out, "results.json")) as f:
+        res = json.load(f)
+    finite_metrics(res["test_result"], f"{part} test")
+    return counts, res, wall
 
 
 def h2_cli():
@@ -4586,24 +4647,7 @@ def h2_cli():
     argv = ["--model=AutoInt", "--model_eval_type=ranking", "--dataset=synth-ind",
             "--data_path=dataset", SYNTH_LOAD_COL, *CLI_OOV, f"--epochs={H_EPOCHS_CLI}"]
     out = cli_out("h2")
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", H2_CHILD, *argv, *cli_flags(out)],
-                          capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    lines = (proc.stdout + proc.stderr).splitlines()
-    for line in lines:
-        if "training [" in line or "test result" in line:
-            log(f"  [H2] {line.split(' INFO ')[-1][:160]}")
-    require(proc.returncode == 0, f"H2: rc {proc.returncode}: " + "\n".join(lines[-30:]))
-    said = [x[len("H2 launches "):] for x in proc.stdout.splitlines()
-            if x.startswith("H2 launches ")]
-    require(len(said) == 1, "H2: the child printed no launch counts")
-    child = json.loads(said[0])
-    counts = {k: child.get(k, 0) for k in kernel_counts()}
-    require(counts["scatter_rows_kernel"] > 0, f"H2: the gathers' backward in the run {child}")
-    with open(os.path.join(out, "results.json")) as f:
-        res = json.load(f)
-    finite_metrics(res["test_result"], "H2 test")
+    counts, res, wall = cli_child("H2", argv, out)
     value_slices_finite(res["inductive"], "H2 AutoInt")
     log(f"H2: python -m oovrec_tpu_torch.cli.run --model=AutoInt --model_eval_type=ranking "
         f"({H_EPOCHS_CLI} epoch) rc 0 in {wall:.1f} s (wall, process start and the corpus "
@@ -4615,6 +4659,288 @@ def h2_cli():
     agree_slices(res["inductive"], again["inductive_results"], "H2 eval_only slices", tol=1e-9)
     log(f"H2: --eval_only == the run on AUC, RMSE and the 7 slices (1e-9); the run's "
         f"launches {counts}")
+    return counts
+
+
+# phase I, the sequential family: a corpus at MovieLens-1M's shape (the
+# standard RecBole sequential benchmark: 6,040 users, 3,706 items,
+# 1,000,209 ratings, at least 20 a user), MAX_ITEM_LIST_LENGTH 50,
+# leave-one-out valid and test; each user prefers one of I_GROUPS slices of
+# the items, so the loss can fall
+I_USERS, I_ITEMS, I_INTERS, I_MIN_A_USER = 6040, 3706, 1_000_209, 20
+I_GROUPS, I_IN_GROUP, I_SEED = 32, 0.8, 13
+I_L, I_B = 50, 2048
+I_STEPS = 64           # I1: a fit's steps: the first I_STEPS batches' rows of
+                       # the training split (131,072, so `auto` takes the
+                       # device epoch at >= 100,000)
+I_COMPARE_STEPS = 8    # I1: graphed against eager steps, bit for bit
+I_TIME_STEPS = 4       # I1: of those, the steps a timed and a profiled pass run
+I_EVAL_ROWS = 256      # I1: rows a batch of the scanned full-sort test pass
+I_DEFAULT_EVAL_BATCH = 4096  # I1: RecBole's default: one row a batch here
+I_DEFAULT_ROWS, I_DEFAULT_BUDGET_S = 1024, 20.0
+I_MASK_BATCHES = 16    # I1: MaskItemSequence's host ms a batch, over these
+I_MODELS = ("GRU4Rec", "SASRec", "NARM", "STAMP", "FPMC", "BERT4Rec")
+I_DEVICE_EPOCH = ("GRU4Rec", "SASRec", "NARM", "STAMP")  # `auto` takes it
+I_PER_BATCH_TOO = ("GRU4Rec", "SASRec")  # scanned == per-batch eval, bit for bit
+I_BREAKDOWN = ("GRU4Rec", "SASRec")  # a graphed pass's largest kernels, logged
+I_EPOCHS_CLI = 1      # I2
+I_DATA, I_DATASET = os.path.join("build", "seq", "data"), "ml1m-shaped"
+I_TIMES = {}
+I_GATHERS = {}        # I1: the gathers' backward launches of each model's fit
+
+
+def ml1m_arrays(seed=I_SEED):
+    """(user ids, item ids, timestamps) of a corpus at MovieLens-1M's
+    shape, rows in random order: users 1..I_USERS with at least
+    I_MIN_A_USER rows each (lognormal counts, the exact total), items
+    1..I_ITEMS drawn by a Zipf-like popularity, I_IN_GROUP of a user's rows
+    moved to the same popularity rank inside the user's slice of the items
+    (item id mod I_GROUPS), timestamps increasing within each user."""
+    rng = np.random.default_rng(seed)
+    raw = rng.lognormal(0.0, 1.0, I_USERS)
+    counts = I_MIN_A_USER + np.floor(
+        raw / raw.sum() * (I_INTERS - I_MIN_A_USER * I_USERS)).astype(np.int64)
+    counts[: I_INTERS - counts.sum()] += 1
+    uid = np.repeat(np.arange(1, I_USERS + 1), counts)
+    pop = 1.0 / (np.arange(I_ITEMS) + 10.0) ** 0.9
+    iid = 1 + rng.choice(I_ITEMS, size=I_INTERS, p=pop / pop.sum())
+    slot = (iid - 1) // I_GROUPS * I_GROUPS + uid % I_GROUPS + 1
+    own = (rng.random(I_INTERS) < I_IN_GROUP) & (slot <= I_ITEMS)
+    iid = np.where(own, slot, iid)
+    start = np.repeat(np.cumsum(counts) - counts, counts)
+    rank = np.arange(I_INTERS) - start
+    when = (978_300_000 + np.floor(86_400.0 * rng.random(I_USERS)).astype(np.int64)[uid - 1]
+            + 60 * rank)
+    order = rng.permutation(I_INTERS)
+    return uid[order], iid[order], when[order]
+
+
+def ml1m_inter_file(seed=I_SEED):
+    """`ml1m_arrays` written as the atomic file
+    `I_DATA/I_DATASET/I_DATASET.inter` (user and item tokens, integer
+    timestamps as the float field). → wall s of the write."""
+    t0 = time.perf_counter()
+    uid, iid, when = ml1m_arrays(seed)
+    d = os.path.join(I_DATA, I_DATASET)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    with open(os.path.join(d, f"{I_DATASET}.inter"), "w") as f:
+        f.write("user_id:token\titem_id:token\ttimestamp:float\n")
+        np.savetxt(f, np.stack([uid, iid, when], axis=1), fmt="%d", delimiter="\t")
+    return time.perf_counter() - t0
+
+
+def seq_cfg(name, **over):
+    """A sequential model's config at its YAML widths (`config/model/`):
+    I_B rows a step, one epoch, CE without negatives (FPMC: BPR with one
+    uniform negative), leave-one-out full sort over the whole item set,
+    256 rows a scanned test batch."""
+    d = {
+        "model": name, "seed": SEED, "epochs": 1, "train_batch_size": I_B,
+        "eval_batch_size": I_EVAL_ROWS * (I_ITEMS + 1), "MAX_ITEM_LIST_LENGTH": I_L,
+        "learner": "adam", "learning_rate": 1e-3, "host_scan_steps": 1,
+        "train_neg_sample_args": ({"distribution": "uniform", "sample_num": 1}
+                                  if name == "FPMC" else {"distribution": "none"}),
+        "eval_args": {"split": {"LS": "valid_and_test"}, "order": "TO",
+                      "group_by": "user", "mode": "full"},
+        "metrics": ["Recall", "MRR", "NDCG", "Hit"], "topk": [10, 20],
+        "valid_metric": "MRR@10", "metric_decimal_place": 12, "device": DEVICE,
+        "log_tensorboard": False, "checkpoint_dir": os.path.join("build", "seq"),
+        "dataset": I_DATASET, "data_path": I_DATA,
+        "load_col": {"inter": ["user_id", "item_id", "timestamp"]},
+    }
+    d.update(over)
+    return Config(d)
+
+
+def seq_loader(name, cfg, train):
+    """The model's training loader over the first I_STEPS batches' rows of
+    the training split."""
+    train = SeqDatasetSplit(train.parent, train.index[: I_STEPS * I_B])
+    if name == "FPMC":
+        return TrainBatcher(train, Sampler(["train"], [train], seed=SEED), cfg,
+                            InputType.PAIRWISE)
+    return TrainBatcher(train, None, cfg, InputType.POINTWISE)
+
+
+def timed_eval(model, cfg, loader, what, **over):
+    """One `EvalRunner` pass, synchronised. → (metrics, wall s)."""
+    runner = EvalRunner(model, Config(dict(cfg.as_dict(), **over)))
+    sync()
+    t0 = time.perf_counter()
+    res = runner.evaluate(loader)
+    sync()
+    wall = time.perf_counter() - t0
+    finite_metrics(res, what)
+    return res, wall
+
+
+def mask_transform_ms(cfg, train):
+    """MaskItemSequence (`data/transform.py`, a loop over rows by rule: it
+    draws per row in the JAX stream's order) on I_MASK_BATCHES host
+    batches of I_B training rows: host ms a batch."""
+    from oovrec_tpu_torch.data.transform import MaskItemSequence
+
+    mask = MaskItemSequence(cfg, train.item_num)
+    times = []
+    for b in range(I_MASK_BATCHES):
+        rows = slice(b * I_B, (b + 1) * I_B)
+        batch = {k: v[rows] for k, v in train.inter.items()}
+        t0 = time.perf_counter()
+        out = mask(batch)
+        times.append((time.perf_counter() - t0) * 1e3)
+        require(int(out["mask_count"].min()) >= 1, "MaskItemSequence: a row masked nothing")
+    log(f"I1 MaskItemSequence: host ms a batch of {I_B} rows "
+        f"{float(np.mean(times)):.3f} (min {min(times):.3f}, max {max(times):.3f}, "
+        f"{I_MASK_BATCHES} batches)")
+    I_TIMES["MaskItemSequence host ms a batch"] = times
+    return times
+
+
+def default_eval_pass(model, cfg, valid):
+    """GRU4Rec's valid pass at RecBole's default eval_batch_size (4,096:
+    one row a batch over 3,707 items): the first I_DEFAULT_ROWS rows
+    timed, and the whole pass only when those rows project it under
+    I_DEFAULT_BUDGET_S. → wall s of what ran."""
+    cfg = Config(dict(cfg.as_dict(), eval_batch_size=I_DEFAULT_EVAL_BATCH))
+    head = SeqFullSortEvalBatcher(
+        SeqDatasetSplit(valid.parent, valid.index[:I_DEFAULT_ROWS]), cfg)
+    require(head.rows_per_batch == 1, f"I1 default eval: {head.rows_per_batch} rows a batch")
+    _, wall = timed_eval(model, cfg, head, "I1 GRU4Rec default valid pass")
+    projected = wall * len(valid) / I_DEFAULT_ROWS
+    if projected <= I_DEFAULT_BUDGET_S:
+        _, wall = timed_eval(model, cfg, SeqFullSortEvalBatcher(valid, cfg),
+                             "I1 GRU4Rec default valid pass")
+        log(f"I1 GRU4Rec valid pass at eval_batch_size {I_DEFAULT_EVAL_BATCH} (1 row a "
+            f"batch): {len(valid)} rows in {wall:.2f} s")
+    else:
+        log(f"I1 GRU4Rec valid pass at eval_batch_size {I_DEFAULT_EVAL_BATCH} (1 row a "
+            f"batch): stopped at {I_DEFAULT_ROWS} rows, {wall:.2f} s, projected "
+            f"{projected:.1f} s for the {len(valid)} rows (over {I_DEFAULT_BUDGET_S:.0f} s)")
+    I_TIMES["GRU4Rec default valid pass"] = {"rows": I_DEFAULT_ROWS if projected >
+                                             I_DEFAULT_BUDGET_S else len(valid),
+                                             "wall_s": wall, "projected_s": projected}
+    return wall
+
+
+def i1_sequential():
+    """I1: GRU4Rec, SASRec, NARM, STAMP, FPMC and BERT4Rec at their YAML
+    widths on the MovieLens-1M-shaped corpus: each fits one epoch of
+    I_STEPS steps through `Trainer.fit` (GRU4Rec, SASRec, NARM and STAMP
+    on the plain device epoch, which `auto` takes; FPMC and BERT4Rec on
+    the host path), the losses finite and falling, every parameter moved,
+    the gathers' backward launched; one scanned full-sort test pass over
+    the 6,040 users' examples, 256 rows a batch (GRU4Rec and SASRec also
+    per batch, the same metrics); then I_COMPARE_STEPS graphed steps ==
+    eager ones bit for bit and the ms a step of each over I_TIME_STEPS of
+    them (GRU4Rec's and SASRec's graphed pass: its largest kernels). Also
+    MaskItemSequence's host ms a batch and GRU4Rec's valid pass at
+    RecBole's default eval batch. → the fits' launches."""
+    wrote = ml1m_inter_file()
+    base = seq_cfg("GRU4Rec")
+    t0 = time.perf_counter()
+    ds = create_dataset(base)
+    loaded = time.perf_counter() - t0
+    loaders = train_loader, valid_loader, test_loader = data_preparation(base, ds)
+    train, valid, test = (x.split for x in loaders)
+    aug = ds.data_augmentation()
+    prepared = time.perf_counter() - t0
+    log(f"I1 corpus: {I_INTERS} rows, {I_USERS} users, {I_ITEMS} items -> "
+        f"{len(aug['user_id'])} examples ({aug['item_id_list'].shape} item lists), train "
+        f"{len(train)}, valid {len(valid)}, test {len(test)}; set-up apart from the phase's "
+        f"times: the .inter file written in {wrote:.1f} s, `create_dataset` {loaded:.1f} s, "
+        f"with `data_preparation` (augmentation and splits) {prepared:.1f} s")
+    I_TIMES["set-up s"] = {"write": wrote, "create_dataset": loaded,
+                           "create_dataset + data_preparation": prepared}
+    require(type(ds) is SequentialDataset and ds.item_num == I_ITEMS + 1
+            and ds.user_num == I_USERS + 1, f"I1: the dataset {type(ds)} {ds.item_num}")
+    require(len(valid) == len(test) == I_USERS, "I1: one valid and one test row a user")
+    require(all(type(x) is SeqFullSortEvalBatcher and x.rows_per_batch == I_EVAL_ROWS
+                for x in (valid_loader, test_loader)),
+            f"I1: data_preparation's eval loaders {valid_loader} {test_loader}")
+    mask_transform_ms(seq_cfg("BERT4Rec"), train)
+    counts = {}
+    for i, name in enumerate(I_MODELS):
+        what = f"I1 {name}"
+        cfg = seq_cfg(name)
+        model = quick_start.build_model_and_state(cfg, ds)
+        trainer = Trainer(cfg, model)
+        loader = seq_loader(name, cfg, train)
+        before = {n: p.detach().clone() for n, p in trainer.params.items()}
+        reset_kernel_counts()
+        steps = f_fit(trainer, loader, what)[0]["steps"]
+        seen = kernel_counts()
+        counts = {k: counts.get(k, 0) + n for k, n in seen.items()}
+        I_GATHERS[name] = seen["scatter_rows_kernel"]
+        des = list(trainer._device_epochs.values())
+        on_device = name in I_DEVICE_EPOCH
+        require(bool(des) == on_device and all(d.mode == "plain" for d in des),
+                f"{what}: the device epoch {[d.mode for d in des]}")
+        require(seen["scatter_rows_kernel"] > 0, f"{what}: the gathers' backward {seen}")
+        still = [n for n in before if torch.equal(before[n], trainer.params[n])]
+        require(not still, f"{what}: parameters did not move over the fit: {still}")
+        del before
+        res, wall = timed_eval(model, cfg, test_loader, f"{what} test",
+                               device_eval=True)
+        require(steps == I_STEPS, f"{what}: {steps} steps")
+        line = (f"{what}: {steps} steps ({'device epoch' if on_device else 'host path'}), "
+                f"{len(trainer.params)} parameters moved, gathers' backward launches "
+                f"{seen['scatter_rows_kernel']}; scanned test pass ({len(test)} rows, "
+                f"{I_EVAL_ROWS} a batch) {wall:.3f} s: {dict(res)}")
+        I_TIMES[f"{name} scanned test pass s"] = wall
+        if name in I_PER_BATCH_TOO:
+            again, wall_b = timed_eval(model, cfg, test_loader,
+                                       f"{what} test per batch", device_eval=False)
+            require(again == res, f"{what}: scanned {dict(res)} vs per-batch {dict(again)}")
+            line += f"; per batch {wall_b:.3f} s, the same metrics"
+            I_TIMES[f"{name} per-batch test pass s"] = wall_b
+        log(line)
+        if name == "GRU4Rec":
+            default_eval_pass(model, cfg, valid)
+        del trainer, loader, model
+
+        def make(name=name, i=i):
+            c = seq_cfg(name)
+            return Trainer(c, quick_start.build_model_and_state(c, ds)), seq_loader(name, c,
+                                                                                  train)
+
+        if on_device:
+            a, gde, b, batches = graph_vs_eager(make, what, steps=I_COMPARE_STEPS)
+            graph_vs_eager_times(gde, b, batches[:I_TIME_STEPS], what, "I1")
+            I_TIMES[what] = F_TIMES.pop(what)
+            del a, gde, b, batches
+        else:
+            host_graph_vs_eager(make, what, I_COMPARE_STEPS, part="I1", times=I_TIMES,
+                                time_steps=I_TIME_STEPS)
+        if name in I_BREAKDOWN:  # the last profile taken: the graphed pass's
+            log(f"{what}: the graphed pass's largest kernels (device ms over "
+                f"{I_TIME_STEPS} steps, launches)")
+            for us, key, count in getattr(profiled, "rows", [])[:12]:
+                log(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+    log("I1 gathers' backward launches by model: " + json.dumps(I_GATHERS))
+    return counts
+
+
+def i2_cli():
+    """I2: `python -m oovrec_tpu_torch.cli.run --model=GRU4Rec` as a
+    subprocess on dataset/synth-ind (timestamps loaded, the paper protocol:
+    uni250 eval, one sampled negative a row; I_EPOCHS_CLI epoch): rc 0,
+    finite test metrics, the gathers' backward launched in the child;
+    `--eval_only` on its checkpoint, in this process, reproduces them to
+    1e-9. → the child's launches."""
+    argv = ["--model=GRU4Rec", "--dataset=synth-ind", "--data_path=dataset",
+            "--load_col={'inter': ['user_id','item_id','timestamp','is_new']}",
+            f"--epochs={I_EPOCHS_CLI}"]
+    out = cli_out("i2")
+    counts, res, wall = cli_child("I2", argv, out)
+    log(f"I2: python -m oovrec_tpu_torch.cli.run --model=GRU4Rec ({I_EPOCHS_CLI} epoch) rc 0 "
+        f"in {wall:.1f} s (wall, process start and the corpus included), test "
+        f"{res['test_result']}")
+    again = cli_run.main([f"--eval_only={os.path.join(out, 'GRU4Rec-synth-ind.pth')}"])
+    require(type(again["trainer"].model).__name__ == "GRU4Rec", "I2: the model")
+    agree(res["test_result"], again["test_result"], "I2 eval_only test", tol=1e-9)
+    log(f"I2: --eval_only == the run on the test metrics (1e-9); the run's launches {counts}")
+    I_TIMES["I2 CLI run s"] = wall
     return counts
 
 
@@ -4768,6 +5094,24 @@ def main():
     require(h_trace["H1"]["scatter_rows_kernel"] > 0, f"phase H graphed traces {h_trace}")
     log("phase H kernels replayed, from the traces: " + json.dumps(h_trace))
     log("phase H times: " + json.dumps(H_TIMES))
+    # phase I, the sequential family; counted by part as H is
+    t0 = time.perf_counter()
+    on_i, h_done = {}, dict(F_TRACE)
+    for part, run in (("I1", i1_sequential), ("I2", i2_cli)):
+        reset_kernel_counts()
+        sync()
+        t1 = time.perf_counter()
+        seen = run()
+        sync()
+        on_i[part] = {**kernel_counts(), **seen}
+        log(f"phase {part}: {time.perf_counter() - t1:.1f} s, kernel launches {on_i[part]}")
+    log(f"phase I: {time.perf_counter() - t0:.1f} s")
+    i_trace = {p: c for p, c in F_TRACE.items() if p not in h_done}
+    require(all(on_i[p]["scatter_rows_kernel"] > 0 for p in ("I1", "I2")),
+            f"phase I launches {on_i}")
+    require(i_trace["I1"]["scatter_rows_kernel"] > 0, f"phase I graphed traces {i_trace}")
+    log("phase I kernels replayed, from the traces: " + json.dumps(i_trace))
+    log("phase I times: " + json.dumps(I_TIMES))
     cli = {  # each kernel's launches on the CLI paths (A launches none)
         "fused_topk_scores": {"C": k1_c},
         "cin_layer_pooled": {"B": cli_b["cin_layer_pooled"]},
@@ -4840,6 +5184,8 @@ def main():
         k["launches_g_trace"] = {part: c[k["name"]] for part, c in g_trace.items()}
         k["launches_h"] = {part: c[k["name"]] for part, c in on_h.items()}
         k["launches_h_trace"] = {part: c[k["name"]] for part, c in h_trace.items()}
+        k["launches_i"] = {part: c[k["name"]] for part, c in on_i.items()}
+        k["launches_i_trace"] = {part: c[k["name"]] for part, c in i_trace.items()}
     log("gathers' backward (ops/embed_grad.py, not a Pallas kernel): " + json.dumps({
             "ms": gathers, "bound_ms": gather_bound,
             "device_epoch": GATHER_RESULTS.get("device_epoch")}))

@@ -33,6 +33,7 @@ from oovrec_tpu_torch.inductive.factory import build_embedder_state, needs_state
 from oovrec_tpu_torch.inductive.spec import InductiveSpec
 from oovrec_tpu_torch.models import get_model_class
 from oovrec_tpu_torch.models.context import ContextRecommender, field_spec_from_dataset
+from oovrec_tpu_torch.models.sequential import SequentialRecommender
 from oovrec_tpu_torch.train.trainer import Trainer
 from oovrec_tpu_torch.utils.device import resolve_device
 from oovrec_tpu_torch.utils.jax_checkpoint import is_jax_checkpoint, read_jax_checkpoint
@@ -52,6 +53,7 @@ from oovrec_tpu_torch.utils.torch_import import import_reference_checkpoint, mer
 _CLAIMED = frozenset({
     "spec", "uid_field", "iid_field", "label_field", "neg_prefix", "fields",
     "embedding_size", "n_users", "n_items", "device", "generator", "embedder_state",
+    "max_seq_length",
 })
 
 
@@ -100,7 +102,9 @@ def build_model_and_state(config, dataset, mode: str = "transductive",
     model is rebuilt against the inductive corpus with the ORIGINAL
     counts; `fields_from` is the dataset a context model's field spec
     comes from (the training dataset in that rebuild, so the packed
-    tables match the checkpoint). The embedder state
+    tables match the checkpoint). A sequential model's `max_seq_length`
+    is `MAX_ITEM_LIST_LENGTH` (`cli/quick_start.py:94-95` of the JAX
+    package). The embedder state
     (`inductive/factory.py:build_embedder_state`) is built over `dataset`
     in `mode` ('transductive', or 'inductive' over the `_ind` corpus, as
     `oovrec_tpu/cli/quick_start.py:122-131` builds it) and handed to the
@@ -138,6 +142,8 @@ def build_model_and_state(config, dataset, mode: str = "transductive",
     else:
         kwargs.update(n_users=n_users, n_items=n_items, neg_prefix=config["NEG_PREFIX"],
                       embedding_size=int(config.get("embedding_size", 64)))
+    if issubclass(cls, SequentialRecommender):
+        kwargs["max_seq_length"] = int(config["MAX_ITEM_LIST_LENGTH"])
     kwargs.update(model_kwargs(config, cls))
     return cls(**kwargs)
 

@@ -140,7 +140,7 @@ class Config:
 
             try:
                 d["MODEL_INPUT_TYPE"] = get_model_class(model).input_type
-            except ValueError:
+            except (ValueError, NotImplementedError):
                 d["MODEL_INPUT_TYPE"] = InputType.POINTWISE
 
         metrics = d.get("metrics") or []

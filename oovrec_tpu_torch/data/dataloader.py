@@ -62,8 +62,8 @@ class TrainBatcher:
     `host_rng(seed + epoch, "train_shuffle_<phase>")`, so the batches equal
     the JAX batcher's key for key. The feature tables are the split's
     `user_feat` / `item_feat`; the process pair comes from the caller.
-    Only the identity transform (`transform` None / 'Equal',
-    `data/transform.py`) is ported.
+    Each batch goes through the config's transform (`data/transform.py`)
+    last.
 
     Dynamic hard negatives (`train_neg_sample_args: {dynamic: true,
     candidate_num: C}`, `dataloader.py:103-107, 147-171` of the JAX

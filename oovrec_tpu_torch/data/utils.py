@@ -5,10 +5,12 @@ Port of `oovrec_tpu/data/utils.py:28-189`: `create_dataset` (with the
 `eval_mode_to_neg_args` and `data_preparation`, which splits the dataset,
 builds the cross-phase sampler and the train / valid / test batchers
 (full sort for 'full', plain labelled rows for 'labeled', sampled
-negatives for 'uniN' / 'popN'). The loaders take the process pair from
-the caller (one process when it gives none). The knowledge-graph,
-sequential and user-batch (autoencoder) loaders are not ported and raise,
-naming their ROADMAP.md items.
+negatives for 'uniN' / 'popN'). A sequential model gets the
+`SequentialDataset` (`data/sequential.py`) and, under full sort, its
+`SeqFullSortEvalBatcher`. The loaders take the process pair from the
+caller (one process when it gives none). The knowledge-graph datasets
+(knowledge models, GRU4RecKG and KSR) and the user-batch (autoencoder)
+loaders are not ported and raise, naming their ROADMAP.md items.
 """
 
 from __future__ import annotations
@@ -29,6 +31,11 @@ from oovrec_tpu_torch.data.dataloader import (
 from oovrec_tpu_torch.data.dataset import Dataset
 from oovrec_tpu_torch.data.inductive_dataset import InductiveDataset
 from oovrec_tpu_torch.data.sampler import Sampler
+from oovrec_tpu_torch.data.sequential import (
+    SeqDatasetSplit,
+    SeqFullSortEvalBatcher,
+    SequentialDataset,
+)
 from oovrec_tpu_torch.utils.enums import InputType, ModelType
 
 DATASET_CACHE_ARGS = (
@@ -38,6 +45,9 @@ DATASET_CACHE_ARGS = (
     "normalize_all", "discretization", "numerical_features", "seed",
     "benchmark_filename", "MAX_ITEM_LIST_LENGTH",
 )
+# sequential models over knowledge-graph side files (`kg_seq_dataset.py` of
+# the JAX package), not ported
+KG_SEQUENTIAL = ("GRU4RecKG", "KSR")
 
 
 def _dataset_cache_path(config) -> str:
@@ -54,16 +64,21 @@ def _model_class(config):
 
     try:
         return get_model_class(config["model"]) if config["model"] else None
-    except ValueError:
+    except (ValueError, NotImplementedError):
         return None
 
 
 def create_dataset(config, inductive: bool = False):
     """The dataset for the config's model. Under `save_dataset` the
-    processed dataset round-trips through a pickle keyed on the dataset
-    arguments."""
+    processed `Dataset` round-trips through a pickle keyed on the dataset
+    arguments; a sequential model's dataset is never read from or written
+    to it (the key names no model, so a general model would load it)."""
     if inductive:
         return InductiveDataset(config)
+    cls = _model_class(config)
+    mt = getattr(cls, "model_type", None)
+    if mt == ModelType.SEQUENTIAL:
+        return SequentialDataset(config)
     cache_path = None
     if config.get("save_dataset"):
         cache_path = config.get("dataset_save_path") or _dataset_cache_path(config)
@@ -72,12 +87,10 @@ def create_dataset(config, inductive: bool = False):
                 ds = pickle.load(f)
             ds.config = config
             return ds
-    cls = _model_class(config)
-    mt = getattr(cls, "model_type", None)
-    if mt in (ModelType.SEQUENTIAL, ModelType.KNOWLEDGE):
+    if mt == ModelType.KNOWLEDGE or config["model"] in KG_SEQUENTIAL:
         raise NotImplementedError(
-            f"the {mt.name.lower()} datasets are not ported (ROADMAP.md, queue 1: "
-            "sequential models; general and knowledge zoo)")
+            f"the knowledge-graph datasets of [{config['model']}] are not ported "
+            "(ROADMAP.md, queue 1: sequential models; general and knowledge zoo)")
     ds = Dataset(config)
     if cache_path:
         os.makedirs(os.path.dirname(cache_path) or ".", exist_ok=True)
@@ -128,6 +141,8 @@ def data_preparation(config, dataset, process_index: Optional[int] = None,
     def eval_loader(split, phase):
         mode = config["eval_args"]["mode"]["valid" if phase == "valid" else "test"]
         neg_args = eval_mode_to_neg_args(mode)
+        if isinstance(split, SeqDatasetSplit) and neg_args is None:
+            return SeqFullSortEvalBatcher(split, config)
         if mode == "labeled":
             return PlainEvalBatcher(split, config)
         if neg_args is None:

@@ -3,7 +3,9 @@
 Port of `oovrec_tpu/eval/runner.py:24-148, 353-564` on three paths:
   * full sort (retrieval models): the dense step (`mask_and_topk` over
     `full_sort_scores`) and the fused step
-    (`ops/topk_score.py:fused_topk_scores` over the two towers);
+    (`ops/topk_score.py:fused_topk_scores` over the two towers); the
+    sequential models' examples (`SeqFullSortEvalBatcher`) take the dense
+    step (they have no user tower);
   * sampled negatives (`NegSampleEvalBatcher`, the `uniN` / `popN`
     modes): for RANKING metrics, `model.predict` over the expanded rows,
     scattered into a (users, items) matrix per batch, then top-k and the
@@ -21,7 +23,8 @@ Port of `oovrec_tpu/eval/runner.py:24-148, 353-564` on three paths:
     `device_eval_score_elements` scores a step while it runs. Its step is
     the one the per-batch path picks (kernel 1 by `fused_topk_rule`),
     where the JAX scanned pass always takes `mask_and_topk`: both give the
-    exact top-k, ties to the lowest index.
+    exact top-k, ties to the lowest index. A sequential loader keeps its
+    `eval_batch_size // n_items` rows a batch there, as in JAX.
 The multi-device path comes with a later slice.
 """
 
@@ -35,6 +38,7 @@ from oovrec_tpu_torch.data.dataloader import (
     NegSampleEvalBatcher,
     PlainEvalBatcher,
 )
+from oovrec_tpu_torch.data.sequential import SeqFullSortEvalBatcher
 from oovrec_tpu_torch.data.transfer import host_signature, stack_to_device, to_device_batch
 from oovrec_tpu_torch.eval.collector import (
     Collector,
@@ -145,7 +149,7 @@ class EvalRunner:
         flag = self.config.get("device_eval", "auto")
         if flag is False or self.eval_type != EvaluatorType.RANKING:
             return False
-        if type(eval_loader) is FullSortEvalBatcher:
+        if type(eval_loader) in (FullSortEvalBatcher, SeqFullSortEvalBatcher):
             if not hasattr(self.model, "full_sort_scores"):
                 return False
         elif type(eval_loader) is not NegSampleEvalBatcher:
@@ -153,7 +157,10 @@ class EvalRunner:
         if collector.need & {"rec.items", "rec.meanrank", "rec.score", "data.label"}:
             return False
         if flag == "auto":
-            return len(eval_loader.uid_list) >= 1024
+            # a sequential loader's rows are its examples (`runner.py:161-172`)
+            rows = (len(eval_loader.split) if type(eval_loader) is SeqFullSortEvalBatcher
+                    else len(eval_loader.uid_list))
+            return rows >= 1024
         return bool(flag)
 
     def _ranking_pass(self, eval_loader, collector, step, weight_of, scanned: bool,
@@ -232,7 +239,7 @@ class EvalRunner:
             if self.eval_type == EvaluatorType.VALUE:
                 return self._evaluate_value(eval_loader, sample_eval_ratio, rng)
             return self._evaluate_neg(eval_loader, sample_eval_ratio, rng)
-        if not isinstance(eval_loader, FullSortEvalBatcher):
+        if not isinstance(eval_loader, (FullSortEvalBatcher, SeqFullSortEvalBatcher)):
             raise NotImplementedError(
                 f"{type(eval_loader).__name__}: only full-sort, sampled-negative "
                 "and plain labelled eval are ported"
@@ -263,7 +270,8 @@ class EvalRunner:
         # scores a step (users are independent, so the blocking does not
         # touch the metrics), and restores the loader's blocking afterwards
         restore = None
-        if scanned and eval_loader.process_count == 1:
+        if (scanned and type(eval_loader) is FullSortEvalBatcher
+                and eval_loader.process_count == 1):
             block = int(self.config.get("device_eval_score_elements") or (1 << 24))
             want = max(1, block // max(1, eval_loader.item_num))
             if want > eval_loader.users_per_batch:

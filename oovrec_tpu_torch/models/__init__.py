@@ -24,16 +24,38 @@ from oovrec_tpu_torch.models.context_aware import (
     xDeepFM,
 )
 from oovrec_tpu_torch.models.directau import DirectAU
+from oovrec_tpu_torch.models.sequential import (
+    BERT4Rec,
+    FPMC,
+    GRU4Rec,
+    NARM,
+    SASRec,
+    STAMP,
+    SequentialRecommender,
+)
+
+# the JAX package's other sequential models (`models/sequential/`)
+UNPORTED_SEQUENTIAL = frozenset({
+    "Caser", "NextItNet", "DIN", "DIEN", "HGN", "FOSSIL", "TransRec", "SHAN", "NPE", "HRM",
+    "CORE", "SRGNN", "GCSAN", "LightSANs", "SINE", "GRU4RecF", "SASRecF", "FDSA", "RepeatNet",
+    "GRU4RecKG", "KSR", "S3Rec",
+})
 
 
 def get_model_class(name: str):
+    if name in UNPORTED_SEQUENTIAL:
+        raise NotImplementedError(
+            f"the sequential model [{name}] is not ported (ROADMAP.md, queue 1 item 4: "
+            "sequential models)")
     if name not in MODEL_REGISTRY:
         raise ValueError(f"Model [{name}] is not ported")
     return MODEL_REGISTRY[name]
 
 
 __all__ = [
-    "AFM", "AutoInt", "BPR", "ContextRecommender", "DCN", "DCNV2", "DSSM", "DeepFM", "DirectAU",
-    "EulerNet", "FFM", "FM", "FNN", "FieldSpec", "FiGNN", "FwFM", "GeneralRecommender",
-    "KD_DAGFM", "LR", "MODEL_REGISTRY", "NFM", "PNN", "WideDeep", "get_model_class", "xDeepFM",
+    "AFM", "AutoInt", "BERT4Rec", "BPR", "ContextRecommender", "DCN", "DCNV2", "DSSM", "DeepFM",
+    "DirectAU", "EulerNet", "FFM", "FM", "FNN", "FPMC", "FieldSpec", "FiGNN", "FwFM",
+    "GRU4Rec", "GeneralRecommender", "KD_DAGFM", "LR", "MODEL_REGISTRY", "NARM", "NFM", "PNN",
+    "SASRec", "STAMP", "SequentialRecommender", "UNPORTED_SEQUENTIAL", "WideDeep",
+    "get_model_class", "xDeepFM",
 ]

@@ -6,20 +6,25 @@ Dropout → Dense → (BatchNorm) → activation stacks of `MLPLayers` and
 batch norm a `BatchNorm` named `BatchNorm_<j>`, as in the flax tree, so the
 weight bridge (`utils/jax_params.py`) maps names one to one.
 
-Two flax layers the context zoo calls, written out so that their
-parameters are flax's (flax 0.12):
+Two flax layers the context and sequential zoos call, written out so
+that their parameters are flax's (flax 0.12):
   * `MultiHeadDotProductAttention`: `query` / `key` / `value` projections
     with a kernel (in, H, hd) and a bias (H, hd), `out` with a kernel
     (H, hd, out) and a bias (out) (`DenseGeneral`, raw leaves the bridge
-    passes through); the query scaled by 1/√hd, the softmax over the keys,
-    no dropout (the JAX call sites pass `deterministic=True`).
+    passes through); the query scaled by 1/√hd, masked logits at the
+    dtype's finite minimum, the softmax over the keys, and in train mode
+    flax's weight dropout (the context zoo's call sites pass
+    `deterministic=True`; SASRec's and BERT4Rec's blocks train it).
     `torch.nn.MultiheadAttention` packs its projections and lays out its
     heads otherwise;
   * `GRUCell`: the six Denses `ir`, `iz`, `in` (with a bias), `hr`, `hz`
     (without) and `hn` (with), r = σ(ir(x) + hr(h)), z = σ(iz(x) + hz(h)),
     n = tanh(in(x) + r·hn(h)), h' = (1 − z)·n + z·h; called as
     `(carry, inputs)`. `torch.nn.GRUCell` has two more biases, which
-    would train.
+    would train. `gru_scan` runs it over a sequence, as `nn.scan` does.
+The sequential models' pieces: flax's `LayerNorm` (epsilon 1e-6, the fast
+variance), `gelu` (the tanh form, `jax.nn.gelu`'s default) and the JAX
+SASRec's pre-LN `TransformerBlock`.
 `Dropout` is flax's `nn.Dropout` for a model's own dropout outside
 `MLPLayers`: each call draws a new mask.
 
@@ -94,31 +99,59 @@ class BatchNorm(nn.Module):
         return y.to(x.dtype)
 
 
-def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+             shape=None) -> torch.Tensor:
     """Keep each element with probability 1 − `rate`, scaled by 1 / (1 −
-    `rate`), the mask drawn from `generator`."""
+    `rate`), the mask drawn from `generator` (at `shape`, broadcast over
+    x, where given)."""
     if generator is None:
         raise RuntimeError(
             "dropout in train mode draws from an explicit generator: call "
             "set_dropout_generator(model, generator) first")
     keep = 1.0 - rate
-    mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
+    mask = x.new_empty(x.shape if shape is None else shape).bernoulli_(keep, generator=generator)
     return x * mask / keep
 
 
 class Dropout(nn.Module):
     """flax's `nn.Dropout(rate)`, called with `train`: identity in eval
-    mode or at rate 0."""
+    mode or at rate 0. `shape` draws one mask of that shape, broadcast over
+    the input (flax's attention dropout shares its mask over batch and
+    heads)."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = float(rate)
         self.generator: Optional[torch.Generator] = None
 
-    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool, shape=None) -> torch.Tensor:
         if not train or self.rate == 0:
             return x
-        return _dropout(x, self.rate, self.generator)
+        return _dropout(x, self.rate, self.generator, shape)
+
+
+class LayerNorm(nn.Module):
+    """flax's `nn.LayerNorm()` over the last axis: the mean and the fast
+    variance mean(x²) − mean(x)² clipped at 0, epsilon 1e-6 (torch's
+    default is 1e-5), parameters `scale` and `bias`."""
+
+    def __init__(self, features: int, epsilon: float = 1e-6, device=None):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean = x.mean(dim=-1, keepdim=True)
+        var = torch.maximum((x * x).mean(dim=-1, keepdim=True) - mean * mean,
+                            torch.zeros_like(mean))
+        return (x - mean) * (torch.rsqrt(var + self.epsilon) * self.scale) + self.bias
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.gelu`'s default, the tanh approximation (torch's default is
+    the exact erf form)."""
+    return nn.functional.gelu(x, approximate="tanh")
 
 
 class MLPLayers(nn.Module):
@@ -206,12 +239,17 @@ class DenseGeneral(nn.Module):
 
 
 class MultiHeadDotProductAttention(nn.Module):
-    """flax's `nn.MultiHeadDotProductAttention(num_heads, qkv_features)`
-    in deterministic mode over (B, L, in) inputs; `out` maps back to
-    `out_features` (flax's default: the query's last dim)."""
+    """flax's `nn.MultiHeadDotProductAttention(num_heads, qkv_features,
+    dropout_rate)` over (B, L, in) inputs; `out` maps back to
+    `out_features` (flax's default: the query's last dim). `mask` (bool,
+    broadcast to (B, H, Lq, Lk)) sets the logits it excludes to the
+    dtype's finite minimum, as flax does (`attention.py:139-140`): a query
+    with every key masked gets uniform weights, not the NaN of −inf. In
+    train mode the weights take flax's dropout, one keep mask of shape
+    (1, 1, Lq, Lk) shared over batch and heads."""
 
     def __init__(self, in_features: int, num_heads: int, qkv_features: int,
-                 out_features: Optional[int] = None, device=None,
+                 out_features: Optional[int] = None, dropout_rate: float = 0.0, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if qkv_features % num_heads:
@@ -224,14 +262,52 @@ class MultiHeadDotProductAttention(nn.Module):
                                                device, generator))
         self.out = DenseGeneral((h, hd, out), (out,), 2, device, generator)
         self.head_dim = hd
+        self.dropout = Dropout(dropout_rate)
 
-    def forward(self, inputs_q: torch.Tensor,
-                inputs_kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, inputs_q: torch.Tensor, inputs_kv: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None, train: bool = False) -> torch.Tensor:
         kv = inputs_q if inputs_kv is None else inputs_kv
         q = self.query(inputs_q) / self.head_dim ** 0.5  # (B, Lq, H, hd)
         k, v = self.key(kv), self.value(kv)
-        w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+        if mask is not None:
+            logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
+        w = torch.softmax(logits, dim=-1)
+        w = self.dropout(w, train, shape=(1, 1) + tuple(w.shape[-2:]))
         return self.out(torch.einsum("bhqk,bkhd->bqhd", w, v))
+
+
+class TransformerBlock(nn.Module):
+    """The pre-LN block of the JAX package's SASRec and BERT4Rec
+    (`models/sequential/sasrec.py:18-41`): x + Dropout(Attention(LN(x))),
+    then x + Dropout(Dense(gelu(Dense(LN(x))))). The hidden dropout rate
+    is the attention's too (the JAX block passes it; `attn_dropout_prob`
+    is read nowhere). Children carry flax's compact names, so the bridge
+    maps `block_<i>` one to one."""
+
+    def __init__(self, n_heads: int, hidden_size: int, inner_size: int, dropout: float,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.LayerNorm_0 = LayerNorm(hidden_size, device=device)
+        self.MultiHeadDotProductAttention_0 = MultiHeadDotProductAttention(
+            hidden_size, n_heads, hidden_size, dropout_rate=dropout, device=device,
+            generator=generator)
+        self.LayerNorm_1 = LayerNorm(hidden_size, device=device)
+        for j, (n_in, n_out) in enumerate(((hidden_size, inner_size),
+                                           (inner_size, hidden_size))):
+            lin = nn.Linear(n_in, n_out, device=device)
+            xavier_normal_(lin.weight, generator)
+            nn.init.zeros_(lin.bias)
+            self.add_module(f"Dense_{j}", lin)
+        self.drop_attn = Dropout(dropout)
+        self.drop_ffn = Dropout(dropout)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, train: bool) -> torch.Tensor:
+        h = self.LayerNorm_0(x)
+        h = self.MultiHeadDotProductAttention_0(h, h, mask=mask, train=train)
+        x = x + self.drop_attn(h, train)
+        h = self.Dense_1(gelu(self.Dense_0(self.LayerNorm_1(x))))
+        return x + self.drop_ffn(h, train)
 
 
 class GRUCell(nn.Module):
@@ -242,6 +318,7 @@ class GRUCell(nn.Module):
     def __init__(self, in_features: int, features: int, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.features = features
         for name, n_in, bias in (("ir", in_features, True), ("iz", in_features, True),
                                  ("in", in_features, True), ("hr", features, False),
                                  ("hz", features, False), ("hn", features, True)):
@@ -255,13 +332,34 @@ class GRUCell(nn.Module):
                 nn.init.zeros_(lin.bias)
             self.add_module(name, lin)
 
+    def gates(self, xr: torch.Tensor, xz: torch.Tensor, xn: torch.Tensor,
+              h: torch.Tensor) -> torch.Tensor:
+        """The new carry from the input projections (`ir`, `iz`, `in` of
+        the inputs) and the carry `h`."""
+        r = torch.sigmoid(xr + self.hr(h))
+        z = torch.sigmoid(xz + self.hz(h))
+        n = torch.tanh(xn + r * self.hn(h))
+        return (1.0 - z) * n + z * h
+
     def forward(self, carry: torch.Tensor, inputs: torch.Tensor):
-        h = carry
-        r = torch.sigmoid(self.ir(inputs) + self.hr(h))
-        z = torch.sigmoid(self.iz(inputs) + self.hz(h))
-        n = torch.tanh(getattr(self, "in")(inputs) + r * self.hn(h))
-        new_h = (1.0 - z) * n + z * h
+        new_h = self.gates(self.ir(inputs), self.iz(inputs), getattr(self, "in")(inputs), carry)
         return new_h, new_h
+
+
+def gru_scan(cell: "GRUCell", x: torch.Tensor, carry: torch.Tensor):
+    """flax's `nn.scan(GRUCell)` over axis 1 of x (B, L, in) from `carry`
+    (B, features): → (the last carry, the states (B, L, features)). The
+    input projections of all L positions are one product each; the
+    recurrent ones run a step at a time. The projections are split by
+    `unbind`, whose backward stacks the L gradients once: a slice
+    `xr[:, t]` would zero-fill and add a whole (B, L, features) gradient
+    for each t."""
+    steps = zip(cell.ir(x).unbind(1), cell.iz(x).unbind(1), getattr(cell, "in")(x).unbind(1))
+    h, states = carry, []
+    for xr, xz, xn in steps:
+        h = cell.gates(xr, xz, xn, h)
+        states.append(h)
+    return h, torch.stack(states, dim=1)
 
 
 def masked_mean_pool(emb: torch.Tensor, mask: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

@@ -24,7 +24,9 @@ from a per-epoch permutation, draws its negatives on the card and trains:
   * plain (`:518-521`): the split's columns and `weight`, with the
     features joined as the host batcher joins them (the JAX plain epoch
     joins none, and a context model over feature tables fails there:
-    ROADMAP.md §3);
+    ROADMAP.md §3). A sequential split's (n, L) item lists ride as they
+    are: a column keeps its trailing shape (GRU4Rec, SASRec, NARM and STAMP
+    under CE);
   * DHE / fDHE under `dhe_on_device` (`:195-224, :554-579`): each batch
     carries `<field>_dhe_id`, the effective id as one int64 column that
     the model hashes on the card; in the OOV sub-epoch a flagged user or
@@ -107,13 +109,14 @@ def device_epoch_flag(config):
 def device_epoch_eligible(trainer, loader, config) -> bool:
     """The JAX package's gates (`device_epoch.py:609-664`): a `TrainBatcher`
     with uniform or popularity sampling (one negative a row pairwise, any
-    number pointwise, none plain), no DHE hasher or one that hashes on the
+    number pointwise, none plain) and no batch transform (BERT4Rec's
+    masking stays on the host), no DHE hasher or one that hashes on the
     device (`dhe_on_device`), and a model whose loss reads only what the
     epoch provides (`supports_device_epoch`); under `auto`, at least
     AUTO_MIN_ROWS rows. Dynamic hard negatives need the live scorer per
-    batch and stay on the host path. The port's batcher, trainer and models
-    refuse the other gates' cases (transforms, the mesh)."""
+    batch and stay on the host path. The port's trainer refuses the mesh."""
     from oovrec_tpu_torch.data.dataloader import TrainBatcher
+    from oovrec_tpu_torch.data.transform import Equal
 
     flag = device_epoch_flag(config)
     if flag is False or not isinstance(loader, TrainBatcher):
@@ -128,7 +131,8 @@ def device_epoch_eligible(trainer, loader, config) -> bool:
         sampling_ok = loader.mode == "plain"
     hasher = getattr(trainer, "dhe_hasher", None)
     dhe_ok = hasher is None or hasher.on_device
-    if not (sampling_ok and dhe_ok and getattr(trainer.model, "supports_device_epoch", False)):
+    if not (sampling_ok and dhe_ok and isinstance(loader.transform, Equal)
+            and getattr(trainer.model, "supports_device_epoch", False)):
         return False
     if flag == "auto":
         return len(loader.split) >= AUTO_MIN_ROWS

@@ -48,7 +48,12 @@ Nested trees cross by path: KD_DAGFM's ``student`` (raw ``connect_layer``,
 ``p_<i>``, ``q_<i>`` and a Dense ``out``) and ``teacher`` (Dense
 ``cross_<i>`` and ``out``), the attention layers' ``query`` / ``key`` /
 ``value`` / ``out`` (raw 3-D kernels, `models/layers.py:DenseGeneral`)
-and the GRU cell's six Denses.
+and the GRU cell's six Denses. The sequential models' trees cross the
+same way: GRU4Rec's scanned cells ``gru_<i>`` (NARM's ``gru``) with the
+six Denses, SASRec's and BERT4Rec's ``block_<i>`` with ``LayerNorm_0/1``
+(``scale``, ``bias``), ``MultiHeadDotProductAttention_0`` and
+``Dense_0/1``, their ``final_ln``, STAMP's raw ``b_a`` at the top and
+FPMC's four tables ``UI`` / ``IU`` / ``LI`` / ``IL``.
 
 A ``kernel`` leaf is a Dense or a stored kernel depending on the port's
 module, so trees with kernels cross with the target `module` given. A

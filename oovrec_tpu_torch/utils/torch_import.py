@@ -19,9 +19,13 @@ rules (`torch_import.py:10-14` there):
     variance as the ``batch_stats`` that `import_batch_stats` gives. The
     JAX map counts a BatchNorm's ``weight`` as one more Linear
     (`_mlp_direct` there), so its DCNv2 import puts that vector where
-    ``Dense_1``'s kernel belongs; the port does not follow it there.
+    ``Dense_1``'s kernel belongs; the port does not follow it there;
+  * GRU4Rec's ``gru_layers`` (a `torch.nn.GRU`, gates r, z, n packed) as
+    ``gru_<i>`` flax `GRUCell`s (`_gru_cell`), every layer: the JAX map
+    (`torch_import.py:107-112` there) maps layer 0 alone, so at
+    `num_layers` 2 its import leaves ``gru_1`` as drawn.
 
-`import_state_dict` maps BPR, DirectAU, WideDeep, DCNv2 and xDeepFM; any
+`import_state_dict` maps BPR, DirectAU, GRU4Rec, WideDeep, DCNv2 and xDeepFM; any
 other model raises NotImplementedError with the JAX map's text. Only the
 keys the map names are returned: `merge_params` gives every other leaf of
 the model its current value, as the JAX `run`'s `_merge` does
@@ -37,7 +41,7 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-SUPPORTED = "BPR, DirectAU, WideDeep, DCNV2, xDeepFM"
+SUPPORTED = "BPR, DirectAU, GRU4Rec, WideDeep, DCNV2, xDeepFM"
 
 
 def _emb(sd, key):
@@ -49,6 +53,27 @@ def _lin(sd, key):
     if f"{key}.bias" in sd:
         out["bias"] = np.asarray(sd[f"{key}.bias"])
     return out
+
+
+def _gru_cell(sd, prefix: str, layer: int) -> Dict[str, Any]:
+    """Layer `layer` of a `torch.nn.GRU` (gates r, z, n packed by rows) as
+    flax's `GRUCell`: the r and z parts of `bias_hh` fold into `ir` / `iz`,
+    the n parts stay apart (`in`, `hn`); without biases (`bias=False`, as
+    RecBole's GRU4Rec builds it) they are 0."""
+    w_ih = sd[f"{prefix}.weight_ih_l{layer}"]
+    w_hh = sd[f"{prefix}.weight_hh_l{layer}"]
+    r_i, z_i, n_i = np.split(w_ih, 3, 0)
+    r_h, z_h, n_h = np.split(w_hh, 3, 0)
+    if f"{prefix}.bias_ih_l{layer}" in sd:
+        br_i, bz_i, bn_i = np.split(sd[f"{prefix}.bias_ih_l{layer}"], 3)
+        br_h, bz_h, bn_h = np.split(sd[f"{prefix}.bias_hh_l{layer}"], 3)
+    else:
+        br_i = bz_i = bn_i = br_h = bz_h = bn_h = np.zeros(w_hh.shape[1], np.float32)
+    return {"ir": {"kernel": r_i.T, "bias": br_i + br_h},
+            "iz": {"kernel": z_i.T, "bias": bz_i + bz_h},
+            "in": {"kernel": n_i.T, "bias": bn_i},
+            "hr": {"kernel": r_h.T}, "hz": {"kernel": z_h.T},
+            "hn": {"kernel": n_h.T, "bias": bn_h}}
 
 
 def _context_tables(sd, with_fo=True) -> Dict[str, Any]:
@@ -127,6 +152,12 @@ def import_state_dict(model_name: str, sd: Mapping[str, Any]) -> Dict[str, Any]:
             k = f"{side}_oov_buckets.weight"
             if k in sd:
                 p[f"{side}_oov_buckets"] = _emb(sd, k)
+        return p
+    if name == "gru4rec":
+        p = {"item_embedding": _emb(sd, "item_embedding.weight"),
+             "dense": _lin(sd, "dense")}
+        for i in range(_count(sd, "gru_layers.weight_ih_l")):
+            p[f"gru_{i}"] = _gru_cell(sd, "gru_layers", i)
         return p
     if name == "widedeep":
         p = _context_tables(sd)

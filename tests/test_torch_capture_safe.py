@@ -19,7 +19,15 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from oovrec_tpu_torch.cli.run import main as port_main
 from oovrec_tpu_torch.train.trainer import Trainer
 
-from tests.test_torch_cli import COMMON, MAPPER, RANKING, RETRIEVAL, SKILL_RANKING
+from tests.test_torch_cli import (
+    ASSETS,
+    COMMON,
+    LOAD_COL,
+    MAPPER,
+    RANKING,
+    RETRIEVAL,
+    SKILL_RANKING,
+)
 
 # ops whose result the host must read, or whose shape the data decides
 HOST_READS = {"_local_scalar_dense", "nonzero", "nonzero_numpy", "argwhere", "masked_select",
@@ -65,6 +73,13 @@ TRACKS = {
     "kd_dagfm-outer": ["--model=KD_DAGFM", *RANKING[1:], *MAPPER, "--phase=distillation",
                        "--interaction_type=outer"],
 }
+# the sequential models on toy-ind's timestamps, at their YAML dropout
+# rates (the attention's weight dropout included), without the OOV regime
+SEQUENTIAL = ["--dataset=toy-ind", f"--data_path={ASSETS}", "--train_batch_size=16",
+              "--embedding_size=8", "--MAX_ITEM_LIST_LENGTH=4", LOAD_COL,
+              "--log_tensorboard=False"]
+TRACKS.update({f"seq-{name.lower()}": [f"--model={name}", *SEQUENTIAL]
+               for name in ("GRU4Rec", "SASRec", "NARM", "STAMP", "FPMC", "BERT4Rec")})
 
 
 class _Recorder(TorchDispatchMode):
@@ -109,7 +124,8 @@ def test_dense_step_reads_nothing_back(track, tmp_path, monkeypatch):
 
     monkeypatch.setattr(Trainer, "_apply_step", recorded)
     monkeypatch.chdir(tmp_path)
-    argv = TRACKS[track] if track == "widedeep-lsh" else COMMON + TRACKS[track]
+    verbatim = track == "widedeep-lsh" or track.startswith("seq-")
+    argv = TRACKS[track] if verbatim else COMMON + TRACKS[track]
     argv = [a for a in argv if not a.startswith(("--epochs", "--checkpoint_dir"))]
     port_main(argv + ["--epochs=1", "--device=cpu", f"--hash_key_dir={tmp_path / 'keys'}",
                       f"--checkpoint_dir={tmp_path / 'saved'}", "--inductive_eval=False"])

@@ -239,6 +239,25 @@ def test_save_dataset_cache_round_trip(tmp_path):
     _same_splits(second.build(), first.build())
 
 
+@pytest.mark.parametrize("order", [("GRU4Rec", "BPR"), ("BPR", "GRU4Rec")])
+def test_save_dataset_cache_keeps_sequential_apart(order, tmp_path):
+    """The cache key names only the dataset arguments: a sequential
+    model's dataset is neither written to the cache nor read from it, so
+    a general model in the same `checkpoint_dir` gets a plain `Dataset`
+    and a sequential one its `SequentialDataset`, in either order."""
+    from oovrec_tpu_torch.data.sequential import SequentialDataset
+    from tests.test_torch_seq_data import _cfg as seq_cfg
+
+    for model in order:
+        cfg = Config(seq_cfg(model=model, save_dataset=True, checkpoint_dir=str(tmp_path)))
+        ds = create_dataset(cfg)
+        want = SequentialDataset if model == "GRU4Rec" else Dataset
+        assert type(ds) is want, (model, type(ds))
+        cached = list(tmp_path.glob("toy-dataset-*.pkl"))
+        assert len(cached) == (order.index("BPR") <= order.index(model)), (model, cached)
+    assert type(create_dataset(cfg)) is want
+
+
 @pytest.mark.parametrize("process_index", [0, 1])
 def test_neg_sample_batches_per_process_match_jax(process_index):
     """Two processes: each takes its interleaved user slice, pads to the

@@ -63,6 +63,9 @@ def test_scan_sees_the_whole_port():
                    "models/directau.py", "data/prefetch.py", "train/cuda_graph.py",
                    "data/transfer.py", "ops/launches.py", "utils/flax_msgpack.py",
                    "utils/jax_checkpoint.py", "utils/torch_import.py",
-                   "models/context_aware/basic.py", "models/context_aware/ffm.py"):
+                   "models/context_aware/basic.py", "models/context_aware/ffm.py",
+                   "data/sequential.py", "data/transform.py", "models/sequential/base.py",
+                   "models/sequential/gru4rec.py", "models/sequential/sasrec.py",
+                   "models/sequential/more.py", "models/sequential/bert4rec.py"):
         assert f"oovrec_tpu_torch/{module}" in names, module
     assert len(names) >= 25

@@ -256,7 +256,11 @@ def test_train_batches_and_simulator_match_jax(mode):
 
 def test_train_batcher_refuses_what_is_not_ported():
     _, _, pl = _loaders("plain")
+    # the sequence transforms are ported; a name that no transform has raises
     cfg = Config(dict(pl.config.as_dict(), transform="mask_itemseq"))
+    assert type(TrainBatcher(pl.split, None, cfg, InputType.POINTWISE).transform).__name__ == (
+        "MaskItemSequence")
+    cfg = Config(dict(pl.config.as_dict(), transform="no_such_transform"))
     with pytest.raises(NotImplementedError, match="transform"):
         TrainBatcher(pl.split, None, cfg, InputType.POINTWISE)
     cfg = Config(dict(pl.config.as_dict(), train_neg_sample_args={
