@@ -45,7 +45,7 @@ Phases (any failure exits non-zero; no phase failure is caught):
   7. the CLI, the main path's own entry (`build/cli/`):
      A. `python -m oovrec_tpu_torch.cli.run` as a subprocess on the tracked
         corpus dataset/synth-ind: BPR (D 64), random-mapper OOV buckets,
-        the OOV regime, the paper protocol (uni250), 5 epochs, the 7-slice
+        the OOV regime, the paper protocol (uni250), 3 epochs, the 7-slice
         inductive eval and `--results_json`; rc 0, finite metrics, all 7
         slices; `--eval_only` on its checkpoint reproduces it to 1e-9;
      B. `cli.run.main` in this process: xDeepFM at its published widths
@@ -65,7 +65,7 @@ Phases (any failure exits non-zero; no phase failure is caught):
   8. phase D, the embedders, at the published widths (BPR at D 64, DHE at
      128 hashes and towers of 512, xDeepFM at xDeepFM.yaml):
      D1. EXPERIMENTS.md:40-45 verbatim (lsh, the *_vector columns, 200
-         buckets a side, OOV ratio 0.3, the inductive eval; 5 epochs)
+         buckets a side, OOV ratio 0.3, the inductive eval; 3 epochs)
          through `python -m oovrec_tpu_torch.cli.run` as a subprocess, its
          `--eval_only` equal to 1e-9, then the same command through
          `cli.run.main` with slsh, dnn, knn, dhe and fdhe (32 hashes); every
@@ -86,8 +86,8 @@ Phases (any failure exits non-zero; no phase failure is caught):
          8) through `python -m oovrec_tpu_torch.cli.run` as a subprocess:
          the training loss falls, the 7 slices are finite, `--eval_only`
          equal to 1e-9; then the same command through `cli.run.main`;
-     E2. DCNv2 through `cli.run.main` on synth-ind (random mapper, 2
-         epochs) stacked, parallel and with mixed experts, each
+     E2. DCNv2 through `cli.run.main` on synth-ind (random mapper, 1
+         epoch) stacked, parallel and with mixed experts, each
          `--eval_only` equal to 1e-9 and its BatchNorm statistics moved;
          stacked at `--worker=2` (batch prefetch) equal to `worker: 0`;
      E3. WideDeep, DCNv2 stacked and mixed through `Trainer.fit` at phase
@@ -125,7 +125,7 @@ Phases (any failure exits non-zero; no phase failure is caught):
          hasher's; then BPR's dense step graphed == eager, and times; a
          dropped trainer's captures do not break the next capture;
      F4. `host_scan_steps` 64 against 1 on xDeepFM's host path: the same
-         losses and weights bit for bit; then over 3 groups of 64
+         losses and weights bit for bit; then over 2 groups of 64
          batches K = 64 against K = 1 (both replaying) and K = 1 eagerly
          (what the grouping adds beyond the graph), wall, device and busy
          share, the replays' kernels counted in the traces;
@@ -166,7 +166,7 @@ Phases (any failure exits non-zero; no phase failure is caught):
  12. phase H, the rest of the context zoo:
      H1. DCN, AutoInt, FNN, PNN, AFM, FwFM, DSSM, FiGNN, EulerNet, NFM and
          KD_DAGFM (in `distillation`) at their YAML widths at the ranking
-         cell's shape, the pointwise traffic of G4: 16 host steps (the
+         cell's shape, the pointwise traffic of G4: 8 host steps (the
          graphed dense step) + the frozen OOV sub-epoch, finite losses,
          the gathers' backward launched, every non-OOV parameter the model
          reads moved (DCN's cross weights drawn at 1/10 of N(0, 1)),
@@ -194,13 +194,30 @@ Phases (any failure exits non-zero; no phase failure is caught):
          batches masked by MaskItemSequence), finite falling losses,
          every parameter moved, the gathers' backward launched; the
          scanned full-sort test pass over 6,040 examples, 256 a batch
-         (GRU4Rec and SASRec: == the per-batch pass); 8 graphed steps ==
-         8 eager ones bit for bit and the ms a step of each over 4 of
-         them; also
+         (GRU4Rec and SASRec: == the per-batch pass); 4 graphed steps ==
+         4 eager ones bit for bit and the ms a step of each; also
          MaskItemSequence's host ms a batch and GRU4Rec's valid pass at
-         `eval_batch_size` 4,096 (one row a batch), stopped at 1,024 rows
+         `eval_batch_size` 4,096 (one row a batch), stopped at 256 rows
          when it would pass 20 s;
      I2. `python -m oovrec_tpu_torch.cli.run --model=GRU4Rec` on
+         dataset/synth-ind for 1 epoch in a child that prints its launch
+         counts, `--eval_only` == the run to 1e-9.
+ 14. phase J, the rest of the plain sequence models, on I1's corpus:
+     J1. Caser, NextItNet, DIN, DIEN, HGN, FOSSIL, TransRec, SHAN, NPE,
+         HRM, CORE, SRGNN, GCSAN, LightSANs and SINE at their YAML widths
+         through `Trainer.fit` (Caser and NextItNet 64 steps of 2,048 on
+         the plain device epoch that `auto` takes, the others 32 on the
+         host path; DIN, DIEN with its negatives drawn on the card, and
+         TransRec with one sampled negative), finite falling losses, every
+         parameter moved, the gathers' backward launched; 4 graphed steps
+         == 4 eager ones bit for bit and the ms a step of each; the
+         scanned full-sort test pass over 6,040 examples (Caser, SRGNN and
+         LightSANs: == the per-batch pass); for DIN and DIEN instead
+         `predict` on the test examples against one uniform negative each
+         (inside (0, 1), the AUC) and the full sort over blocks of targets
+         for 64 users, timed and projected, == one unblocked block on 8
+         users x 512 items to 1e-6;
+     J2. `python -m oovrec_tpu_torch.cli.run --model=Caser` on
          dataset/synth-ind for 1 epoch in a child that prints its launch
          counts, `--eval_only` == the run to 1e-9.
 Phase 2 also holds the gathers' backward kernel (`csrc/embed_grad.cu`)
@@ -213,15 +230,14 @@ bit for bit on integer inputs and gradients (and against itself on a
 repeat run), and times it per layer and for the 3-layer stack.
 The last line is the device record; the line before it lists the kernels,
 each with its launches on the earlier phases' paths (`launches`), on the
-CLI phases (`launches_cli`) and on phase D's, E's, F's, G's, H's and
-I's parts (`launches_d`, `launches_e`, `launches_f`, `launches_g`,
-`launches_h`, `launches_i`), each counted by the kernel's wrapper where
+CLI phases (`launches_cli`) and on phase D's to J's parts
+(`launches_d`, `launches_e`, `launches_f`, `launches_g`, `launches_h`,
+`launches_i`, `launches_j`), each counted by the kernel's wrapper where
 it launches (`ops/launches.py`; a CUDA graph's replays run no wrapper),
-and the kernels that phase F's, G's, H's and I's graphed passes replayed,
-as their profiler traces show them (`launches_f_trace`,
-`launches_g_trace`, `launches_h_trace`, `launches_i_trace`); before them,
-phase F's to I's times as JSON lines (`phase F times` ... `phase I
-times`).
+and the kernels that phase F's to J's graphed passes replayed, as their
+profiler traces show them (`launches_f_trace` ... `launches_j_trace`);
+before them, phase F's to J's times as JSON lines (`phase F times` ...
+`phase J times`).
 
 TF32 is switched off for matmuls and cuDNN below: the plain versions and
 the dense path must compute in full f32, as the kernel does.
@@ -2459,7 +2475,7 @@ SYNTH_LOAD_COL = ("--load_col={'inter': ['user_id','item_id','timestamp','is_new
 CLI_OOV = ["--inductive_mapper=random", "--add_oov_buckets=True", "--n_user_oov_buckets=200",
            "--n_item_oov_buckets=200", "--train_oov=True", "--oov_train_ratio=0.3",
            "--inductive_eval=True"]
-CLI_EPOCHS_A, CLI_EPOCHS_B = 5, 3
+CLI_EPOCHS_A, CLI_EPOCHS_B = 3, 3  # A and D1: 5 epochs until phase J
 SLICE_NAMES = ("overall", "old_users", "new_users", "old_old", "old_new", "new_old", "new_new")
 # phase C: an atomic-file family the card notices (tools/make_synth_dataset.py's
 # generator at 50,000 users x 100,000 items x 1,000,000 rows, 10 % new), BPR
@@ -3100,7 +3116,7 @@ def lsh_device_epoch():
 # 4 experts of rank 128) and DirectAU (embedding 64, gamma 1).
 
 E_EPOCHS_RANK = 2  # EXPERIMENTS.md:79 runs 8 epochs; cut as phase B is (3 until phase I)
-E_EPOCHS_CLI = 2
+E_EPOCHS_CLI = 1  # E2, E4 (2 until phase J)
 E_BN_ROWS = 64
 E_TAGS_VOCAB, E_TAGS_LEN, E_TAGS_STEPS = 1000, 16, 16
 E_DAU_STEPS, E_DAU_B = 64, 2048
@@ -3568,7 +3584,7 @@ F_COMPARE_STEPS = 16   # graphed against eager steps, bit for bit
 F_TIME_STEPS = 16      # steps a timed pass, eager and graphed in turns
 F_BPR_STEPS = 16       # F3: steps of SP_B rows
 F_SCAN_K = 64          # F4: host_scan_steps
-F_SCAN_GROUPS = 3      # F4: groups an epoch in the grouping's timing
+F_SCAN_GROUPS = 2      # F4: groups an epoch in the grouping's timing (3 until phase J)
 F_TRACE_STEPS = 16     # steps of a traced pass whose kernels are counted
 F_UNI_N, F_UNI_ROWS = 100, 100_000  # F5: uni-N negatives, rows a batch
 F_POINTWISE = {"distribution": "uniform", "sample_num": 1}
@@ -4514,7 +4530,8 @@ H_ZOO = (("DCN", {}), ("AutoInt", {}), ("FNN", {}), ("PNN", {}), ("AFM", {}), ("
 # H1: the non-OOV parameters a model's forward never reads (DSSM's towers
 # read only the token fields); KD_DAGFM's teacher is held unchanged apart
 H_UNREAD = {"DSSM": ("field_embedding.float_embedding_table.weight",)}
-H_FIT_STEPS = 16      # H1: pointwise host steps of CTR_B rows before the OOV sub-epoch
+H_FIT_STEPS = 8       # H1: pointwise host steps of CTR_B rows before the OOV sub-epoch
+                      # (16 until phase J)
 H_COMPARE_STEPS = 4   # H1: graphed against eager host steps (8 until phase I)
 H_EPOCHS_CLI = 1      # H2
 H_TIMES = {}
@@ -4673,11 +4690,11 @@ I_L, I_B = 50, 2048
 I_STEPS = 64           # I1: a fit's steps: the first I_STEPS batches' rows of
                        # the training split (131,072, so `auto` takes the
                        # device epoch at >= 100,000)
-I_COMPARE_STEPS = 8    # I1: graphed against eager steps, bit for bit
+I_COMPARE_STEPS = 4    # I1: graphed against eager steps, bit for bit (8 until phase J)
 I_TIME_STEPS = 4       # I1: of those, the steps a timed and a profiled pass run
 I_EVAL_ROWS = 256      # I1: rows a batch of the scanned full-sort test pass
 I_DEFAULT_EVAL_BATCH = 4096  # I1: RecBole's default: one row a batch here
-I_DEFAULT_ROWS, I_DEFAULT_BUDGET_S = 1024, 20.0
+I_DEFAULT_ROWS, I_DEFAULT_BUDGET_S = 256, 20.0  # 1,024 rows until phase J
 I_MASK_BATCHES = 16    # I1: MaskItemSequence's host ms a batch, over these
 I_MODELS = ("GRU4Rec", "SASRec", "NARM", "STAMP", "FPMC", "BERT4Rec")
 I_DEVICE_EPOCH = ("GRU4Rec", "SASRec", "NARM", "STAMP")  # `auto` takes it
@@ -4687,6 +4704,7 @@ I_EPOCHS_CLI = 1      # I2
 I_DATA, I_DATASET = os.path.join("build", "seq", "data"), "ml1m-shaped"
 I_TIMES = {}
 I_GATHERS = {}        # I1: the gathers' backward launches of each model's fit
+I_CORPUS = {}         # I1's dataset and loaders, loaded once, reused by phase J
 
 
 def ml1m_arrays(seed=I_SEED):
@@ -4845,6 +4863,7 @@ def i1_sequential():
     train, valid, test = (x.split for x in loaders)
     aug = ds.data_augmentation()
     prepared = time.perf_counter() - t0
+    I_CORPUS.update(ds=ds, loaders=loaders)  # phase J's corpus too
     log(f"I1 corpus: {I_INTERS} rows, {I_USERS} users, {I_ITEMS} items -> "
         f"{len(aug['user_id'])} examples ({aug['item_id_list'].shape} item lists), train "
         f"{len(train)}, valid {len(valid)}, test {len(test)}; set-up apart from the phase's "
@@ -4941,6 +4960,208 @@ def i2_cli():
     agree(res["test_result"], again["test_result"], "I2 eval_only test", tol=1e-9)
     log(f"I2: --eval_only == the run on the test metrics (1e-9); the run's launches {counts}")
     I_TIMES["I2 CLI run s"] = wall
+    return counts
+
+
+# phase J, the rest of the plain sequence models, on I1's corpus at their
+# YAML widths
+J_MODELS = ("Caser", "NextItNet", "DIN", "DIEN", "HGN", "FOSSIL", "TransRec", "SHAN", "NPE",
+            "HRM", "CORE", "SRGNN", "GCSAN", "LightSANs", "SINE")
+J_DEVICE_EPOCH = ("Caser", "NextItNet")  # `auto` takes the plain device epoch
+J_SAMPLED = ("DIN", "DIEN", "TransRec")  # one uniform negative a row
+J_CLICK = ("DIN", "DIEN")                # scored by `predict`; the blocked full sort
+J_PER_BATCH_TOO = ("Caser", "SRGNN", "LightSANs")  # scanned == per-batch eval
+J_STEPS = 32           # J1: host-path fits' steps of I_B rows; the device-epoch
+                       # fits take I_STEPS (131,072 rows, so `auto` takes it)
+J_COMPARE_STEPS = 4    # J1: graphed against eager steps, bit for bit, and timed
+J_SORT_USERS = 64      # J1: DIN's / DIEN's blocked full sort, timed on these
+J_SORT_CHECK = (8, 512)  # J1: users x items held against one unblocked block
+J_EPOCHS_CLI = 1       # J2
+J_TIMES = {}
+J_GATHERS = {}         # J1: the gathers' backward launches of each model's fit
+
+
+def j_cfg(name):
+    """`seq_cfg` with one uniform negative a row for the sampled models."""
+    if name in J_SAMPLED:
+        return seq_cfg(name, train_neg_sample_args={"distribution": "uniform",
+                                                    "sample_num": 1})
+    return seq_cfg(name)
+
+
+def j_loader(name, cfg, train):
+    """The model's training loader over the rows of its fit's steps:
+    DIN / DIEN pointwise (a positive and a negative row each, I_B rows a
+    step), TransRec pairwise, the others plain."""
+    steps = I_STEPS if name in J_DEVICE_EPOCH else J_STEPS
+    pointwise = name in J_CLICK
+    rows = steps * (I_B // 2 if pointwise else I_B)
+    split = SeqDatasetSplit(train.parent, train.index[:rows])
+    if name not in J_SAMPLED:
+        return TrainBatcher(split, None, cfg, InputType.POINTWISE)
+    return TrainBatcher(split, Sampler(["train"], [split], seed=SEED), cfg,
+                        InputType.POINTWISE if pointwise else InputType.PAIRWISE)
+
+
+def auc_of(scores, labels):
+    """The AUC by ranks (ties averaged)."""
+    order = np.argsort(scores, kind="stable")
+    ranks = np.empty(len(scores))
+    ranks[order] = np.arange(1, len(scores) + 1)
+    _, tie, count = np.unique(scores, return_inverse=True, return_counts=True)
+    ranks = (np.bincount(tie, weights=ranks) / count)[tie]
+    pos = labels > 0
+    n_pos, n_neg = int(pos.sum()), int((~pos).sum())
+    return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg))
+
+
+def j_click_eval(name, model, cfg, test):
+    """DIN / DIEN: `predict` on the test examples against one uniform
+    negative each (finite, inside (0, 1), the AUC); the blocked full sort
+    of J_SORT_USERS users timed and projected over the test users, its
+    first J_SORT_CHECK users x items held to 1e-6 against one unblocked
+    block of those items."""
+    rng = np.random.default_rng(SEED + 31)
+    rows = {k: v for k, v in test.inter.items()}
+    n = len(test)
+    neg = rng.integers(1, I_ITEMS + 1, n)
+    both = {k: np.concatenate([v, v]) for k, v in rows.items()}
+    both[cfg["ITEM_ID_FIELD"]] = np.concatenate([rows[cfg["ITEM_ID_FIELD"]], neg])
+    labels = np.r_[np.ones(n), np.zeros(n)]
+    model.eval()
+    scores = []
+    sync()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for start in range(0, 2 * n, I_EVAL_ROWS):
+            b = to_device_batch({k: v[start:start + I_EVAL_ROWS] for k, v in both.items()},
+                                DEVICE)
+            scores.append(model.predict(b).float().cpu().numpy())
+    sync()
+    wall_p = time.perf_counter() - t0
+    scores = np.concatenate(scores)
+    require(np.isfinite(scores).all() and (scores > 0).all() and (scores < 1).all(),
+            f"J1 {name}: predict outside (0, 1)")
+    auc = auc_of(scores, labels)
+    batch = to_device_batch({k: v[:J_SORT_USERS] for k, v in rows.items()}, DEVICE)
+    with torch.no_grad():
+        model.full_sort_scores(batch)  # warm
+        sync()
+        t0 = time.perf_counter()
+        full = model.full_sort_scores(batch)
+        sync()
+        wall_s = time.perf_counter() - t0
+        u, t = J_SORT_CHECK
+        one = model.score_items({k: v[:u] for k, v in batch.items()},
+                                torch.arange(t, device=full.device))
+    err = float((full[:u, :t] - one).abs().max())
+    blocks = -(-model.n_items // max(1, model.full_sort_elems
+                                        // (J_SORT_USERS * I_L * 4 * model.embedding_size)))
+    require(full.shape == (J_SORT_USERS, model.n_items) and bool(torch.isfinite(full).all()),
+            f"J1 {name}: the full sort {tuple(full.shape)}")
+    require(err <= 1e-6, f"J1 {name}: blocked vs unblocked full sort differ by {err}")
+    projected = wall_s * n / J_SORT_USERS
+    log(f"J1 {name}: predict on {n} test examples + one uniform negative each in "
+        f"{wall_p:.3f} s, AUC {auc:.4f}; the blocked full sort of {J_SORT_USERS} users x "
+        f"{model.n_items} items ({blocks} blocks) in {wall_s * 1e3:.1f} ms, == one unblocked "
+        f"block on {u} users x {t} items to {err:.2e}; projected over the {n} test users "
+        f"{projected:.1f} s (not run)")
+    J_TIMES[f"{name} predict AUC"] = auc
+    J_TIMES[f"{name} blocked full sort"] = {"users": J_SORT_USERS, "ms": wall_s * 1e3,
+                                            "blocks": blocks, "projected_s": projected}
+
+
+def j1_sequential():
+    """J1: the fifteen at their YAML widths on I1's corpus: each fits
+    through `Trainer.fit` (Caser and NextItNet I_STEPS steps on the plain
+    device epoch that `auto` takes, the others J_STEPS on the host path;
+    DIN, DIEN (negatives drawn on the card) and TransRec with one sampled
+    negative), the losses finite and falling, every parameter moved, the
+    gathers' backward launched; J_COMPARE_STEPS graphed steps == eager
+    ones bit for bit and their ms a step; the scanned full-sort test pass
+    over the 6,040 users (Caser, SRGNN, LightSANs: == the per-batch pass),
+    or for DIN and DIEN `j_click_eval`. → the fits' launches."""
+    ds = I_CORPUS["ds"]
+    train_loader, valid_loader, test_loader = I_CORPUS["loaders"]
+    train, test = train_loader.split, test_loader.split
+    counts = {}
+    for i, name in enumerate(J_MODELS):
+        what = f"J1 {name}"
+        cfg = j_cfg(name)
+        model = quick_start.build_model_and_state(cfg, ds)
+        trainer = Trainer(cfg, model)
+        loader = j_loader(name, cfg, train)
+        before = {n: p.detach().clone() for n, p in trainer.params.items()}
+        reset_kernel_counts()
+        normal, _, fit_s = f_fit(trainer, loader, what)
+        steps = normal["steps"]
+        seen = kernel_counts()
+        counts = {k: counts.get(k, 0) + n for k, n in seen.items()}
+        J_GATHERS[name] = seen["scatter_rows_kernel"]
+        des = list(trainer._device_epochs.values())
+        on_device = name in J_DEVICE_EPOCH
+        require(bool(des) == on_device and all(d.mode == "plain" for d in des),
+                f"{what}: the device epoch {[d.mode for d in des]}")
+        require(steps == (I_STEPS if on_device else J_STEPS), f"{what}: {steps} steps")
+        require(seen["scatter_rows_kernel"] > 0, f"{what}: the gathers' backward {seen}")
+        still = [n for n in before if torch.equal(before[n], trainer.params[n])]
+        require(not still, f"{what}: parameters did not move over the fit: {still}")
+        del before
+        line = (f"{what}: {steps} steps ({'device epoch' if on_device else 'host path'}), "
+                f"{len(trainer.params)} parameters moved, gathers' backward launches "
+                f"{seen['scatter_rows_kernel']}")
+        J_TIMES[f"{name} fit s"] = fit_s
+        if name in J_CLICK:
+            log(line)
+            j_click_eval(name, model, cfg, test)
+        else:
+            res, wall = timed_eval(model, cfg, test_loader, f"{what} test", device_eval=True)
+            line += (f"; scanned test pass ({len(test)} rows, {I_EVAL_ROWS} a batch) "
+                     f"{wall:.3f} s: {dict(res)}")
+            J_TIMES[f"{name} scanned test pass s"] = wall
+            if name in J_PER_BATCH_TOO:
+                again, wall_b = timed_eval(model, cfg, test_loader, f"{what} test per batch",
+                                           device_eval=False)
+                require(again == res, f"{what}: scanned {dict(res)} vs per-batch {dict(again)}")
+                line += f"; per batch {wall_b:.3f} s, the same metrics"
+                J_TIMES[f"{name} per-batch test pass s"] = wall_b
+            log(line)
+        del trainer, loader, model
+
+        def make(name=name):
+            c = j_cfg(name)
+            return Trainer(c, quick_start.build_model_and_state(c, ds)), j_loader(name, c, train)
+
+        if on_device:
+            a, gde, b, batches = graph_vs_eager(make, what, steps=J_COMPARE_STEPS)
+            graph_vs_eager_times(gde, b, batches, what, "J1")
+            J_TIMES[what] = F_TIMES.pop(what)
+            del a, gde, b, batches
+        else:
+            host_graph_vs_eager(make, what, J_COMPARE_STEPS, part="J1", times=J_TIMES)
+    log("J1 gathers' backward launches by model: " + json.dumps(J_GATHERS))
+    return counts
+
+
+def j2_cli():
+    """J2: `python -m oovrec_tpu_torch.cli.run --model=Caser` as a
+    subprocess on dataset/synth-ind (timestamps loaded, the paper
+    protocol; J_EPOCHS_CLI epoch): rc 0, finite test metrics, the gathers'
+    backward launched in the child; `--eval_only` on its checkpoint, in
+    this process, reproduces them to 1e-9. → the child's launches."""
+    argv = ["--model=Caser", "--dataset=synth-ind", "--data_path=dataset",
+            "--load_col={'inter': ['user_id','item_id','timestamp','is_new']}",
+            f"--epochs={J_EPOCHS_CLI}"]
+    out = cli_out("j2")
+    counts, res, wall = cli_child("J2", argv, out)
+    log(f"J2: python -m oovrec_tpu_torch.cli.run --model=Caser ({J_EPOCHS_CLI} epoch) rc 0 "
+        f"in {wall:.1f} s (wall, process start and the corpus included), test "
+        f"{res['test_result']}")
+    again = cli_run.main([f"--eval_only={os.path.join(out, 'Caser-synth-ind.pth')}"])
+    require(type(again["trainer"].model).__name__ == "Caser", "J2: the model")
+    agree(res["test_result"], again["test_result"], "J2 eval_only test", tol=1e-9)
+    log(f"J2: --eval_only == the run on the test metrics (1e-9); the run's launches {counts}")
+    J_TIMES["J2 CLI run s"] = wall
     return counts
 
 
@@ -5112,6 +5333,24 @@ def main():
     require(i_trace["I1"]["scatter_rows_kernel"] > 0, f"phase I graphed traces {i_trace}")
     log("phase I kernels replayed, from the traces: " + json.dumps(i_trace))
     log("phase I times: " + json.dumps(I_TIMES))
+    # phase J, the rest of the plain sequence models; counted by part as I is
+    t0 = time.perf_counter()
+    on_j, i_done = {}, dict(F_TRACE)
+    for part, run in (("J1", j1_sequential), ("J2", j2_cli)):
+        reset_kernel_counts()
+        sync()
+        t1 = time.perf_counter()
+        seen = run()
+        sync()
+        on_j[part] = {**kernel_counts(), **seen}
+        log(f"phase {part}: {time.perf_counter() - t1:.1f} s, kernel launches {on_j[part]}")
+    log(f"phase J: {time.perf_counter() - t0:.1f} s")
+    j_trace = {p: c for p, c in F_TRACE.items() if p not in i_done}
+    require(all(on_j[p]["scatter_rows_kernel"] > 0 for p in ("J1", "J2")),
+            f"phase J launches {on_j}")
+    require(j_trace["J1"]["scatter_rows_kernel"] > 0, f"phase J graphed traces {j_trace}")
+    log("phase J kernels replayed, from the traces: " + json.dumps(j_trace))
+    log("phase J times: " + json.dumps(J_TIMES))
     cli = {  # each kernel's launches on the CLI paths (A launches none)
         "fused_topk_scores": {"C": k1_c},
         "cin_layer_pooled": {"B": cli_b["cin_layer_pooled"]},
@@ -5186,6 +5425,8 @@ def main():
         k["launches_h_trace"] = {part: c[k["name"]] for part, c in h_trace.items()}
         k["launches_i"] = {part: c[k["name"]] for part, c in on_i.items()}
         k["launches_i_trace"] = {part: c[k["name"]] for part, c in i_trace.items()}
+        k["launches_j"] = {part: c[k["name"]] for part, c in on_j.items()}
+        k["launches_j_trace"] = {part: c[k["name"]] for part, c in j_trace.items()}
     log("gathers' backward (ops/embed_grad.py, not a Pallas kernel): " + json.dumps({
             "ms": gathers, "bound_ms": gather_bound,
             "device_epoch": GATHER_RESULTS.get("device_epoch")}))

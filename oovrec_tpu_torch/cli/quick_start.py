@@ -144,6 +144,8 @@ def build_model_and_state(config, dataset, mode: str = "transductive",
                       embedding_size=int(config.get("embedding_size", 64)))
     if issubclass(cls, SequentialRecommender):
         kwargs["max_seq_length"] = int(config["MAX_ITEM_LIST_LENGTH"])
+        if "label_field" in _ctor_params(cls):  # DIN and DIEN read the click label
+            kwargs["label_field"] = config["LABEL_FIELD"]
     kwargs.update(model_kwargs(config, cls))
     return cls(**kwargs)
 

@@ -26,19 +26,33 @@ from oovrec_tpu_torch.models.context_aware import (
 from oovrec_tpu_torch.models.directau import DirectAU
 from oovrec_tpu_torch.models.sequential import (
     BERT4Rec,
+    CORE,
+    DIEN,
+    DIN,
+    FOSSIL,
     FPMC,
-    GRU4Rec,
+    GCSAN,
+    HGN,
+    HRM,
     NARM,
-    SASRec,
+    NPE,
+    SHAN,
+    SINE,
+    SRGNN,
     STAMP,
+    Caser,
+    GRU4Rec,
+    LightSANs,
+    NextItNet,
+    SASRec,
     SequentialRecommender,
+    TransRec,
 )
 
-# the JAX package's other sequential models (`models/sequential/`)
+# the JAX package's other sequential models (`models/sequential/featseq.py`,
+# `more5.py`, `s3rec.py`)
 UNPORTED_SEQUENTIAL = frozenset({
-    "Caser", "NextItNet", "DIN", "DIEN", "HGN", "FOSSIL", "TransRec", "SHAN", "NPE", "HRM",
-    "CORE", "SRGNN", "GCSAN", "LightSANs", "SINE", "GRU4RecF", "SASRecF", "FDSA", "RepeatNet",
-    "GRU4RecKG", "KSR", "S3Rec",
+    "GRU4RecF", "SASRecF", "FDSA", "RepeatNet", "GRU4RecKG", "KSR", "S3Rec",
 })
 
 
@@ -53,9 +67,10 @@ def get_model_class(name: str):
 
 
 __all__ = [
-    "AFM", "AutoInt", "BERT4Rec", "BPR", "ContextRecommender", "DCN", "DCNV2", "DSSM", "DeepFM",
-    "DirectAU", "EulerNet", "FFM", "FM", "FNN", "FPMC", "FieldSpec", "FiGNN", "FwFM",
-    "GRU4Rec", "GeneralRecommender", "KD_DAGFM", "LR", "MODEL_REGISTRY", "NARM", "NFM", "PNN",
-    "SASRec", "STAMP", "SequentialRecommender", "UNPORTED_SEQUENTIAL", "WideDeep",
-    "get_model_class", "xDeepFM",
+    "AFM", "AutoInt", "BERT4Rec", "BPR", "CORE", "Caser", "ContextRecommender", "DCN", "DCNV2",
+    "DIEN", "DIN", "DSSM", "DeepFM", "DirectAU", "EulerNet", "FFM", "FM", "FNN", "FOSSIL",
+    "FPMC", "FieldSpec", "FiGNN", "FwFM", "GCSAN", "GRU4Rec", "GeneralRecommender", "HGN",
+    "HRM", "KD_DAGFM", "LR", "LightSANs", "MODEL_REGISTRY", "NARM", "NFM", "NPE", "NextItNet",
+    "PNN", "SASRec", "SHAN", "SINE", "SRGNN", "STAMP", "SequentialRecommender", "TransRec",
+    "UNPORTED_SEQUENTIAL", "WideDeep", "get_model_class", "xDeepFM",
 ]

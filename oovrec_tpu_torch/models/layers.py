@@ -38,7 +38,8 @@ batch included, as the JAX package's fixed-shape batches count them.
 
 Dropout draws its masks from an explicit `torch.Generator` that the
 trainer owns and seeds (`set_dropout_generator`), never from the global
-RNG; in train mode without one it raises. The masks cannot match
+RNG; in train mode without one it raises. A model's other train-mode
+draws (DIEN's negatives) take the same generator through `RandomDraws`. The masks cannot match
 `jax.random`'s, so parity with the JAX package holds at dropout 0.
 """
 
@@ -369,9 +370,26 @@ def masked_mean_pool(emb: torch.Tensor, mask: torch.Tensor, eps: float = 1e-8) -
     return (emb * m).sum(dim=1) / (mask.to(emb.dtype).sum(dim=1, keepdim=True) + eps)
 
 
+class RandomDraws(nn.Module):
+    """A model's own random draws in train mode (DIEN's negatives), from
+    the trainer's dropout generator, as flax draws them from the `dropout`
+    stream: a CUDA-graph capture registers that generator alone."""
+
+    def __init__(self):
+        super().__init__()
+        self.generator: Optional[torch.Generator] = None
+
+    def randint(self, low: int, high: int, shape, device) -> torch.Tensor:
+        if self.generator is None:
+            raise RuntimeError(
+                "a train-mode draw takes an explicit generator: call "
+                "set_dropout_generator(model, generator) first")
+        return torch.randint(low, high, tuple(shape), generator=self.generator, device=device)
+
+
 def set_dropout_generator(module: nn.Module, generator: Optional[torch.Generator]) -> None:
-    """Give every `MLPLayers` and `Dropout` under `module` the generator
-    their dropout masks draw from."""
+    """Give every `MLPLayers`, `Dropout` and `RandomDraws` under `module`
+    the generator their dropout masks and draws come from."""
     for m in module.modules():
-        if isinstance(m, (MLPLayers, Dropout)):
+        if isinstance(m, (MLPLayers, Dropout, RandomDraws)):
             m.generator = generator

@@ -28,6 +28,23 @@ from oovrec_tpu_torch.ops.embed_grad import gather_rows
 from oovrec_tpu_torch.utils.enums import ModelType
 
 
+def inside(seq: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """(B, L) float: 1 at the positions before each row's length."""
+    L = seq.shape[1]
+    return (torch.arange(L, device=seq.device)[None, :] < lengths[:, None]).float()
+
+
+def last_item(seq: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """(B,): each row's item at max(length − 1, 0)."""
+    return seq.gather(1, torch.clamp(lengths.long() - 1, min=0)[:, None]).squeeze(1)
+
+
+def ce_loss(logits: torch.Tensor, pos: torch.Tensor, w=None) -> torch.Tensor:
+    """CE of (B, n_items) logits at the targets `pos`, weighted by `w`."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return _wmean(-logp.gather(1, pos.long()[:, None]).squeeze(1), w)
+
+
 def gather_last(states: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """(B, L, D) → (B, D): each row's state at max(length − 1, 0)."""
     idx = torch.clamp(lengths.long() - 1, min=0)
@@ -65,8 +82,7 @@ class SequentialRecommender(GeneralRecommender):
             neg = batch[self.neg_prefix + self.iid_field]
             return bpr_loss((out * gather_rows(table, pos)).sum(dim=1),
                             (out * gather_rows(table, neg)).sum(dim=1), w)
-        logp = torch.log_softmax(out @ table.T, dim=-1)
-        return _wmean(-logp.gather(1, pos.long()[:, None]).squeeze(1), w)
+        return ce_loss(out @ table.T, pos, w)
 
     def predict(self, batch: Batch) -> torch.Tensor:
         out = self.seq_output(batch)

@@ -19,15 +19,14 @@ from oovrec_tpu_torch.models.base import register_model
 from oovrec_tpu_torch.models.context import dense
 from oovrec_tpu_torch.models.layers import Dropout, GRUCell, gru_scan
 from oovrec_tpu_torch.models.losses import bpr_loss
-from oovrec_tpu_torch.models.sequential.base import SequentialRecommender, gather_last
+from oovrec_tpu_torch.models.sequential.base import (
+    SequentialRecommender,
+    gather_last,
+    inside,
+    last_item,
+)
 from oovrec_tpu_torch.ops.embed_grad import gather_rows
 from oovrec_tpu_torch.utils.enums import InputType
-
-
-def _inside(seq: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """(B, L) float: 1 at the positions before each row's length."""
-    L = seq.shape[1]
-    return (torch.arange(L, device=seq.device)[None, :] < lengths[:, None]).float()
 
 
 @register_model
@@ -54,7 +53,7 @@ class NARM(SequentialRecommender):
         _, states = gru_scan(self.gru, x, x.new_zeros(x.shape[0], self.gru.features))
         ht = gather_last(states, lengths)
         q = self.v(torch.sigmoid(self.a1(ht)[:, None, :] + self.a2(states))).squeeze(-1)
-        c_local = ((q * _inside(seq, lengths))[:, :, None] * states).sum(dim=1)
+        c_local = ((q * inside(seq, lengths))[:, :, None] * states).sum(dim=1)
         c = self.ct_dropout(torch.cat([ht, c_local], dim=1), train)
         return self.b(c)
 
@@ -79,7 +78,7 @@ class STAMP(SequentialRecommender):
     def seq_output(self, batch, train: bool = False):
         seq, lengths = self._sequence(batch)
         x = gather_rows(self.item_embedding.weight, seq)  # (B, L, D)
-        mask = _inside(seq, lengths)
+        mask = inside(seq, lengths)
         last = gather_last(x, lengths)
         ms = (x * mask[:, :, None]).sum(dim=1) / torch.clamp(
             lengths[:, None].float(), min=1.0)
@@ -106,9 +105,7 @@ class FPMC(SequentialRecommender):
         return mf + fmc
 
     def _last_item(self, batch):
-        seq, lengths = self._sequence(batch)
-        idx = torch.clamp(lengths.long() - 1, min=0)
-        return seq.gather(1, idx[:, None]).squeeze(1)
+        return last_item(*self._sequence(batch))
 
     def calculate_loss(self, batch):
         user, last = batch[self.uid_field], self._last_item(batch)

@@ -53,7 +53,14 @@ same way: GRU4Rec's scanned cells ``gru_<i>`` (NARM's ``gru``) with the
 six Denses, SASRec's and BERT4Rec's ``block_<i>`` with ``LayerNorm_0/1``
 (``scale``, ``bias``), ``MultiHeadDotProductAttention_0`` and
 ``Dense_0/1``, their ``final_ln``, STAMP's raw ``b_a`` at the top and
-FPMC's four tables ``UI`` / ``IU`` / ``LI`` / ``IL``.
+FPMC's four tables ``UI`` / ``IU`` / ``LI`` / ``IL``; and the second
+sequential slice's: the conv kernels of Caser (``hconv_<h>``,
+``v_conv``) and NextItNet (``block_<i>/Conv_0/1``) in flax's layout (a
+``kernel`` under a module that is not an ``nn.Linear`` is raw), DIEN's
+scanned ``interest_gru``, SRGNN's ``gnn`` (``Dense_0/1``, ``GRUCell_0``),
+GCSAN's ``attn_block``, LightSANs' ``attn_<i>``, and the raw leaves at
+the top: HGN's ``b_g`` and ``w4_kernel``, FOSSIL's ``global_lambda``,
+TransRec's ``global_t`` and ``item_bias``, SINE's ``prototypes``.
 
 A ``kernel`` leaf is a Dense or a stored kernel depending on the port's
 module, so trees with kernels cross with the target `module` given. A

@@ -79,7 +79,18 @@ SEQUENTIAL = ["--dataset=toy-ind", f"--data_path={ASSETS}", "--train_batch_size=
               "--embedding_size=8", "--MAX_ITEM_LIST_LENGTH=4", LOAD_COL,
               "--log_tensorboard=False"]
 TRACKS.update({f"seq-{name.lower()}": [f"--model={name}", *SEQUENTIAL]
-               for name in ("GRU4Rec", "SASRec", "NARM", "STAMP", "FPMC", "BERT4Rec")})
+               for name in ("GRU4Rec", "SASRec", "NARM", "STAMP", "FPMC", "BERT4Rec",
+                            "Caser", "NextItNet", "DIN", "DIEN", "HGN", "FOSSIL", "TransRec",
+                            "SHAN", "NPE", "HRM", "CORE", "SRGNN", "GCSAN", "LightSANs",
+                            "SINE")})
+# DIEN's negatives drawn on the device (its default) and presampled; SHAN
+# through the inverse_itemseq transform; the other pool and encoder types
+TRACKS.update({
+    "seq-dien-presampled": ["--model=DIEN", *SEQUENTIAL, "--dien_neg_sampling=presampled"],
+    "seq-shan-inverse": ["--model=SHAN", *SEQUENTIAL, "--transform=inverse_itemseq"],
+    "seq-hgn-max": ["--model=HGN", *SEQUENTIAL, "--pool_type=max"],
+    "seq-core-trm": ["--model=CORE", *SEQUENTIAL, "--dnn_type=trm"],
+})
 
 
 class _Recorder(TorchDispatchMode):

@@ -66,6 +66,9 @@ def test_scan_sees_the_whole_port():
                    "models/context_aware/basic.py", "models/context_aware/ffm.py",
                    "data/sequential.py", "data/transform.py", "models/sequential/base.py",
                    "models/sequential/gru4rec.py", "models/sequential/sasrec.py",
-                   "models/sequential/more.py", "models/sequential/bert4rec.py"):
+                   "models/sequential/more.py", "models/sequential/bert4rec.py",
+                   "models/sequential/convs.py", "models/sequential/din.py",
+                   "models/sequential/more2.py", "models/sequential/more3.py",
+                   "models/sequential/more4.py"):
         assert f"oovrec_tpu_torch/{module}" in names, module
     assert len(names) >= 25

@@ -43,6 +43,7 @@ from oovrec_tpu_torch.models.layers import (  # noqa: E402
 )
 from oovrec_tpu_torch.utils.jax_params import flax_from_state_dict, load_flax_params  # noqa: E402
 from oovrec_tpu_torch.utils.torch_import import import_state_dict  # noqa: E402
+from tests.seq_parity import flat as _flat, jax_out as _jax_out, to_torch as _torch  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 N_USERS, N_ITEMS, D, L = 9, 13, 8, 5
@@ -62,11 +63,6 @@ MODELS = {
 }
 CFG = {"mask_ratio": 0.4, "MAX_ITEM_LIST_LENGTH": L, "ITEM_ID_FIELD": "item_id",
        "LIST_SUFFIX": "_list", "ITEM_LIST_LENGTH_FIELD": "item_length", "seed": 3}
-
-
-def _flat(tree):
-    return {jax.tree_util.keystr(p): np.asarray(v)
-            for p, v in jax.tree_util.tree_leaves_with_path(tree)}
 
 
 def _batch(case, seed=0):
@@ -101,15 +97,6 @@ def _both(case, seed=0):
     port = get_model_class(name)(n_users=N_USERS, n_items=N_ITEMS, device="cpu", **SMALL, **kw)
     load_flax_params(port, params)
     return jm, params, port
-
-
-def _torch(batch):
-    return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
-
-
-def _jax_out(jm, params, batch, method):
-    return np.asarray(jm.apply({"params": params}, {k: jnp.asarray(v) for k, v in batch.items()},
-                               method=getattr(jm, method)))
 
 
 @pytest.mark.parametrize("case", sorted(MODELS))
