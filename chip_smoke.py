@@ -45,11 +45,11 @@ Phases (any failure exits non-zero; no phase failure is caught):
   7. the CLI, the main path's own entry (`build/cli/`):
      A. `python -m oovrec_tpu_torch.cli.run` as a subprocess on the tracked
         corpus dataset/synth-ind: BPR (D 64), random-mapper OOV buckets,
-        the OOV regime, the paper protocol (uni250), 3 epochs, the 7-slice
+        the OOV regime, the paper protocol (uni250), 2 epochs, the 7-slice
         inductive eval and `--results_json`; rc 0, finite metrics, all 7
         slices; `--eval_only` on its checkpoint reproduces it to 1e-9;
      B. `cli.run.main` in this process: xDeepFM at its published widths
-        under the ranking protocol, 3 epochs, the CIN forward and backward
+        under the ranking protocol, 2 epochs, the CIN forward and backward
         kernels counted (> 0) and held against their plain versions at a
         training batch's and a uni250 test batch's shapes (2,048 and about
         100,000 rows); `--eval_only` with `--fused_cin` True and False
@@ -65,12 +65,12 @@ Phases (any failure exits non-zero; no phase failure is caught):
   8. phase D, the embedders, at the published widths (BPR at D 64, DHE at
      128 hashes and towers of 512, xDeepFM at xDeepFM.yaml):
      D1. EXPERIMENTS.md:40-45 verbatim (lsh, the *_vector columns, 200
-         buckets a side, OOV ratio 0.3, the inductive eval; 3 epochs)
+         buckets a side, OOV ratio 0.3, the inductive eval; 2 epochs)
          through `python -m oovrec_tpu_torch.cli.run` as a subprocess, its
          `--eval_only` equal to 1e-9, then the same command through
          `cli.run.main` with slsh, dnn, knn, dhe and fdhe (32 hashes); every
          run's 7 slices finite;
-     D2. xDeepFM with lsh through `cli.run.main`, 3 epochs, the CIN kernels
+     D2. xDeepFM with lsh through `cli.run.main`, 2 epochs, the CIN kernels
          counted;
      D3. fdhe serving over phase 3's 1,000,000 items: the ids hashed on
          the card equal to the numpy hasher on every id, the tower pass
@@ -108,7 +108,7 @@ Phases (any failure exits non-zero; no phase failure is caught):
          sub-epoch on the host path): the loss falls, held-out AUC rises,
          CIN kernels 4 and 5 (3 + 3 a step) and the gathers' backward
          launched by their wrappers at the warm-ups and the captures;
-         16 graphed steps against 16 eager ones on the same
+         8 graphed steps against 8 eager ones on the same
          batches from the same weights, bit for bit (losses, parameters,
          moments); eager vs graphed ms a step, wall and device, with the
          busy share, and the kernels in each pass's profiler trace: the
@@ -140,10 +140,10 @@ Phases (any failure exits non-zero; no phase failure is caught):
  11. phase G, the trainer's leftovers and the first four context models:
      G1. xDeepFM at the ranking cell's shape under `adagrad`, `rmsprop`
          and adam with bf16 first moments (`optimizer_mu_dtype`), and adam
-         with f32 ones to compare: 16 graphed steps == 16 eager ones bit
+         with f32 ones to compare: 8 graphed steps == 8 eager ones bit
          for bit on the plain device epoch (moments and sums included),
          eager vs graphed wall and device ms a step; under each new rule
-         16 steps on the CIN kernels against the slab path (losses 1e-5,
+         8 steps on the CIN kernels against the slab path (losses 1e-5,
          parameters 1e-4), the loss falling;
      G2. BPR at D 64 over phase 3's 900,000 IV items on the host path,
          32 steps of 2,048 rows, without dynamic negatives and with 4 and
@@ -220,6 +220,29 @@ Phases (any failure exits non-zero; no phase failure is caught):
      J2. `python -m oovrec_tpu_torch.cli.run --model=Caser` on
          dataset/synth-ind for 1 epoch in a child that prints its launch
          counts, `--eval_only` == the run to 1e-9.
+ 15. phase K, the last seven sequential models, on I1's interactions with
+     ML-1M's item columns and an entity table written beside them:
+     K1. an `.item` file (`genre:token_seq`, 1-6 of 18 genres an item, so
+         the 5-slot cap is hit; `release_year:token`, 81 values) and an
+         `.ent` file (3,706 rows of `ent_id:token`, `ent_vec:float_seq` 64
+         wide) loaded with the interactions through `create_dataset`
+         (`additional_feat_suffix: [ent]`) and `data_preparation`, timed
+         apart; GRU4RecF, SASRecF, FDSA, RepeatNet, GRU4RecKG, KSR and
+         S3Rec (pretraining) at their YAML widths with `selected_features:
+         [genre, release_year]` and `preload_weight: {ent_id: ent_vec}`
+         through `Trainer.fit` (GRU4RecF, SASRecF, FDSA and GRU4RecKG 64
+         steps of 2,048 on the plain device epoch that `auto` takes,
+         RepeatNet, KSR and S3Rec 32 on the host path), finite falling
+         losses, every parameter moved but the frozen entity tables,
+         which stay bit for bit (`weight_decay` 0), the gathers' backward
+         launched; 4 graphed steps == 4 eager ones bit for bit (RepeatNet
+         on rows that repeat an item) and the ms a step of each; the
+         scanned full-sort test pass over 6,040 examples (FDSA and KSR:
+         == the per-batch pass);
+     K2. `python -m oovrec_tpu_torch.cli.run --model=SASRecF
+         --selected_features=[category]` on dataset/synth-ind for 1 epoch
+         in a child that prints its launch counts, `--eval_only` == the
+         run to 1e-9.
 Phase 2 also holds the gathers' backward kernel (`csrc/embed_grad.cu`)
 against its plain version (bit for bit on integer-valued cotangents, to
 1e-5 on random ones, against a repeat run) and times it; phase 6 profiles
@@ -230,14 +253,14 @@ bit for bit on integer inputs and gradients (and against itself on a
 repeat run), and times it per layer and for the 3-layer stack.
 The last line is the device record; the line before it lists the kernels,
 each with its launches on the earlier phases' paths (`launches`), on the
-CLI phases (`launches_cli`) and on phase D's to J's parts
+CLI phases (`launches_cli`) and on phase D's to K's parts
 (`launches_d`, `launches_e`, `launches_f`, `launches_g`, `launches_h`,
-`launches_i`, `launches_j`), each counted by the kernel's wrapper where
-it launches (`ops/launches.py`; a CUDA graph's replays run no wrapper),
-and the kernels that phase F's to J's graphed passes replayed, as their
-profiler traces show them (`launches_f_trace` ... `launches_j_trace`);
-before them, phase F's to J's times as JSON lines (`phase F times` ...
-`phase J times`).
+`launches_i`, `launches_j`, `launches_k`), each counted by the kernel's
+wrapper where it launches (`ops/launches.py`; a CUDA graph's replays run
+no wrapper), and the kernels that phase F's to K's graphed passes
+replayed, as their profiler traces show them (`launches_f_trace` ...
+`launches_k_trace`); before them, phase F's to K's times as JSON lines
+(`phase F times` ... `phase K times`).
 
 TF32 is switched off for matmuls and cuDNN below: the plain versions and
 the dense path must compute in full f32, as the kernel does.
@@ -875,13 +898,18 @@ def device_rows(events):
     return sorted(((us, name, n) for name, (us, n) in rows.items() if us > 0), reverse=True)
 
 
-def profiled(run, what, shares=(), quiet=False):
+def profiled(run, what, shares=(), quiet=False, gathers=True):
     """torch.profiler around `run()`: the wall, the device's busy share of
     it, the largest device kernels and, for each (label, name prefixes) of
     `shares`, those kernels' share of the device time, launches and device
-    ms a launch. `profiled.lost` is the run's `lost_records`."""
+    ms a launch; where `gathers`, the device time under the gathers'
+    backward node (`profiled.gathers_ms`, from `key_averages`, which takes
+    6-12 host s over an eager GRU step's 100,000 events). `profiled.lost`
+    is the run's `lost_records`; the host seconds the profiler's stop and
+    the reading of its trace took are logged."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    t_open = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         # the trace keeps the device records that fall inside its window
         # by their timestamps, which can be off from the host's clock by
@@ -902,6 +930,8 @@ def profiled(run, what, shares=(), quiet=False):
             wall_ms = (time.perf_counter() - t0) * 1e3
         if DEVICE == "cuda":
             time.sleep(EDGE_PAUSE_S)
+        t_stop = time.perf_counter()
+    t_read = time.perf_counter()
     events = prof.profiler.kineto_results.events()
     profiled.lost = lost_records(events)
 
@@ -911,17 +941,23 @@ def profiled(run, what, shares=(), quiet=False):
     busy_ms = sum(r[0] for r in rows) / 1e3
     profiled.kernels = trace_launches(rows)
     profiled.rows = rows
-    log(f"{what}, wall {wall_ms:.1f} ms, device busy "
-        f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %)"
-        + (f"; {profiled.lost} launch calls lost their kernel records" if profiled.lost else ""))
+    t_rows = time.perf_counter()
     # the row gathers' backward (ops/embed_grad.py): the device time of the
     # kernels its autograd node launched, sort and segment sums included
     spans = [(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0), e.count)
-             for e in prof.key_averages() if e.key.endswith(GATHER_NODE)]
+             for e in (prof.key_averages() if gathers else ()) if e.key.endswith(GATHER_NODE)]
+    t_done = time.perf_counter()
+    log(f"{what}, wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %)"
+        + (f"; {profiled.lost} launch calls lost their kernel records" if profiled.lost else "")
+        + f"; host s: window {t_stop - t_open:.2f}, stop {t_read - t_stop:.2f}, events "
+        f"{t_rows - t_read:.2f} ({len(events)})"
+        + (f", key_averages {t_done - t_rows:.2f}" if gathers else ""))
     g_us, g_n = max(spans, default=(0, 0))
-    profiled.gathers_ms = g_us / 1e3
-    log(f"  gathers' backward ({backward_route.name} route): {g_us / 1e3:.3f} ms "
-        f"({100 * g_us / 1e3 / max(busy_ms, 1e-9):.1f} % of device time), {g_n} calls")
+    profiled.gathers_ms = g_us / 1e3 if gathers else None
+    if gathers:
+        log(f"  gathers' backward ({backward_route.name} route): {g_us / 1e3:.3f} ms "
+            f"({100 * g_us / 1e3 / max(busy_ms, 1e-9):.1f} % of device time), {g_n} calls")
     for label, prefixes in shares:
         mine = [(us, n) for us, key, n in rows if any(p in key for p in prefixes)]
         ms = sum(us for us, _ in mine) / 1e3
@@ -2475,7 +2511,7 @@ SYNTH_LOAD_COL = ("--load_col={'inter': ['user_id','item_id','timestamp','is_new
 CLI_OOV = ["--inductive_mapper=random", "--add_oov_buckets=True", "--n_user_oov_buckets=200",
            "--n_item_oov_buckets=200", "--train_oov=True", "--oov_train_ratio=0.3",
            "--inductive_eval=True"]
-CLI_EPOCHS_A, CLI_EPOCHS_B = 3, 3  # A and D1: 5 epochs until phase J
+CLI_EPOCHS_A, CLI_EPOCHS_B = 2, 2  # A and D1, B and D2: 5 epochs until phase J, 3 until K
 SLICE_NAMES = ("overall", "old_users", "new_users", "old_old", "old_new", "new_old", "new_new")
 # phase C: an atomic-file family the card notices (tools/make_synth_dataset.py's
 # generator at 50,000 users x 100,000 items x 1,000,000 rows, 10 % new), BPR
@@ -3580,8 +3616,8 @@ def e4_directau():
 # `host_scan_steps`, the scanned eval, and the dense step replayed as a
 # captured CUDA graph (train/cuda_graph.py) on each of them.
 
-F_COMPARE_STEPS = 16   # graphed against eager steps, bit for bit
-F_TIME_STEPS = 16      # steps a timed pass, eager and graphed in turns
+F_COMPARE_STEPS = 8    # graphed against eager steps, bit for bit (16 until phase K)
+F_TIME_STEPS = 8       # steps a timed pass, eager and graphed in turns (16 until K)
 F_BPR_STEPS = 16       # F3: steps of SP_B rows
 F_SCAN_K = 64          # F4: host_scan_steps
 F_SCAN_GROUPS = 2      # F4: groups an epoch in the grouping's timing (3 until phase J)
@@ -3684,7 +3720,7 @@ def counted_trace(run, what):
     device busy ms, (the wrappers' launches, the trace's kernels)."""
     for take in range(1, TRACE_TAKES + 1):
         reset_kernel_counts()
-        wall, busy = profiled(run, what, quiet=True)
+        wall, busy = profiled(run, what, quiet=True, gathers=False)
         if not profiled.lost:
             return wall, busy, (kernel_counts(), profiled.kernels)
         log(f"{what}: take {take} of the trace lost the kernel records of {profiled.lost} "
@@ -3828,9 +3864,9 @@ def f1_xdeepfm_plain(ind):
     on the host path, as in JAX): the loss falls, held-out AUC rises, the
     CIN kernels 4 and 5 launched by their wrappers (3 + 3 a step) at the
     warm-ups and captures of the epoch's step and the OOV step, and the
-    gathers' backward; then 16 graphed steps against 16 eager ones, bit for
-    bit, and their times, the replayed kernels counted in the trace. → the
-    fit's kernel launches."""
+    gathers' backward; then F_COMPARE_STEPS graphed steps against as many
+    eager ones, bit for bit, and their times, the replayed kernels counted
+    in the trace. → the fit's kernel launches."""
     train, _, held_iv = ctr_splits(ind)
     cfg = ctr_train_cfg(device_epoch=True)
     trainer = Trainer(cfg, build_ranking_model(SEED + 501))
@@ -4137,7 +4173,8 @@ def f5_scanned_eval():
 
 # ---------------------------------------------------------------- phase G
 
-G_STEPS = 16           # G1: graphed against eager steps; kernel against plain
+G_STEPS = 8            # G1: graphed against eager steps; kernel against plain
+                       # (16 until phase K)
 # G1: the learners at the ranking cell's shape. rmsprop from its zero
 # state, with no bias correction, first moves each element by about
 # lr / sqrt(0.1), 3.16 times Adam's lr, and its sign-like steps carry
@@ -4167,11 +4204,11 @@ def g_times(what):
 def g1_learners(ind):
     """G1: xDeepFM at `xDeepFM.yaml` widths, 8,192 rows a step, under
     adagrad, rmsprop and adam with bf16 first moments (and f32, to compare
-    on this card): 16 graphed steps == 16 eager ones bit for bit (moments
-    and sums included) on the plain device epoch, then eager vs graphed
-    wall and device ms a step; the CIN kernels against the slab path over
-    16 steps under the same rule (losses 1e-5, parameters 1e-4), the loss
-    falling. → the kernel runs' launches."""
+    on this card): G_STEPS graphed steps == G_STEPS eager ones bit for bit
+    (moments and sums included) on the plain device epoch, then eager vs
+    graphed wall and device ms a step; the CIN kernels against the slab
+    path over G_STEPS steps under the same rule (losses 1e-5, parameters
+    1e-4), the loss falling. → the kernel runs' launches."""
     train, _, _ = ctr_splits(ind)
     counts = {}
     for i, (rule, over) in enumerate(G_RULES):
@@ -5165,6 +5202,209 @@ def j2_cli():
     return counts
 
 
+# phase K, the last seven sequential models, on I1's interactions with
+# ML-1M's item columns (`genre` 1-6 of 18 an item, `release_year` 81
+# values) and a preloaded entity table beside them, at their YAML widths
+K_MODELS = ("GRU4RecF", "SASRecF", "FDSA", "RepeatNet", "GRU4RecKG", "KSR", "S3Rec")
+K_DEVICE_EPOCH = ("GRU4RecF", "SASRecF", "FDSA", "GRU4RecKG")  # `auto` takes it
+K_PER_BATCH_TOO = ("FDSA", "KSR")  # scanned == per-batch eval
+K_FROZEN = ("GRU4RecKG", "KSR")    # `freeze_kg`: the entity table stays (weight_decay 0)
+K_FEATURES = ["genre", "release_year"]
+K_GENRES, K_GENRES_MAX, K_YEARS, K_ENT_DIM = 18, 6, 81, 64
+K_STEPS = 32           # K1: host-path fits' steps of I_B rows; the device-epoch
+                       # fits take I_STEPS (131,072 rows, so `auto` takes it)
+K_COMPARE_STEPS = 4    # K1: graphed against eager steps, bit for bit, and timed
+K_EPOCHS_CLI = 1       # K2
+K_TIMES = {}
+K_GATHERS = {}         # K1: the gathers' backward launches of each model's fit
+
+
+def ml1m_side_files(seed=I_SEED):
+    """Beside phase I's `.inter`: `I_DATASET.item` (each item's 1 to
+    K_GENRES_MAX of K_GENRES genres as `genre:token_seq`, one of K_YEARS
+    years as `release_year:token`) and `I_DATASET.ent` (each item's token
+    as `ent_id:token` and K_ENT_DIM normal floats as `ent_vec:float_seq`).
+    → wall s of the writes."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 1)
+    d = os.path.join(I_DATA, I_DATASET)
+    counts = rng.integers(1, K_GENRES_MAX + 1, I_ITEMS)
+    years = 1919 + rng.integers(0, K_YEARS, I_ITEMS)
+    with open(os.path.join(d, f"{I_DATASET}.item"), "w") as f:
+        f.write("item_id:token\tgenre:token_seq\trelease_year:token\n")
+        for i in range(I_ITEMS):
+            genres = rng.choice(K_GENRES, counts[i], replace=False)
+            f.write(f"{i + 1}\t{' '.join(f'g{g}' for g in genres)}\t{years[i]}\n")
+    vecs = rng.standard_normal((I_ITEMS, K_ENT_DIM)).astype(np.float32)
+    with open(os.path.join(d, f"{I_DATASET}.ent"), "w") as f:
+        f.write("ent_id:token\tent_vec:float_seq\n")
+        for i in range(I_ITEMS):
+            f.write(f"{i + 1}\t{' '.join(f'{v:.6f}' for v in vecs[i])}\n")
+    return time.perf_counter() - t0
+
+
+def k_cfg(name):
+    """`seq_cfg` with the item columns, the entity table and the
+    feature and preload keys of phase K."""
+    return seq_cfg(name, selected_features=K_FEATURES, additional_feat_suffix=["ent"],
+                   preload_weight={"ent_id": "ent_vec"},
+                   load_col={"inter": ["user_id", "item_id", "timestamp"],
+                             "item": ["item_id", *K_FEATURES]})
+
+
+def k_loader(name, cfg, train):
+    """The model's plain CE loader over the rows of its fit's steps."""
+    steps = I_STEPS if name in K_DEVICE_EPOCH else K_STEPS
+    return TrainBatcher(SeqDatasetSplit(train.parent, train.index[: steps * I_B]), None, cfg,
+                        InputType.POINTWISE)
+
+
+def k_repeats(loader, what):
+    """The rows of the loader's first K_COMPARE_STEPS batches whose item
+    list repeats an item (RepeatNet's scatter adds them up). → that
+    count, which must be > 0."""
+    rows = 0
+    for i, hb in enumerate(loader):
+        if i == K_COMPARE_STEPS:
+            break
+        seq = np.sort(np.asarray(hb["item_id_list"]), axis=1)
+        rows += int(((seq[:, 1:] == seq[:, :-1]) & (seq[:, 1:] > 0)).any(axis=1).sum())
+    require(rows > 0, f"{what}: no compared row repeats an item")
+    return rows
+
+
+def k1_sequential():
+    """K1: the seven at their YAML widths on I1's interactions with the
+    `.item` and `.ent` files of `ml1m_side_files`: each fits through
+    `Trainer.fit` (GRU4RecF, SASRecF, FDSA and GRU4RecKG I_STEPS steps on
+    the plain device epoch that `auto` takes, RepeatNet, KSR and S3Rec's
+    pretraining K_STEPS on the host path), the losses finite and falling,
+    every parameter moved but a frozen entity table, which stays bit for
+    bit, the gathers' backward launched; K_COMPARE_STEPS graphed steps ==
+    eager ones bit for bit and their ms a step (RepeatNet's batches repeat
+    items); the scanned full-sort test pass over the 6,040 users (FDSA,
+    KSR: == the per-batch pass). → the fits' launches."""
+    from oovrec_tpu_torch.models.sequential.featseq import TOKEN_SEQ_CAP
+
+    wrote = ml1m_side_files()
+    base = k_cfg("GRU4RecF")
+    t0 = time.perf_counter()
+    ds = create_dataset(base)
+    loaded = time.perf_counter() - t0
+    train_loader, valid_loader, test_loader = data_preparation(base, ds)
+    prepared = time.perf_counter() - t0
+    train, test = train_loader.split, test_loader.split
+    K_TIMES["set-up s"] = {"write .item and .ent": wrote, "create_dataset": loaded,
+                           "create_dataset + data_preparation": prepared}
+    require(type(ds) is SequentialDataset and ds.item_num == I_ITEMS + 1
+            and len(test) == I_USERS, f"K1: the dataset {type(ds)} {ds.item_num}")
+    packed = get_model_class("GRU4RecF").build_estate(ds, base)["seq_feat_tokens"]
+    slots = (packed[:, :TOKEN_SEQ_CAP] > 0).sum(axis=1)
+    ent = ds.get_preload_weight("ent_id")
+    require(packed.shape == (I_ITEMS + 1, TOKEN_SEQ_CAP + 1) and int(slots.max()) == TOKEN_SEQ_CAP
+            and not packed[0].any() and (packed[1:, TOKEN_SEQ_CAP] > 0).all(),
+            f"K1: the packed item features {packed.shape}, slots {int(slots.max())}")
+    require(ent.shape == (I_ITEMS + 1, K_ENT_DIM) and not ent[0].any()
+            and bool((np.abs(ent[1:]).sum(axis=1) > 0).all()), f"K1: the preload {ent.shape}")
+    log(f"K1 corpus: I1's interactions with {I_DATASET}.item ({len(K_FEATURES)} fields, "
+        f"{int((slots == TOKEN_SEQ_CAP).sum())} items at the {TOKEN_SEQ_CAP}-slot cap) and "
+        f"{I_DATASET}.ent ({ent.shape[0] - 1} x {K_ENT_DIM}); set-up apart from the phase's "
+        f"times: written in {wrote:.1f} s, `create_dataset` {loaded:.1f} s, with "
+        f"`data_preparation` {prepared:.1f} s")
+    counts = {}
+    for name in K_MODELS:
+        what = f"K1 {name}"
+        cfg = k_cfg(name)
+        model = quick_start.build_model_and_state(cfg, ds)
+        require(next(model.parameters()).device.type == torch.device(DEVICE).type,
+                f"{what}: the model's device")
+        frozen = name in K_FROZEN
+        if frozen:
+            require(model.freeze_kg and torch.equal(model.entity_embedding.detach().cpu(),
+                                                    torch.from_numpy(ent)),
+                    f"{what}: the entity table is not the frozen preload")
+        trainer = Trainer(cfg, model)
+        loader = k_loader(name, cfg, train)
+        t_model = time.perf_counter()
+        before = {n: p.detach().clone() for n, p in trainer.params.items()}
+        reset_kernel_counts()
+        normal, _, fit_s = f_fit(trainer, loader, what)
+        steps = normal["steps"]
+        seen = kernel_counts()
+        counts = {k: counts.get(k, 0) + n for k, n in seen.items()}
+        K_GATHERS[name] = seen["scatter_rows_kernel"]
+        des = list(trainer._device_epochs.values())
+        on_device = name in K_DEVICE_EPOCH
+        require(bool(des) == on_device and all(d.mode == "plain" for d in des),
+                f"{what}: the device epoch {[d.mode for d in des]}")
+        require(steps == (I_STEPS if on_device else K_STEPS), f"{what}: {steps} steps")
+        require(seen["scatter_rows_kernel"] > 0, f"{what}: the gathers' backward {seen}")
+        still = [n for n in before if torch.equal(before[n], trainer.params[n])]
+        require(still == (["entity_embedding"] if frozen else []),
+                f"{what}: parameters that did not move over the fit: {still}")
+        del before
+        res, wall = timed_eval(model, cfg, test_loader, f"{what} test", device_eval=True)
+        line = (f"{what}: {steps} steps ({'device epoch' if on_device else 'host path'}), "
+                f"{len(trainer.params) - len(still)} parameters moved"
+                f"{', the frozen entity table bit for bit' if frozen else ''}, gathers' "
+                f"backward launches {seen['scatter_rows_kernel']}; scanned test pass "
+                f"({len(test)} rows, {I_EVAL_ROWS} a batch) {wall:.3f} s: {dict(res)}")
+        K_TIMES[f"{name} fit s"] = fit_s
+        K_TIMES[f"{name} scanned test pass s"] = wall
+        if name in K_PER_BATCH_TOO:
+            again, wall_b = timed_eval(model, cfg, test_loader, f"{what} test per batch",
+                                       device_eval=False)
+            require(again == res, f"{what}: scanned {dict(res)} vs per-batch {dict(again)}")
+            line += f"; per batch {wall_b:.3f} s, the same metrics"
+            K_TIMES[f"{name} per-batch test pass s"] = wall_b
+        log(line)
+        del trainer, loader, model
+
+        def make(name=name):
+            c = k_cfg(name)
+            return Trainer(c, quick_start.build_model_and_state(c, ds)), k_loader(name, c, train)
+
+        t_compare = time.perf_counter()
+        if on_device:
+            a, gde, b, batches = graph_vs_eager(make, what, steps=K_COMPARE_STEPS)
+            graph_vs_eager_times(gde, b, batches, what, "K1")
+            K_TIMES[what] = F_TIMES.pop(what)
+            del a, gde, b, batches
+        else:
+            if name == "RepeatNet":
+                rows = k_repeats(k_loader(name, cfg, train), what)
+                log(f"{what}: {rows} of the {K_COMPARE_STEPS * I_B} compared rows repeat an item")
+            host_graph_vs_eager(make, what, K_COMPARE_STEPS, part="K1", times=K_TIMES)
+        K_TIMES[f"{name} host s"] = {"fit and eval": t_compare - t_model,
+                                     "graphed vs eager, timed": time.perf_counter() - t_compare}
+    log("K1 gathers' backward launches by model: " + json.dumps(K_GATHERS))
+    return counts
+
+
+def k2_cli():
+    """K2: `python -m oovrec_tpu_torch.cli.run --model=SASRecF
+    --selected_features=[category]` as a subprocess on dataset/synth-ind
+    (timestamps and the item category loaded, the paper protocol;
+    K_EPOCHS_CLI epoch): rc 0, finite test metrics, the gathers' backward
+    launched in the child; `--eval_only` on its checkpoint, in this
+    process, reproduces them to 1e-9. → the child's launches."""
+    argv = ["--model=SASRecF", "--dataset=synth-ind", "--data_path=dataset",
+            "--selected_features=['category']",
+            "--load_col={'inter': ['user_id','item_id','timestamp','is_new'], "
+            "'item': ['item_id','category']}", f"--epochs={K_EPOCHS_CLI}"]
+    out = cli_out("k2")
+    counts, res, wall = cli_child("K2", argv, out)
+    log(f"K2: python -m oovrec_tpu_torch.cli.run --model=SASRecF --selected_features=[category] "
+        f"({K_EPOCHS_CLI} epoch) rc 0 in {wall:.1f} s (wall, process start and the corpus "
+        f"included), test {res['test_result']}")
+    again = cli_run.main([f"--eval_only={os.path.join(out, 'SASRecF-synth-ind.pth')}"])
+    require(type(again["trainer"].model).__name__ == "SASRecF", "K2: the model")
+    agree(res["test_result"], again["test_result"], "K2 eval_only test", tol=1e-9)
+    log(f"K2: --eval_only == the run on the test metrics (1e-9); the run's launches {counts}")
+    K_TIMES["K2 CLI run s"] = wall
+    return counts
+
+
 SERVING = {}
 
 
@@ -5351,6 +5591,24 @@ def main():
     require(j_trace["J1"]["scatter_rows_kernel"] > 0, f"phase J graphed traces {j_trace}")
     log("phase J kernels replayed, from the traces: " + json.dumps(j_trace))
     log("phase J times: " + json.dumps(J_TIMES))
+    # phase K, the last seven sequential models; counted by part as J is
+    t0 = time.perf_counter()
+    on_k, j_done = {}, dict(F_TRACE)
+    for part, run in (("K1", k1_sequential), ("K2", k2_cli)):
+        reset_kernel_counts()
+        sync()
+        t1 = time.perf_counter()
+        seen = run()
+        sync()
+        on_k[part] = {**kernel_counts(), **seen}
+        log(f"phase {part}: {time.perf_counter() - t1:.1f} s, kernel launches {on_k[part]}")
+    log(f"phase K: {time.perf_counter() - t0:.1f} s")
+    k_trace = {p: c for p, c in F_TRACE.items() if p not in j_done}
+    require(all(on_k[p]["scatter_rows_kernel"] > 0 for p in ("K1", "K2")),
+            f"phase K launches {on_k}")
+    require(k_trace["K1"]["scatter_rows_kernel"] > 0, f"phase K graphed traces {k_trace}")
+    log("phase K kernels replayed, from the traces: " + json.dumps(k_trace))
+    log("phase K times: " + json.dumps(K_TIMES))
     cli = {  # each kernel's launches on the CLI paths (A launches none)
         "fused_topk_scores": {"C": k1_c},
         "cin_layer_pooled": {"B": cli_b["cin_layer_pooled"]},
@@ -5427,6 +5685,8 @@ def main():
         k["launches_i_trace"] = {part: c[k["name"]] for part, c in i_trace.items()}
         k["launches_j"] = {part: c[k["name"]] for part, c in on_j.items()}
         k["launches_j_trace"] = {part: c[k["name"]] for part, c in j_trace.items()}
+        k["launches_k"] = {part: c[k["name"]] for part, c in on_k.items()}
+        k["launches_k_trace"] = {part: c[k["name"]] for part, c in k_trace.items()}
     log("gathers' backward (ops/embed_grad.py, not a Pallas kernel): " + json.dumps({
             "ms": gathers, "bound_ms": gather_bound,
             "device_epoch": GATHER_RESULTS.get("device_epoch")}))

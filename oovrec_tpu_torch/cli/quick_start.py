@@ -108,7 +108,17 @@ def build_model_and_state(config, dataset, mode: str = "transductive",
     (`inductive/factory.py:build_embedder_state`) is built over `dataset`
     in `mode` ('transductive', or 'inductive' over the `_ind` corpus, as
     `oovrec_tpu/cli/quick_start.py:122-131` builds it) and handed to the
-    model, which keeps it as buffers."""
+    model, which keeps it as buffers.
+
+    The model's own hooks run last, as at `:116-140` there:
+    `cls.derive_kwargs(dataset, config)` (the feature-fused models'
+    packed vocabulary, the KG models' preloaded entity table and its
+    width), whose values override the config's, and
+    `cls.build_estate(dataset, config)` (the packed item features
+    `seq_feat_tokens`), handed to the constructor, which keeps them as
+    buffers. The JAX driver hands `build_estate` the training split and
+    the hook reads its parent; here it takes the dataset itself, so no
+    split is built for it."""
     cls = get_model_class(config["model"])
     spec = InductiveSpec.from_config(config)
     if not spec.active:
@@ -147,6 +157,10 @@ def build_model_and_state(config, dataset, mode: str = "transductive",
         if "label_field" in _ctor_params(cls):  # DIN and DIEN read the click label
             kwargs["label_field"] = config["LABEL_FIELD"]
     kwargs.update(model_kwargs(config, cls))
+    if hasattr(cls, "derive_kwargs"):  # dataset-derived sizes override the config's
+        kwargs.update(cls.derive_kwargs(dataset, config))
+    if hasattr(cls, "build_estate"):   # dataset-derived buffers of the model
+        kwargs.update(cls.build_estate(dataset, config))
     return cls(**kwargs)
 
 

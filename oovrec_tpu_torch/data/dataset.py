@@ -171,9 +171,6 @@ class Dataset:
         seq_sep = self.config["seq_separator"]
         load_col_cfg = self.config["load_col"]
         unload_col_cfg = self.config["unload_col"] or {}
-        if self.config["additional_feat_suffix"]:
-            raise NotImplementedError(
-                "additional_feat_suffix (preload weights) is not ported")
 
         def cols_for(suffix: str):
             if load_col_cfg is None:
@@ -228,6 +225,15 @@ class Dataset:
                     FeatureSource.USER_ID if suffix == "user" else FeatureSource.ITEM_ID
                 )
                 setattr(self, f"{suffix}_feat", t)
+
+        # the side tables of `additional_feat_suffix`, kept raw (not
+        # remapped) for `get_preload_weight`
+        self.additional_feats: Dict[str, Table] = {}
+        for suffix in self.config["additional_feat_suffix"] or []:
+            fp = os.path.join(path, f"{token}.{suffix}")
+            if os.path.isfile(fp):
+                self.additional_feats[suffix], _ = load_atomic_file(fp, sep, seq_sep, None,
+                                                                    set())
 
         if self.uid_field and self.uid_field not in self.field2type:
             self.field2type[self.uid_field] = FeatureType.TOKEN
@@ -563,6 +569,38 @@ class Dataset:
     @property
     def item_num(self) -> int:
         return len(self.field2id_token[self.iid_field])
+
+    def get_preload_weight(self, kid: str) -> np.ndarray:
+        """The float32 matrix of `preload_weight: {kid: vector field}` from
+        an `additional_feat_suffix` table holding both columns. Its rows
+        follow the entity, item or user vocabulary (in that order of
+        trial) whose tokens cover at least half the table's, row 0 and the
+        vocabulary's absent tokens zero; else the table's order after a
+        zero pad row."""
+        pw = self.config["preload_weight"] or {}
+        if kid not in pw:
+            raise ValueError(f"Field [{kid}] not in preload_weight config.")
+        vfield = pw[kid]
+        table = next((t for t in self.additional_feats.values()
+                      if kid in t and vfield in t), None)
+        if table is None:
+            raise ValueError(f"No additional feat file holds [{kid}] and [{vfield}].")
+        tokens = [_as_token(t) for t in table[kid]]
+        vecs = np.stack([np.asarray(v, np.float32) for v in table[vfield]])
+        for vocab_field in (getattr(self, "entity_field", None), self.iid_field,
+                            self.uid_field):
+            if vocab_field and vocab_field in self.field2token_id:
+                t2i = self.field2token_id[vocab_field]
+                if sum(t in t2i for t in tokens) >= 0.5 * len(tokens):
+                    out = np.zeros((len(self.field2id_token[vocab_field]), vecs.shape[1]),
+                                   np.float32)
+                    for t, v in zip(tokens, vecs):
+                        if t in t2i:
+                            out[t2i[t]] = v
+                    return out
+        out = np.zeros((len(tokens) + 1, vecs.shape[1]), np.float32)
+        out[1:] = vecs
+        return out
 
     def num(self, field: str) -> int:
         ftype = self.field2type.get(field)

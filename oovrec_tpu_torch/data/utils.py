@@ -9,8 +9,11 @@ negatives for 'uniN' / 'popN'). A sequential model gets the
 `SequentialDataset` (`data/sequential.py`) and, under full sort, its
 `SeqFullSortEvalBatcher`. The loaders take the process pair from the
 caller (one process when it gives none). The knowledge-graph datasets
-(knowledge models, GRU4RecKG and KSR) and the user-batch (autoencoder)
-loaders are not ported and raise, naming their ROADMAP.md items.
+(`KnowledgeBasedDataset` of the knowledge models, `KGSeqDataset` of
+GRU4RecKG and KSR on a corpus with `.kg` and `.link` files) and the
+user-batch (autoencoder) loaders are not ported and raise, naming their
+ROADMAP.md items. Without those files GRU4RecKG and KSR take the plain
+`SequentialDataset`, as the JAX package falls back to it.
 """
 
 from __future__ import annotations
@@ -45,9 +48,15 @@ DATASET_CACHE_ARGS = (
     "normalize_all", "discretization", "numerical_features", "seed",
     "benchmark_filename", "MAX_ITEM_LIST_LENGTH",
 )
-# sequential models over knowledge-graph side files (`kg_seq_dataset.py` of
-# the JAX package), not ported
+# sequential models whose JAX dataset is `KGSeqDataset` when the corpus
+# ships `.kg` and `.link` files (`data/utils.py:70-80` of the JAX package)
 KG_SEQUENTIAL = ("GRU4RecKG", "KSR")
+
+
+def _has_kg_files(config) -> bool:
+    path = os.path.join(config["data_path"], config["dataset"])
+    return all(os.path.isfile(os.path.join(path, f"{config['dataset']}.{ext}"))
+               for ext in ("kg", "link"))
 
 
 def _dataset_cache_path(config) -> str:
@@ -78,6 +87,12 @@ def create_dataset(config, inductive: bool = False):
     cls = _model_class(config)
     mt = getattr(cls, "model_type", None)
     if mt == ModelType.SEQUENTIAL:
+        if config["model"] in KG_SEQUENTIAL and _has_kg_files(config):
+            raise NotImplementedError(
+                f"[{config['model']}] on a corpus with .kg and .link files needs the "
+                "knowledge-graph sequential dataset (KGSeqDataset), which is not ported "
+                "(ROADMAP.md, queue 1 item 5: general and knowledge zoo; the JAX package "
+                "cannot build the model on it either, ROADMAP.md section 3)")
         return SequentialDataset(config)
     cache_path = None
     if config.get("save_dataset"):
@@ -87,10 +102,10 @@ def create_dataset(config, inductive: bool = False):
                 ds = pickle.load(f)
             ds.config = config
             return ds
-    if mt == ModelType.KNOWLEDGE or config["model"] in KG_SEQUENTIAL:
+    if mt == ModelType.KNOWLEDGE:
         raise NotImplementedError(
             f"the knowledge-graph datasets of [{config['model']}] are not ported "
-            "(ROADMAP.md, queue 1: sequential models; general and knowledge zoo)")
+            "(ROADMAP.md, queue 1 item 5: general and knowledge zoo)")
     ds = Dataset(config)
     if cache_path:
         os.makedirs(os.path.dirname(cache_path) or ".", exist_ok=True)

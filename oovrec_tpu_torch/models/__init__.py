@@ -29,11 +29,13 @@ from oovrec_tpu_torch.models.sequential import (
     CORE,
     DIEN,
     DIN,
+    FDSA,
     FOSSIL,
     FPMC,
     GCSAN,
     HGN,
     HRM,
+    KSR,
     NARM,
     NPE,
     SHAN,
@@ -42,25 +44,20 @@ from oovrec_tpu_torch.models.sequential import (
     STAMP,
     Caser,
     GRU4Rec,
+    GRU4RecF,
+    GRU4RecKG,
     LightSANs,
     NextItNet,
+    RepeatNet,
+    S3Rec,
     SASRec,
+    SASRecF,
     SequentialRecommender,
     TransRec,
 )
 
-# the JAX package's other sequential models (`models/sequential/featseq.py`,
-# `more5.py`, `s3rec.py`)
-UNPORTED_SEQUENTIAL = frozenset({
-    "GRU4RecF", "SASRecF", "FDSA", "RepeatNet", "GRU4RecKG", "KSR", "S3Rec",
-})
-
 
 def get_model_class(name: str):
-    if name in UNPORTED_SEQUENTIAL:
-        raise NotImplementedError(
-            f"the sequential model [{name}] is not ported (ROADMAP.md, queue 1 item 4: "
-            "sequential models)")
     if name not in MODEL_REGISTRY:
         raise ValueError(f"Model [{name}] is not ported")
     return MODEL_REGISTRY[name]
@@ -68,9 +65,10 @@ def get_model_class(name: str):
 
 __all__ = [
     "AFM", "AutoInt", "BERT4Rec", "BPR", "CORE", "Caser", "ContextRecommender", "DCN", "DCNV2",
-    "DIEN", "DIN", "DSSM", "DeepFM", "DirectAU", "EulerNet", "FFM", "FM", "FNN", "FOSSIL",
-    "FPMC", "FieldSpec", "FiGNN", "FwFM", "GCSAN", "GRU4Rec", "GeneralRecommender", "HGN",
-    "HRM", "KD_DAGFM", "LR", "LightSANs", "MODEL_REGISTRY", "NARM", "NFM", "NPE", "NextItNet",
-    "PNN", "SASRec", "SHAN", "SINE", "SRGNN", "STAMP", "SequentialRecommender", "TransRec",
-    "UNPORTED_SEQUENTIAL", "WideDeep", "get_model_class", "xDeepFM",
+    "DIEN", "DIN", "DSSM", "DeepFM", "DirectAU", "EulerNet", "FDSA", "FFM", "FM", "FNN",
+    "FOSSIL", "FPMC", "FieldSpec", "FiGNN", "FwFM", "GCSAN", "GRU4Rec", "GRU4RecF",
+    "GRU4RecKG", "GeneralRecommender", "HGN", "HRM", "KD_DAGFM", "KSR", "LR", "LightSANs",
+    "MODEL_REGISTRY", "NARM", "NFM", "NPE", "NextItNet", "PNN", "RepeatNet", "S3Rec", "SASRec",
+    "SASRecF", "SHAN", "SINE", "SRGNN", "STAMP", "SequentialRecommender", "TransRec",
+    "WideDeep", "get_model_class", "xDeepFM",
 ]

@@ -30,6 +30,7 @@ from oovrec_tpu_torch.models.init import xavier_normal_
 from oovrec_tpu_torch.ops.siphash_device import dhe_codes_device
 from oovrec_tpu_torch.utils.device import resolve_device
 from oovrec_tpu_torch.utils.enums import InputType, ModelType
+from oovrec_tpu_torch.utils.jax_params import MODEL_STATE
 
 Batch = Dict[str, torch.Tensor]
 STATE = "embedder_state"
@@ -99,17 +100,19 @@ def load_params(model: nn.Module, params: Mapping[str, torch.Tensor],
     """Load a saved `state_dict` into `model`: every parameter and
     BatchNorm running statistic, and of the embedder state only the
     `restore` keys (a model rebuilt over another corpus keeps its own
-    feature matrices and neighbors)."""
+    feature matrices and neighbors, and its own `MODEL_STATE` buffers,
+    the packed item features)."""
     own = model.state_dict()
     take = {}
     for k, v in params.items():
         head, _, leaf = k.rpartition(".")
-        if head.split(".")[-1] == STATE and leaf not in restore:
+        if (head.split(".")[-1] == STATE and leaf not in restore) or k in MODEL_STATE:
             continue
         if k not in own:
             raise KeyError(f"checkpoint entry [{k}] has no place in the model")
         take[k] = v
-    missing = [k for k in own if k not in take and k.split(".")[-2:-1] != [STATE]]
+    missing = [k for k in own
+               if k not in take and k not in MODEL_STATE and k.split(".")[-2:-1] != [STATE]]
     if missing:
         raise KeyError(f"checkpoint lacks {missing}")
     model.load_state_dict(take, strict=False)

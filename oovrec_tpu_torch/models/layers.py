@@ -370,21 +370,39 @@ def masked_mean_pool(emb: torch.Tensor, mask: torch.Tensor, eps: float = 1e-8) -
     return (emb * m).sum(dim=1) / (mask.to(emb.dtype).sum(dim=1, keepdim=True) + eps)
 
 
+def _draw_generator(generator: Optional[torch.Generator]) -> torch.Generator:
+    if generator is None:
+        raise RuntimeError(
+            "a train-mode draw takes an explicit generator: call "
+            "set_dropout_generator(model, generator) first")
+    return generator
+
+
 class RandomDraws(nn.Module):
-    """A model's own random draws in train mode (DIEN's negatives), from
-    the trainer's dropout generator, as flax draws them from the `dropout`
-    stream: a CUDA-graph capture registers that generator alone."""
+    """A model's own random draws in train mode (DIEN's negatives, S3Rec's
+    masks, negatives and segment starts), from the trainer's dropout
+    generator, as flax draws them from the `dropout` stream: a CUDA-graph
+    capture registers that generator alone."""
 
     def __init__(self):
         super().__init__()
         self.generator: Optional[torch.Generator] = None
 
     def randint(self, low: int, high: int, shape, device) -> torch.Tensor:
-        if self.generator is None:
-            raise RuntimeError(
-                "a train-mode draw takes an explicit generator: call "
-                "set_dropout_generator(model, generator) first")
-        return torch.randint(low, high, tuple(shape), generator=self.generator, device=device)
+        return torch.randint(low, high, tuple(shape), generator=_draw_generator(self.generator),
+                             device=device)
+
+    def rand(self, shape, device) -> torch.Tensor:
+        """Uniform [0, 1) floats."""
+        return torch.rand(tuple(shape), generator=_draw_generator(self.generator), device=device)
+
+    def below(self, high: torch.Tensor) -> torch.Tensor:
+        """One int64 draw in [0, high) for each entry of the int tensor
+        `high` (≥ 1), as ⌊u · high⌋ on the device: `torch.randint` takes
+        no tensor bound, and reading `high` on the host would break a
+        capture."""
+        u = self.rand(high.shape, high.device)
+        return torch.minimum((u * high).long(), high.long() - 1)
 
 
 def set_dropout_generator(module: nn.Module, generator: Optional[torch.Generator]) -> None:

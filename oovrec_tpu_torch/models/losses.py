@@ -38,9 +38,14 @@ def bce_with_logits(logits, labels, weight=None):
     last term is 0 in value and moves the gradient by −1 where the logit
     is 0; elsewhere it adds an exact 0, so every other gradient keeps the
     bits of the three terms' sum."""
-    loss = (torch.clamp(logits, min=0) - logits * labels
+    return _wmean(bce_with_logits_terms(logits, labels), weight)
+
+
+def bce_with_logits_terms(logits, labels):
+    """`bce_with_logits`' terms, elementwise and unreduced (S3Rec sums
+    them under its own masks)."""
+    return (torch.clamp(logits, min=0) - logits * labels
             + torch.log1p(torch.exp(-torch.abs(logits))) - (logits == 0) * logits)
-    return _wmean(loss, weight)
 
 
 def bce(probs, labels, weight=None, eps: float = 1e-8):

@@ -19,6 +19,19 @@ from oovrec_tpu_torch.models.sequential.base import SequentialRecommender, gathe
 from oovrec_tpu_torch.ops.embed_grad import gather_rows
 
 
+def add_blocks(model, prefix: str, n_layers: int, n_heads: int, inner_size: int,
+               dropout: float) -> list:
+    """`n_layers` pre-LN blocks of the model's width, children
+    `<prefix>_<i>` of `model` (flax's names). → the blocks in order."""
+    blocks = []
+    for i in range(n_layers):
+        blk = TransformerBlock(n_heads, model.embedding_size, inner_size, dropout,
+                               device=model.device, generator=model.generator)
+        model.add_module(f"{prefix}_{i}", blk)
+        blocks.append(blk)
+    return blocks
+
+
 @register_model
 class SASRec(SequentialRecommender):
     # the loss reads only split columns (+ a sampled negative): device-epoch OK
@@ -31,12 +44,8 @@ class SASRec(SequentialRecommender):
         rows = self.extra_item_rows
         self.item_embedding = self._embed_table(self.n_items + rows)
         self.position_embedding = self._embed_table(self.max_seq_length + rows)
-        self.blocks = []
-        for i in range(n_layers):
-            blk = TransformerBlock(n_heads, self.embedding_size, inner_size, hidden_dropout_prob,
-                                   device=self.device, generator=self.generator)
-            self.add_module(f"block_{i}", blk)
-            self.blocks.append(blk)
+        self.blocks = add_blocks(self, "block", n_layers, n_heads, inner_size,
+                                 hidden_dropout_prob)
         self.final_ln = LayerNorm(self.embedding_size, device=self.device)
         self.emb_dropout = Dropout(hidden_dropout_prob)
 
@@ -46,10 +55,14 @@ class SASRec(SequentialRecommender):
         causal = torch.ones((L, L), dtype=torch.bool, device=seq.device).tril()
         return (seq != 0)[:, None, None, :] & causal
 
+    def item_inputs(self, seq: torch.Tensor) -> torch.Tensor:
+        """(B, L) item ids → (B, L, D), the blocks' input before the
+        positions (SASRecF projects the item and its features here)."""
+        return gather_rows(self.item_embedding.weight, seq)
+
     def encode(self, seq: torch.Tensor, train: bool) -> torch.Tensor:
         """(B, L) item ids → (B, L, D) after the blocks and `final_ln`."""
-        x = gather_rows(self.item_embedding.weight, seq)
-        x = x + self.position_embedding.weight[: seq.shape[1]]
+        x = self.item_inputs(seq) + self.position_embedding.weight[: seq.shape[1]]
         x = self.emb_dropout(x, train)
         mask = self.mask(seq)
         for blk in self.blocks:

@@ -33,7 +33,11 @@ dict of numpy arrays (``estate``), the port holds it as the model's
 ``embedder_state`` buffers. `embedder_state_to_numpy` and
 `set_embedder_state` cross it (the uint64 DHE keys as their int64 bits on
 the port's side, int32 knn tables as int64), so both packages run from the
-same planes, keys and neighbors; the param bridge leaves it alone.
+same planes, keys and neighbors; the param bridge leaves it alone. The
+same holds for a model's own buffers that JAX keeps in ``estate``
+(`MODEL_STATE`: the packed item features ``seq_feat_tokens`` of GRU4RecF,
+SASRecF, FDSA and S3Rec): `set_embedder_state` loads them, the bridge
+never carries them as params.
 
 BatchNorm running statistics are not parameters either: flax keeps them
 in the ``batch_stats`` collection (``{.../BatchNorm_j: {mean, var}}``, or
@@ -60,7 +64,12 @@ sequential slice's: the conv kernels of Caser (``hconv_<h>``,
 scanned ``interest_gru``, SRGNN's ``gnn`` (``Dense_0/1``, ``GRUCell_0``),
 GCSAN's ``attn_block``, LightSANs' ``attn_<i>``, and the raw leaves at
 the top: HGN's ``b_g`` and ``w4_kernel``, FOSSIL's ``global_lambda``,
-TransRec's ``global_t`` and ``item_bias``, SINE's ``prototypes``.
+TransRec's ``global_t`` and ``item_bias``, SINE's ``prototypes``; and the
+last seven's: GRU4RecF's scanned ``feature_gru``, FDSA's ``feat_block_<i>``
+and ``feat_ln``, RepeatNet's ``gru`` and its bias-free Denses, GRU4RecKG's
+``entity_gru``, the raw ``entity_embedding`` and ``relation_embedding``
+of GRU4RecKG and KSR, and S3Rec's ``*_norm`` heads and its n_items + 1
+item table.
 
 A ``kernel`` leaf is a Dense or a stored kernel depending on the port's
 module, so trees with kernels cross with the target `module` given. A
@@ -78,10 +87,14 @@ from torch import nn
 
 FlaxParams = Mapping[str, Any]
 STATE = "embedder_state"
+# a model's own dataset-derived buffers, which the JAX package passes in
+# `estate` beside the embedder state (the feature-fused models' packed
+# item features)
+MODEL_STATE = frozenset({"seq_feat_tokens"})
 
 
 def _is_state(key: str) -> bool:
-    return key.split(".")[-2:-1] == [STATE]
+    return key.split(".")[-2:-1] == [STATE] or key in MODEL_STATE
 
 
 def _stat_keys(module: Optional[nn.Module], keys=()) -> set:
@@ -241,8 +254,11 @@ def embedder_state_to_numpy(module: nn.Module) -> Dict[str, np.ndarray]:
 
 def set_embedder_state(module: nn.Module, estate: Mapping[str, Any]) -> nn.Module:
     """Give `module` the JAX package's ``estate`` arrays as its embedder
-    state (the buffers must exist with the same shapes)."""
+    state, and the `MODEL_STATE` entries as the model's own buffers of
+    those names (the buffers must exist with the same shapes)."""
     buffers = dict(getattr(module, STATE).named_buffers())
+    own = dict(module.named_buffers(recurse=False))
+    buffers.update({k: own[k] for k in MODEL_STATE if k in own})
     for k, v in estate.items():
         if k not in buffers:
             continue  # JAX-only entries (the uint32 key parts of the TPU hash)

@@ -8,7 +8,9 @@ padding) to L and its last row at weight 0. The checks, each to 1e-5:
 the outputs (`predict`, `full_sort_scores` and `seq_output` or
 `forward`), the loss and the gradient of every parameter (`jax.grad`
 against autograd), the bridge both ways unchanged, and a batch of
-all-padding rows finite and equal to JAX's.
+all-padding rows finite and equal to JAX's. A model with an `estate`
+(the packed item features `seq_feat_tokens`) gets the arrays in JAX's
+calls and as its constructor's buffers in the port.
 """
 
 import numpy as np
@@ -29,6 +31,7 @@ LENGTHS = [0, 1, 2, 3, 4, 5, 5, 3]  # every length, two full rows
 SMALL = dict(embedding_size=D, max_seq_length=L)
 # the zero-initialised raw leaves and tables, moved off 0 with the biases
 MOVED = {"bias", "b_g", "global_lambda", "global_t", "item_bias", "user_lambda"}
+DROPOUT_SEED = 5  # the JAX loss's dropout stream
 SEQ_CFG = {"MAX_ITEM_LIST_LENGTH": L, "ITEM_ID_FIELD": "item_id", "LIST_SUFFIX": "_list",
            "ITEM_LIST_LENGTH_FIELD": "item_length"}
 
@@ -62,13 +65,18 @@ def make_batch(seed=0, inverse=False, presampled=False):
     return batch
 
 
-def both(name, kw, batch, seed=0):
+def _est(estate):
+    """JAX's trailing `estate` argument: none unless the model has one."""
+    return () if estate is None else ({k: jnp.asarray(v) for k, v in estate.items()},)
+
+
+def both(name, kw, batch, seed=0, estate=None):
     """(JAX model, its params with the biases and zero leaves moved off 0,
-    the port's model holding those params)."""
+    the port's model holding those params and `estate` as buffers)."""
     jm = jax_model_class(name)(n_users=N_USERS, n_items=N_ITEMS, **SMALL, **kw)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     params = jm.init({"params": jax.random.key(seed), "dropout": jax.random.key(1)}, jb,
-                     method=jm.calculate_loss)["params"]
+                     *_est(estate), method=jm.calculate_loss)["params"]
     rng = np.random.default_rng(seed + 7)
 
     def move(path, v):
@@ -77,7 +85,8 @@ def both(name, kw, batch, seed=0):
         return np.asarray(v) + (shift if keys & MOVED else 0)
 
     params = jax.tree_util.tree_map_with_path(move, params)
-    port = get_model_class(name)(n_users=N_USERS, n_items=N_ITEMS, device="cpu", **SMALL, **kw)
+    port = get_model_class(name)(n_users=N_USERS, n_items=N_ITEMS, device="cpu", **SMALL, **kw,
+                                 **(estate or {}))
     load_flax_params(port, params)
     return jm, params, port
 
@@ -86,43 +95,47 @@ def to_torch(batch):
     return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
 
 
-def jax_out(jm, params, batch, method):
+def jax_out(jm, params, batch, method, estate=None):
     return np.asarray(jm.apply({"params": params}, {k: jnp.asarray(v) for k, v in batch.items()},
-                               method=getattr(jm, method)))
+                               *_est(estate), method=getattr(jm, method)))
 
 
 def outputs_match(name, kw, batch, methods=("predict", "full_sort_scores", "seq_output"),
-                  seed=0, setup=None):
-    jm, params, port = both(name, kw, batch, seed)
+                  seed=0, setup=None, estate=None):
+    jm, params, port = both(name, kw, batch, seed, estate)
     if setup is not None:
         setup(port)
     port.eval()
     with torch.no_grad():
         for method in methods:
             got = getattr(port, method)(to_torch(batch)).numpy()
-            want = jax_out(jm, params, batch, method)
+            want = jax_out(jm, params, batch, method, estate)
             assert np.isfinite(got).all(), method
             np.testing.assert_allclose(got, want, err_msg=method, **TOL)
     return port
 
 
-def loss_and_gradients_match(name, kw, batch, seed=1, jax_batch=None, setup=None):
+def loss_and_gradients_match(name, kw, batch, seed=1, jax_batch=None, setup=None, estate=None,
+                             port_loss=None):
     """The loss and its gradients; JAX's loss over `jax_batch` where given
-    (the port's over `batch`)."""
+    (the port's over `batch`), with the dropout key 5; the port's loss is
+    `port_loss(port, JAX's model, its params, the torch batch)` where
+    given (S3Rec's on JAX's own draws), else `calculate_loss`."""
     jax_batch = batch if jax_batch is None else jax_batch
-    jm, params, port = both(name, kw, jax_batch, seed)
+    jm, params, port = both(name, kw, jax_batch, seed, estate)
     if setup is not None:
         setup(port)
     jb = {k: jnp.asarray(v) for k, v in jax_batch.items()}
 
     def jloss(p):
-        return jm.apply({"params": p}, jb, method=jm.calculate_loss,
-                        rngs={"dropout": jax.random.key(5)})
+        return jm.apply({"params": p}, jb, *_est(estate), method=jm.calculate_loss,
+                        rngs={"dropout": jax.random.key(DROPOUT_SEED)})
 
     want, jgrads = jax.value_and_grad(jloss)(jax.tree_util.tree_map(jnp.asarray, params))
     port.train()
     named = list(port.named_parameters())
-    loss = port.calculate_loss(to_torch(batch))
+    tb = to_torch(batch)
+    loss = port.calculate_loss(tb) if port_loss is None else port_loss(port, jm, params, tb)
     grads = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
     np.testing.assert_allclose(loss.item(), float(want), **TOL)
     pg = flat(flax_from_state_dict({n: torch.zeros_like(p) if g is None else g
@@ -134,14 +147,15 @@ def loss_and_gradients_match(name, kw, batch, seed=1, jax_batch=None, setup=None
     return port
 
 
-def bridge_round_trips(name, kw, batch):
-    _, params, port = both(name, kw, batch)
+def bridge_round_trips(name, kw, batch, estate=None):
+    _, params, port = both(name, kw, batch, estate=estate)
     back = flat(flax_from_state_dict(port.state_dict(), port))
     want = flat(params)
     assert back.keys() == want.keys()
     for k, v in want.items():
         np.testing.assert_array_equal(back[k], v, err_msg=k)
-    again = get_model_class(name)(n_users=N_USERS, n_items=N_ITEMS, device="cpu", **SMALL, **kw)
+    again = get_model_class(name)(n_users=N_USERS, n_items=N_ITEMS, device="cpu", **SMALL, **kw,
+                                  **(estate or {}))
     load_flax_params(again, flax_from_state_dict(port.state_dict(), port))
     for k, v in port.state_dict().items():
         assert torch.equal(again.state_dict()[k], v), k

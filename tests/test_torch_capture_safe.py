@@ -91,6 +91,22 @@ TRACKS.update({
     "seq-hgn-max": ["--model=HGN", *SEQUENTIAL, "--pool_type=max"],
     "seq-core-trm": ["--model=CORE", *SEQUENTIAL, "--dnn_type=trm"],
 })
+# the last seven: the feature-fused models and S3Rec over toy-ind's item
+# `category` (the packed table a buffer), S3Rec's pretraining drawing its
+# masks, negatives and segment starts and its finetuning, RepeatNet's
+# scatters, the KG models on the seeded entity table (toy-ind ships no
+# preload), frozen and trainable
+FEATURES = "--selected_features=['category']"
+TRACKS.update({
+    **{f"seq-{name.lower()}": [f"--model={name}", *SEQUENTIAL, FEATURES]
+       for name in ("GRU4RecF", "SASRecF", "FDSA", "S3Rec")},
+    "seq-s3rec-finetune": ["--model=S3Rec", *SEQUENTIAL, FEATURES, "--train_stage=finetune"],
+    "seq-repeatnet": ["--model=RepeatNet", *SEQUENTIAL],
+    "seq-repeatnet-joint": ["--model=RepeatNet", *SEQUENTIAL, "--joint_train=True"],
+    "seq-gru4reckg": ["--model=GRU4RecKG", *SEQUENTIAL],
+    "seq-ksr": ["--model=KSR", *SEQUENTIAL],
+    "seq-ksr-trainable": ["--model=KSR", *SEQUENTIAL, "--freeze_kg=False"],
+})
 
 
 class _Recorder(TorchDispatchMode):

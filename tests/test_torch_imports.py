@@ -69,6 +69,7 @@ def test_scan_sees_the_whole_port():
                    "models/sequential/more.py", "models/sequential/bert4rec.py",
                    "models/sequential/convs.py", "models/sequential/din.py",
                    "models/sequential/more2.py", "models/sequential/more3.py",
-                   "models/sequential/more4.py"):
+                   "models/sequential/more4.py", "models/sequential/featseq.py",
+                   "models/sequential/more5.py", "models/sequential/s3rec.py"):
         assert f"oovrec_tpu_torch/{module}" in names, module
     assert len(names) >= 25

@@ -16,8 +16,8 @@ masks it. The bridge carries every tree both ways unchanged, and the
 port's layers have flax's names (`gru_<i>`, `block_<i>` with
 `LayerNorm_0/1`, `MultiHeadDotProductAttention_0`, `Dense_0/1`,
 STAMP's raw `b_a`, FPMC's four tables). Then the flax attention with a
-mask, `LayerNorm` and `gelu` alone; the unported sequential models raise
-`NotImplementedError` naming ROADMAP queue 1; and the GRU4Rec `.pth` map
+mask, `LayerNorm` and `gelu` alone; every one of the JAX package's 28
+sequential models resolves in the port; and the GRU4Rec `.pth` map
 against the JAX package's.
 """
 
@@ -34,7 +34,8 @@ import torch  # noqa: E402
 from oovrec_tpu.models import get_model_class as jax_model_class  # noqa: E402
 from oovrec_tpu.utils.torch_import import import_state_dict as jax_import  # noqa: E402
 from oovrec_tpu_torch.data.transform import MaskItemSequence  # noqa: E402
-from oovrec_tpu_torch.models import UNPORTED_SEQUENTIAL, get_model_class  # noqa: E402
+from oovrec_tpu.models.sequential import __all__ as JAX_SEQUENTIAL  # noqa: E402
+from oovrec_tpu_torch.models import get_model_class  # noqa: E402
 from oovrec_tpu_torch.models.layers import (  # noqa: E402
     LayerNorm,
     MultiHeadDotProductAttention,
@@ -189,11 +190,13 @@ def test_masked_attention_layernorm_and_gelu_match_flax():
                                    np.asarray(jax.nn.gelu(x * 3)), **TOL)
 
 
-@pytest.mark.parametrize("name", sorted(UNPORTED_SEQUENTIAL))
-def test_unported_sequential_models_raise(name):
+@pytest.mark.parametrize("name", sorted(JAX_SEQUENTIAL))
+def test_every_jax_sequential_model_is_ported(name):
+    """Each of the JAX package's 28 sequential models resolves in the
+    port's registry, as a sequential model of the same name."""
     assert jax_model_class(name).model_type.name == "SEQUENTIAL"
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        get_model_class(name)
+    cls = get_model_class(name)
+    assert cls.__name__ == name and cls.model_type.name == "SEQUENTIAL"
 
 
 def _reference_gru4rec(num_layers, bias, seed=0):

@@ -1,0 +1,74 @@
+"""One of `chip_smoke.py`'s sequential phases alone, on the
+MovieLens-1M-shaped corpus: phase J (the fifteen plain sequence models,
+J1 and J2) or phase K (the last seven: GRU4RecF, SASRecF, FDSA, RepeatNet,
+GRU4RecKG, KSR and S3Rec, K1 and K2).
+
+Runs on the card only. From the repo's root:
+
+    python tools/chip_phase.py --phase J
+    python tools/chip_phase.py --phase K
+
+It builds the gathers' backward kernel (`csrc/embed_grad.cu`), writes
+phase I's corpus (`chip_smoke.ml1m_inter_file`), for phase J loads it
+(`create_dataset`, `data_preparation`), runs the phase's parts with their
+checks (phase K writes and loads its own item and entity files beside the
+interactions), and prints each part's launches, the kernels its graphed
+passes replayed, the phase's times line and the card's name and power
+limit. About 2-3 minutes a phase on one H100.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke as cs  # noqa: E402
+
+PHASES = {"J": (("J1", "j1_sequential"), ("J2", "j2_cli")),
+          "K": (("K1", "k1_sequential"), ("K2", "k2_cli"))}
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--phase", choices=sorted(PHASES), default="J")
+    phase = parser.parse_args(argv).phase
+    if not cs.torch.cuda.is_available():
+        print("chip_phase: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    cs.log(f"card: {smi}")
+    t0 = time.perf_counter()
+    cs.cuda_build.build_kernels(["embed_grad"])
+    cs.log(f"build {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cs.ml1m_inter_file()
+    if phase == "J":
+        base = cs.seq_cfg("GRU4Rec")
+        ds = cs.create_dataset(base)
+        cs.I_CORPUS.update(ds=ds, loaders=cs.data_preparation(base, ds))
+    cs.log(f"corpus {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for part, name in PHASES[phase]:
+        cs.reset_kernel_counts()
+        cs.sync()
+        t1 = time.perf_counter()
+        out = getattr(cs, name)()
+        cs.sync()
+        seen = {**cs.kernel_counts(), **out}
+        cs.log(f"phase {part}: {time.perf_counter() - t1:.1f} s, kernel launches {seen}")
+    cs.log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+    cs.log(f"phase {phase} kernels replayed, from the traces: " + json.dumps(cs.F_TRACE))
+    cs.log(f"phase {phase} times: " + json.dumps(getattr(cs, f"{phase}_TIMES")))
+    cs.log(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
