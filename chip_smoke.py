@@ -45,11 +45,11 @@ Phases (any failure exits non-zero; no phase failure is caught):
   7. the CLI, the main path's own entry (`build/cli/`):
      A. `python -m oovrec_tpu_torch.cli.run` as a subprocess on the tracked
         corpus dataset/synth-ind: BPR (D 64), random-mapper OOV buckets,
-        the OOV regime, the paper protocol (uni250), 2 epochs, the 7-slice
+        the OOV regime, the paper protocol (uni250), 1 epoch, the 7-slice
         inductive eval and `--results_json`; rc 0, finite metrics, all 7
         slices; `--eval_only` on its checkpoint reproduces it to 1e-9;
      B. `cli.run.main` in this process: xDeepFM at its published widths
-        under the ranking protocol, 2 epochs, the CIN forward and backward
+        under the ranking protocol, 1 epoch, the CIN forward and backward
         kernels counted (> 0) and held against their plain versions at a
         training batch's and a uni250 test batch's shapes (2,048 and about
         100,000 rows); `--eval_only` with `--fused_cin` True and False
@@ -65,12 +65,12 @@ Phases (any failure exits non-zero; no phase failure is caught):
   8. phase D, the embedders, at the published widths (BPR at D 64, DHE at
      128 hashes and towers of 512, xDeepFM at xDeepFM.yaml):
      D1. EXPERIMENTS.md:40-45 verbatim (lsh, the *_vector columns, 200
-         buckets a side, OOV ratio 0.3, the inductive eval; 2 epochs)
+         buckets a side, OOV ratio 0.3, the inductive eval; 1 epoch)
          through `python -m oovrec_tpu_torch.cli.run` as a subprocess, its
          `--eval_only` equal to 1e-9, then the same command through
          `cli.run.main` with slsh, dnn, knn, dhe and fdhe (32 hashes); every
          run's 7 slices finite;
-     D2. xDeepFM with lsh through `cli.run.main`, 2 epochs, the CIN kernels
+     D2. xDeepFM with lsh through `cli.run.main`, 1 epoch, the CIN kernels
          counted;
      D3. fdhe serving over phase 3's 1,000,000 items: the ids hashed on
          the card equal to the numpy hasher on every id, the tower pass
@@ -243,6 +243,31 @@ Phases (any failure exits non-zero; no phase failure is caught):
          --selected_features=[category]` on dataset/synth-ind for 1 epoch
          in a child that prints its launch counts, `--eval_only` == the
          run to 1e-9.
+ 16. phase L, the general models, on I1's interactions read as a general
+     dataset (random order, RS 8:1:1 by user, full sort over 3,707
+     items; set-up timed apart), in the order L2, L3, L1: ADMMSLIM's and
+     NCEPLRec's numpy states are solved in a worker thread meanwhile;
+     L1. Pop, Random, ItemKNN, EASE, ADMMSLIM, NCEPLRec and SLIMElastic:
+         the state built from the training split (timed; SLIMElastic's
+         coordinate descent on the card, its columns stopped by the rule
+         or at max_iter counted), `Trainer.fit` through the traditional
+         branch (one valid pass), the test pass, metrics in [0, 1]; a
+         zero diagonal (EASE, ADMMSLIM, SLIMElastic), at most k non-zeros
+         a row (ItemKNN), W >= 0 (SLIMElastic), the top item the most
+         counted (Pop), the same scores twice (Random);
+     L2. LightGCN, NGCF, SGL, SpectralCF, GCMC, DGCF and NCL at their
+         YAML widths over the 1.6 M edges of the training split on the
+         host path: the edge segment sum (`ops/embed_grad.py:
+         segment_sum`) at LightGCN's edges against `scatter_rows_plain`
+         and a repeat run, timed beside `index_add_` and its bound; 32
+         steps of 2,048 through `Trainer.fit`, finite falling losses,
+         every parameter moved, the kernel launched (segment sums and
+         gathers' backward); the scanned full-sort test pass; 4 graphed
+         steps == 4 eager ones bit for bit and the ms a step of each;
+     L3. `python -m oovrec_tpu_torch.cli.run --model=LightGCN`, then
+         `--model=Pop`, on dataset/synth-ind for 1 epoch in one child
+         that prints each run's launch counts, each `--eval_only` == its
+         run to 1e-9.
 Phase 2 also holds the gathers' backward kernel (`csrc/embed_grad.cu`)
 against its plain version (bit for bit on integer-valued cotangents, to
 1e-5 on random ones, against a repeat run) and times it; phase 6 profiles
@@ -253,14 +278,15 @@ bit for bit on integer inputs and gradients (and against itself on a
 repeat run), and times it per layer and for the 3-layer stack.
 The last line is the device record; the line before it lists the kernels,
 each with its launches on the earlier phases' paths (`launches`), on the
-CLI phases (`launches_cli`) and on phase D's to K's parts
+CLI phases (`launches_cli`) and on phase D's to L's parts
 (`launches_d`, `launches_e`, `launches_f`, `launches_g`, `launches_h`,
-`launches_i`, `launches_j`, `launches_k`), each counted by the kernel's
-wrapper where it launches (`ops/launches.py`; a CUDA graph's replays run
-no wrapper), and the kernels that phase F's to K's graphed passes
-replayed, as their profiler traces show them (`launches_f_trace` ...
-`launches_k_trace`); before them, phase F's to K's times as JSON lines
-(`phase F times` ... `phase K times`).
+`launches_i`, `launches_j`, `launches_k`, `launches_l`), each counted by
+the kernel's wrapper where it launches (`ops/launches.py`; a CUDA graph's
+replays run no wrapper), and the kernels that phase F's to L's graphed
+passes replayed, as their profiler traces show them (`launches_f_trace`
+... `launches_l_trace`); before them, phase F's to L's times as JSON
+lines (`phase F times` ... `phase L times`) and the edge segment sum's
+numbers.
 
 TF32 is switched off for matmuls and cuDNN below: the plain versions and
 the dense path must compute in full f32, as the kernel does.
@@ -2511,7 +2537,8 @@ SYNTH_LOAD_COL = ("--load_col={'inter': ['user_id','item_id','timestamp','is_new
 CLI_OOV = ["--inductive_mapper=random", "--add_oov_buckets=True", "--n_user_oov_buckets=200",
            "--n_item_oov_buckets=200", "--train_oov=True", "--oov_train_ratio=0.3",
            "--inductive_eval=True"]
-CLI_EPOCHS_A, CLI_EPOCHS_B = 2, 2  # A and D1, B and D2: 5 epochs until phase J, 3 until K
+CLI_EPOCHS_A, CLI_EPOCHS_B = 1, 1  # A and D1, B and D2: 5 epochs until phase J, 3 until K,
+                                  # 2 until L
 SLICE_NAMES = ("overall", "old_users", "new_users", "old_old", "old_new", "new_old", "new_new")
 # phase C: an atomic-file family the card notices (tools/make_synth_dataset.py's
 # generator at 50,000 users x 100,000 items x 1,000,000 rows, 10 % new), BPR
@@ -2675,7 +2702,11 @@ def generate(out: str, name: str, n_users: int, n_items: int, n_inters: int,
     the JAX package's config, which the card's machine cannot import):
     `<name>/` (the training corpus with is_new rows and feature files) and
     `<name>_ind/` (benchmark train/empty/test_filt and the full feature
-    files) in the atomic-file format, with latent-factor structure."""
+    files) in the atomic-file format, with latent-factor structure. The
+    items are drawn from the same softmax as the tool's, its sums and
+    searches on the card (the tool's numpy loop took 70-85 s on the
+    host of an H100 machine, the card 8 s), so the rows differ from the
+    tool's where a draw lands within rounding of a boundary."""
     rng = np.random.default_rng(seed)
     n_new_u = int(n_users * new_ratio)
     n_new_i = int(n_items * new_ratio)
@@ -2689,25 +2720,37 @@ def generate(out: str, name: str, n_users: int, n_items: int, n_inters: int,
     i_cat = np.argmax(I[:, 1:4], axis=1)
 
     def sample_inters(users, items_pool, n, t0):
+        """n rows: a user drawn uniformly, its item from the softmax of
+        its latent scores over the pool, one uniform a row (the user's
+        draws in the order of the sorted rows, as one `rng.random` a user
+        takes them); the softmax's cumulative sums and their searches on
+        the card, a block of users at a time."""
         uu = rng.integers(0, len(users), n)
-        ii = np.empty(n, np.int64)
         order = np.argsort(uu, kind="stable")
-        uu_sorted = uu[order]
-        uniq, starts = np.unique(uu_sorted, return_index=True)
-        ends = np.append(starts[1:], n)
-        Ip = I[items_pool].astype(np.float32).T
-        block = max(1, (1 << 26) // max(1, len(items_pool)))
+        uniq, starts, counts = np.unique(uu[order], return_index=True, return_counts=True)
+        r = torch.from_numpy(rng.random(n).astype(np.float32)).to(DEVICE)
+        Ip = torch.from_numpy(I[items_pool].astype(np.float32).T.copy()).to(DEVICE)
+        Uu = torch.from_numpy(U[users[uniq]].astype(np.float32)).to(DEVICE)
+        ii = torch.empty(n, dtype=torch.int64, device=DEVICE)
+        block = max(1, (1 << 28) // max(1, len(items_pool)))
+        width = int(counts.max())
         for bs in range(0, len(uniq), block):
-            ub = uniq[bs:bs + len(uniq[bs:bs + block])]
-            logits = U[users[ub]].astype(np.float32) @ Ip
-            logits -= logits.max(axis=1, keepdims=True)
-            cdf = np.cumsum(np.exp(logits), axis=1)
-            for k in range(len(ub)):
-                s, e = starts[bs + k], ends[bs + k]
-                r = rng.random(e - s).astype(np.float32) * cdf[k, -1]
-                ii[order[s:e]] = np.searchsorted(cdf[k], r, side="right")
-        np.clip(ii, 0, len(items_pool) - 1, out=ii)
-        return users[uu], items_pool[ii], t0 + np.arange(n)
+            cnt = torch.from_numpy(counts[bs:bs + block]).to(DEVICE)
+            logits = Uu[bs:bs + block] @ Ip
+            logits -= logits.max(dim=1, keepdim=True).values
+            cdf = torch.cumsum(torch.exp_(logits), dim=1)
+            lo = int(starts[bs])
+            hi = lo + int(counts[bs:bs + block].sum())
+            row = torch.repeat_interleave(torch.arange(len(cnt), device=DEVICE), cnt)
+            col = torch.arange(hi - lo, device=DEVICE) - torch.repeat_interleave(
+                torch.cumsum(cnt, 0) - cnt, cnt)
+            vals = torch.zeros((len(cnt), width), device=DEVICE)
+            vals[row, col] = r[lo:hi] * cdf[row, -1]
+            ii[lo:hi] = torch.searchsorted(cdf, vals, right=True)[row, col]
+            del logits, cdf
+        picked = np.empty(n, np.int64)
+        picked[order] = ii.clamp_(0, len(items_pool) - 1).cpu().numpy()
+        return users[uu], items_pool[picked], t0 + np.arange(n)
 
     old_users = np.arange(n_old_u)
     old_items = np.arange(n_old_i)
@@ -5405,6 +5448,386 @@ def k2_cli():
     return counts
 
 
+# phase L, the general models: the seven traditional models and the
+# seven graph models on phase I's interactions read as a general dataset
+# (MovieLens-1M's shape, RecBole's standard general benchmark: random order,
+# RS 8:1:1 by user, full sort over the 3,707 items), at their YAML widths
+L_TRADITIONAL = ("Pop", "Random", "ItemKNN", "EASE", "ADMMSLIM", "NCEPLRec", "SLIMElastic")
+# the host solves (numpy, no device call), computed in a worker thread
+# from the phase's set-up on, while L2 and L3 run on the card
+L_AHEAD = ("ADMMSLIM", "NCEPLRec")
+L_GRAPH = ("LightGCN", "NGCF", "SGL", "SpectralCF", "GCMC", "DGCF", "NCL")
+L_ZERO_DIAGONAL = {"EASE": "ease_B", "ADMMSLIM": "admm_W", "SLIMElastic": "slim_W"}
+L_STEPS = 32           # L2: host steps of I_B rows a fit
+L_COMPARE_STEPS = 4    # L2: graphed against eager steps, bit for bit, and timed
+L_SEGMENT_REPS = 20    # the segment sum's timed calls
+L_EPOCHS_CLI = 1       # L3
+L_TIMES = {}
+L_GATHERS = {}         # L2: the kernel's launches of each graph model's fit
+L_CORPUS = {}          # the general dataset and its loaders, loaded once
+
+
+def l_cfg(name, **over):
+    """A general model's config at its YAML widths: I_B rows a step, one
+    epoch, one uniform negative a row (the pairwise models' negative,
+    GCMC's label-0 row), RS 8:1:1 by user in random order, full sort over
+    the whole item set, 256 users a test batch."""
+    d = {
+        "model": name, "seed": SEED, "epochs": 1, "train_batch_size": I_B,
+        "eval_batch_size": I_EVAL_ROWS * (I_ITEMS + 1), "learner": "adam",
+        "learning_rate": 1e-3, "host_scan_steps": 1,
+        "train_neg_sample_args": {"distribution": "uniform", "sample_num": 1},
+        "eval_args": {"split": {"RS": [8, 1, 1]}, "order": "RO", "group_by": "user",
+                      "mode": "full"},
+        "metrics": ["Recall", "MRR", "NDCG", "Hit"], "topk": [10, 20],
+        "valid_metric": "MRR@10", "metric_decimal_place": 12, "device": DEVICE,
+        "log_tensorboard": False, "checkpoint_dir": os.path.join("build", "general"),
+        "dataset": I_DATASET, "data_path": I_DATA,
+        "load_col": {"inter": ["user_id", "item_id", "timestamp"]},
+    }
+    d.update(over)
+    return Config(d)
+
+
+def l_corpus():
+    """Phase I's `.inter` file (written again where absent) loaded as a
+    general dataset, split once; its loaders, kept in L_CORPUS."""
+    t0 = time.perf_counter()
+    path = os.path.join(I_DATA, I_DATASET, f"{I_DATASET}.inter")
+    wrote = 0.0 if os.path.exists(path) else ml1m_inter_file()
+    base = l_cfg("Pop")
+    t1 = time.perf_counter()
+    ds = create_dataset(base)
+    # `Dataset.build` is deterministic: the phase splits once, and each
+    # model's `build_model_and_state` reads the same training split
+    splits = ds.build()
+    ds.build = lambda: list(splits)
+    loaders = data_preparation(base, ds)
+    train, valid, test = (x.split for x in loaders)
+    prepared = time.perf_counter() - t1
+    require(type(ds).__name__ == "Dataset" and ds.item_num == I_ITEMS + 1
+            and ds.user_num == I_USERS + 1, f"L: the dataset {type(ds)} {ds.item_num}")
+    require(len(train) + len(valid) + len(test) == I_INTERS and len(train) > 0.79 * I_INTERS,
+            f"L: the splits {len(train)} {len(valid)} {len(test)}")
+    L_CORPUS.update(ds=ds, loaders=loaders, ahead=l_states_ahead(loaders[0].split))
+    L_TIMES["set-up s"] = {"write": wrote, "create_dataset + data_preparation": prepared}
+    log(f"L corpus: {I_INTERS} rows, {I_USERS} users, {I_ITEMS} items as a general dataset: "
+        f"train {len(train)}, valid {len(valid)}, test {len(test)} (RS 8:1:1 by user); "
+        f"set-up apart from the phase's times: the .inter file "
+        f"{'written in %.1f s' % wrote if wrote else 'from phase I'}, `create_dataset` with "
+        f"`data_preparation` {prepared:.1f} s ({time.perf_counter() - t0:.1f} s in all)")
+    return ds, loaders
+
+
+def l_states_ahead(train):
+    """The L_AHEAD models' states (`build_estate`, numpy on the host and
+    no device call: a CUDA-graph capture on the card refuses other
+    threads' device work) from the training split, in a worker thread.
+    → a future of {name: (state, seconds)}; its exception, if any, is
+    raised where L1 reads it."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def solve():
+        out = {}
+        for name in L_AHEAD:
+            t0 = time.perf_counter()
+            out[name] = (get_model_class(name).build_estate(train, l_cfg(name)),
+                         time.perf_counter() - t0)
+        return out
+
+    pool = ThreadPoolExecutor(1)
+    future = pool.submit(solve)
+    pool.shutdown(wait=False)
+    return future
+
+
+def l_build(cfg, ds, ahead=None):
+    """`quick_start.build_model_and_state`, the model's `build_estate`
+    timed inside it, or handing back `ahead` (a state and its seconds from
+    `l_states_ahead`). → (model, the state's seconds (0 for Random, which
+    has no state), the build's)."""
+    cls = get_model_class(cfg["model"])
+    if not hasattr(cls, "build_estate"):
+        t0 = time.perf_counter()
+        model = quick_start.build_model_and_state(cfg, ds)
+        return model, 0.0, time.perf_counter() - t0
+    own, inner = "build_estate" in cls.__dict__, cls.build_estate
+    seconds = []
+
+    def timed_state(split, config=None):
+        if ahead is not None:
+            seconds.append(ahead[1])
+            return ahead[0]
+        t0 = time.perf_counter()
+        out = inner(split, config)
+        sync()
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    cls.build_estate = staticmethod(timed_state)
+    try:
+        t0 = time.perf_counter()
+        model = quick_start.build_model_and_state(cfg, ds)
+        sync()
+        built = time.perf_counter() - t0
+    finally:
+        if own:
+            cls.build_estate = staticmethod(inner)
+        else:
+            del cls.build_estate
+    require(len(seconds) == 1, f"{cfg['model']}: build_estate ran {len(seconds)} times")
+    return model, seconds[0], built
+
+
+def unit_metrics(result, what):
+    finite_metrics(result, what)
+    require(all(0.0 <= float(v) <= 1.0 for v in result.values()),
+            f"{what}: a metric outside [0, 1]: {result}")
+
+
+def l1_traditional():
+    """L1: the seven traditional models: the state built from the training
+    split (timed: the host solves, ADMMSLIM's and NCEPLRec's in the worker
+    thread of `l_states_ahead` while L2 and L3 ran; SLIMElastic's on the
+    card),
+    `Trainer.fit` through its traditional branch (one valid pass, no
+    epoch), the test pass; each model's own checks: a zero diagonal
+    (EASE, ADMMSLIM, SLIMElastic), at most k non-zeros a row (ItemKNN),
+    W ≥ 0 and the columns stopped by the rule or at max_iter
+    (SLIMElastic), the top item the most counted (Pop), the same scores
+    twice (Random). Launches no kernel. → {}."""
+    ds, (train_loader, valid_loader, test_loader) = L_CORPUS["ds"], L_CORPUS["loaders"]
+    train = train_loader.split
+    counts = np.bincount(train.inter[train.iid_field], minlength=ds.item_num)
+    users = {"user_id": torch.arange(1, 65, device=DEVICE)}
+    t0 = time.perf_counter()
+    ahead = L_CORPUS["ahead"].result()
+    L_TIMES["L1 waited for the worker thread s"] = time.perf_counter() - t0
+    for name in L_TRADITIONAL:
+        what = f"L1 {name}"
+        cfg = l_cfg(name)
+        model, state_s, built_s = l_build(cfg, ds, ahead.get(name))
+        trainer = Trainer(cfg, model)
+        sync()
+        t0 = time.perf_counter()
+        score, valid = trainer.fit(train_loader, valid_loader, saved=False)
+        sync()
+        fit_s = time.perf_counter() - t0
+        require(trainer.train_loss_dict == {} and trainer._global_step == 0,
+                f"{what}: the traditional branch trained {trainer.train_loss_dict}")
+        unit_metrics(valid, f"{what} valid")
+        t0 = time.perf_counter()
+        test = trainer.evaluate(test_loader, load_best_model=False)
+        sync()
+        test_s = time.perf_counter() - t0
+        unit_metrics(test, f"{what} test")
+        note = ""
+        with torch.no_grad():
+            if name in L_ZERO_DIAGONAL:
+                m = getattr(model, L_ZERO_DIAGONAL[name])
+                require(not bool(torch.diagonal(m).any()), f"{what}: a non-zero diagonal")
+                note = "zero diagonal"
+            if name == "ItemKNN":
+                most = int((model.item_sim != 0).sum(dim=1).max())
+                require(most <= model.k, f"{what}: {most} non-zeros in a row (k {model.k})")
+                note = f"at most {most} non-zeros a row (k {model.k})"
+            if name == "SLIMElastic":
+                info = model.slim_info
+                require(bool((model.slim_W >= 0).all()), f"{what}: a negative weight")
+                require(info["stopped"] + info["max_iter"] == I_ITEMS, f"{what}: {info}")
+                note += (f", W >= 0, {info['stopped']} columns stopped by the rule and "
+                         f"{info['max_iter']} at max_iter after {info['sweeps']} sweeps")
+                L_TIMES["SLIMElastic solve"] = info
+            if name == "Pop":
+                top = int(model.full_sort_scores(users)[0].argmax())
+                require(counts[top] == counts.max(), f"{what}: top item {top}")
+                note = f"top item {top}, the most counted ({int(counts.max())} rows)"
+            if name == "Random":
+                a, b = model.full_sort_scores(users), model.full_sort_scores(users)
+                require(torch.equal(a, b) and bool((a >= 0).all()) and bool((a < 1).all()),
+                        f"{what}: the scores do not repeat in [0, 1)")
+                note = "the same scores twice, in [0, 1)"
+        log(f"{what}: state {state_s:.2f} s{' (worker thread)' if name in ahead else ''} "
+            f"(the build {built_s:.2f} s), fit (one valid "
+            f"pass) {fit_s:.2f} s, test pass {test_s:.2f} s; {note + '; ' if note else ''}valid "
+            f"{valid[cfg['valid_metric'].lower()]:.4f}, test {dict(test)}")
+        L_TIMES[name] = {"state s": state_s, "build s": built_s, "fit s": fit_s,
+                         "test pass s": test_s}
+        del trainer, model
+    return {}
+
+
+def l_loader(cfg, train):
+    """The model's training loader over the rows of L_STEPS batches of the
+    training split: pairwise, or pointwise with a label-0 row a negative
+    (GCMC: half the rows, two a batch row)."""
+    input_type = get_model_class(cfg["model"]).input_type
+    rows = L_STEPS * I_B // (2 if input_type == InputType.POINTWISE else 1)
+    split = DatasetSplit.view(train.parent, train.index[:rows])
+    return TrainBatcher(split, Sampler(["train"], [split], seed=SEED), cfg, input_type)
+
+
+def l_segment_sum(model):
+    """The edge segment sum at LightGCN's edges (`ops/embed_grad.py:
+    segment_sum`, messages (E, D) at the model's destinations): the kernel
+    against `scatter_rows_plain`, bit for bit on integer-valued messages,
+    to 1e-6 of the largest sum on random ones (a row sums up to its
+    degree's ~6,000 messages, in another order), and against a repeat run
+    bit for bit; a call's ms (CUDA events, host included) and device ms
+    from a profile, beside the plain version, `index_add_` (the library
+    call, atomics) and the bound (the messages read once, the ids read
+    once, the table written once). → the numbers."""
+    dst, n = model.edge_dst, model.n_nodes
+    e, d = dst.shape[0], model.embedding_size
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(SEED + 1600)
+    ints = torch.randint(-4, 5, (e, d), generator=g, device=DEVICE).float()
+    exact = torch.equal(embed_grad.segment_sum(ints, dst, n),
+                        embed_grad.scatter_rows_plain(ints, dst, n))
+    msg = torch.randn((e, d), generator=g, device=DEVICE)
+    kernel = lambda: embed_grad.segment_sum(msg, dst, n)  # noqa: E731
+    a, b = kernel(), kernel()
+    want = embed_grad.scatter_rows_plain(msg, dst, n)
+    err, top = float((a - want).abs().max()), float(want.abs().max())
+    require(exact and torch.equal(a, b) and err <= 1e-6 * top,
+            f"L segment sum: integers exact {exact}, repeat {torch.equal(a, b)}, max_abs_err "
+            f"{err} (largest sum {top})")
+    dst64 = dst.long()
+    plain = lambda: embed_grad.scatter_rows_plain(msg, dst, n)  # noqa: E731
+    library = lambda: torch.zeros((n, d), device=DEVICE).index_add_(0, dst64, msg)  # noqa: E731
+    ms, plain_ms, library_ms = (time_ms(f, [()], L_SEGMENT_REPS) for f in (kernel, plain, library))
+    _, busy = profiled(lambda: [kernel() for _ in range(L_SEGMENT_REPS)],
+                       "profile the edge segment sum", quiet=True, gathers=False)
+    nbytes = e * d * 4 + e * dst.element_size() + n * d * 4
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = e * d / PEAK_F32_FLOPS * 1e3
+    out = {"edges": e, "rows": n, "D": d, "max_abs_err": err, "largest_sum": top, "ms": ms,
+           "device_ms": busy / L_SEGMENT_REPS, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes > t_ops else
+           "operations"}
+    log(f"L segment sum, {e} edges x {d} into {n} rows: bit for bit on integers and on a "
+        f"repeat run, max_abs_err {err:.3g} vs scatter_rows_plain (largest sum {top:.1f}); "
+        f"ms a call {ms:.4f} (device "
+        f"{out['device_ms']:.4f}), plain {plain_ms:.4f}, index_add_ {library_ms:.4f}, bound "
+        f"{out['bound_ms']:.4f} ({out['bound_by']}, {nbytes / 1e6:.1f} MB)")
+    L_TIMES["segment sum"] = out
+    return out
+
+
+def l2_graph():
+    """L2: LightGCN and the six graph models at their YAML widths on the
+    host path (no model declares the device epoch): the edges of the
+    training split (both directions, int32 on the card), a fit of L_STEPS
+    steps of I_B rows through `Trainer.fit`, the losses finite and
+    falling, every parameter moved, the kernel launched by the segment
+    sums and the gathers' backward; the scanned full-sort test pass (it
+    propagates the graph every batch); L_COMPARE_STEPS graphed steps ==
+    eager ones bit for bit, and their ms a step. LightGCN's edges also
+    time the segment sum (`l_segment_sum`). → the fits' launches."""
+    ds, (train_loader, _, test_loader) = L_CORPUS["ds"], L_CORPUS["loaders"]
+    train = train_loader.split
+    counts = {}
+    for name in L_GRAPH:
+        what = f"L2 {name}"
+        cfg = l_cfg(name)
+        model, state_s, _ = l_build(cfg, ds)
+        require(model.edge_src.shape[0] == 2 * len(train) and model.edge_src.dtype == torch.int32
+                and model.edge_src.device.type == torch.device(DEVICE).type,
+                f"{what}: the edges {tuple(model.edge_src.shape)} {model.edge_src.dtype}")
+        if name == "LightGCN":
+            l_segment_sum(model)
+        trainer = Trainer(cfg, model)
+        loader = l_loader(cfg, train)
+        before = {n: p.detach().clone() for n, p in trainer.params.items()}
+        reset_kernel_counts()
+        normal, _, fit_s = f_fit(trainer, loader, what)
+        seen = kernel_counts()
+        counts = {k: counts.get(k, 0) + n for k, n in seen.items()}
+        L_GATHERS[name] = seen["scatter_rows_kernel"]
+        require(not trainer._device_epochs and normal["steps"] == L_STEPS,
+                f"{what}: {normal['steps']} steps, device epochs {trainer._device_epochs}")
+        require(seen["scatter_rows_kernel"] > 0, f"{what}: the kernel's launches {seen}")
+        still = [n for n in before if torch.equal(before[n], trainer.params[n])]
+        require(not still, f"{what}: parameters did not move over the fit: {still}")
+        del before
+        res, wall = timed_eval(model, cfg, test_loader, f"{what} test", device_eval=True)
+        unit_metrics(res, f"{what} test")
+        log(f"{what}: edges {model.edge_src.shape[0]} (state {state_s:.2f} s), {L_STEPS} host "
+            f"steps, {len(trainer.params)} parameters moved, the kernel's launches "
+            f"{seen['scatter_rows_kernel']} (segment sums and gathers' backward, a warm-up and "
+            f"a capture); scanned test pass ({len(test_loader.split)} rows) {wall:.3f} s: "
+            f"{dict(res)}")
+        L_TIMES[f"{name} fit s"] = fit_s
+        L_TIMES[f"{name} scanned test pass s"] = wall
+        del trainer, loader, model
+
+        def make(name=name):
+            c = l_cfg(name)
+            return Trainer(c, quick_start.build_model_and_state(c, ds)), l_loader(c, train)
+
+        host_graph_vs_eager(make, what, L_COMPARE_STEPS, part="L2", times=L_TIMES)
+    log("L2 the kernel's launches by model: " + json.dumps(L_GATHERS))
+    return counts
+
+
+# L3's child: `python -m oovrec_tpu_torch.cli.run` once for each argv of a
+# JSON list (runpy runs the module as `__main__`, as `-m` does), the
+# launches counted from 0 and printed after each run
+L_CHILD = ("import json, runpy, sys\n"
+           "from oovrec_tpu_torch.ops import launches\n"
+           "for argv in json.loads(sys.argv.pop(1)):\n"
+           "    sys.argv[1:] = argv\n"
+           "    launches.reset_launch_counts()\n"
+           "    runpy.run_module('oovrec_tpu_torch.cli.run', run_name='__main__', alter_sys=True)\n"
+           "    print('CLI launches ' + json.dumps(launches.launch_counts()))\n")
+
+
+def l3_cli():
+    """L3: `python -m oovrec_tpu_torch.cli.run --model=LightGCN`, then
+    `--model=Pop`, in one child on dataset/synth-ind (timestamps loaded,
+    L_EPOCHS_CLI epoch): rc 0, finite test metrics, the kernel launched by
+    LightGCN's run and by no run of Pop's; `--eval_only` on each
+    checkpoint, in this process, reproduces them to 1e-9. → the child's
+    launches."""
+    runs = {}
+    for name in ("LightGCN", "Pop"):
+        out = cli_out(f"l3-{name.lower()}")
+        runs[name] = (out, [f"--model={name}", "--dataset=synth-ind", "--data_path=dataset",
+                            "--load_col={'inter': ['user_id','item_id','timestamp','is_new']}",
+                            f"--epochs={L_EPOCHS_CLI}", *cli_flags(out)])
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", L_CHILD,
+                           json.dumps([argv for _, argv in runs.values()])],
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = (proc.stdout + proc.stderr).splitlines()
+    for line in lines:
+        if "training [" in line or "test result" in line:
+            log(f"  [L3] {line.split(' INFO ')[-1][:160]}")
+    require(proc.returncode == 0, f"L3: rc {proc.returncode}: " + "\n".join(lines[-30:]))
+    said = [json.loads(x[len("CLI launches "):]) for x in proc.stdout.splitlines()
+            if x.startswith("CLI launches ")]
+    require(len(said) == 2, f"L3: the child printed {len(said)} launch counts")
+    total = {k: 0 for k in kernel_counts()}
+    for (name, (out, _)), child in zip(runs.items(), said):
+        kernel = child.get("scatter_rows_kernel", 0)
+        require(kernel > 0 if name == "LightGCN" else not any(child.values()),
+                f"L3 {name}: launches {child}")
+        total = {k: total[k] + child.get(k, 0) for k in total}
+        with open(os.path.join(out, "results.json")) as f:
+            res = json.load(f)
+        unit_metrics(res["test_result"], f"L3 {name} test")
+        again = cli_run.main([f"--eval_only={os.path.join(out, f'{name}-synth-ind.pth')}"])
+        require(type(again["trainer"].model).__name__ == name, f"L3 {name}: the model")
+        agree(res["test_result"], again["test_result"], f"L3 {name} eval_only test", tol=1e-9)
+        log(f"L3: python -m oovrec_tpu_torch.cli.run --model={name} ({L_EPOCHS_CLI} epoch) "
+            f"rc 0, test {res['test_result']}; --eval_only == the run (1e-9); launches {child}")
+    log(f"L3: the child's two runs in {wall:.1f} s (wall, process start and the corpus "
+        f"included)")
+    L_TIMES["L3 CLI runs s"] = wall
+    return total
+
+
 SERVING = {}
 
 
@@ -5609,6 +6032,25 @@ def main():
     require(k_trace["K1"]["scatter_rows_kernel"] > 0, f"phase K graphed traces {k_trace}")
     log("phase K kernels replayed, from the traces: " + json.dumps(k_trace))
     log("phase K times: " + json.dumps(K_TIMES))
+    # phase L, the general models; counted by part as K is
+    t0 = time.perf_counter()
+    l_corpus()
+    on_l, k_done = {}, dict(F_TRACE)
+    for part, run in (("L2", l2_graph), ("L3", l3_cli), ("L1", l1_traditional)):
+        reset_kernel_counts()
+        sync()
+        t1 = time.perf_counter()
+        seen = run()
+        sync()
+        on_l[part] = {**kernel_counts(), **seen}
+        log(f"phase {part}: {time.perf_counter() - t1:.1f} s, kernel launches {on_l[part]}")
+    log(f"phase L: {time.perf_counter() - t0:.1f} s")
+    l_trace = {p: c for p, c in F_TRACE.items() if p not in k_done}
+    require(all(on_l[p]["scatter_rows_kernel"] > 0 for p in ("L2", "L3"))
+            and not any(on_l["L1"].values()), f"phase L launches {on_l}")
+    require(l_trace["L2"]["scatter_rows_kernel"] > 0, f"phase L graphed traces {l_trace}")
+    log("phase L kernels replayed, from the traces: " + json.dumps(l_trace))
+    log("phase L times: " + json.dumps(L_TIMES))
     cli = {  # each kernel's launches on the CLI paths (A launches none)
         "fused_topk_scores": {"C": k1_c},
         "cin_layer_pooled": {"B": cli_b["cin_layer_pooled"]},
@@ -5687,9 +6129,13 @@ def main():
         k["launches_j_trace"] = {part: c[k["name"]] for part, c in j_trace.items()}
         k["launches_k"] = {part: c[k["name"]] for part, c in on_k.items()}
         k["launches_k_trace"] = {part: c[k["name"]] for part, c in k_trace.items()}
+        k["launches_l"] = {part: c[k["name"]] for part, c in on_l.items()}
+        k["launches_l_trace"] = {part: c[k["name"]] for part, c in l_trace.items()}
     log("gathers' backward (ops/embed_grad.py, not a Pallas kernel): " + json.dumps({
             "ms": gathers, "bound_ms": gather_bound,
             "device_epoch": GATHER_RESULTS.get("device_epoch")}))
+    log("the edge segment sum (ops/embed_grad.py:segment_sum, the same kernel): "
+        + json.dumps(L_TIMES["segment sum"]))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     log(smi)
     log(json.dumps({"kernels": kernels}))

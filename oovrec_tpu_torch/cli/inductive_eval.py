@@ -13,6 +13,11 @@ Port of `oovrec_tpu/cli/inductive_eval.py:34-173`:
     its embedder state only the LSH planes and DHE keys (`:116-150`),
     build the random mapper over the extended id space and run the
     `InductiveEvaluator`.
+A full-sort eval of a model without an ID tower (`all_item_embeddings`:
+the general models of `models/general/`) is refused before any work, with
+a `TypeError` that names it (`refuse_without_id_tower`); the JAX package
+fails there later, with an `AttributeError` from inside its evaluator
+(`eval/inductive.py:243`).
 """
 
 from __future__ import annotations
@@ -24,11 +29,13 @@ import torch
 
 from oovrec_tpu_torch.config import Config
 from oovrec_tpu_torch.config.configurator import DERIVED_KEYS
-from oovrec_tpu_torch.data.utils import create_dataset, data_preparation
+from oovrec_tpu_torch.data.utils import create_dataset, data_preparation, eval_mode_to_neg_args
 from oovrec_tpu_torch.eval.inductive import InductiveEvaluator
 from oovrec_tpu_torch.inductive.mapper import RandomOOVMapper
 from oovrec_tpu_torch.inductive.spec import InductiveSpec
+from oovrec_tpu_torch.models import get_model_class
 from oovrec_tpu_torch.models.base import load_params
+from oovrec_tpu_torch.utils.enums import EvaluatorType
 from oovrec_tpu_torch.utils.logging import init_logger
 
 
@@ -71,6 +78,24 @@ def check_feature_consistency(orig_dataset, ind_dataset) -> None:
                 )
 
 
+def refuse_without_id_tower(config: Config) -> None:
+    """The full-sort 7-slice eval embeds the whole item range
+    (`all_item_embeddings`, an ID tower's); a model without one (the
+    general models of `models/general/`) is refused, naming it. The value
+    slices (ranking models) and the uni-N slices score through `predict`
+    and need none."""
+    mode = config["eval_args"]["mode"]
+    mode = mode["test"] if isinstance(mode, dict) else mode
+    if (config["eval_type"] == EvaluatorType.VALUE or mode == "labeled"
+            or eval_mode_to_neg_args(mode) is not None):
+        return
+    name = config["model"]
+    if not hasattr(get_model_class(name), "all_item_embeddings"):
+        raise TypeError(
+            f"model [{name}] has no ID tower (user and item tables with "
+            "all_item_embeddings): the full-sort 7-slice inductive eval needs one")
+
+
 def perform_inductive_eval(
     orig_dataset,
     checkpoint_path: str,
@@ -80,6 +105,9 @@ def perform_inductive_eval(
     """The 7-slice inductive evaluation of a saved checkpoint."""
     from oovrec_tpu_torch.cli.quick_start import build_model_and_state, load_data_and_model
 
+    ckpt = torch.load(checkpoint_path, map_location="cpu", weights_only=True)
+    refuse_without_id_tower(config or Config(
+        {k: v for k, v in ckpt["config"].items() if k not in DERIVED_KEYS}))
     logger = init_logger()
     if orig_dataset is None:
         loaded = load_data_and_model(checkpoint_path)
@@ -87,7 +115,6 @@ def perform_inductive_eval(
         if config is None:
             config = loaded.config
 
-    ckpt = torch.load(checkpoint_path, map_location="cpu", weights_only=True)
     if config is None:
         config = Config({k: v for k, v in ckpt["config"].items() if k not in DERIVED_KEYS})
     if oov_eval_batch_size:

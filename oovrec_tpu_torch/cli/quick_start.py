@@ -114,11 +114,16 @@ def build_model_and_state(config, dataset, mode: str = "transductive",
     `cls.derive_kwargs(dataset, config)` (the feature-fused models'
     packed vocabulary, the KG models' preloaded entity table and its
     width), whose values override the config's, and
-    `cls.build_estate(dataset, config)` (the packed item features
-    `seq_feat_tokens`), handed to the constructor, which keeps them as
-    buffers. The JAX driver hands `build_estate` the training split and
-    the hook reads its parent; here it takes the dataset itself, so no
-    split is built for it."""
+    `cls.build_estate(source, config)`, handed to the constructor, which
+    keeps what it returns as buffers: a general model's state (Pop's
+    counts, the host solves' matrices, the graph models' edges) from the
+    training split (`dataset.build()[0]`, the split `data_preparation`
+    makes: `Dataset.build` is deterministic), as the JAX driver builds
+    it, with the values the config holds for it (`k`, `reg_weight`, ...;
+    the JAX driver passes no config and its states keep their keyword
+    defaults); a sequential model's packed item features
+    (`seq_feat_tokens`) from the dataset itself (the JAX hook reads the
+    split's parent), so no split is built for it."""
     cls = get_model_class(config["model"])
     spec = InductiveSpec.from_config(config)
     if not spec.active:
@@ -154,13 +159,14 @@ def build_model_and_state(config, dataset, mode: str = "transductive",
                       embedding_size=int(config.get("embedding_size", 64)))
     if issubclass(cls, SequentialRecommender):
         kwargs["max_seq_length"] = int(config["MAX_ITEM_LIST_LENGTH"])
-        if "label_field" in _ctor_params(cls):  # DIN and DIEN read the click label
-            kwargs["label_field"] = config["LABEL_FIELD"]
+    if "label_field" in _ctor_params(cls):  # DIN, DIEN and GCMC read the click label
+        kwargs["label_field"] = config["LABEL_FIELD"]
     kwargs.update(model_kwargs(config, cls))
     if hasattr(cls, "derive_kwargs"):  # dataset-derived sizes override the config's
         kwargs.update(cls.derive_kwargs(dataset, config))
     if hasattr(cls, "build_estate"):   # dataset-derived buffers of the model
-        kwargs.update(cls.build_estate(dataset, config))
+        source = dataset if issubclass(cls, SequentialRecommender) else dataset.build()[0]
+        kwargs.update(cls.build_estate(source, config))
     return cls(**kwargs)
 
 

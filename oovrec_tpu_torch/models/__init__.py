@@ -24,6 +24,22 @@ from oovrec_tpu_torch.models.context_aware import (
     xDeepFM,
 )
 from oovrec_tpu_torch.models.directau import DirectAU
+from oovrec_tpu_torch.models.general import (
+    ADMMSLIM,
+    DGCF,
+    EASE,
+    GCMC,
+    NCL,
+    NGCF,
+    SGL,
+    ItemKNN,
+    LightGCN,
+    NCEPLRec,
+    Pop,
+    Random,
+    SLIMElastic,
+    SpectralCF,
+)
 from oovrec_tpu_torch.models.sequential import (
     BERT4Rec,
     CORE,
@@ -64,11 +80,13 @@ def get_model_class(name: str):
 
 
 __all__ = [
-    "AFM", "AutoInt", "BERT4Rec", "BPR", "CORE", "Caser", "ContextRecommender", "DCN", "DCNV2",
-    "DIEN", "DIN", "DSSM", "DeepFM", "DirectAU", "EulerNet", "FDSA", "FFM", "FM", "FNN",
-    "FOSSIL", "FPMC", "FieldSpec", "FiGNN", "FwFM", "GCSAN", "GRU4Rec", "GRU4RecF",
-    "GRU4RecKG", "GeneralRecommender", "HGN", "HRM", "KD_DAGFM", "KSR", "LR", "LightSANs",
-    "MODEL_REGISTRY", "NARM", "NFM", "NPE", "NextItNet", "PNN", "RepeatNet", "S3Rec", "SASRec",
-    "SASRecF", "SHAN", "SINE", "SRGNN", "STAMP", "SequentialRecommender", "TransRec",
-    "WideDeep", "get_model_class", "xDeepFM",
+    "ADMMSLIM", "AFM", "AutoInt", "BERT4Rec", "BPR", "CORE", "Caser", "ContextRecommender",
+    "DCN", "DCNV2", "DGCF", "DIEN", "DIN", "DSSM", "DeepFM", "DirectAU", "EASE", "EulerNet",
+    "FDSA", "FFM", "FM", "FNN", "FOSSIL", "FPMC", "FieldSpec", "FiGNN", "FwFM", "GCMC", "GCSAN",
+    "GRU4Rec", "GRU4RecF", "GRU4RecKG", "GeneralRecommender", "HGN", "HRM", "ItemKNN",
+    "KD_DAGFM", "KSR", "LR", "LightGCN", "LightSANs", "MODEL_REGISTRY", "NARM", "NCEPLRec",
+    "NCL", "NFM", "NGCF", "NPE", "NextItNet", "PNN", "Pop", "Random", "RepeatNet", "S3Rec",
+    "SASRec", "SASRecF", "SGL", "SHAN", "SINE", "SLIMElastic", "SRGNN", "STAMP",
+    "SequentialRecommender", "SpectralCF", "TransRec", "WideDeep", "get_model_class",
+    "xDeepFM",
 ]

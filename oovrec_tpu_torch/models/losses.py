@@ -1,6 +1,6 @@
 """Loss functions, weight-mask aware.
 
-Port of `oovrec_tpu/models/losses.py:13-41`. Every loss takes an optional
+Port of `oovrec_tpu/models/losses.py:13-53`. Every loss takes an optional
 per-row `weight` (1 real / 0 pad), so a padded fixed-shape batch gives the
 value the reference computes on its variable-size batch: padded rows
 carry weight 0 and do not count.
@@ -65,3 +65,19 @@ def _log_floor(x: torch.Tensor) -> torch.Tensor:
     x = 0."""
     pos = x > 0
     return torch.clamp(torch.where(pos, torch.log(torch.where(pos, x, 1.0)), -100.0), min=-100.0)
+
+
+def emb_loss(*embeddings, norm: int = 2, require_pow: bool = False):
+    """EmbLoss (`loss.py`): the sum of each tensor's whole norm (or, under
+    `require_pow`, of |e|^norm over `norm`) over the rows of the last one;
+    padded rows count, as in the JAX function."""
+    batch = embeddings[-1].shape[0]
+    total = 0.0
+    for e in embeddings:
+        if require_pow:
+            total = total + e.abs().pow(norm).sum()
+        else:
+            total = total + torch.linalg.vector_norm(e.reshape(-1), ord=norm)
+    if require_pow:
+        total = total / norm
+    return total / batch

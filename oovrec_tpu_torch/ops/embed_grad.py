@@ -4,6 +4,10 @@ serialising on a repeated row.
 Port of `oovrec_tpu/ops/embed_grad.py:90` (`gather_rows`) and `:161`
 (`packed_gather`): custom-gradient gathers `table[ids]` whose backward is
 the scatter-add adjoint (the cotangents of one id summed into its row).
+The same sum is the forward of `segment_sum`, the graph models' edge
+propagation (`jax.ops.segment_sum` in the JAX package), whose backward is
+the gather: one propagation layer launches the kernel twice a training
+step, once for the segment sum and once for the gather of its messages.
 The JAX module's one-hot matmul backward is a TPU workaround
 (`_use_onehot` is false off the TPU, `:27-37`) and is not ported; nor is
 its per-field split of the packed backward, which only chose between the
@@ -160,6 +164,27 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor,
     of each id by sort and segment. `live` (ids' shape, bool): false where
     the caller throws the row away, so its (zero) cotangent is skipped."""
     return _GatherRows.apply(table, ids, live)
+
+
+class _SegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, msg, dst, n_rows):
+        ctx.save_for_backward(dst)
+        return scatter_rows(msg, dst, n_rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        (dst,) = ctx.saved_tensors
+        return g.index_select(0, dst), None, None
+
+
+def segment_sum(msg: torch.Tensor, dst: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """`jax.ops.segment_sum(msg, dst, num_segments=n_rows)` for (n, D)
+    rows: each destination row is the sum of its messages, a row no
+    message reaches is 0. The forward is `scatter_rows` (the sort-and-
+    segment kernel on the card, no atomics: the same bits on every run),
+    the backward the gather `g[dst]`."""
+    return _SegmentSum.apply(msg, dst, n_rows)
 
 
 def packed_gather(table: torch.Tensor, ids: torch.Tensor, dims: Sequence[int],

@@ -54,6 +54,10 @@ Port of `oovrec_tpu/train/trainer.py`:
     ones each step, captured or not, updates in place), run between steps
     and outside any capture, the module's train/eval mode untouched; such
     a loader takes the host path, one batch at a time, never prefetched;
+  * a traditional model (`ModelType.TRADITIONAL`: Pop, ItemKNN, the host
+    solves) trains no epoch: `fit` evaluates the valid split once, keeps
+    it as the best result, saves checkpoint 0 and returns (`fit`
+    :630-642);
   * validation through the port's `EvalRunner`, early stopping, the
     epoch log lines of the JAX trainer (`utils/logging.py`), the
     best-model checkpoint (the port's own `torch.save` format; the
@@ -106,6 +110,7 @@ from oovrec_tpu_torch.train.sparse_update import (
     sparse_adam_update_table,
     sparse_epoch_table_map,
 )
+from oovrec_tpu_torch.utils.enums import ModelType
 from oovrec_tpu_torch.utils.jax_checkpoint import is_jax_checkpoint, read_jax_checkpoint
 from oovrec_tpu_torch.utils.jax_params import (
     load_batch_stats,
@@ -419,6 +424,16 @@ class Trainer:
                 and hasattr(train_loader, "set_model_scorer")):
             train_loader.set_model_scorer(self._score_candidates)
         self.eval_runner.train_split = getattr(train_loader, "split", None)
+
+        if getattr(self.model, "model_type", None) == ModelType.TRADITIONAL:
+            # no gradient training: one valid pass, checkpoint 0
+            if valid_loader is not None:
+                self.best_valid_result = self.eval_runner.evaluate(valid_loader)
+                self.best_valid_score = calculate_valid_score(
+                    self.best_valid_result, self.config["valid_metric"])
+            if saved:
+                self._save_checkpoint(0)
+            return self.best_valid_score, self.best_valid_result
 
         for epoch_idx in range(self.start_epoch, self.epochs):
             t0 = time.time()

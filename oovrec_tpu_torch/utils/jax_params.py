@@ -36,8 +36,11 @@ the port's side, int32 knn tables as int64), so both packages run from the
 same planes, keys and neighbors; the param bridge leaves it alone. The
 same holds for a model's own buffers that JAX keeps in ``estate``
 (`MODEL_STATE`: the packed item features ``seq_feat_tokens`` of GRU4RecF,
-SASRecF, FDSA and S3Rec): `set_embedder_state` loads them, the bridge
-never carries them as params.
+SASRecF, FDSA and S3Rec; the general models' ``item_cnt``,
+``user_hist_matrix``, ``item_sim``, ``ease_B``, ``slim_W``, ``admm_W``,
+``plrec_scores`` and the graph models' ``edge_src`` / ``edge_dst`` /
+``edge_weight``): `set_embedder_state` loads them, the bridge never
+carries them as params.
 
 BatchNorm running statistics are not parameters either: flax keeps them
 in the ``batch_stats`` collection (``{.../BatchNorm_j: {mean, var}}``, or
@@ -69,7 +72,10 @@ last seven's: GRU4RecF's scanned ``feature_gru``, FDSA's ``feat_block_<i>``
 and ``feat_ln``, RepeatNet's ``gru`` and its bias-free Denses, GRU4RecKG's
 ``entity_gru``, the raw ``entity_embedding`` and ``relation_embedding``
 of GRU4RecKG and KSR, and S3Rec's ``*_norm`` heads and its n_items + 1
-item table.
+item table. The general models' trees: the traditional models' raw
+``dummy`` at the top, NGCF's ``gc_<i>`` / ``bi_<i>``, SpectralCF's
+bias-free ``filter_<i>``, GCMC's bias-free ``gcn``, its ``dense`` and its
+raw ``decoder_q`` (D, D), used as ``u @ q`` in flax's layout.
 
 A ``kernel`` leaf is a Dense or a stored kernel depending on the port's
 module, so trees with kernels cross with the target `module` given. A
@@ -88,9 +94,14 @@ from torch import nn
 FlaxParams = Mapping[str, Any]
 STATE = "embedder_state"
 # a model's own dataset-derived buffers, which the JAX package passes in
-# `estate` beside the embedder state (the feature-fused models' packed
-# item features)
-MODEL_STATE = frozenset({"seq_feat_tokens"})
+# `estate` beside the embedder state: the feature-fused models' packed
+# item features, the general models' training statistics (Pop's counts,
+# the history matrix, the item-item and score matrices of the host
+# solves) and the graph models' edges
+MODEL_STATE = frozenset({
+    "seq_feat_tokens", "item_cnt", "user_hist_matrix", "item_sim", "ease_B", "slim_W",
+    "admm_W", "plrec_scores", "edge_src", "edge_dst", "edge_weight",
+})
 
 
 def _is_state(key: str) -> bool:

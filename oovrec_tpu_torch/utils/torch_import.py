@@ -25,7 +25,8 @@ rules (`torch_import.py:10-14` there):
     (`torch_import.py:107-112` there) maps layer 0 alone, so at
     `num_layers` 2 its import leaves ``gru_1`` as drawn.
 
-`import_state_dict` maps BPR, DirectAU, GRU4Rec, WideDeep, DCNv2 and xDeepFM; any
+`import_state_dict` maps BPR, DirectAU, LightGCN (its two tables,
+`torch_import.py:102-106` there), GRU4Rec, WideDeep, DCNv2 and xDeepFM; any
 other model raises NotImplementedError with the JAX map's text. Only the
 keys the map names are returned: `merge_params` gives every other leaf of
 the model its current value, as the JAX `run`'s `_merge` does
@@ -41,7 +42,7 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-SUPPORTED = "BPR, DirectAU, GRU4Rec, WideDeep, DCNV2, xDeepFM"
+SUPPORTED = "BPR, DirectAU, LightGCN, GRU4Rec, WideDeep, DCNV2, xDeepFM"
 
 
 def _emb(sd, key):
@@ -153,6 +154,9 @@ def import_state_dict(model_name: str, sd: Mapping[str, Any]) -> Dict[str, Any]:
             if k in sd:
                 p[f"{side}_oov_buckets"] = _emb(sd, k)
         return p
+    if name == "lightgcn":
+        return {"user_embedding": _emb(sd, "user_embedding.weight"),
+                "item_embedding": _emb(sd, "item_embedding.weight")}
     if name == "gru4rec":
         p = {"item_embedding": _emb(sd, "item_embedding.weight"),
              "dense": _lin(sd, "dense")}

@@ -108,6 +108,12 @@ TRACKS.update({
     "seq-ksr-trainable": ["--model=KSR", *SEQUENTIAL, "--freeze_kg=False"],
 })
 
+# the graph models on toy-ind's training edges with the OOV
+# regime, NGCF's message dropout, GCMC's dropout and SGL's edge masks at
+# their YAML rates
+TRACKS.update({f"general-{name.lower()}": [f"--model={name}", *MAPPER]
+               for name in ("LightGCN", "NGCF", "SGL", "SpectralCF", "GCMC", "DGCF", "NCL")})
+
 
 class _Recorder(TorchDispatchMode):
     def __init__(self, allowed_generator):

@@ -4,7 +4,7 @@ JAX package's own checkpoints resumed, without flax on the port's side.
 Reference import (`utils/torch_import.py`): on synthetic reference-layout
 state_dicts (RecBole key names, random values) the port's
 `import_state_dict` equals the JAX map leaf for leaf for BPR, DirectAU,
-WideDeep, xDeepFM and DCNv2 (stacked without BatchNorm, and mixed with its
+LightGCN, WideDeep, xDeepFM and DCNv2 (stacked without BatchNorm, and mixed with its
 gates). On a DCNv2 MLP with its BatchNorm1d modules (RecBole's layout) the
 JAX map counts each BatchNorm weight as one more Linear and puts it in
 `Dense_1` (`_mlp_direct` there); the port maps the Linears and the
@@ -162,6 +162,8 @@ def reference_sd(name, rng):
     if name in ("BPR", "DirectAU"):
         return {"user_embedding.weight": _r(rng, 7, 4), "item_embedding.weight": _r(rng, 9, 4),
                 "user_oov_buckets.weight": _r(rng, 3, 4), "item_oov_buckets.weight": _r(rng, 5, 4)}
+    if name == "LightGCN":
+        return {"user_embedding.weight": _r(rng, 7, 4), "item_embedding.weight": _r(rng, 9, 4)}
     if name == "WideDeep":
         return {**_context_sd(rng), **_mlp_sd(rng, (24, 8, 4)),
                 "deep_predict_layer.weight": _r(rng, 1, 4), "deep_predict_layer.bias": _r(rng, 1)}
@@ -185,7 +187,8 @@ def reference_sd(name, rng):
     return sd
 
 
-IMPORT_CASES = ["BPR", "DirectAU", "WideDeep", "xDeepFM", "DCNV2", "DCNV2-mixed", "DCNV2-bn"]
+IMPORT_CASES = ["BPR", "DirectAU", "LightGCN", "WideDeep", "xDeepFM", "DCNV2", "DCNV2-mixed",
+                "DCNV2-bn"]
 
 
 @pytest.mark.parametrize("case", IMPORT_CASES)

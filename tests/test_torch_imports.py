@@ -1,6 +1,6 @@
 """The port stands alone: no module under `oovrec_tpu_torch/`, and not
-`chip_smoke.py`, imports JAX, flax, msgpack, orbax, pandas, PyYAML or the
-JAX package.
+`chip_smoke.py` or `tools/chip_phase.py`, imports JAX, flax, msgpack,
+orbax, pandas, PyYAML, sklearn or the JAX package.
 The card's machine has none of them."""
 
 import ast
@@ -12,8 +12,9 @@ pytest.importorskip("jax")  # tests/conftest.py needs it; the scan does not
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "orbax", "pandas", "yaml",
-             "oovrec_tpu")
-SOURCES = sorted((ROOT / "oovrec_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             "oovrec_tpu", "sklearn")
+SOURCES = sorted((ROOT / "oovrec_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                ROOT / "tools" / "chip_phase.py"]
 
 
 def _imported_roots(path):
@@ -56,7 +57,7 @@ def test_scan_sees_the_whole_port():
     assert "oovrec_tpu_torch/cli/run.py" in names
     assert "oovrec_tpu_torch/cli/quick_start.py" in names
     assert "oovrec_tpu_torch/cli/inductive_eval.py" in names
-    assert "chip_smoke.py" in names
+    assert "chip_smoke.py" in names and "tools/chip_phase.py" in names
     for module in ("ops/embed_grad.py", "ops/siphash.py", "ops/siphash_device.py",
                    "inductive/dhe.py", "inductive/factory.py",
                    "models/context_aware/widedeep.py", "models/context_aware/dcnv2.py",
@@ -70,6 +71,11 @@ def test_scan_sees_the_whole_port():
                    "models/sequential/convs.py", "models/sequential/din.py",
                    "models/sequential/more2.py", "models/sequential/more3.py",
                    "models/sequential/more4.py", "models/sequential/featseq.py",
-                   "models/sequential/more5.py", "models/sequential/s3rec.py"):
+                   "models/sequential/more5.py", "models/sequential/s3rec.py",
+                   "models/general/base.py", "models/general/pop.py",
+                   "models/general/itemknn.py", "models/general/lightgcn.py",
+                   "models/general/more.py", "models/general/more2.py",
+                   "models/general/more3.py", "models/general/more4.py",
+                   "models/general/more5.py"):
         assert f"oovrec_tpu_torch/{module}" in names, module
     assert len(names) >= 25

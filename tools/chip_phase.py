@@ -1,20 +1,24 @@
-"""One of `chip_smoke.py`'s sequential phases alone, on the
-MovieLens-1M-shaped corpus: phase J (the fifteen plain sequence models,
-J1 and J2) or phase K (the last seven: GRU4RecF, SASRecF, FDSA, RepeatNet,
-GRU4RecKG, KSR and S3Rec, K1 and K2).
+"""One of `chip_smoke.py`'s phases on the MovieLens-1M-shaped corpus
+alone: phase J (the fifteen plain sequence models, J1 and J2), phase K
+(the last seven: GRU4RecF, SASRecF, FDSA, RepeatNet, GRU4RecKG, KSR and
+S3Rec, K1 and K2) or phase L (the general models: the seven traditional
+ones, L1, LightGCN and the six graph models, L2, and the `-m` entry, L3).
 
 Runs on the card only. From the repo's root:
 
     python tools/chip_phase.py --phase J
     python tools/chip_phase.py --phase K
+    python tools/chip_phase.py --phase L
 
-It builds the gathers' backward kernel (`csrc/embed_grad.cu`), writes
-phase I's corpus (`chip_smoke.ml1m_inter_file`), for phase J loads it
-(`create_dataset`, `data_preparation`), runs the phase's parts with their
-checks (phase K writes and loads its own item and entity files beside the
-interactions), and prints each part's launches, the kernels its graphed
-passes replayed, the phase's times line and the card's name and power
-limit. About 2-3 minutes a phase on one H100.
+It builds the gathers' backward kernel (`csrc/embed_grad.cu`, also the
+graph models' segment sum), writes phase I's corpus
+(`chip_smoke.ml1m_inter_file`), for phase J loads it (`create_dataset`,
+`data_preparation`), for phase L loads it as a general dataset
+(`l_corpus`), runs the phase's parts with their checks (phase K writes
+and loads its own item and entity files beside the interactions), and
+prints each part's launches, the kernels its graphed passes replayed, the
+phase's times line and the card's name and power limit. About 2-3
+minutes a phase on one H100.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as cs  # noqa: E402
 
 PHASES = {"J": (("J1", "j1_sequential"), ("J2", "j2_cli")),
-          "K": (("K1", "k1_sequential"), ("K2", "k2_cli"))}
+          "K": (("K1", "k1_sequential"), ("K2", "k2_cli")),
+          "L": (("L2", "l2_graph"), ("L3", "l3_cli"), ("L1", "l1_traditional"))}
 
 
 def main(argv=None) -> int:
@@ -53,6 +58,8 @@ def main(argv=None) -> int:
         base = cs.seq_cfg("GRU4Rec")
         ds = cs.create_dataset(base)
         cs.I_CORPUS.update(ds=ds, loaders=cs.data_preparation(base, ds))
+    if phase == "L":
+        cs.l_corpus()
     cs.log(f"corpus {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     for part, name in PHASES[phase]:
@@ -66,6 +73,9 @@ def main(argv=None) -> int:
     cs.log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
     cs.log(f"phase {phase} kernels replayed, from the traces: " + json.dumps(cs.F_TRACE))
     cs.log(f"phase {phase} times: " + json.dumps(getattr(cs, f"{phase}_TIMES")))
+    if phase == "L":
+        cs.log("the edge segment sum (ops/embed_grad.py:segment_sum): "
+               + json.dumps(cs.L_TIMES["segment sum"]))
     cs.log(smi)
     return 0
 
