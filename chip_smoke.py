@@ -195,7 +195,7 @@ Phases (any failure exits non-zero; no phase failure is caught):
          every parameter moved, the gathers' backward launched; the
          scanned full-sort test pass over 6,040 examples, 256 a batch
          (GRU4Rec and SASRec: == the per-batch pass); 4 graphed steps ==
-         4 eager ones bit for bit and the ms a step of each; also
+         4 eager ones bit for bit and the ms a step of the first 2; also
          MaskItemSequence's host ms a batch and GRU4Rec's valid pass at
          `eval_batch_size` 4,096 (one row a batch), stopped at 256 rows
          when it would pass 20 s;
@@ -210,7 +210,7 @@ Phases (any failure exits non-zero; no phase failure is caught):
          host path; DIN, DIEN with its negatives drawn on the card, and
          TransRec with one sampled negative), finite falling losses, every
          parameter moved, the gathers' backward launched; 4 graphed steps
-         == 4 eager ones bit for bit and the ms a step of each; the
+         == 4 eager ones bit for bit and the ms a step of the first 2; the
          scanned full-sort test pass over 6,040 examples (Caser, SRGNN and
          LightSANs: == the per-batch pass); for DIN and DIEN instead
          `predict` on the test examples against one uniform negative each
@@ -236,7 +236,7 @@ Phases (any failure exits non-zero; no phase failure is caught):
          losses, every parameter moved but the frozen entity tables,
          which stay bit for bit (`weight_decay` 0), the gathers' backward
          launched; 4 graphed steps == 4 eager ones bit for bit (RepeatNet
-         on rows that repeat an item) and the ms a step of each; the
+         on rows that repeat an item) and the ms a step of the first 2; the
          scanned full-sort test pass over 6,040 examples (FDSA and KSR:
          == the per-batch pass);
      K2. `python -m oovrec_tpu_torch.cli.run --model=SASRecF
@@ -245,8 +245,9 @@ Phases (any failure exits non-zero; no phase failure is caught):
          run to 1e-9.
  16. phase L, the general models, on I1's interactions read as a general
      dataset (random order, RS 8:1:1 by user, full sort over 3,707
-     items; set-up timed apart), in the order L2, L3, L1: ADMMSLIM's and
-     NCEPLRec's numpy states are solved in a worker thread meanwhile;
+     items; set-up timed apart), in the order L2, L3, phase M, L1:
+     ADMMSLIM's and NCEPLRec's numpy states are solved in a worker thread
+     meanwhile;
      L1. Pop, Random, ItemKNN, EASE, ADMMSLIM, NCEPLRec and SLIMElastic:
          the state built from the training split (timed; SLIMElastic's
          coordinate descent on the card, its columns stopped by the rule
@@ -263,11 +264,39 @@ Phases (any failure exits non-zero; no phase failure is caught):
          steps of 2,048 through `Trainer.fit`, finite falling losses,
          every parameter moved, the kernel launched (segment sums and
          gathers' backward); the scanned full-sort test pass; 4 graphed
-         steps == 4 eager ones bit for bit and the ms a step of each;
+         steps == 4 eager ones bit for bit and the ms a step of the first
+         2;
      L3. `python -m oovrec_tpu_torch.cli.run --model=LightGCN`, then
-         `--model=Pop`, on dataset/synth-ind for 1 epoch in one child
-         that prints each run's launch counts, each `--eval_only` == its
-         run to 1e-9.
+         `--model=Pop` (then M3's two runs), on dataset/synth-ind for 1
+         epoch in one child that prints each run's launch counts and
+         wall, each `--eval_only` == its run to 1e-9.
+ 17. phase M, the rest of the general family, on L's corpus and split at
+     the models' YAML widths:
+     M1. NeuMF, DMF, SimpleX, FISM, NAIS, LINE, ConvNCF and NNCF: the
+         state from the training split (timed: the padded histories,
+         NNCF's neighbours, the training matrix), 16 host steps of 2,048
+         rows (one uniform negative a row) through `Trainer.fit`, finite
+         falling losses, every parameter moved (ConvNCF's `out` bias
+         cancels in BPR's difference and stays), the gathers' backward
+         launched (DMF gathers nothing); the scanned full-sort test pass
+         over the whole test split (NAIS's and ConvNCF's over its first
+         512 users, the whole split projected); their and NNCF's blocked
+         full sort against the per-pair definition for 8 users, to 1e-5;
+         4 graphed steps == 4 eager ones bit for bit and the ms a step of
+         the first 2;
+     M2. MultiVAE, MultiDAE, CDAE, RecVAE, MacridVAE, RaCT and ENMF on
+         user batches of 2,048 (`UserTrainBatcher`, three an epoch, the
+         last padded): two epochs through `Trainer.fit`, finite losses,
+         every parameter the loss reads moved and the others unchanged;
+         RaCT's `critic_pretrain` and `finetune`, 2 steps each from the
+         pretrained actor, each leaving what it detaches unchanged bit for
+         bit; the scanned test pass; 4 graphed steps == 4 eager ones bit
+         for bit (the dropout generators seeded alike) and the ms a step
+         of the first 2;
+     M3. `python -m oovrec_tpu_torch.cli.run --model=MultiVAE`, then
+         `--model=NeuMF`, on dataset/synth-ind for 1 epoch in L3's child,
+         each `--eval_only` == its run to 1e-9.
+     Phase M launches none of kernels 1-6.
 Phase 2 also holds the gathers' backward kernel (`csrc/embed_grad.cu`)
 against its plain version (bit for bit on integer-valued cotangents, to
 1e-5 on random ones, against a repeat run) and times it; phase 6 profiles
@@ -278,15 +307,15 @@ bit for bit on integer inputs and gradients (and against itself on a
 repeat run), and times it per layer and for the 3-layer stack.
 The last line is the device record; the line before it lists the kernels,
 each with its launches on the earlier phases' paths (`launches`), on the
-CLI phases (`launches_cli`) and on phase D's to L's parts
+CLI phases (`launches_cli`) and on phase D's to M's parts
 (`launches_d`, `launches_e`, `launches_f`, `launches_g`, `launches_h`,
-`launches_i`, `launches_j`, `launches_k`, `launches_l`), each counted by
-the kernel's wrapper where it launches (`ops/launches.py`; a CUDA graph's
-replays run no wrapper), and the kernels that phase F's to L's graphed
-passes replayed, as their profiler traces show them (`launches_f_trace`
-... `launches_l_trace`); before them, phase F's to L's times as JSON
-lines (`phase F times` ... `phase L times`) and the edge segment sum's
-numbers.
+`launches_i`, `launches_j`, `launches_k`, `launches_l`, `launches_m`),
+each counted by the kernel's wrapper where it launches (`ops/launches.py`;
+a CUDA graph's replays run no wrapper), and the kernels that phase F's to
+M's graphed passes replayed, as their profiler traces show them
+(`launches_f_trace` ... `launches_m_trace`); before them, phase F's to M's
+times as JSON lines (`phase F times` ... `phase M times`) and the edge
+segment sum's numbers.
 
 TF32 is switched off for matmuls and cuDNN below: the plain versions and
 the dense path must compute in full f32, as the kernel does.
@@ -330,6 +359,7 @@ from oovrec_tpu_torch.data import (
     Sampler,
     TrainBatcher,
 )
+from oovrec_tpu_torch.data.dataloader import UserTrainBatcher
 from oovrec_tpu_torch.eval import EvalRunner, InductiveEvaluator
 from oovrec_tpu_torch.inductive import DHEHasher, InductiveSpec, RandomOOVMapper
 from oovrec_tpu_torch.models import BPR, FieldSpec, get_model_class, xDeepFM
@@ -862,7 +892,7 @@ def breakdown(evaluator, test_loader, what="fused inductive eval (perturbed hits
     sync()
     n = len(test_loader)
     wall_ms, busy_ms = profiled(lambda: evaluator.evaluate_model(test_loader),
-                                f"profile {what}: {n} batches", shares)
+                                f"profile {what}: {n} batches", shares, gathers=False)
     log(f"  a batch: wall {wall_ms / n:.2f} ms under the profiler, device {busy_ms / n:.3f} ms")
 
 
@@ -4771,7 +4801,8 @@ I_STEPS = 64           # I1: a fit's steps: the first I_STEPS batches' rows of
                        # the training split (131,072, so `auto` takes the
                        # device epoch at >= 100,000)
 I_COMPARE_STEPS = 4    # I1: graphed against eager steps, bit for bit (8 until phase J)
-I_TIME_STEPS = 4       # I1: of those, the steps a timed and a profiled pass run
+I_TIME_STEPS = 2       # I1-M2: of those, the steps a timed and a profiled pass run
+                       # (4 until phase M: the eager traces' events cost host seconds)
 I_EVAL_ROWS = 256      # I1: rows a batch of the scanned full-sort test pass
 I_DEFAULT_EVAL_BATCH = 4096  # I1: RecBole's default: one row a batch here
 I_DEFAULT_ROWS, I_DEFAULT_BUDGET_S = 256, 20.0  # 1,024 rows until phase J
@@ -5053,7 +5084,7 @@ J_CLICK = ("DIN", "DIEN")                # scored by `predict`; the blocked full
 J_PER_BATCH_TOO = ("Caser", "SRGNN", "LightSANs")  # scanned == per-batch eval
 J_STEPS = 32           # J1: host-path fits' steps of I_B rows; the device-epoch
                        # fits take I_STEPS (131,072 rows, so `auto` takes it)
-J_COMPARE_STEPS = 4    # J1: graphed against eager steps, bit for bit, and timed
+J_COMPARE_STEPS = 4    # J1: graphed against eager steps, bit for bit (I_TIME_STEPS timed)
 J_SORT_USERS = 64      # J1: DIN's / DIEN's blocked full sort, timed on these
 J_SORT_CHECK = (8, 512)  # J1: users x items held against one unblocked block
 J_EPOCHS_CLI = 1       # J2
@@ -5214,11 +5245,12 @@ def j1_sequential():
 
         if on_device:
             a, gde, b, batches = graph_vs_eager(make, what, steps=J_COMPARE_STEPS)
-            graph_vs_eager_times(gde, b, batches, what, "J1")
+            graph_vs_eager_times(gde, b, batches[:I_TIME_STEPS], what, "J1")
             J_TIMES[what] = F_TIMES.pop(what)
             del a, gde, b, batches
         else:
-            host_graph_vs_eager(make, what, J_COMPARE_STEPS, part="J1", times=J_TIMES)
+            host_graph_vs_eager(make, what, J_COMPARE_STEPS, part="J1", times=J_TIMES,
+                                time_steps=I_TIME_STEPS)
     log("J1 gathers' backward launches by model: " + json.dumps(J_GATHERS))
     return counts
 
@@ -5256,7 +5288,7 @@ K_FEATURES = ["genre", "release_year"]
 K_GENRES, K_GENRES_MAX, K_YEARS, K_ENT_DIM = 18, 6, 81, 64
 K_STEPS = 32           # K1: host-path fits' steps of I_B rows; the device-epoch
                        # fits take I_STEPS (131,072 rows, so `auto` takes it)
-K_COMPARE_STEPS = 4    # K1: graphed against eager steps, bit for bit, and timed
+K_COMPARE_STEPS = 4    # K1: graphed against eager steps, bit for bit (I_TIME_STEPS timed)
 K_EPOCHS_CLI = 1       # K2
 K_TIMES = {}
 K_GATHERS = {}         # K1: the gathers' backward launches of each model's fit
@@ -5410,14 +5442,15 @@ def k1_sequential():
         t_compare = time.perf_counter()
         if on_device:
             a, gde, b, batches = graph_vs_eager(make, what, steps=K_COMPARE_STEPS)
-            graph_vs_eager_times(gde, b, batches, what, "K1")
+            graph_vs_eager_times(gde, b, batches[:I_TIME_STEPS], what, "K1")
             K_TIMES[what] = F_TIMES.pop(what)
             del a, gde, b, batches
         else:
             if name == "RepeatNet":
                 rows = k_repeats(k_loader(name, cfg, train), what)
                 log(f"{what}: {rows} of the {K_COMPARE_STEPS * I_B} compared rows repeat an item")
-            host_graph_vs_eager(make, what, K_COMPARE_STEPS, part="K1", times=K_TIMES)
+            host_graph_vs_eager(make, what, K_COMPARE_STEPS, part="K1", times=K_TIMES,
+                                time_steps=I_TIME_STEPS)
         K_TIMES[f"{name} host s"] = {"fit and eval": t_compare - t_model,
                                      "graphed vs eager, timed": time.perf_counter() - t_compare}
     log("K1 gathers' backward launches by model: " + json.dumps(K_GATHERS))
@@ -5454,12 +5487,12 @@ def k2_cli():
 # RS 8:1:1 by user, full sort over the 3,707 items), at their YAML widths
 L_TRADITIONAL = ("Pop", "Random", "ItemKNN", "EASE", "ADMMSLIM", "NCEPLRec", "SLIMElastic")
 # the host solves (numpy, no device call), computed in a worker thread
-# from the phase's set-up on, while L2 and L3 run on the card
+# from the phase's set-up on, while L2, L3 and phase M run on the card
 L_AHEAD = ("ADMMSLIM", "NCEPLRec")
 L_GRAPH = ("LightGCN", "NGCF", "SGL", "SpectralCF", "GCMC", "DGCF", "NCL")
 L_ZERO_DIAGONAL = {"EASE": "ease_B", "ADMMSLIM": "admm_W", "SLIMElastic": "slim_W"}
 L_STEPS = 32           # L2: host steps of I_B rows a fit
-L_COMPARE_STEPS = 4    # L2: graphed against eager steps, bit for bit, and timed
+L_COMPARE_STEPS = 4    # L2: graphed against eager steps, bit for bit (I_TIME_STEPS timed)
 L_SEGMENT_REPS = 20    # the segment sum's timed calls
 L_EPOCHS_CLI = 1       # L3
 L_TIMES = {}
@@ -5489,9 +5522,10 @@ def l_cfg(name, **over):
     return Config(d)
 
 
-def l_corpus():
+def l_corpus(ahead=True):
     """Phase I's `.inter` file (written again where absent) loaded as a
-    general dataset, split once; its loaders, kept in L_CORPUS."""
+    general dataset, split once; its loaders, kept in L_CORPUS, and (where
+    `ahead`) L1's host solves started in a worker thread."""
     t0 = time.perf_counter()
     path = os.path.join(I_DATA, I_DATASET, f"{I_DATASET}.inter")
     wrote = 0.0 if os.path.exists(path) else ml1m_inter_file()
@@ -5509,7 +5543,8 @@ def l_corpus():
             and ds.user_num == I_USERS + 1, f"L: the dataset {type(ds)} {ds.item_num}")
     require(len(train) + len(valid) + len(test) == I_INTERS and len(train) > 0.79 * I_INTERS,
             f"L: the splits {len(train)} {len(valid)} {len(test)}")
-    L_CORPUS.update(ds=ds, loaders=loaders, ahead=l_states_ahead(loaders[0].split))
+    L_CORPUS.update(ds=ds, loaders=loaders,
+                    ahead=l_states_ahead(loaders[0].split) if ahead else None)
     L_TIMES["set-up s"] = {"write": wrote, "create_dataset + data_preparation": prepared}
     log(f"L corpus: {I_INTERS} rows, {I_USERS} users, {I_ITEMS} items as a general dataset: "
         f"train {len(train)}, valid {len(valid)}, test {len(test)} (RS 8:1:1 by user); "
@@ -5588,8 +5623,8 @@ def unit_metrics(result, what):
 def l1_traditional():
     """L1: the seven traditional models: the state built from the training
     split (timed: the host solves, ADMMSLIM's and NCEPLRec's in the worker
-    thread of `l_states_ahead` while L2 and L3 ran; SLIMElastic's on the
-    card),
+    thread of `l_states_ahead` while L2, L3 and phase M ran; SLIMElastic's
+    on the card),
     `Trainer.fit` through its traditional branch (one valid pass, no
     epoch), the test pass; each model's own checks: a zero diagonal
     (EASE, ADMMSLIM, SLIMElastic), at most k non-zeros a row (ItemKNN),
@@ -5765,33 +5800,38 @@ def l2_graph():
             c = l_cfg(name)
             return Trainer(c, quick_start.build_model_and_state(c, ds)), l_loader(c, train)
 
-        host_graph_vs_eager(make, what, L_COMPARE_STEPS, part="L2", times=L_TIMES)
+        host_graph_vs_eager(make, what, L_COMPARE_STEPS, part="L2", times=L_TIMES,
+                            time_steps=I_TIME_STEPS)
     log("L2 the kernel's launches by model: " + json.dumps(L_GATHERS))
     return counts
 
 
 # L3's child: `python -m oovrec_tpu_torch.cli.run` once for each argv of a
 # JSON list (runpy runs the module as `__main__`, as `-m` does), the
-# launches counted from 0 and printed after each run
-L_CHILD = ("import json, runpy, sys\n"
+# launches counted from 0 and printed after each run with its wall seconds
+L_CHILD = ("import json, runpy, sys, time\n"
            "from oovrec_tpu_torch.ops import launches\n"
            "for argv in json.loads(sys.argv.pop(1)):\n"
            "    sys.argv[1:] = argv\n"
            "    launches.reset_launch_counts()\n"
+           "    t0 = time.perf_counter()\n"
            "    runpy.run_module('oovrec_tpu_torch.cli.run', run_name='__main__', alter_sys=True)\n"
+           "    print('CLI wall ' + json.dumps(time.perf_counter() - t0))\n"
            "    print('CLI launches ' + json.dumps(launches.launch_counts()))\n")
+# L3's and M3's runs share one child (one process start, one corpus cache):
+# name → (the run's directory, its launches, its wall s)
+GENERAL_CLI = {}
+L3_RUNS, M3_RUNS = ("LightGCN", "Pop"), ("MultiVAE", "NeuMF")
 
 
-def l3_cli():
-    """L3: `python -m oovrec_tpu_torch.cli.run --model=LightGCN`, then
-    `--model=Pop`, in one child on dataset/synth-ind (timestamps loaded,
-    L_EPOCHS_CLI epoch): rc 0, finite test metrics, the kernel launched by
-    LightGCN's run and by no run of Pop's; `--eval_only` on each
-    checkpoint, in this process, reproduces them to 1e-9. → the child's
-    launches."""
+def general_cli_child():
+    """`python -m oovrec_tpu_torch.cli.run --model=<name>` for each of
+    L3_RUNS and M3_RUNS in one child on dataset/synth-ind (timestamps
+    loaded, L_EPOCHS_CLI epoch): rc 0; each run's launches and wall kept
+    in GENERAL_CLI. → the child's wall s."""
     runs = {}
-    for name in ("LightGCN", "Pop"):
-        out = cli_out(f"l3-{name.lower()}")
+    for name in L3_RUNS + M3_RUNS:
+        out = cli_out(f"{'l3' if name in L3_RUNS else 'm3'}-{name.lower()}")
         runs[name] = (out, [f"--model={name}", "--dataset=synth-ind", "--data_path=dataset",
                             "--load_col={'inter': ['user_id','item_id','timestamp','is_new']}",
                             f"--epochs={L_EPOCHS_CLI}", *cli_flags(out)])
@@ -5803,29 +5843,300 @@ def l3_cli():
     lines = (proc.stdout + proc.stderr).splitlines()
     for line in lines:
         if "training [" in line or "test result" in line:
-            log(f"  [L3] {line.split(' INFO ')[-1][:160]}")
-    require(proc.returncode == 0, f"L3: rc {proc.returncode}: " + "\n".join(lines[-30:]))
-    said = [json.loads(x[len("CLI launches "):]) for x in proc.stdout.splitlines()
-            if x.startswith("CLI launches ")]
-    require(len(said) == 2, f"L3: the child printed {len(said)} launch counts")
+            log(f"  [L3, M3] {line.split(' INFO ')[-1][:160]}")
+    require(proc.returncode == 0, f"L3, M3: rc {proc.returncode}: " + "\n".join(lines[-30:]))
+    said = {key: [json.loads(x[len(key):]) for x in proc.stdout.splitlines()
+                  if x.startswith(key)] for key in ("CLI launches ", "CLI wall ")}
+    require(all(len(v) == len(runs) for v in said.values()),
+            f"L3, M3: the child printed {said}")
+    for (name, (out, _)), child, run_s in zip(runs.items(), *said.values()):
+        GENERAL_CLI[name] = (out, child, run_s)
+    log(f"L3, M3: the child's {len(runs)} runs in {wall:.1f} s (wall, process start and the "
+        f"corpus included; runs {[round(GENERAL_CLI[n][2], 1) for n in runs]} s)")
+    return wall
+
+
+def general_cli_check(part, names, gathering):
+    """`part`'s runs of the child (`general_cli_child`): finite test
+    metrics in [0, 1], the gathers' backward launched by each run of
+    `gathering` and no kernel by the others; `--eval_only` on each
+    checkpoint, in this process, reproduces the run to 1e-9. → the runs'
+    launches."""
     total = {k: 0 for k in kernel_counts()}
-    for (name, (out, _)), child in zip(runs.items(), said):
-        kernel = child.get("scatter_rows_kernel", 0)
-        require(kernel > 0 if name == "LightGCN" else not any(child.values()),
-                f"L3 {name}: launches {child}")
+    for name in names:
+        out, child, run_s = GENERAL_CLI[name]
+        require(child.get("scatter_rows_kernel", 0) > 0 if name in gathering
+                else not any(child.values()), f"{part} {name}: launches {child}")
         total = {k: total[k] + child.get(k, 0) for k in total}
         with open(os.path.join(out, "results.json")) as f:
             res = json.load(f)
-        unit_metrics(res["test_result"], f"L3 {name} test")
+        unit_metrics(res["test_result"], f"{part} {name} test")
         again = cli_run.main([f"--eval_only={os.path.join(out, f'{name}-synth-ind.pth')}"])
-        require(type(again["trainer"].model).__name__ == name, f"L3 {name}: the model")
-        agree(res["test_result"], again["test_result"], f"L3 {name} eval_only test", tol=1e-9)
-        log(f"L3: python -m oovrec_tpu_torch.cli.run --model={name} ({L_EPOCHS_CLI} epoch) "
-            f"rc 0, test {res['test_result']}; --eval_only == the run (1e-9); launches {child}")
-    log(f"L3: the child's two runs in {wall:.1f} s (wall, process start and the corpus "
-        f"included)")
-    L_TIMES["L3 CLI runs s"] = wall
+        require(type(again["trainer"].model).__name__ == name, f"{part} {name}: the model")
+        agree(res["test_result"], again["test_result"], f"{part} {name} eval_only test",
+              tol=1e-9)
+        log(f"{part}: python -m oovrec_tpu_torch.cli.run --model={name} ({L_EPOCHS_CLI} epoch) "
+            f"rc 0 in {run_s:.1f} s, test {res['test_result']}; --eval_only == the run "
+            f"(1e-9); launches {child}")
     return total
+
+
+def l3_cli():
+    """L3: the child of `general_cli_child` (LightGCN and Pop, then M3's
+    runs); LightGCN's run launched the kernel, no run of Pop's did.
+    → the launches of L3's runs."""
+    L_TIMES["L3 and M3 CLI runs s"] = general_cli_child()
+    L_TIMES["L3 CLI runs s"] = sum(GENERAL_CLI[n][2] for n in L3_RUNS)
+    return general_cli_check("L3", L3_RUNS, ("LightGCN",))
+
+
+# phase M, the rest of the general family, on L's corpus and split at the
+# models' YAML widths: M1 the eight pair and pointwise embedding models on
+# row batches, M2 the seven models trained on user batches
+M_PAIRS = ("NeuMF", "DMF", "SimpleX", "FISM", "NAIS", "LINE", "ConvNCF", "NNCF")
+M_USERS = ("MultiVAE", "MultiDAE", "CDAE", "RecVAE", "MacridVAE", "RaCT", "ENMF")
+M_BLOCKED = ("NAIS", "ConvNCF", "NNCF")  # the blocked full sort, against the pairs
+M_STEPS = 16           # M1: host steps of I_B rows a fit
+M_COMPARE_STEPS = 4    # M1, M2: graphed against eager steps, bit for bit (I_TIME_STEPS timed)
+M_USER_EPOCHS = 2      # M2: epochs of user batches of I_B (three an epoch)
+M_STAGE_STEPS = 2      # M2: RaCT's critic_pretrain and finetune steps
+M_SORT_USERS = 8       # M1: users of the blocked full sort held against the pairs
+# M1: the slowest full sorts (36 and 54 TFLOP over the whole test split)
+# run their scanned test pass over the first M_SLICE_USERS test users (2 of
+# 24 batches), the whole split's time projected: a depth cut for the 750 s
+# budget
+M_SLICED, M_SLICE_USERS = ("NAIS", "ConvNCF"), 512
+# M1: a parameter no loss moves: BPR reads the difference of two of
+# ConvNCF's scores, in which `out`'s bias cancels (its gradient is 0)
+M_UNMOVED = {"ConvNCF": ("out.bias",)}
+# the models whose loss gathers no table row (their towers read rows of the
+# training matrix): no gathers' backward
+M_NO_GATHER = ("DMF", "MultiVAE", "MultiDAE", "RecVAE", "MacridVAE", "RaCT")
+M_TIMES = {}
+M_GATHERS = {}         # M1, M2: the gathers' backward launches of each model's fit
+
+
+def m_loader(cfg, train):
+    """The model's training loader over the rows of M_STEPS batches of the
+    training split (pointwise: half the rows, a label-0 row a negative)."""
+    input_type = get_model_class(cfg["model"]).input_type
+    rows = M_STEPS * I_B // (2 if input_type == InputType.POINTWISE else 1)
+    split = DatasetSplit.view(train.parent, train.index[:rows])
+    return TrainBatcher(split, Sampler(["train"], [split], seed=SEED), cfg, input_type)
+
+
+def m_test_users(loader, n=None):
+    """The full-sort test loader over its first `n` users (all where None),
+    its batches of the whole loader's shape."""
+    if n is None:
+        return loader
+    part = copy.copy(loader)
+    part.uid_list, part._pos, part._hist = loader.uid_list[:n], loader._pos[:n], loader._hist[:n]
+    part.n_global_users = len(part.uid_list)
+    return part
+
+
+def m_blocked_sort(model, what):
+    """The blocked full sort of M_SORT_USERS users against the per-pair
+    definition (`_score` on every (user, item) pair in one call), to 1e-5
+    of the largest score. → max_abs_err."""
+    users = torch.arange(1, M_SORT_USERS + 1, device=DEVICE)
+    items = torch.arange(model.n_items, device=DEVICE)
+    model.eval()
+    with torch.no_grad():
+        blocked = model.full_sort_scores({"user_id": users})
+        pairs = model._score(users.repeat_interleave(model.n_items),
+                             items.repeat(M_SORT_USERS)).reshape(M_SORT_USERS, -1)
+    err, top = float((blocked - pairs).abs().max()), float(pairs.abs().max())
+    require(bool(torch.isfinite(blocked).all()) and err <= 1e-5 * max(1.0, top),
+            f"{what}: the blocked full sort is {err} from the pairs (largest {top})")
+    log(f"{what}: blocked full sort of {M_SORT_USERS} users x {model.n_items} items == the "
+        f"per-pair definition, max_abs_err {err:.3g} (largest score {top:.3g})")
+    return err
+
+
+def m1_pairs():
+    """M1: NeuMF, DMF, SimpleX, FISM, NAIS, LINE, ConvNCF and NNCF at their
+    YAML widths on the host path: the state built from the training split
+    (timed: the padded histories, NNCF's neighbours, the training
+    matrix); M_STEPS steps of I_B rows (one uniform negative a row, as a
+    pairwise negative or a label-0 row) through `Trainer.fit`, finite
+    falling losses, every parameter moved (but `M_UNMOVED`), the gathers'
+    backward launched (none for DMF, `M_NO_GATHER`); the scanned full-sort
+    test pass over the whole test split (`M_SLICED`: its first users); NAIS's,
+    ConvNCF's and NNCF's blocked full sort against the per-pair
+    definition; M_COMPARE_STEPS graphed steps == eager ones bit for bit,
+    and the ms a step of each. NAIS's and ConvNCF's test pass runs over
+    the first M_SLICE_USERS test users. → the fits' launches."""
+    ds, (train_loader, _, test_loader) = L_CORPUS["ds"], L_CORPUS["loaders"]
+    train = train_loader.split
+    counts = {}
+    for name in M_PAIRS:
+        what = f"M1 {name}"
+        cfg = l_cfg(name)
+        model, state_s, _ = l_build(cfg, ds)
+        trainer = Trainer(cfg, model)
+        loader = m_loader(cfg, train)
+        before = {n: p.detach().clone() for n, p in trainer.params.items()}
+        reset_kernel_counts()
+        normal, _, fit_s = f_fit(trainer, loader, what)
+        seen = kernel_counts()
+        counts = {k: counts.get(k, 0) + n for k, n in seen.items()}
+        M_GATHERS[name] = seen["scatter_rows_kernel"]
+        require(not trainer._device_epochs and normal["steps"] == M_STEPS,
+                f"{what}: {normal['steps']} steps, device epochs {trainer._device_epochs}")
+        require((seen["scatter_rows_kernel"] > 0) == (name not in M_NO_GATHER),
+                f"{what}: the gathers' backward {seen}")
+        still = [n for n in before if torch.equal(before[n], trainer.params[n])]
+        require(still == list(M_UNMOVED.get(name, ())),
+                f"{what}: parameters did not move over the fit: {still}")
+        del before
+        loader = m_test_users(test_loader, M_SLICE_USERS if name in M_SLICED else None)
+        res, wall = timed_eval(model, cfg, loader, f"{what} test", device_eval=True)
+        unit_metrics(res, f"{what} test")
+        M_TIMES[name] = {"state s": state_s, "fit s": fit_s, "scanned test pass s": wall,
+                         "test users": len(loader.uid_list)}
+        if name in M_SLICED:
+            M_TIMES[name]["whole test split projected s"] = (
+                wall * len(test_loader.uid_list) / len(loader.uid_list))
+        if name in M_BLOCKED:
+            M_TIMES[name]["blocked max_abs_err"] = m_blocked_sort(model, what)
+        moved = len(trainer.params) - len(still)
+        log(f"{what}: state {state_s:.2f} s, {M_STEPS} host steps, {moved} parameters moved, "
+            f"the gathers' backward {seen['scatter_rows_kernel']} launches; "
+            f"scanned test pass ({len(loader.uid_list)} of {len(test_loader.uid_list)} test users) "
+            f"{wall:.3f} s: {dict(res)}")
+        del trainer, loader, model
+
+        def make(name=name):
+            c = l_cfg(name)
+            return Trainer(c, quick_start.build_model_and_state(c, ds)), m_loader(c, train)
+
+        host_graph_vs_eager(make, what, M_COMPARE_STEPS, part="M1", times=M_TIMES,
+                            time_steps=I_TIME_STEPS)
+    log("M1 the gathers' backward launches by model: "
+        + json.dumps({k: M_GATHERS[k] for k in M_PAIRS}))
+    return counts
+
+
+class Epochs:
+    """`loader` over `n` epochs as one pass (a loader for more steps than
+    one epoch of user batches holds)."""
+
+    def __init__(self, loader, n):
+        self.loader, self.n, self.split = loader, n, loader.split
+
+    def __len__(self):
+        return self.n * len(self.loader)
+
+    def __iter__(self):
+        for _ in range(self.n):
+            yield from self.loader
+
+
+def m_user_fit(trainer, loader, what, read=None):
+    """`Trainer.fit` over `loader`, its losses finite; the parameters
+    `read` names (all where None) moved, every other one unchanged bit for
+    bit. → (losses, wall s)."""
+    before = {n: p.detach().clone() for n, p in trainer.params.items()}
+    losses = []
+    inner = trainer._train_epoch
+
+    def watched(*a, **k):
+        total = inner(*a, **k)
+        losses.extend(trainer.last_losses.tolist())
+        return total
+
+    trainer._train_epoch = watched
+    sync()
+    t0 = time.perf_counter()
+    trainer.fit(loader, None, saved=False)
+    sync()
+    wall = time.perf_counter() - t0
+    trainer._train_epoch = inner
+    require(losses and np.isfinite(losses).all(), f"{what}: losses {losses}")
+    read = set(before) if read is None else read
+    moved = {n for n in before if not torch.equal(before[n], trainer.params[n])}
+    require(moved == read, f"{what}: moved but not read {sorted(moved - read)}, read but "
+            f"unmoved {sorted(read - moved)}")
+    log(f"{what}: {len(losses)} steps in {wall:.2f} s, losses {[round(x, 4) for x in losses]}; "
+        f"{len(moved)} parameters moved, {len(before) - len(moved)} unchanged bit for bit")
+    return losses, wall
+
+
+def m2_users():
+    """M2: MultiVAE, MultiDAE, CDAE, RecVAE, MacridVAE, RaCT and ENMF at
+    their YAML widths on user batches of I_B (`UserTrainBatcher`: three an
+    epoch, the last padded): M_USER_EPOCHS epochs through `Trainer.fit`,
+    finite losses, every parameter the loss reads moved and the others
+    unchanged; RaCT trains `actor_pretrain` (its critic unchanged), then
+    M_STAGE_STEPS steps of `critic_pretrain` (the actor unchanged) and of
+    `finetune` (the critic unchanged) from that state; the scanned
+    full-sort test pass; M_COMPARE_STEPS graphed steps == eager ones bit
+    for bit (each trainer's dropout generator seeded alike), and the ms a
+    step of each. → the fits' launches."""
+    ds, (train_loader, _, test_loader) = L_CORPUS["ds"], L_CORPUS["loaders"]
+    train = train_loader.split
+    counts = {}
+    for name in M_USERS:
+        what = f"M2 {name}"
+        cfg = l_cfg(name, epochs=M_USER_EPOCHS)
+        model, state_s, _ = l_build(cfg, ds)
+        trainer = Trainer(cfg, model)
+        loader = UserTrainBatcher(train, cfg)
+        require(len(loader) == 3, f"{what}: {len(loader)} user batches")
+        hist = getattr(model, "user_hist_matrix", model.hist_items if name == "ENMF" else None)
+        require(hist.device.type == torch.device(DEVICE).type and hist.shape[0] == I_USERS + 1,
+                f"{what}: the state {tuple(hist.shape)} on {hist.device}")
+        critic = {n for n in trainer.params if n.startswith("critic_")}
+        reset_kernel_counts()
+        losses, fit_s = m_user_fit(trainer, loader, what, set(trainer.params) - critic)
+        seen = kernel_counts()
+        require(len(losses) == 3 * M_USER_EPOCHS and not trainer._device_epochs
+                and (seen["scatter_rows_kernel"] > 0) == (name not in M_NO_GATHER),
+                f"{what}: {len(losses)} steps, launches {seen}")
+        M_TIMES[name] = {"state s": state_s, "fit s": fit_s}
+        if name == "RaCT":
+            state = {k: v.clone() for k, v in model.state_dict().items()}
+            for stage, read in (("critic_pretrain", critic),
+                                ("finetune", set(trainer.params) - critic)):
+                c = l_cfg(name, epochs=1, train_stage=stage)
+                staged = quick_start.build_model_and_state(c, ds)
+                staged.load_state_dict(state)
+                t = Trainer(c, staged)
+                batches = list(loader)[:M_STAGE_STEPS]
+                _, M_TIMES[name][f"{stage} s"] = m_user_fit(t, batches, f"{what} {stage}", read)
+                state = {k: v.clone() for k, v in staged.state_dict().items()}
+                del t, staged
+        counts = {k: counts.get(k, 0) + n for k, n in seen.items()}
+        M_GATHERS[name] = seen["scatter_rows_kernel"]
+        res, wall = timed_eval(model, cfg, test_loader, f"{what} test", device_eval=True)
+        unit_metrics(res, f"{what} test")
+        M_TIMES[name]["scanned test pass s"] = wall
+        log(f"{what}: state {state_s:.2f} s, the gathers' backward "
+            f"{seen['scatter_rows_kernel']} launches; scanned test pass "
+            f"({len(test_loader.split)} rows) {wall:.3f} s: {dict(res)}")
+        del trainer, loader, model
+
+        def make(name=name):
+            c = l_cfg(name)
+            return (Trainer(c, quick_start.build_model_and_state(c, ds)),
+                    Epochs(UserTrainBatcher(train, c), 2))
+
+        host_graph_vs_eager(make, what, M_COMPARE_STEPS, part="M2", times=M_TIMES,
+                            time_steps=I_TIME_STEPS)
+    log("M2 the gathers' backward launches by model: "
+        + json.dumps({k: M_GATHERS[k] for k in M_USERS}))
+    return counts
+
+
+def m3_cli():
+    """M3: MultiVAE's and NeuMF's runs of L3's child
+    (`general_cli_child`): NeuMF's run launched the gathers' backward,
+    MultiVAE's (rows of its matrix, no gather) launched nothing.
+    → the launches of M3's runs."""
+    M_TIMES["M3 CLI runs s"] = sum(GENERAL_CLI[n][2] for n in M3_RUNS)
+    return general_cli_check("M3", M3_RUNS, ("NeuMF",))
 
 
 SERVING = {}
@@ -6032,25 +6343,48 @@ def main():
     require(k_trace["K1"]["scatter_rows_kernel"] > 0, f"phase K graphed traces {k_trace}")
     log("phase K kernels replayed, from the traces: " + json.dumps(k_trace))
     log("phase K times: " + json.dumps(K_TIMES))
-    # phase L, the general models; counted by part as K is
-    t0 = time.perf_counter()
+    # phases L and M, the general models on one corpus, counted by part as
+    # K is. L1 runs last: its host solves (a worker thread from `l_corpus`
+    # on) finish while L2, L3 and phase M run on the card
+    t_l = t0 = time.perf_counter()
     l_corpus()
-    on_l, k_done = {}, dict(F_TRACE)
-    for part, run in (("L2", l2_graph), ("L3", l3_cli), ("L1", l1_traditional)):
-        reset_kernel_counts()
-        sync()
-        t1 = time.perf_counter()
-        seen = run()
-        sync()
-        on_l[part] = {**kernel_counts(), **seen}
-        log(f"phase {part}: {time.perf_counter() - t1:.1f} s, kernel launches {on_l[part]}")
-    log(f"phase L: {time.perf_counter() - t0:.1f} s")
+    on_l, on_m, k_done = {}, {}, dict(F_TRACE)
+
+    def parts(counts, runs):
+        for part, run in runs:
+            reset_kernel_counts()
+            sync()
+            t1 = time.perf_counter()
+            seen = run()
+            sync()
+            counts[part] = {**kernel_counts(), **seen}
+            log(f"phase {part}: {time.perf_counter() - t1:.1f} s, kernel launches "
+                f"{counts[part]}")
+
+    parts(on_l, (("L2", l2_graph), ("L3", l3_cli)))
+    l_s = time.perf_counter() - t0
     l_trace = {p: c for p, c in F_TRACE.items() if p not in k_done}
+    t0, l_done = time.perf_counter(), dict(F_TRACE)
+    parts(on_m, (("M1", m1_pairs), ("M2", m2_users), ("M3", m3_cli)))
+    log(f"phase M: {time.perf_counter() - t0:.1f} s")
+    m_trace = {p: c for p, c in F_TRACE.items() if p not in l_done}
+    t0 = time.perf_counter()
+    parts(on_l, (("L1", l1_traditional),))
+    log(f"phase L: {l_s + time.perf_counter() - t0:.1f} s (L2, L3, then L1 after phase M; "
+        f"L and M {time.perf_counter() - t_l:.1f} s)")
     require(all(on_l[p]["scatter_rows_kernel"] > 0 for p in ("L2", "L3"))
             and not any(on_l["L1"].values()), f"phase L launches {on_l}")
     require(l_trace["L2"]["scatter_rows_kernel"] > 0, f"phase L graphed traces {l_trace}")
     log("phase L kernels replayed, from the traces: " + json.dumps(l_trace))
     log("phase L times: " + json.dumps(L_TIMES))
+    require(all(on_m[p]["scatter_rows_kernel"] > 0 for p in ("M1", "M2", "M3"))
+            and not any(n for c in on_m.values() for k, n in c.items()
+                        if k != "scatter_rows_kernel"),
+            f"phase M launches {on_m} (kernels 1-6 none, the gathers' backward in each part)")
+    require(all(m_trace[p]["scatter_rows_kernel"] > 0 for p in ("M1", "M2")),
+            f"phase M graphed traces {m_trace}")
+    log("phase M kernels replayed, from the traces: " + json.dumps(m_trace))
+    log("phase M times: " + json.dumps(M_TIMES))
     cli = {  # each kernel's launches on the CLI paths (A launches none)
         "fused_topk_scores": {"C": k1_c},
         "cin_layer_pooled": {"B": cli_b["cin_layer_pooled"]},
@@ -6131,6 +6465,8 @@ def main():
         k["launches_k_trace"] = {part: c[k["name"]] for part, c in k_trace.items()}
         k["launches_l"] = {part: c[k["name"]] for part, c in on_l.items()}
         k["launches_l_trace"] = {part: c[k["name"]] for part, c in l_trace.items()}
+        k["launches_m"] = {part: c[k["name"]] for part, c in on_m.items()}
+        k["launches_m_trace"] = {part: c[k["name"]] for part, c in m_trace.items()}
     log("gathers' backward (ops/embed_grad.py, not a Pallas kernel): " + json.dumps({
             "ms": gathers, "bound_ms": gather_bound,
             "device_epoch": GATHER_RESULTS.get("device_epoch")}))

@@ -229,6 +229,46 @@ class TrainBatcher:
         return self.transform(batch)
 
 
+class UserTrainBatcher:
+    """Batches of the training split's users (`dataloader.py:256-300` of
+    the JAX package) for the models that read a user's whole history
+    (`train_on_users`: the autoencoders and ENMF): the unique non-zero
+    users, shuffled each epoch by `host_rng(seed + epoch, "user_batcher")`,
+    `train_batch_size` a batch, the last one padded with user 0 at weight
+    0. A batch holds the user ids and `weight`, nothing else."""
+
+    def __init__(self, split: DatasetSplit, config):
+        self.split = split
+        self.config = config
+        self.uid_field = split.uid_field
+        self.iid_field = split.iid_field
+        self.label_field = split.label_field
+        uids = np.unique(split.inter[self.uid_field])
+        self.uid_list = uids[uids != 0]
+        self.batch_size = config["train_batch_size"]
+        self._epoch = 0
+
+    def __len__(self) -> int:
+        return (len(self.uid_list) + self.batch_size - 1) // self.batch_size
+
+    def _make_batch(self, idx) -> Batch:
+        """The users at positions `idx` (cycled), at least two rows."""
+        sel = self.uid_list[np.asarray(idx) % len(self.uid_list)]
+        n = len(sel)
+        return {self.uid_field: _pad_to(sel, max(n, 2)),
+                "weight": _pad_to(np.ones(n, np.float32), max(n, 2))}
+
+    def __iter__(self) -> Iterator[Batch]:
+        order = np.arange(len(self.uid_list))
+        host_rng(int(self.config["seed"] or 0) + self._epoch, "user_batcher").shuffle(order)
+        self._epoch += 1
+        B = self.batch_size
+        for start in range(0, len(order), B):
+            sel = self.uid_list[order[start:start + B]]
+            yield {self.uid_field: _pad_to(sel, B),
+                   "weight": _pad_to(np.ones(len(sel), np.float32), B)}
+
+
 class FullSortEvalBatcher:
     """Full-corpus ranking eval batches (FullSortEvalDataLoader analog).
 

@@ -10,10 +10,11 @@ negatives for 'uniN' / 'popN'). A sequential model gets the
 `SeqFullSortEvalBatcher`. The loaders take the process pair from the
 caller (one process when it gives none). The knowledge-graph datasets
 (`KnowledgeBasedDataset` of the knowledge models, `KGSeqDataset` of
-GRU4RecKG and KSR on a corpus with `.kg` and `.link` files) and the
-user-batch (autoencoder) loaders are not ported and raise, naming their
-ROADMAP.md items. Without those files GRU4RecKG and KSR take the plain
-`SequentialDataset`, as the JAX package falls back to it.
+GRU4RecKG and KSR on a corpus with `.kg` and `.link` files) are not
+ported and raise, naming their ROADMAP.md item. Without those files
+GRU4RecKG and KSR take the plain `SequentialDataset`, as the JAX package
+falls back to it. A model that trains on users (`train_on_users`: the
+autoencoders and ENMF) gets the `UserTrainBatcher`.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from oovrec_tpu_torch.data.dataloader import (
     NegSampleEvalBatcher,
     PlainEvalBatcher,
     TrainBatcher,
+    UserTrainBatcher,
 )
 from oovrec_tpu_torch.data.dataset import Dataset
 from oovrec_tpu_torch.data.inductive_dataset import InductiveDataset
@@ -91,7 +93,7 @@ def create_dataset(config, inductive: bool = False):
             raise NotImplementedError(
                 f"[{config['model']}] on a corpus with .kg and .link files needs the "
                 "knowledge-graph sequential dataset (KGSeqDataset), which is not ported "
-                "(ROADMAP.md, queue 1 item 5: general and knowledge zoo; the JAX package "
+                "(ROADMAP.md, queue 1 item 3: the knowledge zoo; the JAX package "
                 "cannot build the model on it either, ROADMAP.md section 3)")
         return SequentialDataset(config)
     cache_path = None
@@ -105,7 +107,7 @@ def create_dataset(config, inductive: bool = False):
     if mt == ModelType.KNOWLEDGE:
         raise NotImplementedError(
             f"the knowledge-graph datasets of [{config['model']}] are not ported "
-            "(ROADMAP.md, queue 1 item 5: general and knowledge zoo)")
+            "(ROADMAP.md, queue 1 item 3: the knowledge zoo)")
     ds = Dataset(config)
     if cache_path:
         os.makedirs(os.path.dirname(cache_path) or ".", exist_ok=True)
@@ -128,7 +130,7 @@ def eval_mode_to_neg_args(mode: str) -> Optional[dict]:
 
 def data_preparation(config, dataset, process_index: Optional[int] = None,
                      process_count: Optional[int] = None
-                     ) -> Tuple[TrainBatcher, object, object]:
+                     ) -> Tuple[object, object, object]:
     """Split, sampler and the (train, valid, test) batchers. An empty
     valid or test split gives None for its loader."""
     train_split, valid_split, test_split = dataset.build()[:3]
@@ -147,11 +149,21 @@ def data_preparation(config, dataset, process_index: Optional[int] = None,
     procs = dict(process_index=process_index, process_count=process_count)
 
     input_type = config["MODEL_INPUT_TYPE"] or InputType.POINTWISE
-    if getattr(_model_class(config), "train_on_users", False):
+    # the JAX branch's order (`data/utils.py:132-163` there): the knowledge
+    # dataset, then the user batches, then the row batches. `create_dataset`
+    # refuses a knowledge model first, so its branch here only keeps that
+    # order until the knowledge zoo's loader is ported (ROADMAP.md, queue 1
+    # item 3)
+    cls = _model_class(config)
+    if getattr(cls, "model_type", None) == ModelType.KNOWLEDGE:
         raise NotImplementedError(
-            "user-batch training (autoencoder models) is not ported "
-            "(ROADMAP.md, queue 1: general and knowledge zoo)")
-    train_loader = TrainBatcher(train_split, sampler, config, input_type, phase="train", **procs)
+            f"the knowledge-graph loader of [{config['model']}] is not ported "
+            "(ROADMAP.md, queue 1 item 3: the knowledge zoo)")
+    if getattr(cls, "train_on_users", False):
+        train_loader = UserTrainBatcher(train_split, config)
+    else:
+        train_loader = TrainBatcher(train_split, sampler, config, input_type, phase="train",
+                                    **procs)
 
     def eval_loader(split, phase):
         mode = config["eval_args"]["mode"]["valid" if phase == "valid" else "test"]

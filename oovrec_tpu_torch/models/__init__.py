@@ -26,17 +26,32 @@ from oovrec_tpu_torch.models.context_aware import (
 from oovrec_tpu_torch.models.directau import DirectAU
 from oovrec_tpu_torch.models.general import (
     ADMMSLIM,
+    CDAE,
     DGCF,
+    DMF,
     EASE,
+    ENMF,
+    FISM,
     GCMC,
+    LINE,
+    NAIS,
     NCL,
     NGCF,
+    NNCF,
     SGL,
+    ConvNCF,
     ItemKNN,
     LightGCN,
+    MacridVAE,
+    MultiDAE,
+    MultiVAE,
     NCEPLRec,
+    NeuMF,
     Pop,
+    RaCT,
     Random,
+    RecVAE,
+    SimpleX,
     SLIMElastic,
     SpectralCF,
 )
@@ -80,13 +95,14 @@ def get_model_class(name: str):
 
 
 __all__ = [
-    "ADMMSLIM", "AFM", "AutoInt", "BERT4Rec", "BPR", "CORE", "Caser", "ContextRecommender",
-    "DCN", "DCNV2", "DGCF", "DIEN", "DIN", "DSSM", "DeepFM", "DirectAU", "EASE", "EulerNet",
-    "FDSA", "FFM", "FM", "FNN", "FOSSIL", "FPMC", "FieldSpec", "FiGNN", "FwFM", "GCMC", "GCSAN",
-    "GRU4Rec", "GRU4RecF", "GRU4RecKG", "GeneralRecommender", "HGN", "HRM", "ItemKNN",
-    "KD_DAGFM", "KSR", "LR", "LightGCN", "LightSANs", "MODEL_REGISTRY", "NARM", "NCEPLRec",
-    "NCL", "NFM", "NGCF", "NPE", "NextItNet", "PNN", "Pop", "Random", "RepeatNet", "S3Rec",
-    "SASRec", "SASRecF", "SGL", "SHAN", "SINE", "SLIMElastic", "SRGNN", "STAMP",
-    "SequentialRecommender", "SpectralCF", "TransRec", "WideDeep", "get_model_class",
-    "xDeepFM",
+    "ADMMSLIM", "AFM", "AutoInt", "BERT4Rec", "BPR", "CDAE", "CORE", "Caser",
+    "ContextRecommender", "ConvNCF", "DCN", "DCNV2", "DGCF", "DIEN", "DIN", "DMF", "DSSM",
+    "DeepFM", "DirectAU", "EASE", "ENMF", "EulerNet", "FDSA", "FFM", "FISM", "FM", "FNN",
+    "FOSSIL", "FPMC", "FieldSpec", "FiGNN", "FwFM", "GCMC", "GCSAN", "GRU4Rec", "GRU4RecF",
+    "GRU4RecKG", "GeneralRecommender", "HGN", "HRM", "ItemKNN", "KD_DAGFM", "KSR", "LINE", "LR",
+    "LightGCN", "LightSANs", "MODEL_REGISTRY", "MacridVAE", "MultiDAE", "MultiVAE", "NAIS",
+    "NARM", "NCEPLRec", "NCL", "NFM", "NGCF", "NNCF", "NPE", "NeuMF", "NextItNet", "PNN", "Pop",
+    "RaCT", "Random", "RecVAE", "RepeatNet", "S3Rec", "SASRec", "SASRecF", "SGL", "SHAN",
+    "SINE", "SLIMElastic", "SRGNN", "STAMP", "SequentialRecommender", "SimpleX", "SpectralCF",
+    "TransRec", "WideDeep", "get_model_class", "xDeepFM",
 ]

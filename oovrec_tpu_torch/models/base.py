@@ -17,7 +17,7 @@ Not ported yet: row-sharded tables (ROADMAP queue 1, parallelism).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -116,6 +116,24 @@ def load_params(model: nn.Module, params: Mapping[str, torch.Tensor],
     if missing:
         raise KeyError(f"checkpoint lacks {missing}")
     model.load_state_dict(take, strict=False)
+
+
+# elements of a blocked full sort's largest intermediate (512 MiB in f32)
+FULL_SORT_ELEMS = 1 << 27
+
+
+def score_item_blocks(n_items: int, per_item: int, device,
+                      score: Callable[[torch.Tensor], torch.Tensor],
+                      budget: int = FULL_SORT_ELEMS) -> torch.Tensor:
+    """(B, n_items): `score(items)` (a (T,) block of item ids → (B, T))
+    over consecutive blocks of T = max(1, budget // per_item) items,
+    `per_item` the elements one item adds to the block's largest
+    intermediate: the full sort of a model that scores each (user, item)
+    pair through a network (DIN, DIEN, NAIS, ConvNCF, NNCF), where all the
+    items at once would not fit on the card."""
+    T = max(1, budget // max(1, per_item))
+    items = torch.arange(n_items, device=device)
+    return torch.cat([score(items[start:start + T]) for start in range(0, n_items, T)], dim=1)
 
 
 class GeneralRecommender(nn.Module):

@@ -14,8 +14,14 @@
     config, so its states keep the keyword defaults whatever the config
     says (ROADMAP §3); the port reads the config, and at the YAML defaults
     the two states are the same.
+  * `l2_rows`, `normal_table`: each row over its L2 norm (floor 1e-12);
+    a table drawn normal(0, 0.01), the JAX models' `normal_init(0.01)`.
   * `history_matrix`: the (user_num, item_num) float32 0/1 matrix of a
-    training split.
+    training split; `HistoryMatrixModel` keeps it as the buffer
+    `user_hist_matrix` and reads a batch's rows of it.
+  * `padded_history`: each user's training items in split order, padded
+    and cut at `max_len` (`hist_items` / `hist_len`), the state of FISM,
+    NAIS and ENMF (`PaddedHistoryModel`).
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import numpy as np
 import torch
 
 from oovrec_tpu_torch.models.base import Batch, GeneralRecommender
+from oovrec_tpu_torch.models.init import normal_init
 from oovrec_tpu_torch.utils.enums import InputType, ModelType
 
 
@@ -47,6 +54,26 @@ def config_values(config: Optional[Mapping[str, Any]], defaults: Dict[str, Any])
     return out
 
 
+def l2_rows(x: torch.Tensor, floor: float = 1e-12) -> torch.Tensor:
+    """Each row over max(‖row‖, floor)."""
+    return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=floor)
+
+
+def normal_table(model: GeneralRecommender, vocab: int, dim: int,
+                 std: float = 0.01) -> torch.nn.Embedding:
+    """A (vocab, dim) table drawn normal(0, std) from the model's generator."""
+    table = torch.nn.Embedding(vocab, dim, device=model.device)
+    normal_init(std)(table.weight, model.generator)
+    return table
+
+
+def predict_from_full_sort(model, batch: Batch) -> torch.Tensor:
+    """The full-sort score of each row's item (a model whose `predict` is
+    its full sort's column)."""
+    s = model.full_sort_scores(batch)
+    return s.gather(1, batch[model.iid_field].long()[:, None]).squeeze(1)
+
+
 def history_matrix(train_split) -> np.ndarray:
     """(user_num, item_num) float32: 1 where the split has the pair."""
     uid = train_split.inter[train_split.uid_field]
@@ -54,6 +81,28 @@ def history_matrix(train_split) -> np.ndarray:
     mat = np.zeros((train_split.user_num, train_split.item_num), np.float32)
     mat[uid, iid] = 1.0
     return mat
+
+
+def history_state(train_split, config=None) -> dict:
+    """{"user_hist_matrix"}: `MultiVAE.build_estate` of the JAX package
+    (`more.py:132-138`), shared by the models that read it."""
+    return {"user_hist_matrix": history_matrix(train_split)}
+
+
+def padded_history(train_split, max_len: int = 200) -> dict:
+    """`_HistModel.build_estate` of the JAX package (`more3.py:26-38`):
+    (user_num, H) int64 `hist_items`, each user's items in
+    `used_ids_per_user` order, the first H kept, H the longest history
+    cut at `max_len`; `hist_len` the kept counts."""
+    per_user = train_split.used_ids_per_user()
+    H = min(max((len(p) for p in per_user), default=1) or 1, max_len)
+    hist = np.zeros((train_split.user_num, H), np.int64)
+    lens = np.zeros(train_split.user_num, np.int64)
+    for u, items in enumerate(per_user):
+        items = np.asarray(items)[:H]
+        hist[u, : len(items)] = items
+        lens[u] = len(items)
+    return {"hist_items": hist, "hist_len": lens}
 
 
 def set_state(model: torch.nn.Module, name: str, value: Optional[np.ndarray], shape,
@@ -78,10 +127,7 @@ class TraditionalRecommender(GeneralRecommender):
     def calculate_loss(self, batch: Batch) -> torch.Tensor:
         return (self.dummy * 0.0).sum()
 
-    def predict(self, batch: Batch) -> torch.Tensor:
-        """The full-sort score of each row's item."""
-        s = self.full_sort_scores(batch)
-        return s.gather(1, batch[self.iid_field].long()[:, None]).squeeze(1)
+    predict = predict_from_full_sort
 
     def full_sort_scores(self, batch: Batch) -> torch.Tensor:
         raise NotImplementedError
@@ -102,3 +148,47 @@ class HistoryProductRecommender(TraditionalRecommender):
     def full_sort_scores(self, batch: Batch) -> torch.Tensor:
         hist = self.user_hist_matrix[batch[self.uid_field].long()]
         return hist @ getattr(self, self.matrix)
+
+
+class HistoryMatrixModel(GeneralRecommender):
+    """A trained model over rows of the training matrix, kept as the
+    buffer `user_hist_matrix` (`history_state`). `predict` is the full
+    sort's score of each row's item."""
+
+    def __init__(self, n_users: int, n_items: int, embedding_size: int = 64,
+                 user_hist_matrix: Optional[np.ndarray] = None, **kwargs):
+        super().__init__(n_users, n_items, embedding_size, **kwargs)
+        set_state(self, "user_hist_matrix", user_hist_matrix, (n_users, n_items), torch.float32)
+
+    build_estate = staticmethod(history_state)
+
+    def history(self, users: torch.Tensor) -> torch.Tensor:
+        """(B, n_items): the users' rows of the training matrix."""
+        return self.user_hist_matrix[users.long()]
+
+    predict = predict_from_full_sort
+
+
+class PaddedHistoryModel(GeneralRecommender):
+    """A model over each user's padded item history (`padded_history`),
+    kept as the buffers `hist_items` / `hist_len`."""
+
+    def __init__(self, n_users: int, n_items: int, embedding_size: int = 64,
+                 hist_items: Optional[np.ndarray] = None, hist_len: Optional[np.ndarray] = None,
+                 **kwargs):
+        super().__init__(n_users, n_items, embedding_size, **kwargs)
+        set_state(self, "hist_items", hist_items, (n_users, 1), torch.int64)
+        set_state(self, "hist_len", hist_len, (n_users,), torch.int64)
+
+    @staticmethod
+    def build_estate(train_split, config=None) -> dict:
+        return padded_history(train_split)
+
+    def padded(self, users: torch.Tensor):
+        """(hist (B, H), inside (B, H) bool): the users' items and where
+        their histories hold them."""
+        users = users.long()
+        hist = self.hist_items[users]
+        positions = torch.arange(hist.shape[1], device=hist.device)
+        inside = positions[None, :] < self.hist_len[users][:, None]
+        return hist, inside

@@ -1,8 +1,30 @@
-"""NGCF and SGL, graph models on LightGCN's edges.
+"""MultiDAE, CDAE, DMF, SimpleX, and NGCF and SGL, graph models on
+LightGCN's edges.
 
-Port of `oovrec_tpu/models/general/more2.py:259-432` (the module's other
-models, MultiDAE, CDAE, DMF and SimpleX, are not ported yet). The JAX
-module's `_GraphRecommender` (`:259-271`) is `lightgcn.py:GraphModel`
+Port of `oovrec_tpu/models/general/more2.py:24-432`. The first four read
+the training matrix `user_hist_matrix` (a buffer on the card,
+`base.py:HistoryMatrixModel`):
+  * MultiDAE (user batches): MultiVAE's encoder without the variational
+    part: the normalised row, dropout, the tanh `enc_<i>` and `enc_out`,
+    the tanh `dec_<i>` and `dec_out`; the multinomial log-likelihood.
+  * CDAE (user batches): dropout of the row (`corruption_ratio`),
+    sigmoid(encoder(x) + the user's row of `user_embedding`), `decoder`;
+    BCE on logits summed over the items, plus `reg_weight_2` times the
+    squared encoder and decoder kernels (`reg_weight_1` is read and
+    unused, as in the JAX model).
+  * DMF (pointwise rows): relu towers `u_<i>` over the user's row and
+    `i_<i>` over the item's column of the matrix (its transpose: 3,707
+    rows of 6,041 at ML-1M's shape), the cosine of the two; the loss is
+    BCE on the cosine clipped to [1e-6, 1] (a tie at a bound splits its
+    gradient as `jnp.clip` does). The full sort runs the item tower over
+    every column.
+  * SimpleX (pairwise): the user vector γ·e_u + (1 − γ)·(row @ item table)
+    / max(|row|, 1); relu(1 − cos(u, pos)) + `negative_weight` ·
+    relu(cos(u, neg) − `margin`).
+The keep masks of the two autoencoders come from the trainer's dropout
+generator (`models/layers.py:RandomDraws`).
+
+The JAX module's `_GraphRecommender` (`:259-271`) is `lightgcn.py:GraphModel`
 here: the tables, the edge buffers and `propagate`, whose segment sum
 and gathers run the sort-and-segment kernel on the card.
 
@@ -27,11 +49,170 @@ import torch
 
 from oovrec_tpu_torch.models.base import Batch, register_model
 from oovrec_tpu_torch.models.context import dense
+from oovrec_tpu_torch.models.general.base import HistoryMatrixModel, l2_rows
 from oovrec_tpu_torch.models.general.lightgcn import GraphModel, bpr_of
+from oovrec_tpu_torch.models.general.more import dense_stack, multinomial_nll
 from oovrec_tpu_torch.models.layers import Dropout, RandomDraws
-from oovrec_tpu_torch.models.losses import emb_loss
+from oovrec_tpu_torch.models.losses import _wmean, bce_with_logits_terms, emb_loss
 from oovrec_tpu_torch.ops.embed_grad import gather_rows
 from oovrec_tpu_torch.utils.enums import InputType
+
+
+@register_model
+class MultiDAE(HistoryMatrixModel):
+    input_type = InputType.POINTWISE
+    train_on_users = True
+
+    def __init__(self, n_users: int, n_items: int, embedding_size: int = 64,
+                 latent_dim: int = 64, encoder_hidden: Sequence[int] = (256,),
+                 dropout_prob: float = 0.5, **kwargs):
+        super().__init__(n_users, n_items, embedding_size, **kwargs)
+        hidden = tuple(int(h) for h in encoder_hidden)
+        self.dropout_prob = float(dropout_prob)
+        self.enc_layers = dense_stack(self, "enc", (n_items,) + hidden)
+        self.enc_out = dense(self, ((n_items,) + hidden)[-1], int(latent_dim))
+        self.dec_layers = dense_stack(self, "dec", (int(latent_dim),) + hidden[::-1])
+        self.dec_out = dense(self, ((int(latent_dim),) + hidden[::-1])[-1], n_items)
+        self.draws = RandomDraws()
+
+    def forward(self, hist: torch.Tensor, train: bool = False) -> torch.Tensor:
+        h = l2_rows(hist)
+        if train:
+            h = self.draws.dropout(h, self.dropout_prob)
+        for layer in self.enc_layers:
+            h = torch.tanh(layer(h))
+        h = torch.tanh(self.enc_out(h))
+        for layer in self.dec_layers:
+            h = torch.tanh(layer(h))
+        return self.dec_out(h)
+
+    def calculate_loss(self, batch: Batch) -> torch.Tensor:
+        hist = self.history(batch[self.uid_field])
+        return _wmean(multinomial_nll(self.forward(hist, train=True), hist), batch.get("weight"))
+
+    def full_sort_scores(self, batch: Batch) -> torch.Tensor:
+        return self.forward(self.history(batch[self.uid_field]))
+
+
+@register_model
+class CDAE(HistoryMatrixModel):
+    input_type = InputType.POINTWISE
+    train_on_users = True
+
+    def __init__(self, n_users: int, n_items: int, embedding_size: int = 64,
+                 corruption_ratio: float = 0.5, reg_weight_1: float = 0.0,
+                 reg_weight_2: float = 0.01, **kwargs):
+        super().__init__(n_users, n_items, embedding_size, **kwargs)
+        self.corruption_ratio = float(corruption_ratio)
+        self.reg_weight_1, self.reg_weight_2 = float(reg_weight_1), float(reg_weight_2)
+        self.user_embedding = self._embed_table(n_users)
+        self.encoder = dense(self, n_items, embedding_size)
+        self.decoder = dense(self, embedding_size, n_items)
+        self.draws = RandomDraws()
+
+    def forward(self, users: torch.Tensor, hist: torch.Tensor, train: bool = False):
+        x = self.draws.dropout(hist, self.corruption_ratio) if train else hist
+        h = torch.sigmoid(self.encoder(x) + gather_rows(self.user_embedding.weight, users))
+        return self.decoder(h)
+
+    def calculate_loss(self, batch: Batch) -> torch.Tensor:
+        users = batch[self.uid_field]
+        hist = self.history(users)
+        per_user = bce_with_logits_terms(self.forward(users, hist, train=True), hist).sum(dim=1)
+        reg = self.reg_weight_2 * ((self.encoder.weight ** 2).sum()
+                                   + (self.decoder.weight ** 2).sum())
+        return _wmean(per_user, batch.get("weight")) + reg
+
+    def full_sort_scores(self, batch: Batch) -> torch.Tensor:
+        users = batch[self.uid_field]
+        return self.forward(users, self.history(users))
+
+
+def cosine(a: torch.Tensor, b: torch.Tensor, floor: float = 1e-12) -> torch.Tensor:
+    """(..., D) × (..., D) → (...): a·b / (max(‖a‖, floor) · max(‖b‖, floor))."""
+    na = torch.clamp(torch.linalg.vector_norm(a, dim=-1), min=floor)
+    nb = torch.clamp(torch.linalg.vector_norm(b, dim=-1), min=floor)
+    return (a * b).sum(dim=-1) / (na * nb)
+
+
+def jnp_clip(x: torch.Tensor, low: float, high: float) -> torch.Tensor:
+    """`jnp.clip`: min(max(x, low), high), a tie's gradient split in half."""
+    return torch.minimum(torch.maximum(x, torch.full_like(x, low)), torch.full_like(x, high))
+
+
+@register_model
+class DMF(HistoryMatrixModel):
+    input_type = InputType.POINTWISE
+
+    def __init__(self, n_users: int, n_items: int, embedding_size: int = 64,
+                 user_hidden: Sequence[int] = (64,), item_hidden: Sequence[int] = (64,),
+                 label_field: str = "label", **kwargs):
+        super().__init__(n_users, n_items, embedding_size, **kwargs)
+        self.label_field = label_field
+        self.user_layers = dense_stack(self, "u", (n_items,) + tuple(int(h) for h in user_hidden))
+        self.item_layers = dense_stack(self, "i", (n_users,) + tuple(int(h) for h in item_hidden))
+
+    @staticmethod
+    def _tower(layers, x: torch.Tensor) -> torch.Tensor:
+        for layer in layers:
+            x = torch.relu(layer(x))
+        return x
+
+    def _towers(self, batch: Batch):
+        u = self._tower(self.user_layers, self.history(batch[self.uid_field]))
+        i = self._tower(self.item_layers, self.user_hist_matrix.T[batch[self.iid_field].long()])
+        return u, i
+
+    def calculate_loss(self, batch: Batch) -> torch.Tensor:
+        score = jnp_clip(cosine(*self._towers(batch)), 1e-6, 1.0)
+        label = batch[self.label_field]
+        loss = -(label * torch.log(score) + (1 - label) * torch.log(1 - score + 1e-6))
+        return _wmean(loss, batch.get("weight"))
+
+    def predict(self, batch: Batch) -> torch.Tensor:
+        return cosine(*self._towers(batch))
+
+    def full_sort_scores(self, batch: Batch) -> torch.Tensor:
+        u = self._tower(self.user_layers, self.history(batch[self.uid_field]))
+        i = self._tower(self.item_layers, self.user_hist_matrix.T)
+        return l2_rows(u) @ l2_rows(i).T
+
+
+@register_model
+class SimpleX(HistoryMatrixModel):
+    input_type = InputType.PAIRWISE
+
+    def __init__(self, n_users: int, n_items: int, embedding_size: int = 64,
+                 margin: float = 0.9, negative_weight: float = 10.0, gamma: float = 0.5,
+                 **kwargs):
+        super().__init__(n_users, n_items, embedding_size, **kwargs)
+        self.margin, self.negative_weight = float(margin), float(negative_weight)
+        self.gamma = float(gamma)
+        self.user_embedding = self._embed_table(n_users)
+        self.item_embedding = self._embed_table(n_items)
+
+    def _user_vec(self, users: torch.Tensor) -> torch.Tensor:
+        ue = gather_rows(self.user_embedding.weight, users)
+        hist = self.history(users)
+        agg = hist @ self.item_embedding.weight
+        cnt = torch.clamp(hist.sum(dim=1, keepdim=True), min=1.0)
+        return self.gamma * ue + (1 - self.gamma) * agg / cnt
+
+    def calculate_loss(self, batch: Batch) -> torch.Tensor:
+        u = self._user_vec(batch[self.uid_field])
+        pos = gather_rows(self.item_embedding.weight, batch[self.iid_field])
+        neg = gather_rows(self.item_embedding.weight, batch[self.neg_prefix + self.iid_field])
+        loss = (torch.relu(1 - cosine(u, pos))
+                + self.negative_weight * torch.relu(cosine(u, neg) - self.margin))
+        return _wmean(loss, batch.get("weight"))
+
+    def predict(self, batch: Batch) -> torch.Tensor:
+        u = self._user_vec(batch[self.uid_field])
+        return cosine(u, self.item_embedding.weight[batch[self.iid_field].long()])
+
+    def full_sort_scores(self, batch: Batch) -> torch.Tensor:
+        u = self._user_vec(batch[self.uid_field])
+        return l2_rows(u) @ l2_rows(self.item_embedding.weight).T
 
 
 def leaky_relu(x: torch.Tensor, slope: float = 0.01) -> torch.Tensor:
@@ -39,11 +220,6 @@ def leaky_relu(x: torch.Tensor, slope: float = 0.01) -> torch.Tensor:
     (torch's is the slope there). A node that no edge reaches has a zero
     `side`, so `bi(side ⊙ e)` is exactly 0 while the bias is."""
     return torch.where(x >= 0, x, slope * x)
-
-
-def l2_rows(x: torch.Tensor, floor: float = 1e-12) -> torch.Tensor:
-    """Each row over max(‖row‖, floor)."""
-    return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=floor)
 
 
 @register_model

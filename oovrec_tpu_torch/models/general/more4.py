@@ -1,7 +1,15 @@
-"""ADMMSLIM, SpectralCF and GCMC.
+"""RecVAE, ADMMSLIM, SpectralCF and GCMC.
 
-Port of `oovrec_tpu/models/general/more4.py:112-280` (the module's other
-model, RecVAE, is not ported yet).
+Port of `oovrec_tpu/models/general/more4.py:25-280`.
+  * RecVAE (user batches, over `user_hist_matrix`): the normalised row,
+    dropout, two swish Denses `enc1` / `enc2`, `mu` / `logvar`; z = μ +
+    ε·exp(½ logvar) decoded by `dec`. The loss is the multinomial
+    log-likelihood plus γ·|row| times log q(z) − log p(z), the composite
+    prior a log-sum-exp of N(0, 1), N(μ, exp logvar) with μ and logvar
+    detached, and N(0, 10), weighted by `mixture_weights`; `beta` is read
+    and unused, as in the JAX model. The keep mask, then ε, come from the
+    trainer's dropout generator (`models/layers.py:RandomDraws`). The
+    full sort decodes μ.
   * ADMMSLIM: a traditional model (`models/general/base.py`), SLIM by
     ADMM's closed-form updates in float64 on the host, the JAX package's
     numpy copied as it is (`admmslim_state`), so the two states agree bit
@@ -23,7 +31,8 @@ card.
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -31,12 +40,69 @@ import torch.nn.functional as F
 
 from oovrec_tpu_torch.models.base import Batch, register_model
 from oovrec_tpu_torch.models.context import dense, raw_param
-from oovrec_tpu_torch.models.general.base import HistoryProductRecommender, config_values
+from oovrec_tpu_torch.models.general.base import (
+    HistoryMatrixModel,
+    HistoryProductRecommender,
+    config_values,
+    l2_rows,
+)
 from oovrec_tpu_torch.models.general.lightgcn import GraphModel, bpr_of
-from oovrec_tpu_torch.models.layers import Dropout
-from oovrec_tpu_torch.models.losses import bce_with_logits, emb_loss
+from oovrec_tpu_torch.models.general.more import multinomial_nll
+from oovrec_tpu_torch.models.layers import Dropout, RandomDraws
+from oovrec_tpu_torch.models.losses import _wmean, bce_with_logits, emb_loss
 from oovrec_tpu_torch.ops.embed_grad import gather_rows
 from oovrec_tpu_torch.utils.enums import InputType
+
+
+def log_normal(z: torch.Tensor, mu, logvar: torch.Tensor) -> torch.Tensor:
+    """Elementwise log N(z; μ, exp logvar)."""
+    return -0.5 * (logvar + (z - mu) ** 2 / torch.exp(logvar) + math.log(2 * math.pi))
+
+
+@register_model
+class RecVAE(HistoryMatrixModel):
+    input_type = InputType.POINTWISE
+    train_on_users = True
+
+    def __init__(self, n_users: int, n_items: int, embedding_size: int = 64,
+                 latent_dim: int = 64, hidden_dim: int = 128, dropout_prob: float = 0.5,
+                 beta: float = 0.2, gamma: float = 0.005,
+                 mixture_weights: Sequence[float] = (3 / 20, 3 / 4, 1 / 10), **kwargs):
+        super().__init__(n_users, n_items, embedding_size, **kwargs)
+        self.dropout_prob, self.beta, self.gamma = float(dropout_prob), float(beta), float(gamma)
+        self.mixture_weights = tuple(float(w) for w in mixture_weights)
+        self.enc1 = dense(self, n_items, int(hidden_dim))
+        self.enc2 = dense(self, int(hidden_dim), int(hidden_dim))
+        self.mu = dense(self, int(hidden_dim), int(latent_dim))
+        self.logvar = dense(self, int(hidden_dim), int(latent_dim))
+        self.dec = dense(self, int(latent_dim), n_items)
+        self.draws = RandomDraws()
+
+    def _encode(self, x: torch.Tensor, train: bool):
+        h = l2_rows(x)
+        if train:
+            h = self.draws.dropout(h, self.dropout_prob)
+        h = F.silu(self.enc2(F.silu(self.enc1(h))))
+        return self.mu(h), self.logvar(h)
+
+    def calculate_loss(self, batch: Batch) -> torch.Tensor:
+        hist = self.history(batch[self.uid_field])
+        mu, logvar = self._encode(hist, train=True)
+        z = mu + self.draws.normal(mu.shape, mu.device) * torch.exp(0.5 * logvar)
+        ce = multinomial_nll(self.dec(z), hist)
+        w1, w2, w3 = (math.log(w) for w in self.mixture_weights)
+        zeros = torch.zeros_like(z)
+        pz = torch.stack([
+            w1 + log_normal(z, 0.0, zeros).sum(-1),
+            w2 + log_normal(z, mu.detach(), logvar.detach()).sum(-1),
+            w3 + log_normal(z, 0.0, torch.full_like(z, math.log(10.0))).sum(-1),
+        ])
+        kl = self.gamma * hist.sum(dim=1) * (log_normal(z, mu, logvar).sum(-1)
+                                             - torch.logsumexp(pz, dim=0))
+        return _wmean(ce + kl, batch.get("weight"))
+
+    def full_sort_scores(self, batch: Batch) -> torch.Tensor:
+        return self.dec(self._encode(self.history(batch[self.uid_field]), train=False)[0])
 
 ADMM_DEFAULTS = {"lambda1": 3.0, "lambda2": 200.0, "admm_iter": 30, "rho": 4000.0,
                  "positive_only": True}

@@ -380,9 +380,10 @@ def _draw_generator(generator: Optional[torch.Generator]) -> torch.Generator:
 
 class RandomDraws(nn.Module):
     """A model's own random draws in train mode (DIEN's negatives, S3Rec's
-    masks, negatives and segment starts), from the trainer's dropout
-    generator, as flax draws them from the `dropout` stream: a CUDA-graph
-    capture registers that generator alone."""
+    masks, negatives and segment starts, the autoencoders' ε and keep
+    masks), from the trainer's dropout generator, as flax draws them from
+    the `dropout` stream: a CUDA-graph capture registers that generator
+    alone."""
 
     def __init__(self):
         super().__init__()
@@ -395,6 +396,24 @@ class RandomDraws(nn.Module):
     def rand(self, shape, device) -> torch.Tensor:
         """Uniform [0, 1) floats."""
         return torch.rand(tuple(shape), generator=_draw_generator(self.generator), device=device)
+
+    def normal(self, shape, device) -> torch.Tensor:
+        """Standard normal floats (`jax.random.normal`)."""
+        return torch.randn(tuple(shape), generator=_draw_generator(self.generator), device=device)
+
+    def keep(self, p: float, shape, device) -> torch.Tensor:
+        """A float 0/1 mask, 1 with probability `p` (`jax.random.bernoulli`)."""
+        mask = torch.empty(tuple(shape), device=device)
+        return mask.bernoulli_(p, generator=_draw_generator(self.generator))
+
+    def dropout(self, x: torch.Tensor, rate: float) -> torch.Tensor:
+        """flax's `nn.Dropout(rate)` in train mode, its keep mask drawn by
+        `keep`: x at rate 0, zeros at rate 1."""
+        if rate == 0.0:
+            return x
+        if rate == 1.0:
+            return torch.zeros_like(x)
+        return x * self.keep(1.0 - rate, x.shape, x.device) / (1.0 - rate)
 
     def below(self, high: torch.Tensor) -> torch.Tensor:
         """One int64 draw in [0, high) for each entry of the int tensor

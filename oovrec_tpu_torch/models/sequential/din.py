@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from oovrec_tpu_torch.models.base import register_model
+from oovrec_tpu_torch.models.base import register_model, score_item_blocks
 from oovrec_tpu_torch.models.context import dense
 from oovrec_tpu_torch.models.layers import GRUCell, MLPLayers, RandomDraws, gru_scan
 from oovrec_tpu_torch.models.losses import bce_with_logits
@@ -127,10 +127,10 @@ class DIN(SequentialRecommender):
         targets."""
         context = self._context(batch)
         B, L = context[1].shape
-        T = max(1, self.full_sort_elems // (B * L * 4 * self.embedding_size))
-        items = torch.arange(self.n_items, device=context[0].device)
-        return torch.cat([self._score_block(context, items[start:start + T])
-                          for start in range(0, self.n_items, T)], dim=1)
+        return score_item_blocks(self.n_items, B * L * 4 * self.embedding_size,
+                                 context[0].device,
+                                 lambda items: self._score_block(context, items),
+                                 budget=self.full_sort_elems)
 
 
 @register_model

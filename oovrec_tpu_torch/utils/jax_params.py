@@ -38,9 +38,10 @@ same holds for a model's own buffers that JAX keeps in ``estate``
 (`MODEL_STATE`: the packed item features ``seq_feat_tokens`` of GRU4RecF,
 SASRecF, FDSA and S3Rec; the general models' ``item_cnt``,
 ``user_hist_matrix``, ``item_sim``, ``ease_B``, ``slim_W``, ``admm_W``,
-``plrec_scores`` and the graph models' ``edge_src`` / ``edge_dst`` /
-``edge_weight``): `set_embedder_state` loads them, the bridge never
-carries them as params.
+``plrec_scores``, the graph models' ``edge_src`` / ``edge_dst`` /
+``edge_weight``, FISM's, NAIS's and ENMF's ``hist_items`` / ``hist_len``
+and NNCF's ``user_neighbors`` / ``item_neighbors``):
+`set_embedder_state` loads them, the bridge never carries them as params.
 
 BatchNorm running statistics are not parameters either: flax keeps them
 in the ``batch_stats`` collection (``{.../BatchNorm_j: {mean, var}}``, or
@@ -100,7 +101,8 @@ STATE = "embedder_state"
 # solves) and the graph models' edges
 MODEL_STATE = frozenset({
     "seq_feat_tokens", "item_cnt", "user_hist_matrix", "item_sim", "ease_B", "slim_W",
-    "admm_W", "plrec_scores", "edge_src", "edge_dst", "edge_weight",
+    "admm_W", "plrec_scores", "edge_src", "edge_dst", "edge_weight", "hist_items", "hist_len",
+    "user_neighbors", "item_neighbors",
 })
 
 

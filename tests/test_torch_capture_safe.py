@@ -113,6 +113,15 @@ TRACKS.update({
 # their YAML rates
 TRACKS.update({f"general-{name.lower()}": [f"--model={name}", *MAPPER]
                for name in ("LightGCN", "NGCF", "SGL", "SpectralCF", "GCMC", "DGCF", "NCL")})
+# the pair and pointwise embedding models and the user-batch models at
+# their YAML rates (NeuMF's and NNCF's MLP dropout, the autoencoders' keep
+# masks and ε, ENMF's dropout, RaCT's held-out mask), RaCT in each stage
+TRACKS.update({f"general-{name.lower()}": [f"--model={name}", *MAPPER]
+               for name in ("NeuMF", "DMF", "SimpleX", "FISM", "NAIS", "LINE", "ConvNCF",
+                            "NNCF", "MultiVAE", "MultiDAE", "CDAE", "RecVAE", "MacridVAE",
+                            "ENMF")})
+TRACKS.update({f"general-ract-{stage}": ["--model=RaCT", *MAPPER, f"--train_stage={stage}"]
+               for stage in ("actor_pretrain", "critic_pretrain", "finetune")})
 
 
 class _Recorder(TorchDispatchMode):

@@ -76,6 +76,7 @@ def test_scan_sees_the_whole_port():
                    "models/general/itemknn.py", "models/general/lightgcn.py",
                    "models/general/more.py", "models/general/more2.py",
                    "models/general/more3.py", "models/general/more4.py",
-                   "models/general/more5.py"):
+                   "models/general/more5.py", "models/general/neumf.py",
+                   "models/general/ract.py", "data/dataloader.py"):
         assert f"oovrec_tpu_torch/{module}" in names, module
     assert len(names) >= 25

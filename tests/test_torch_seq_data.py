@@ -143,9 +143,9 @@ def test_data_preparation_matches_jax(case, tied):
 def test_knowledge_graph_sequential_models_are_refused(model):
     """On a corpus with `.kg` and `.link` files (toy-kg) the JAX package
     builds a `KGSeqDataset`, which is not ported (and on which JAX cannot
-    build the model either): the port refuses, naming queue 1 item 5.
+    build the model either): the port refuses, naming queue 1 item 3.
     Without them (toy) both take the plain `SequentialDataset`."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         create_dataset(Config(_cfg(model=model, dataset="toy-kg")))
     assert type(create_dataset(Config(_cfg(model=model)))) is SequentialDataset
 

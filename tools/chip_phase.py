@@ -1,19 +1,23 @@
 """One of `chip_smoke.py`'s phases on the MovieLens-1M-shaped corpus
 alone: phase J (the fifteen plain sequence models, J1 and J2), phase K
 (the last seven: GRU4RecF, SASRecF, FDSA, RepeatNet, GRU4RecKG, KSR and
-S3Rec, K1 and K2) or phase L (the general models: the seven traditional
-ones, L1, LightGCN and the six graph models, L2, and the `-m` entry, L3).
+S3Rec, K1 and K2), phase L (the general models: the seven traditional
+ones, L1, LightGCN and the six graph models, L2, and the `-m` entry, L3)
+or phase M (the rest of the general family: the eight pair and pointwise
+models, M1, the seven user-batch models, M2, and the `-m` entry, M3, whose
+runs share L3's child).
 
 Runs on the card only. From the repo's root:
 
     python tools/chip_phase.py --phase J
     python tools/chip_phase.py --phase K
     python tools/chip_phase.py --phase L
+    python tools/chip_phase.py --phase M
 
 It builds the gathers' backward kernel (`csrc/embed_grad.cu`, also the
 graph models' segment sum), writes phase I's corpus
 (`chip_smoke.ml1m_inter_file`), for phase J loads it (`create_dataset`,
-`data_preparation`), for phase L loads it as a general dataset
+`data_preparation`), for phases L and M loads it as a general dataset
 (`l_corpus`), runs the phase's parts with their checks (phase K writes
 and loads its own item and entity files beside the interactions), and
 prints each part's launches, the kernels its graphed passes replayed, the
@@ -36,7 +40,9 @@ import chip_smoke as cs  # noqa: E402
 
 PHASES = {"J": (("J1", "j1_sequential"), ("J2", "j2_cli")),
           "K": (("K1", "k1_sequential"), ("K2", "k2_cli")),
-          "L": (("L2", "l2_graph"), ("L3", "l3_cli"), ("L1", "l1_traditional"))}
+          "L": (("L2", "l2_graph"), ("L3", "l3_cli"), ("L1", "l1_traditional")),
+          # M3's runs share L3's child
+          "M": (("M1", "m1_pairs"), ("M2", "m2_users"), ("L3", "l3_cli"), ("M3", "m3_cli"))}
 
 
 def main(argv=None) -> int:
@@ -58,8 +64,8 @@ def main(argv=None) -> int:
         base = cs.seq_cfg("GRU4Rec")
         ds = cs.create_dataset(base)
         cs.I_CORPUS.update(ds=ds, loaders=cs.data_preparation(base, ds))
-    if phase == "L":
-        cs.l_corpus()
+    if phase in ("L", "M"):
+        cs.l_corpus(ahead=phase == "L")
     cs.log(f"corpus {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     for part, name in PHASES[phase]:
