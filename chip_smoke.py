@@ -43,7 +43,7 @@ Phases (any failure exits non-zero; no phase failure is caught):
      `Trainer.fit`, then the 7-slice eval fused vs dense to 1e-9; then BPR
      with `learner: sparse_adam` on the device epoch (kernel 6);
   7. the CLI, the main path's own entry (`build/cli/`):
-     A. `python -m oovrec_tpu_torch.cli.run` as a subprocess on the tracked
+     A. `python -m oovrec_tpu_torch.cli.run` in the shared CLI child on the tracked
         corpus dataset/synth-ind: BPR (D 64), random-mapper OOV buckets,
         the OOV regime, the paper protocol (uni250), 1 epoch, the 7-slice
         inductive eval and `--results_json`; rc 0, finite metrics, all 7
@@ -66,7 +66,7 @@ Phases (any failure exits non-zero; no phase failure is caught):
      128 hashes and towers of 512, xDeepFM at xDeepFM.yaml):
      D1. EXPERIMENTS.md:40-45 verbatim (lsh, the *_vector columns, 200
          buckets a side, OOV ratio 0.3, the inductive eval; 1 epoch)
-         through `python -m oovrec_tpu_torch.cli.run` as a subprocess, its
+         through `python -m oovrec_tpu_torch.cli.run` in the shared CLI child, its
          `--eval_only` equal to 1e-9, then the same command through
          `cli.run.main` with slsh, dnn, knn, dhe and fdhe (32 hashes); every
          run's 7 slices finite;
@@ -83,7 +83,7 @@ Phases (any failure exits non-zero; no phase failure is caught):
      (WideDeep.yaml, DCNV2.yaml, DirectAU.yaml):
      E1. EXPERIMENTS.md:79, the ranking track (WideDeep, lsh over the
          *_vector columns, 200 buckets a side, OOV ratio 0.3; 2 epochs of
-         8) through `python -m oovrec_tpu_torch.cli.run` as a subprocess:
+         8) through `python -m oovrec_tpu_torch.cli.run` in the shared CLI child:
          the training loss falls, the 7 slices are finite, `--eval_only`
          equal to 1e-9; then the same command through `cli.run.main`;
      E2. DCNv2 through `cli.run.main` on synth-ind (random mapper, 1
@@ -200,7 +200,7 @@ Phases (any failure exits non-zero; no phase failure is caught):
          `eval_batch_size` 4,096 (one row a batch), stopped at 256 rows
          when it would pass 20 s;
      I2. `python -m oovrec_tpu_torch.cli.run --model=GRU4Rec` on
-         dataset/synth-ind for 1 epoch in a child that prints its launch
+         dataset/synth-ind for 1 epoch in the shared CLI child, which prints its launch
          counts, `--eval_only` == the run to 1e-9.
  14. phase J, the rest of the plain sequence models, on I1's corpus:
      J1. Caser, NextItNet, DIN, DIEN, HGN, FOSSIL, TransRec, SHAN, NPE,
@@ -218,7 +218,7 @@ Phases (any failure exits non-zero; no phase failure is caught):
          for 64 users, timed and projected, == one unblocked block on 8
          users x 512 items to 1e-6;
      J2. `python -m oovrec_tpu_torch.cli.run --model=Caser` on
-         dataset/synth-ind for 1 epoch in a child that prints its launch
+         dataset/synth-ind for 1 epoch in the shared CLI child, which prints its launch
          counts, `--eval_only` == the run to 1e-9.
  15. phase K, the last seven sequential models, on I1's interactions with
      ML-1M's item columns and an entity table written beside them:
@@ -241,7 +241,7 @@ Phases (any failure exits non-zero; no phase failure is caught):
          == the per-batch pass);
      K2. `python -m oovrec_tpu_torch.cli.run --model=SASRecF
          --selected_features=[category]` on dataset/synth-ind for 1 epoch
-         in a child that prints its launch counts, `--eval_only` == the
+         in the shared CLI child, which prints its launch counts, `--eval_only` == the
          run to 1e-9.
  16. phase L, the general models, on I1's interactions read as a general
      dataset (random order, RS 8:1:1 by user, full sort over 3,707
@@ -268,7 +268,7 @@ Phases (any failure exits non-zero; no phase failure is caught):
          2;
      L3. `python -m oovrec_tpu_torch.cli.run --model=LightGCN`, then
          `--model=Pop` (then M3's two runs), on dataset/synth-ind for 1
-         epoch in one child that prints each run's launch counts and
+         epoch in the shared CLI child, which prints each run's launch counts and
          wall, each `--eval_only` == its run to 1e-9.
  17. phase M, the rest of the general family, on L's corpus and split at
      the models' YAML widths:
@@ -294,9 +294,41 @@ Phases (any failure exits non-zero; no phase failure is caught):
          for bit (the dropout generators seeded alike) and the ms a step
          of the first 2;
      M3. `python -m oovrec_tpu_torch.cli.run --model=MultiVAE`, then
-         `--model=NeuMF`, on dataset/synth-ind for 1 epoch in L3's child,
-         each `--eval_only` == its run to 1e-9.
+         `--model=NeuMF`, on dataset/synth-ind for 1 epoch after L3's runs
+         in the shared CLI child, each `--eval_only` == its run to 1e-9.
      Phase M launches none of kernels 1-6.
+ 18. phase N, the knowledge models, on I1's interactions with a seeded
+     knowledge graph written beside them (every item linked to its own
+     entity, about 60,000 entities, 40 relations, 500,000 triples, items
+     the heads of 80 %, tails Zipf-skewed over the other entities; the
+     KGAT paper's KGs hold 9-42 relations and 0.46-2.56 M triples) and
+     read as a `KnowledgeBasedDataset` (random order, RS 8:1:1 by user,
+     full sort over 3,707 items; set-up timed apart):
+     N1. CKE, CFKG, KGAT, KGCN, KGNNLS, MKR, KTUP, RippleNet, KGIN and
+         MCCLK at their YAML widths: `KGTrainBatcher`'s and `KGSampler`'s
+         host ms a batch; the state from the training split (timed:
+         KGAT's 2.6 M collaborative edges, the KGCN / KGNNLS neighbours,
+         RippleNet's ripple sets, KGIN's and MCCLK's edges), 16 host steps
+         of 2,048 rows with a triple and its negative tail a row through
+         `Trainer.fit`, finite losses, every parameter moved, the gathers'
+         backward launched (gathers and edge segment sums) and no other
+         kernel; the scanned full-sort test pass over the whole test
+         split; the blocked (KGCN, KGNNLS, KTUP, RippleNet) and hoisted
+         (MKR) full sorts against the per-pair definition for 8 users and
+         KGAT's per-relation projection table against the per-edge
+         products on 65,536 edges, to 1e-6 of the largest; 4 graphed
+         steps == 4 eager ones bit for bit and the ms a step of the first
+         2;
+     N2. `python -m oovrec_tpu_torch.cli.run --model=CKE` on
+         tests/assets/toy-kg at its YAML widths for 1 epoch after M3's
+         runs in the shared CLI child, the gathers' backward launched,
+         `--eval_only` == the run to 1e-9.
+     Phase N launches none of kernels 1-6.
+Every `python -m oovrec_tpu_torch.cli.run` above runs in one shared CLI
+child (`cli_process`), started at phase A and stopped after phase N: it
+runs the module as `__main__` once a request, with the launch counts from
+0, and prints each run's wall, launches and exit code (one process start
+instead of nine, a depth cut for the 750 s budget that drops no check).
 Phase 2 also holds the gathers' backward kernel (`csrc/embed_grad.cu`)
 against its plain version (bit for bit on integer-valued cotangents, to
 1e-5 on random ones, against a repeat run) and times it; phase 6 profiles
@@ -307,14 +339,15 @@ bit for bit on integer inputs and gradients (and against itself on a
 repeat run), and times it per layer and for the 3-layer stack.
 The last line is the device record; the line before it lists the kernels,
 each with its launches on the earlier phases' paths (`launches`), on the
-CLI phases (`launches_cli`) and on phase D's to M's parts
+CLI phases (`launches_cli`) and on phase D's to N's parts
 (`launches_d`, `launches_e`, `launches_f`, `launches_g`, `launches_h`,
-`launches_i`, `launches_j`, `launches_k`, `launches_l`, `launches_m`),
+`launches_i`, `launches_j`, `launches_k`, `launches_l`, `launches_m`,
+`launches_n`),
 each counted by the kernel's wrapper where it launches (`ops/launches.py`;
 a CUDA graph's replays run no wrapper), and the kernels that phase F's to
-M's graphed passes replayed, as their profiler traces show them
-(`launches_f_trace` ... `launches_m_trace`); before them, phase F's to M's
-times as JSON lines (`phase F times` ... `phase M times`) and the edge
+N's graphed passes replayed, as their profiler traces show them
+(`launches_f_trace` ... `launches_n_trace`); before them, phase F's to N's
+times as JSON lines (`phase F times` ... `phase N times`) and the edge
 segment sum's numbers.
 
 TF32 is switched off for matmuls and cuDNN below: the plain versions and
@@ -359,7 +392,7 @@ from oovrec_tpu_torch.data import (
     Sampler,
     TrainBatcher,
 )
-from oovrec_tpu_torch.data.dataloader import UserTrainBatcher
+from oovrec_tpu_torch.data.dataloader import KGTrainBatcher, UserTrainBatcher
 from oovrec_tpu_torch.eval import EvalRunner, InductiveEvaluator
 from oovrec_tpu_torch.inductive import DHEHasher, InductiveSpec, RandomOOVMapper
 from oovrec_tpu_torch.models import BPR, FieldSpec, get_model_class, xDeepFM
@@ -2576,6 +2609,109 @@ SLICE_NAMES = ("overall", "old_users", "new_users", "old_old", "old_new", "new_o
 # device epoch at the sparse phase's lr 1e-2; 256 users a full-sort batch
 C_USERS, C_ITEMS, C_INTERS, C_NEW_RATIO, C_SEED = 50_000, 100_000, 1_000_000, 0.1, 7
 C_BUCKETS, C_EVAL_USERS = 1024, 256
+# C: the two `--eval_only` runs share the training corpus through the
+# `save_dataset` pickle (each rebuilt it until phase N): a depth cut for the
+# 750 s budget; the inductive corpus is rebuilt by each
+C_EVAL_CACHE = True
+
+
+# every `python -m oovrec_tpu_torch.cli.run` of the script (A, D1, E1, G3,
+# H2-K2, L3 with M3 and N2) runs in one child started at the first: it
+# reads one JSON argv a line, runs the module as `__main__` (as `-m` does)
+# with the launch counts from 0, and prints the run's wall, launches and
+# exit code. One process start instead of nine: a depth cut for the 750 s
+# budget (phase N), which drops no check.
+CLI_SERVER = ("import gc, json, runpy, sys, time, traceback\n"
+              "import torch\n"
+              "from oovrec_tpu_torch.ops import launches\n"
+              "for request in sys.stdin:\n"
+              "    sys.argv[1:] = json.loads(request)\n"
+              "    launches.reset_launch_counts()\n"
+              "    t0, rc = time.perf_counter(), 0\n"
+              "    try:\n"
+              "        runpy.run_module('oovrec_tpu_torch.cli.run', run_name='__main__',\n"
+              "                         alter_sys=True)\n"
+              "    except SystemExit as exit_:\n"
+              "        code = exit_.code\n"
+              "        rc = code if isinstance(code, int) else int(code is not None)\n"
+              "    except Exception:\n"
+              "        traceback.print_exc(file=sys.stdout)\n"
+              "        rc = 1\n"
+              "    gc.collect()\n"
+              "    if torch.cuda.is_available():\n"
+              "        torch.cuda.empty_cache()\n"
+              "    print('CLI wall ' + json.dumps(time.perf_counter() - t0))\n"
+              "    print('CLI launches ' + json.dumps(launches.launch_counts()))\n"
+              "    print('CLI rc ' + json.dumps(rc), flush=True)\n")
+CLI_TIMEOUT = 600      # s a run of the shared child may take
+CLI_PROCESS = {}       # the shared child and the queue of its output lines
+
+
+def cli_server():
+    """The shared child (`CLI_SERVER`), started on first use; stopped by
+    `stop_cli_server` (at the script's end and at exit)."""
+    if "proc" not in CLI_PROCESS:
+        import atexit
+        import queue
+        import threading
+
+        proc = subprocess.Popen([sys.executable, "-u", "-c", CLI_SERVER], stdin=subprocess.PIPE,
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                bufsize=1)
+        lines = queue.Queue()
+
+        def pump():
+            for line in proc.stdout:
+                lines.put(line.rstrip("\n"))
+            lines.put(None)
+
+        threading.Thread(target=pump, daemon=True).start()
+        CLI_PROCESS.update(proc=proc, lines=lines, started=time.perf_counter())
+        atexit.register(stop_cli_server)
+    return CLI_PROCESS["proc"], CLI_PROCESS["lines"]
+
+
+def stop_cli_server():
+    proc = CLI_PROCESS.pop("proc", None)
+    CLI_PROCESS.clear()
+    if proc is None:
+        return
+    with contextlib.suppress(OSError):
+        proc.stdin.close()
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
+def cli_process(argv):
+    """`python -m oovrec_tpu_torch.cli.run *argv` in the shared child.
+    → (exit code, its output lines, its launches, wall s: the process
+    start too for the first run)."""
+    import queue
+
+    fresh = "proc" not in CLI_PROCESS
+    proc, lines = cli_server()
+    t0 = CLI_PROCESS["started"] if fresh else time.perf_counter()
+    proc.stdin.write(json.dumps(list(argv)) + "\n")
+    proc.stdin.flush()
+    out, said = [], {}
+    while "CLI rc " not in said:
+        try:
+            line = lines.get(timeout=max(1.0, t0 + CLI_TIMEOUT - time.perf_counter()))
+        except queue.Empty:
+            stop_cli_server()
+            raise AssertionError(f"the CLI child took more than {CLI_TIMEOUT} s: "
+                                 + "\n".join(out[-30:]))
+        require(line is not None, "the CLI child ended: " + "\n".join(out[-30:]))
+        for key in ("CLI wall ", "CLI launches ", "CLI rc "):
+            if line.startswith(key):
+                said[key] = json.loads(line[len(key):])
+                break
+        else:
+            out.append(line)
+    return said["CLI rc "], out, said["CLI launches "], time.perf_counter() - t0
 
 
 def cli_out(name):
@@ -2610,29 +2746,26 @@ def finite_metrics(result, what):
 
 
 def cli_retrieval():
-    """Phase A: the real entry as a subprocess, BPR on synth-ind with the
+    """Phase A: the real entry in the shared CLI child, BPR on synth-ind with the
     OOV regime, uni250 valid/test and the 7-slice inductive eval; then
     `--eval_only` on its checkpoint in this process reproduces its test
     metrics and slices to 1e-9. → the subprocess wall seconds."""
     out = cli_out("a")
     argv = ["--model=BPR", "--dataset=synth-ind", "--data_path=dataset", SYNTH_LOAD_COL,
             *CLI_OOV, f"--epochs={CLI_EPOCHS_A}", *cli_flags(out)]
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "oovrec_tpu_torch.cli.run", *argv],
-                          capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    lines = (proc.stdout + proc.stderr).splitlines()
+    rc, lines, _, wall = cli_process(argv)
     for line in lines:
         if "training [" in line or "test result" in line or "] {" in line:
             log(f"  [A] {line.split(' INFO ')[-1][:160]}")
-    require(proc.returncode == 0, f"phase A: rc {proc.returncode}: " + "\n".join(lines[-30:]))
+    require(rc == 0, f"phase A: rc {rc}: " + "\n".join(lines[-30:]))
     with open(os.path.join(out, "results.json")) as f:
         res = json.load(f)
     finite_metrics(res["test_result"], "phase A test")
     require(tuple(res["inductive"]) == SLICE_NAMES, f"phase A slices {list(res['inductive'])}")
     finite_metrics(res["inductive"]["overall"], "phase A overall slice")
     log(f"phase A: python -m oovrec_tpu_torch.cli.run (BPR, synth-ind, {CLI_EPOCHS_A} epochs, "
-        f"uni250) rc 0 in {wall:.1f} s (wall, process start and the corpus included)")
+        f"uni250) rc 0 in {wall:.1f} s (wall, the shared CLI child's start and the corpus "
+        f"included)")
     again = cli_run.main([f"--eval_only={os.path.join(out, 'BPR-synth-ind.pth')}",
                           "--inductive_eval=True"])
     agree(res["test_result"], again["test_result"], "phase A eval_only test", tol=1e-9)
@@ -2942,13 +3075,16 @@ def cli_corpus():
         # unperturbed ties (bucket-sharing new items score alike): both
         # paths then break them to the lowest index, while perturbed hits
         # draw one permutation a batch on the fused path and three on the
-        # dense one
+        # dense one. The first run writes the `save_dataset` pickle of the
+        # training corpus and the second reads it (C_EVAL_CACHE)
         runs[fused] = cli_run.main([f"--eval_only={trainer.saved_model_file}",
                                     "--inductive_eval=True", f"--use_fused_topk={fused}",
-                                    "--use_perturbed_hits=False"])
+                                    "--use_perturbed_hits=False",
+                                    f"--save_dataset={C_EVAL_CACHE}"])
         n = topk_score.fused_topk_scores.launches
         log(f"phase C eval_only use_fused_topk={fused}: {time.perf_counter() - t0:.1f} s "
-            f"(wall, corpus rebuilt), kernel 1 launches {n}")
+            f"(wall, corpus {'rebuilt' if fused or not C_EVAL_CACHE else 'from the pickle'}), "
+            f"kernel 1 launches {n}")
         require((n > 0) == fused, f"phase C eval_only fused={fused}: {n} kernel 1 launches")
     agree(runs[True]["test_result"], runs[False]["test_result"], "phase C fused vs dense test")
     agree_slices(runs[True]["inductive_results"], runs[False]["inductive_results"],
@@ -2980,6 +3116,8 @@ D_EMBEDDERS = (("slsh", []), ("dnn", []), ("knn", []), ("dhe", []),
 D_KEYS = os.path.join("build", "hash_keys")
 D_HASHES, D_LAYER, D_FEATS = 128, 512, 6
 D_HASH_CHUNK, D_HASH_THREADS = 1024, 8
+D_HASH_EVERY = 4       # D3: the numpy hasher checks every 4th chunk of ids, over the whole
+                       # range (every chunk until phase N): a depth cut for the 750 s budget
 D_LSH_STEPS = 8
 
 
@@ -3019,7 +3157,7 @@ def slices_finite(slices, what):
 
 def d1_embedders():
     """D1: the paper's reproduce command (lsh) through `python -m
-    oovrec_tpu_torch.cli.run` as a subprocess on dataset/synth-ind, its
+    oovrec_tpu_torch.cli.run` in the shared CLI child on dataset/synth-ind, its
     `--eval_only` equal to the run to 1e-9 (the planes come back from the
     checkpoint); then the same command in this process through
     `cli.run.main` with slsh, dnn, knn, dhe and fdhe (32 hashes). Each run's
@@ -3028,21 +3166,19 @@ def d1_embedders():
     write_hash_keys((32, D_HASHES))
     common = [f"--epochs={CLI_EPOCHS_A}", f"--hash_key_dir={D_KEYS}"]
     out = cli_out("d1-lsh")
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "oovrec_tpu_torch.cli.run", *EXPERIMENTS_FLAGS,
-                           *common, *cli_flags(out)], capture_output=True, text=True, timeout=600)
-    walls = {"lsh": time.perf_counter() - t0}
-    lines = (proc.stdout + proc.stderr).splitlines()
+    rc, lines, _, lsh_wall = cli_process([*EXPERIMENTS_FLAGS, *common, *cli_flags(out)])
+    walls = {"lsh": lsh_wall}
     for line in lines:
         if "training [" in line or "test result" in line:
             log(f"  [D1 lsh] {line.split(' INFO ')[-1][:160]}")
-    require(proc.returncode == 0, f"D1 lsh: rc {proc.returncode}: " + "\n".join(lines[-30:]))
+    require(rc == 0, f"D1 lsh: rc {rc}: " + "\n".join(lines[-30:]))
     with open(os.path.join(out, "results.json")) as f:
         res = json.load(f)
     finite_metrics(res["test_result"], "D1 lsh test")
     slices_finite(res["inductive"], "D1 lsh")
     log(f"D1: python -m oovrec_tpu_torch.cli.run, EXPERIMENTS.md:40-45 (lsh, {CLI_EPOCHS_A} "
-        f"epochs) rc 0 in {walls['lsh']:.1f} s (wall, process start and the corpus included)")
+        f"epochs) rc 0 in {walls['lsh']:.1f} s (wall, in the shared CLI child, the corpus "
+        f"included)")
     again = cli_run.main([f"--eval_only={os.path.join(out, 'BPR-synth-ind.pth')}",
                           "--inductive_eval=True"])
     agree(res["test_result"], again["test_result"], "D1 lsh eval_only test", tol=1e-9)
@@ -3094,8 +3230,8 @@ def d2_ranking_lsh():
 
 def hashes_match_host(codes, keys):
     """The card's DHE codes of ids 0..n-1 against the numpy hasher
-    (`ops/siphash.py`), chunk by chunk on D_HASH_THREADS threads. → the
-    number of chunks that differ."""
+    (`ops/siphash.py`), every D_HASH_EVERY-th chunk on D_HASH_THREADS
+    threads. → (the number of chunks that differ, of those checked)."""
     from concurrent.futures import ThreadPoolExecutor
 
     got = codes.cpu().numpy()
@@ -3106,8 +3242,9 @@ def hashes_match_host(codes, keys):
         want = (siphash24_batch(ids, keys) % np.uint64(MAX_HASH)).astype(np.float32)
         return not np.array_equal(got[a:a + len(ids)], want)
 
+    starts = range(0, n, D_HASH_CHUNK * D_HASH_EVERY)
     with ThreadPoolExecutor(D_HASH_THREADS) as pool:
-        return sum(pool.map(differs, range(0, n, D_HASH_CHUNK)))
+        return sum(pool.map(differs, starts)), len(starts)
 
 
 def dhe_cfg(fused, n_items):
@@ -3143,7 +3280,7 @@ def d3_fdhe_serving():
     key_t = model.embedder_state["dhe_keys"]
     hash_ms = time_ms(lambda: dhe_codes_device(ids, key_t), [()], 5)
     t0 = time.perf_counter()
-    bad = hashes_match_host(dhe_codes_device(ids, key_t), keys)
+    bad, checked = hashes_match_host(dhe_codes_device(ids, key_t), keys)
     log(f"D3: {n_items} item ids x {D_HASHES} keys hashed on the card in {hash_ms:.3f} ms; "
         f"the numpy hasher's check took {time.perf_counter() - t0:.1f} s")
     require(bad == 0, f"D3: {bad} chunks of card hashes differ from the numpy hasher")
@@ -3152,7 +3289,8 @@ def d3_fdhe_serving():
         item_e = model.all_item_embeddings(ids, item_dhe_ids=ids)
     require(item_e.shape == (n_items, D) and bool(torch.isfinite(item_e).all()),
             "D3: tower pass output")
-    log(f"D3: card hashes == numpy hasher on all {n_items} ids (bit for bit); the fdhe item "
+    log(f"D3: card hashes == numpy hasher on {checked} chunks of {D_HASH_CHUNK} ids spread over "
+        f"all {n_items} (bit for bit); the fdhe item "
         f"pass over {n_items} items (hashes, features, towers {D_HASHES}+{D_FEATS} -> {D_LAYER} "
         f"x3 -> {D}): {tower_ms:.3f} ms")
     del item_e
@@ -3229,6 +3367,8 @@ E_EPOCHS_CLI = 1  # E2, E4 (2 until phase J)
 E_BN_ROWS = 64
 E_TAGS_VOCAB, E_TAGS_LEN, E_TAGS_STEPS = 1000, 16, 16
 E_DAU_STEPS, E_DAU_B = 64, 2048
+E_PREFETCH_STEPS = 32  # E3: steps an epoch of the prefetch timing (the whole training
+                       # split's 96 until phase N): a depth cut for the 750 s budget
 E_DCNV2 = (("stacked", []), ("parallel", ["--structure=parallel"]), ("mixed", ["--mixed=True"]),
            ("stacked-worker2", ["--worker=2"]))
 E3_MODELS = (("WideDeep", "WideDeep", {}), ("DCNV2", "DCNV2", {}),
@@ -3279,25 +3419,21 @@ def value_slices_finite(slices, what):
 def e1_ranking_track():
     """E1: EXPERIMENTS.md:79, the paper's ranking track (the lsh command of
     D1 with --model=WideDeep --model_eval_type=ranking), through `python -m
-    oovrec_tpu_torch.cli.run` as a subprocess on dataset/synth-ind: the
+    oovrec_tpu_torch.cli.run` in the shared CLI child on dataset/synth-ind: the
     training loss falls, the 7 slices are finite, `--eval_only` reproduces
     them to 1e-9; then the same command through `cli.run.main` in this
     process, where the gathers' backward is counted. → {} (no reset)."""
     argv = ["--model=WideDeep", "--model_eval_type=ranking", *EXPERIMENTS_FLAGS[1:],
             f"--epochs={E_EPOCHS_RANK}"]
     out = cli_out("e1")
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "oovrec_tpu_torch.cli.run", *argv,
-                           *cli_flags(out)], capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    lines = (proc.stdout + proc.stderr).splitlines()
+    rc, lines, _, wall = cli_process([*argv, *cli_flags(out)])
     losses = []
     for line in lines:
         if "training [" in line or "test result" in line:
             log(f"  [E1] {line.split(' INFO ')[-1][:160]}")
         if "train loss: " in line:
             losses.append(float(line.split("train loss: ")[1].split(",")[0].rstrip("]")))
-    require(proc.returncode == 0, f"E1: rc {proc.returncode}: " + "\n".join(lines[-30:]))
+    require(rc == 0, f"E1: rc {rc}: " + "\n".join(lines[-30:]))
     require(len(losses) == E_EPOCHS_RANK and all(map(math.isfinite, losses))
             and losses[-1] < losses[0], f"E1: epoch losses {losses}")
     with open(os.path.join(out, "results.json")) as f:
@@ -3305,8 +3441,8 @@ def e1_ranking_track():
     finite_metrics(res["test_result"], "E1 test")
     value_slices_finite(res["inductive"], "E1 WideDeep lsh")
     log(f"E1: python -m oovrec_tpu_torch.cli.run, EXPERIMENTS.md:79 (WideDeep, lsh, "
-        f"{E_EPOCHS_RANK} epochs) rc 0 in {wall:.1f} s (wall, process start and the corpus "
-        f"included), epoch losses {[round(x, 4) for x in losses]}")
+        f"{E_EPOCHS_RANK} epochs) rc 0 in {wall:.1f} s (wall, in the shared CLI child, the "
+        f"corpus included), epoch losses {[round(x, 4) for x in losses]}")
     again = cli_run.main([f"--eval_only={os.path.join(out, 'WideDeep-synth-ind.pth')}",
                           "--inductive_eval=True"])
     agree(res["test_result"], again["test_result"], "E1 eval_only test", tol=1e-9)
@@ -3468,10 +3604,13 @@ def e3_prefetch(train, models=("WideDeep", "DCNV2")):
     loop without it at the ranking cell's shape: one epoch of each model on
     the host path without the OOV regime, run with `worker` 0, 2, 2, 0 on
     one trainer after a warm-up epoch, and the loader's batches assembled
-    alone, without training. → {model: {worker: [ms per step]}, "alone":
-    ms per batch}."""
+    alone, without training; each epoch over the first E_PREFETCH_STEPS
+    batches of the training rows. → {model: {worker: [ms per step]},
+    "alone": ms per batch}."""
     out = {}
     cfg = ctr_train_cfg(train_oov=False)
+    train = rows_of(train, np.arange(len(train)) < E_PREFETCH_STEPS * CTR_B, N_CTR_OLD_USERS,
+                    N_CTR_OLD_ITEMS)
     for i, name in enumerate(models):
         trainer = eager_steps(Trainer(cfg, e_ranking_model(name, SEED + 330 + i)))
         loader = TrainBatcher(train, None, cfg, InputType.POINTWISE)
@@ -4461,7 +4600,7 @@ def g3_import(name, argv, subprocess_run):
     """A reference `.pth` of `name` in RecBole's key names (this model's
     weights from another seed) seeds `cli.run` (`import_torch_checkpoint`):
     the import gives the model the file's weights bit for bit; a 1-epoch
-    run from it (the `-m` entry as a subprocess, or `cli.run.main`), then
+    run from it (the `-m` entry in the shared CLI child, or `cli.run.main`), then
     `--eval_only` on its checkpoint reproduces its test metrics and 7
     slices to 1e-9. → the run's wall seconds."""
     out = cli_out(f"g3-{name.lower()}")
@@ -4476,11 +4615,8 @@ def g3_import(name, argv, subprocess_run):
     argv = argv + [f"--import_torch_checkpoint={ref}", "--epochs=1", *cli_flags(out)]
     t0 = time.perf_counter()
     if subprocess_run:
-        proc = subprocess.run([sys.executable, "-m", "oovrec_tpu_torch.cli.run", *argv],
-                              capture_output=True, text=True, timeout=600)
-        lines = (proc.stdout + proc.stderr).splitlines()
-        require(proc.returncode == 0, f"G3 {name}: rc {proc.returncode}: " +
-                "\n".join(lines[-30:]))
+        rc, lines, _, _ = cli_process(argv)
+        require(rc == 0, f"G3 {name}: rc {rc}: " + "\n".join(lines[-30:]))
         require(any("imported reference checkpoint" in x for x in lines),
                 f"G3 {name}: no import logged")
         with open(os.path.join(out, "results.json")) as f:
@@ -4730,31 +4866,17 @@ def h1_zoo(ind, mapper):
 # H2's and I2's child: `python -m oovrec_tpu_torch.cli.run` (runpy runs the
 # module as `__main__` with the same argv), then the child's kernel launch
 # counts
-CLI_CHILD = ("import json, runpy\n"
-             "from oovrec_tpu_torch.ops import launches\n"
-             "runpy.run_module('oovrec_tpu_torch.cli.run', run_name='__main__', alter_sys=True)\n"
-             "print('CLI launches ' + json.dumps(launches.launch_counts()))\n")
-
-
 def cli_child(part, argv, out):
-    """`python -m oovrec_tpu_torch.cli.run` with `argv` in a child
-    (`CLI_CHILD`) writing to `out`: rc 0, its training and test lines
-    logged, the gathers' backward launched there (it prints its wrappers'
-    counts as it ends), finite test metrics. → (its launches, its
-    results.json, wall s)."""
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", CLI_CHILD, *argv, *cli_flags(out)],
-                          capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    lines = (proc.stdout + proc.stderr).splitlines()
+    """`python -m oovrec_tpu_torch.cli.run` with `argv` in the shared
+    child (`cli_process`) writing to `out`: rc 0, its training and test
+    lines logged, the gathers' backward launched there (the child prints
+    its wrappers' counts after each run), finite test metrics. → (its
+    launches, its results.json, wall s)."""
+    rc, lines, child, wall = cli_process([*argv, *cli_flags(out)])
     for line in lines:
         if "training [" in line or "test result" in line:
             log(f"  [{part}] {line.split(' INFO ')[-1][:160]}")
-    require(proc.returncode == 0, f"{part}: rc {proc.returncode}: " + "\n".join(lines[-30:]))
-    said = [x[len("CLI launches "):] for x in proc.stdout.splitlines()
-            if x.startswith("CLI launches ")]
-    require(len(said) == 1, f"{part}: the child printed no launch counts")
-    child = json.loads(said[0])
+    require(rc == 0, f"{part}: rc {rc}: " + "\n".join(lines[-30:]))
     counts = {k: child.get(k, 0) for k in kernel_counts()}
     require(counts["scatter_rows_kernel"] > 0,
             f"{part}: the gathers' backward in the run {child}")
@@ -4766,7 +4888,7 @@ def cli_child(part, argv, out):
 
 def h2_cli():
     """H2: `python -m oovrec_tpu_torch.cli.run --model=AutoInt
-    --model_eval_type=ranking` as a subprocess on dataset/synth-ind (the
+    --model_eval_type=ranking` in the shared CLI child on dataset/synth-ind (the
     random mapper, the OOV regime, H_EPOCHS_CLI epoch): rc 0, finite test
     metrics and 7 slices, the gathers' backward launched in the child (it
     prints its counts as it ends); `--eval_only` on its checkpoint, in this
@@ -4777,8 +4899,8 @@ def h2_cli():
     counts, res, wall = cli_child("H2", argv, out)
     value_slices_finite(res["inductive"], "H2 AutoInt")
     log(f"H2: python -m oovrec_tpu_torch.cli.run --model=AutoInt --model_eval_type=ranking "
-        f"({H_EPOCHS_CLI} epoch) rc 0 in {wall:.1f} s (wall, process start and the corpus "
-        f"included), test {res['test_result']}")
+        f"({H_EPOCHS_CLI} epoch) rc 0 in {wall:.1f} s (wall, in the shared CLI child, the "
+        f"corpus included), test {res['test_result']}")
     again = cli_run.main([f"--eval_only={os.path.join(out, 'AutoInt-synth-ind.pth')}",
                           "--inductive_eval=True"])
     require(type(again["trainer"].model).__name__ == "AutoInt", "H2: the model")
@@ -5064,7 +5186,7 @@ def i2_cli():
     out = cli_out("i2")
     counts, res, wall = cli_child("I2", argv, out)
     log(f"I2: python -m oovrec_tpu_torch.cli.run --model=GRU4Rec ({I_EPOCHS_CLI} epoch) rc 0 "
-        f"in {wall:.1f} s (wall, process start and the corpus included), test "
+        f"in {wall:.1f} s (wall, in the shared CLI child, the corpus included), test "
         f"{res['test_result']}")
     again = cli_run.main([f"--eval_only={os.path.join(out, 'GRU4Rec-synth-ind.pth')}"])
     require(type(again["trainer"].model).__name__ == "GRU4Rec", "I2: the model")
@@ -5267,7 +5389,7 @@ def j2_cli():
     out = cli_out("j2")
     counts, res, wall = cli_child("J2", argv, out)
     log(f"J2: python -m oovrec_tpu_torch.cli.run --model=Caser ({J_EPOCHS_CLI} epoch) rc 0 "
-        f"in {wall:.1f} s (wall, process start and the corpus included), test "
+        f"in {wall:.1f} s (wall, in the shared CLI child, the corpus included), test "
         f"{res['test_result']}")
     again = cli_run.main([f"--eval_only={os.path.join(out, 'Caser-synth-ind.pth')}"])
     require(type(again["trainer"].model).__name__ == "Caser", "J2: the model")
@@ -5459,7 +5581,7 @@ def k1_sequential():
 
 def k2_cli():
     """K2: `python -m oovrec_tpu_torch.cli.run --model=SASRecF
-    --selected_features=[category]` as a subprocess on dataset/synth-ind
+    --selected_features=[category]` in the shared CLI child on dataset/synth-ind
     (timestamps and the item category loaded, the paper protocol;
     K_EPOCHS_CLI epoch): rc 0, finite test metrics, the gathers' backward
     launched in the child; `--eval_only` on its checkpoint, in this
@@ -5471,8 +5593,8 @@ def k2_cli():
     out = cli_out("k2")
     counts, res, wall = cli_child("K2", argv, out)
     log(f"K2: python -m oovrec_tpu_torch.cli.run --model=SASRecF --selected_features=[category] "
-        f"({K_EPOCHS_CLI} epoch) rc 0 in {wall:.1f} s (wall, process start and the corpus "
-        f"included), test {res['test_result']}")
+        f"({K_EPOCHS_CLI} epoch) rc 0 in {wall:.1f} s (wall, in the shared CLI child, the "
+        f"corpus included), test {res['test_result']}")
     again = cli_run.main([f"--eval_only={os.path.join(out, 'SASRecF-synth-ind.pth')}"])
     require(type(again["trainer"].model).__name__ == "SASRecF", "K2: the model")
     agree(res["test_result"], again["test_result"], "K2 eval_only test", tol=1e-9)
@@ -5806,53 +5928,40 @@ def l2_graph():
     return counts
 
 
-# L3's child: `python -m oovrec_tpu_torch.cli.run` once for each argv of a
-# JSON list (runpy runs the module as `__main__`, as `-m` does), the
-# launches counted from 0 and printed after each run with its wall seconds
-L_CHILD = ("import json, runpy, sys, time\n"
-           "from oovrec_tpu_torch.ops import launches\n"
-           "for argv in json.loads(sys.argv.pop(1)):\n"
-           "    sys.argv[1:] = argv\n"
-           "    launches.reset_launch_counts()\n"
-           "    t0 = time.perf_counter()\n"
-           "    runpy.run_module('oovrec_tpu_torch.cli.run', run_name='__main__', alter_sys=True)\n"
-           "    print('CLI wall ' + json.dumps(time.perf_counter() - t0))\n"
-           "    print('CLI launches ' + json.dumps(launches.launch_counts()))\n")
-# L3's and M3's runs share one child (one process start, one corpus cache):
+# L3's, M3's and N2's runs, one after another in the shared CLI child:
 # name → (the run's directory, its launches, its wall s)
 GENERAL_CLI = {}
-L3_RUNS, M3_RUNS = ("LightGCN", "Pop"), ("MultiVAE", "NeuMF")
+L3_RUNS, M3_RUNS, N2_RUNS = ("LightGCN", "Pop"), ("MultiVAE", "NeuMF"), ("CKE",)
+# N2 runs on the knowledge fixture tests/assets/toy-kg (phase N's corpus
+# is written later, and its own load would cost the budget)
+CLI_DATASETS = {"CKE": ("toy-kg", "tests/assets",
+                        "--load_col={'inter': ['user_id','item_id','rating','timestamp']}")}
 
 
-def general_cli_child():
+def general_cli_child(names):
     """`python -m oovrec_tpu_torch.cli.run --model=<name>` for each of
-    L3_RUNS and M3_RUNS in one child on dataset/synth-ind (timestamps
-    loaded, L_EPOCHS_CLI epoch): rc 0; each run's launches and wall kept
-    in GENERAL_CLI. → the child's wall s."""
-    runs = {}
-    for name in L3_RUNS + M3_RUNS:
-        out = cli_out(f"{'l3' if name in L3_RUNS else 'm3'}-{name.lower()}")
-        runs[name] = (out, [f"--model={name}", "--dataset=synth-ind", "--data_path=dataset",
-                            "--load_col={'inter': ['user_id','item_id','timestamp','is_new']}",
-                            f"--epochs={L_EPOCHS_CLI}", *cli_flags(out)])
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", L_CHILD,
-                           json.dumps([argv for _, argv in runs.values()])],
-                          capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    lines = (proc.stdout + proc.stderr).splitlines()
-    for line in lines:
-        if "training [" in line or "test result" in line:
-            log(f"  [L3, M3] {line.split(' INFO ')[-1][:160]}")
-    require(proc.returncode == 0, f"L3, M3: rc {proc.returncode}: " + "\n".join(lines[-30:]))
-    said = {key: [json.loads(x[len(key):]) for x in proc.stdout.splitlines()
-                  if x.startswith(key)] for key in ("CLI launches ", "CLI wall ")}
-    require(all(len(v) == len(runs) for v in said.values()),
-            f"L3, M3: the child printed {said}")
-    for (name, (out, _)), child, run_s in zip(runs.items(), *said.values()):
-        GENERAL_CLI[name] = (out, child, run_s)
-    log(f"L3, M3: the child's {len(runs)} runs in {wall:.1f} s (wall, process start and the "
-        f"corpus included; runs {[round(GENERAL_CLI[n][2], 1) for n in runs]} s)")
+    `names` (L3_RUNS, M3_RUNS, N2_RUNS) in the shared child, on
+    dataset/synth-ind (timestamps loaded; CKE on toy-kg, CLI_DATASETS),
+    L_EPOCHS_CLI epoch: rc 0; each run's launches and wall kept in
+    GENERAL_CLI. → the runs' wall s."""
+    wall = 0.0
+    for name in names:
+        part = "l3" if name in L3_RUNS else "m3" if name in M3_RUNS else "n2"
+        out = cli_out(f"{part}-{name.lower()}")
+        dataset, path, load_col = CLI_DATASETS.get(name, (
+            "synth-ind", "dataset",
+            "--load_col={'inter': ['user_id','item_id','timestamp','is_new']}"))
+        rc, lines, child, run_s = cli_process([
+            f"--model={name}", f"--dataset={dataset}", f"--data_path={path}", load_col,
+            f"--epochs={L_EPOCHS_CLI}", *cli_flags(out)])
+        for line in lines:
+            if "training [" in line or "test result" in line:
+                log(f"  [{part.upper()} {name}] {line.split(' INFO ')[-1][:160]}")
+        require(rc == 0, f"{part.upper()} {name}: rc {rc}: " + "\n".join(lines[-30:]))
+        GENERAL_CLI[name] = (out, child, run_s, dataset)
+        wall += run_s
+    log(f"{', '.join(names)}: {len(names)} runs in the shared CLI child in {wall:.1f} s (runs "
+        f"{[round(GENERAL_CLI[n][2], 1) for n in names]} s)")
     return wall
 
 
@@ -5864,14 +5973,14 @@ def general_cli_check(part, names, gathering):
     launches."""
     total = {k: 0 for k in kernel_counts()}
     for name in names:
-        out, child, run_s = GENERAL_CLI[name]
+        out, child, run_s, dataset = GENERAL_CLI[name]
         require(child.get("scatter_rows_kernel", 0) > 0 if name in gathering
                 else not any(child.values()), f"{part} {name}: launches {child}")
         total = {k: total[k] + child.get(k, 0) for k in total}
         with open(os.path.join(out, "results.json")) as f:
             res = json.load(f)
         unit_metrics(res["test_result"], f"{part} {name} test")
-        again = cli_run.main([f"--eval_only={os.path.join(out, f'{name}-synth-ind.pth')}"])
+        again = cli_run.main([f"--eval_only={os.path.join(out, f'{name}-{dataset}.pth')}"])
         require(type(again["trainer"].model).__name__ == name, f"{part} {name}: the model")
         agree(res["test_result"], again["test_result"], f"{part} {name} eval_only test",
               tol=1e-9)
@@ -5882,10 +5991,10 @@ def general_cli_check(part, names, gathering):
 
 
 def l3_cli():
-    """L3: the child of `general_cli_child` (LightGCN and Pop, then M3's
-    runs); LightGCN's run launched the kernel, no run of Pop's did.
-    → the launches of L3's runs."""
-    L_TIMES["L3 and M3 CLI runs s"] = general_cli_child()
+    """L3: LightGCN's and Pop's runs in the shared CLI child
+    (`general_cli_child`, then M3's and N2's); LightGCN's run launched the
+    kernel, no run of Pop's did. → the launches of L3's runs."""
+    L_TIMES["L3, M3 and N2 CLI runs s"] = general_cli_child(L3_RUNS + M3_RUNS + N2_RUNS)
     L_TIMES["L3 CLI runs s"] = sum(GENERAL_CLI[n][2] for n in L3_RUNS)
     return general_cli_check("L3", L3_RUNS, ("LightGCN",))
 
@@ -5936,9 +6045,9 @@ def m_test_users(loader, n=None):
     return part
 
 
-def m_blocked_sort(model, what):
+def m_blocked_sort(model, what, tol=1e-5):
     """The blocked full sort of M_SORT_USERS users against the per-pair
-    definition (`_score` on every (user, item) pair in one call), to 1e-5
+    definition (`_score` on every (user, item) pair in one call), to `tol`
     of the largest score. → max_abs_err."""
     users = torch.arange(1, M_SORT_USERS + 1, device=DEVICE)
     items = torch.arange(model.n_items, device=DEVICE)
@@ -5948,7 +6057,7 @@ def m_blocked_sort(model, what):
         pairs = model._score(users.repeat_interleave(model.n_items),
                              items.repeat(M_SORT_USERS)).reshape(M_SORT_USERS, -1)
     err, top = float((blocked - pairs).abs().max()), float(pairs.abs().max())
-    require(bool(torch.isfinite(blocked).all()) and err <= 1e-5 * max(1.0, top),
+    require(bool(torch.isfinite(blocked).all()) and err <= tol * max(1.0, top),
             f"{what}: the blocked full sort is {err} from the pairs (largest {top})")
     log(f"{what}: blocked full sort of {M_SORT_USERS} users x {model.n_items} items == the "
         f"per-pair definition, max_abs_err {err:.3g} (largest score {top:.3g})")
@@ -6131,12 +6240,254 @@ def m2_users():
 
 
 def m3_cli():
-    """M3: MultiVAE's and NeuMF's runs of L3's child
+    """M3: MultiVAE's and NeuMF's runs after L3's in the shared CLI child
     (`general_cli_child`): NeuMF's run launched the gathers' backward,
     MultiVAE's (rows of its matrix, no gather) launched nothing.
     → the launches of M3's runs."""
     M_TIMES["M3 CLI runs s"] = sum(GENERAL_CLI[n][2] for n in M3_RUNS)
     return general_cli_check("M3", M3_RUNS, ("NeuMF",))
+
+
+# phase N, the knowledge models, on I's interactions (`ml1m_inter_file`)
+# with a seeded knowledge graph beside them (`n_kg_files`), within the
+# range of the KGAT paper's three KGs (Wang et al., KDD 2019, Table 1:
+# 9-42 relations, 0.46-2.56 M triples): every item linked to its own
+# entity, about N_ENTITIES entities, N_RELATIONS relations, N_TRIPLES
+# triples, items the heads of N_ITEM_HEADS of them, the tails Zipf-skewed
+# over the other entities, `kg_reverse_r` off; RS 8:1:1 by user, full sort
+N_DATA, N_DATASET = os.path.join("build", "kg", "data"), "ml1m-kg"
+N_ENTITIES, N_RELATIONS, N_TRIPLES, N_ITEM_HEADS, N_SEED = 60_000, 40, 500_000, 0.8, 17
+N_MODELS = ("CKE", "CFKG", "KGAT", "KGCN", "KGNNLS", "MKR", "KTUP", "RippleNet", "KGIN",
+            "MCCLK")
+N_BLOCKED = ("KGCN", "KGNNLS", "MKR", "KTUP", "RippleNet")  # against the pairs
+N_STEPS = 16           # N1: host steps of I_B rows a fit
+N_COMPARE_STEPS = 4    # N1: graphed against eager steps, bit for bit (I_TIME_STEPS timed)
+N_SORT_TOL = 1e-6      # N1: blocked and hoisted full sorts against the pairs, of the largest
+N_PROJ_EDGES = 65_536  # N1: KGAT's edges whose per-edge projections are held against the table
+N_HOST_BATCHES = 8     # N1: KGTrainBatcher's and KGSampler's host ms a batch, over these
+N_TIMES = {}
+N_GATHERS = {}         # N1: the gathers' backward launches of each model's fit
+N_CORPUS = {}          # the knowledge dataset, its loaders and its KGSampler, loaded once
+
+
+def n_cfg(name, **over):
+    """A knowledge model's config at its YAML widths: `l_cfg`'s protocol
+    on phase N's corpus."""
+    return l_cfg(name, dataset=N_DATASET, data_path=N_DATA,
+                 checkpoint_dir=os.path.join("build", "kg"), **over)
+
+
+def n_kg_files(seed=N_SEED):
+    """Phase I's `.inter` (written again where absent) linked into
+    `N_DATA/N_DATASET`, with the `.link` (item k ↔ entity e<k>) and the
+    seeded `.kg` beside it. → wall s."""
+    t0 = time.perf_counter()
+    src = os.path.join(I_DATA, I_DATASET, f"{I_DATASET}.inter")
+    if not os.path.exists(src):
+        ml1m_inter_file()
+    d = os.path.join(N_DATA, N_DATASET)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    dst = os.path.join(d, f"{N_DATASET}.inter")
+    try:
+        os.link(src, dst)
+    except OSError:
+        shutil.copyfile(src, dst)
+    items = np.arange(1, I_ITEMS + 1).astype(str)
+    with open(os.path.join(d, f"{N_DATASET}.link"), "w") as f:
+        f.write("item_id:token\tentity_id:token\n")
+        f.write("\n".join(np.char.add(np.char.add(items, "\te"), items)) + "\n")
+    rng = np.random.default_rng(seed)
+    others = N_ENTITIES - I_ITEMS
+    on_item = rng.random(N_TRIPLES) < N_ITEM_HEADS
+    heads = np.where(on_item, np.char.add("e", rng.integers(1, I_ITEMS + 1, N_TRIPLES).astype(str)),
+                     np.char.add("x", rng.integers(0, others, N_TRIPLES).astype(str)))
+    pop = 1.0 / (np.arange(others) + 10.0) ** 0.8
+    tails = np.char.add("x", rng.choice(others, N_TRIPLES, p=pop / pop.sum()).astype(str))
+    rel_pop = 1.0 / (np.arange(N_RELATIONS) + 2.0)
+    rels = np.char.add("r", rng.choice(N_RELATIONS, N_TRIPLES, p=rel_pop / rel_pop.sum())
+                       .astype(str))
+    with open(os.path.join(d, f"{N_DATASET}.kg"), "w") as f:
+        f.write("head_id:token\trelation_id:token\ttail_id:token\n")
+        f.write("\n".join(np.char.add(np.char.add(np.char.add(np.char.add(heads, "\t"), rels),
+                                                  "\t"), tails)) + "\n")
+    return time.perf_counter() - t0
+
+
+def n_corpus():
+    """Phase N's files (`n_kg_files`) loaded as a `KnowledgeBasedDataset`,
+    split once; its loaders and the `KGSampler` of `data_preparation`,
+    kept in N_CORPUS; the set-up timed apart."""
+    t0 = time.perf_counter()
+    wrote = n_kg_files()
+    base = n_cfg("CKE")
+    t1 = time.perf_counter()
+    ds = create_dataset(base)
+    created = time.perf_counter() - t1
+    splits = ds.build()
+    ds.build = lambda: list(splits)
+    loaders = data_preparation(base, ds)
+    prepared = time.perf_counter() - t1
+    train, valid, test = (x.split for x in loaders)
+    heads, _, tails = ds.kg_triples
+    require(type(ds).__name__ == "KnowledgeBasedDataset" and ds.item_num == I_ITEMS + 1
+            and ds.user_num == I_USERS + 1 and len(heads) == N_TRIPLES
+            and ds.relation_num == N_RELATIONS + 2 and ds.item_num < ds.entity_num <= N_ENTITIES,
+            f"N: the dataset {type(ds)} items {ds.item_num} entities {ds.entity_num} "
+            f"relations {ds.relation_num} triples {len(heads)}")
+    require(len(train) + len(valid) + len(test) == I_INTERS,
+            f"N: the splits {len(train)} {len(valid)} {len(test)}")
+    N_CORPUS.update(ds=ds, loaders=loaders, kg_sampler=loaders[0].kg_sampler)
+    N_TIMES["set-up s"] = {"write": wrote, "create_dataset": created,
+                           "create_dataset + data_preparation": prepared}
+    edges = 2 * len(train) + 2 * len(heads)
+    log(f"N corpus: {I_INTERS} rows, {I_USERS} users, {I_ITEMS} items, {ds.entity_num} "
+        f"entities, {ds.relation_num} relations ([PAD] and [UI-Relation] included), "
+        f"{len(heads)} triples ({int(np.isin(heads, np.arange(1, I_ITEMS + 1)).sum())} with an "
+        f"item head); train {len(train)}, valid {len(valid)}, test {len(test)}; KGAT's "
+        f"collaborative graph {edges} edges over {ds.user_num + ds.entity_num} nodes; set-up "
+        f"apart from the phase's times: the files {wrote:.1f} s, `create_dataset` "
+        f"{created:.1f} s, with `data_preparation` {prepared:.1f} s "
+        f"({time.perf_counter() - t0:.1f} s in all)")
+    return ds, loaders
+
+
+def n_loader(cfg, train):
+    """The model's `KGTrainBatcher` over the rows of N_STEPS batches of the
+    training split (pointwise: half the rows, a label-0 row a negative),
+    its triples from the dataset, its negative tails from the corpus'
+    `KGSampler`."""
+    input_type = get_model_class(cfg["model"]).input_type
+    rows = N_STEPS * I_B // (2 if input_type == InputType.POINTWISE else 1)
+    split = DatasetSplit.view(train.parent, train.index[:rows])
+    return KGTrainBatcher(split, Sampler(["train"], [split], seed=SEED), cfg, input_type,
+                          kg_dataset=N_CORPUS["ds"], kg_sampler=N_CORPUS["kg_sampler"])
+
+
+def n_host_costs(loader):
+    """KGTrainBatcher's host cost a batch of I_B rows against
+    `TrainBatcher`'s on the same rows, and of it the `KGSampler`'s draw of
+    the batch's negative tails (a Python loop over the rows), over
+    N_HOST_BATCHES batches. → {name: [ms a batch]}."""
+    out = {"TrainBatcher ms": [], "KGTrainBatcher ms": [], "KGSampler ms": []}
+    for b in range(N_HOST_BATCHES):
+        idx = np.arange(b * loader.step, (b + 1) * loader.step)
+        t0 = time.perf_counter()
+        TrainBatcher._make_batch(loader, idx)
+        t1 = time.perf_counter()
+        batch = loader._make_batch(idx)
+        t2 = time.perf_counter()
+        loader.kg_sampler.sample_negatives(batch["kg_head"], 1)
+        t3 = time.perf_counter()
+        for k, v in zip(out, (t1 - t0, t2 - t1, t3 - t2)):
+            out[k].append(v * 1e3)
+    log(f"N1 host: a batch of {len(batch['weight'])} rows, TrainBatcher "
+        f"{np.median(out['TrainBatcher ms']):.1f} ms, KGTrainBatcher "
+        f"{np.median(out['KGTrainBatcher ms']):.1f} ms, of it KGSampler "
+        f"{np.median(out['KGSampler ms']):.1f} ms (medians of {N_HOST_BATCHES})")
+    return out
+
+
+def n_kgat_projection(model, what):
+    """KGAT's per-relation projection table (`_projections`) against the
+    per-edge definition W_r e_v at (rel, src) and (rel, dst) of
+    N_PROJ_EDGES edges spread over the graph, to N_SORT_TOL of the
+    largest. → max_abs_err."""
+    n, R = model.n_nodes, model.n_relations
+    D, K = model.embedding_size, model.kg_embedding_size
+    edges = torch.linspace(0, len(model.ckg_src) - 1, N_PROJ_EDGES, device=DEVICE).long()
+    with torch.no_grad():
+        e = model.node_embedding.weight
+        table = model._projections(e)
+        rel = model.ckg_rel[edges].long()
+        W = model.trans_w.reshape(R, D, K)[rel]
+        err = top = 0.0
+        for ids in (model.ckg_src[edges].long(), model.ckg_dst[edges].long()):
+            per_edge = torch.einsum("ed,edk->ek", e[ids], W)
+            err = max(err, float((table[rel * n + ids] - per_edge).abs().max()))
+            top = max(top, float(per_edge.abs().max()))
+    require(err <= N_SORT_TOL * max(1.0, top),
+            f"{what}: the projection table is {err} from the per-edge products (largest {top})")
+    log(f"{what}: the (R, N, K) projection table ({R} x {n} x {K}) == the per-edge W_r e_v "
+        f"on {N_PROJ_EDGES} edges, max_abs_err {err:.3g} (largest {top:.3g})")
+    return err
+
+
+def n1_knowledge():
+    """N1: CKE, CFKG, KGAT, KGCN, KGNNLS, MKR, KTUP, RippleNet, KGIN and
+    MCCLK at their YAML widths on the host path: the state built from the
+    training split (timed: KGAT's collaborative graph, KGCN's and
+    KGNNLS's neighbours, RippleNet's ripple sets, KGIN's and MCCLK's
+    edges); N_STEPS steps of I_B rows from `KGTrainBatcher` (one uniform
+    negative a row, as a pairwise negative or a label-0 row; a triple and
+    its negative tail a row) through `Trainer.fit`, finite losses, every
+    parameter moved, the gathers' backward launched and no other kernel;
+    the scanned full-sort test pass over the whole test split; KGCN's,
+    KGNNLS's, MKR's, KTUP's and RippleNet's full sort against the
+    per-pair definition for M_SORT_USERS users and KGAT's projection table
+    against the per-edge products, to N_SORT_TOL; N_COMPARE_STEPS graphed
+    steps == eager ones bit for bit, and the ms a step of the first
+    I_TIME_STEPS. KGTrainBatcher's and KGSampler's host ms a batch first.
+    → the fits' launches."""
+    ds, (train_loader, _, test_loader) = N_CORPUS["ds"], N_CORPUS["loaders"]
+    train = train_loader.split
+    N_TIMES["host ms a batch"] = n_host_costs(train_loader)
+    counts = {}
+    for name in N_MODELS:
+        what = f"N1 {name}"
+        cfg = n_cfg(name)
+        model, state_s, _ = l_build(cfg, ds)
+        require(model.n_entities == ds.entity_num and model.n_relations == ds.relation_num,
+                f"{what}: {model.n_entities} entities, {model.n_relations} relations")
+        trainer = Trainer(cfg, model)
+        loader = n_loader(cfg, train)
+        before = {n: p.detach().clone() for n, p in trainer.params.items()}
+        reset_kernel_counts()
+        normal, _, fit_s = f_fit(trainer, loader, what, falls=False)
+        seen = kernel_counts()
+        counts = {k: counts.get(k, 0) + n for k, n in seen.items()}
+        N_GATHERS[name] = seen["scatter_rows_kernel"]
+        require(not trainer._device_epochs and normal["steps"] == N_STEPS,
+                f"{what}: {normal['steps']} steps, device epochs {trainer._device_epochs}")
+        require(seen["scatter_rows_kernel"] > 0
+                and not any(n for k, n in seen.items() if k != "scatter_rows_kernel"),
+                f"{what}: launches {seen}")
+        still = [n for n in before if torch.equal(before[n], trainer.params[n])]
+        require(not still, f"{what}: parameters did not move over the fit: {still}")
+        del before
+        res, wall = timed_eval(model, cfg, test_loader, f"{what} test", device_eval=True)
+        unit_metrics(res, f"{what} test")
+        N_TIMES[name] = {"state s": state_s, "fit s": fit_s, "scanned test pass s": wall}
+        if name in N_BLOCKED:
+            N_TIMES[name]["blocked max_abs_err"] = m_blocked_sort(model, what, tol=N_SORT_TOL)
+        if name == "KGAT":
+            N_TIMES[name]["projection max_abs_err"] = n_kgat_projection(model, what)
+        log(f"{what}: state {state_s:.2f} s, {N_STEPS} host steps, {len(trainer.params)} "
+            f"parameters moved, the gathers' backward {seen['scatter_rows_kernel']} launches; "
+            f"scanned test pass ({len(test_loader.uid_list)} test users) {wall:.3f} s: "
+            f"{dict(res)}")
+        del trainer, loader, model
+
+        def make(name=name):
+            c = n_cfg(name)
+            return Trainer(c, quick_start.build_model_and_state(c, ds)), n_loader(c, train)
+
+        host_graph_vs_eager(make, what, N_COMPARE_STEPS, part="N1", times=N_TIMES,
+                            time_steps=I_TIME_STEPS)
+    log("N1 the gathers' backward launches by model: "
+        + json.dumps({k: N_GATHERS[k] for k in N_MODELS}))
+    return counts
+
+
+def n2_cli():
+    """N2: CKE's run after L3's and M3's in the shared CLI child
+    (`general_cli_child`, on toy-kg at the YAML widths), run here if L3
+    has not run: the gathers' backward launched, `--eval_only` == the run
+    to 1e-9. → its launches."""
+    if "CKE" not in GENERAL_CLI:
+        general_cli_child(N2_RUNS)
+    N_TIMES["N2 CLI run s"] = sum(GENERAL_CLI[n][2] for n in N2_RUNS)
+    return general_cli_check("N2", N2_RUNS, ("CKE",))
 
 
 SERVING = {}
@@ -6385,6 +6736,21 @@ def main():
             f"phase M graphed traces {m_trace}")
     log("phase M kernels replayed, from the traces: " + json.dumps(m_trace))
     log("phase M times: " + json.dumps(M_TIMES))
+    # phase N, the knowledge models, on their own corpus; counted by part as
+    # M is (N2's run went with L3's in the shared CLI child)
+    t0, n_done, on_n = time.perf_counter(), dict(F_TRACE), {}
+    n_corpus()
+    parts(on_n, (("N1", n1_knowledge), ("N2", n2_cli)))
+    log(f"phase N: {time.perf_counter() - t0:.1f} s (its set-up included)")
+    n_trace = {p: c for p, c in F_TRACE.items() if p not in n_done}
+    require(all(on_n[p]["scatter_rows_kernel"] > 0 for p in ("N1", "N2"))
+            and not any(n for c in on_n.values() for k, n in c.items()
+                        if k != "scatter_rows_kernel"),
+            f"phase N launches {on_n} (kernels 1-6 none, the gathers' backward in each part)")
+    require(n_trace["N1"]["scatter_rows_kernel"] > 0, f"phase N graphed traces {n_trace}")
+    log("phase N kernels replayed, from the traces: " + json.dumps(n_trace))
+    log("phase N times: " + json.dumps(N_TIMES))
+    stop_cli_server()
     cli = {  # each kernel's launches on the CLI paths (A launches none)
         "fused_topk_scores": {"C": k1_c},
         "cin_layer_pooled": {"B": cli_b["cin_layer_pooled"]},
@@ -6467,6 +6833,8 @@ def main():
         k["launches_l_trace"] = {part: c[k["name"]] for part, c in l_trace.items()}
         k["launches_m"] = {part: c[k["name"]] for part, c in on_m.items()}
         k["launches_m_trace"] = {part: c[k["name"]] for part, c in m_trace.items()}
+        k["launches_n"] = {part: c[k["name"]] for part, c in on_n.items()}
+        k["launches_n_trace"] = {part: c[k["name"]] for part, c in n_trace.items()}
     log("gathers' backward (ops/embed_grad.py, not a Pallas kernel): " + json.dumps({
             "ms": gathers, "bound_ms": gather_bound,
             "device_epoch": GATHER_RESULTS.get("device_epoch")}))

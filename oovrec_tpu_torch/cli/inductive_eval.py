@@ -17,7 +17,10 @@ A full-sort eval of a model without an ID tower (`all_item_embeddings`:
 the general models of `models/general/`) is refused before any work, with
 a `TypeError` that names it (`refuse_without_id_tower`); the JAX package
 fails there later, with an `AttributeError` from inside its evaluator
-(`eval/inductive.py:243`).
+(`eval/inductive.py:243`). A knowledge model is refused in every mode:
+the `_ind` corpus is an `InductiveDataset`, with no entities or triples to
+rebuild the model on (the JAX package fails at that rebuild: CKE's empty
+entity table, KGAT's missing `kg_triples`).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from oovrec_tpu_torch.inductive.mapper import RandomOOVMapper
 from oovrec_tpu_torch.inductive.spec import InductiveSpec
 from oovrec_tpu_torch.models import get_model_class
 from oovrec_tpu_torch.models.base import load_params
-from oovrec_tpu_torch.utils.enums import EvaluatorType
+from oovrec_tpu_torch.utils.enums import EvaluatorType, ModelType
 from oovrec_tpu_torch.utils.logging import init_logger
 
 
@@ -83,13 +86,18 @@ def refuse_without_id_tower(config: Config) -> None:
     (`all_item_embeddings`, an ID tower's); a model without one (the
     general models of `models/general/`) is refused, naming it. The value
     slices (ranking models) and the uni-N slices score through `predict`
-    and need none."""
+    and need none. A knowledge model is refused in every mode: the `_ind`
+    corpus carries no knowledge graph."""
+    name = config["model"]
+    if get_model_class(name).model_type == ModelType.KNOWLEDGE:
+        raise TypeError(
+            f"model [{name}] is a knowledge model: the inductive corpus is read as an "
+            "InductiveDataset, with no knowledge graph to rebuild it on")
     mode = config["eval_args"]["mode"]
     mode = mode["test"] if isinstance(mode, dict) else mode
     if (config["eval_type"] == EvaluatorType.VALUE or mode == "labeled"
             or eval_mode_to_neg_args(mode) is not None):
         return
-    name = config["model"]
     if not hasattr(get_model_class(name), "all_item_embeddings"):
         raise TypeError(
             f"model [{name}] has no ID tower (user and item tables with "

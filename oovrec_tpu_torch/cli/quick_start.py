@@ -33,6 +33,7 @@ from oovrec_tpu_torch.inductive.factory import build_embedder_state, needs_state
 from oovrec_tpu_torch.inductive.spec import InductiveSpec
 from oovrec_tpu_torch.models import get_model_class
 from oovrec_tpu_torch.models.context import ContextRecommender, field_spec_from_dataset
+from oovrec_tpu_torch.models.knowledge import KnowledgeRecommender
 from oovrec_tpu_torch.models.sequential import SequentialRecommender
 from oovrec_tpu_torch.train.trainer import Trainer
 from oovrec_tpu_torch.utils.device import resolve_device
@@ -104,7 +105,9 @@ def build_model_and_state(config, dataset, mode: str = "transductive",
     comes from (the training dataset in that rebuild, so the packed
     tables match the checkpoint). A sequential model's `max_seq_length`
     is `MAX_ITEM_LIST_LENGTH` (`cli/quick_start.py:94-95` of the JAX
-    package). The embedder state
+    package); a knowledge model's `n_entities` / `n_relations` are the
+    dataset's (`:96-98` there), whatever the config says. A sequential
+    model on a `KGSeqDataset` is refused. The embedder state
     (`inductive/factory.py:build_embedder_state`) is built over `dataset`
     in `mode` ('transductive', or 'inductive' over the `_ind` corpus, as
     `oovrec_tpu/cli/quick_start.py:122-131` builds it) and handed to the
@@ -158,10 +161,18 @@ def build_model_and_state(config, dataset, mode: str = "transductive",
         kwargs.update(n_users=n_users, n_items=n_items, neg_prefix=config["NEG_PREFIX"],
                       embedding_size=int(config.get("embedding_size", 64)))
     if issubclass(cls, SequentialRecommender):
+        if hasattr(dataset, "entity_num"):
+            raise NotImplementedError(
+                f"[{config['model']}] on a corpus with .kg and .link files: its dataset is "
+                "the KGSeqDataset, whose entities and relations the sequential models do not "
+                "read; the JAX package cannot build the model on it either (ROADMAP.md "
+                "section 3). Drop the two files to train it on the sequential dataset")
         kwargs["max_seq_length"] = int(config["MAX_ITEM_LIST_LENGTH"])
-    if "label_field" in _ctor_params(cls):  # DIN, DIEN and GCMC read the click label
+    if "label_field" in _ctor_params(cls):  # DIN, DIEN, GCMC and the KG models read the label
         kwargs["label_field"] = config["LABEL_FIELD"]
     kwargs.update(model_kwargs(config, cls))
+    if issubclass(cls, KnowledgeRecommender):  # the dataset's sizes, as at :96-98 there
+        kwargs.update(n_entities=dataset.entity_num, n_relations=dataset.relation_num)
     if hasattr(cls, "derive_kwargs"):  # dataset-derived sizes override the config's
         kwargs.update(cls.derive_kwargs(dataset, config))
     if hasattr(cls, "build_estate"):   # dataset-derived buffers of the model

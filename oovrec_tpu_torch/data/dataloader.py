@@ -1,7 +1,8 @@
 """Batchers: fixed-shape host-side batch assembly.
 
-Port of `oovrec_tpu/data/dataloader.py:38-253, 345-855`: training batches
-with negative sampling (`TrainBatcher`), full-sort batches for retrieval
+Port of `oovrec_tpu/data/dataloader.py:38-342, 345-855`: training batches
+with negative sampling (`TrainBatcher`), with a block of knowledge-graph
+triples (`KGTrainBatcher`) or of users (`UserTrainBatcher`), full-sort batches for retrieval
 models, plain labelled rows for ranking (VALUE-metric) models and the
 sampled-negative eval batches of the `uniN` / `popN` modes
 (`NegSampleEvalBatcher`). Every batch has the same shape; the final
@@ -227,6 +228,49 @@ class TrainBatcher:
         batch = {k: _pad_to(np.asarray(v), total) for k, v in batch.items()}
         batch["weight"] = _pad_to(weight, total)
         return self.transform(batch)
+
+
+class KGTrainBatcher(TrainBatcher):
+    """Training batches of a knowledge model (`dataloader.py:303-342` of
+    the JAX package): each row batch of `TrainBatcher` (after its
+    transform) carries as many knowledge-graph triples, `kg_head`,
+    `kg_relation`, `kg_pos_tail`, with a negative tail each from the
+    `KGSampler` (`kg_neg_tail`) and `kg_weight` 1. The triples are taken
+    in order from a permutation of the whole graph
+    (`host_rng(seed, "kg_batcher")`), drawn anew when a batch would run
+    past its end; a graph smaller than a batch is tiled to the batch."""
+
+    def __init__(self, *args, kg_dataset=None, kg_sampler=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._kg = kg_dataset.kg_triples
+        self.kg_sampler = kg_sampler
+        self._kg_rng = host_rng(int(self.config["seed"] or 0), "kg_batcher")
+        self._kg_order: Optional[np.ndarray] = None
+        self._kg_pos = 0
+
+    def _next_triples(self, n: int):
+        heads, rels, tails = self._kg
+        total = len(heads)
+        if self._kg_order is None or self._kg_pos + n > total:
+            self._kg_order = self._kg_rng.permutation(total)
+            self._kg_pos = 0
+        sel = self._kg_order[self._kg_pos:self._kg_pos + n]
+        self._kg_pos += n
+        return heads[sel], rels[sel], tails[sel]
+
+    def _make_batch(self, idx: np.ndarray) -> Batch:
+        batch = super()._make_batch(idx)
+        n = len(batch["weight"])
+        h, r, t = self._next_triples(n)
+        if len(h) < n:
+            reps = -(-n // max(len(h), 1))
+            h, r, t = (np.tile(x, reps)[:n] for x in (h, r, t))
+        batch["kg_head"] = h
+        batch["kg_relation"] = r
+        batch["kg_pos_tail"] = t
+        batch["kg_neg_tail"] = self.kg_sampler.sample_negatives(h, 1)[:, 0]
+        batch["kg_weight"] = np.ones(n, np.float32)
+        return batch
 
 
 class UserTrainBatcher:

@@ -8,13 +8,16 @@ builds the cross-phase sampler and the train / valid / test batchers
 negatives for 'uniN' / 'popN'). A sequential model gets the
 `SequentialDataset` (`data/sequential.py`) and, under full sort, its
 `SeqFullSortEvalBatcher`. The loaders take the process pair from the
-caller (one process when it gives none). The knowledge-graph datasets
-(`KnowledgeBasedDataset` of the knowledge models, `KGSeqDataset` of
-GRU4RecKG and KSR on a corpus with `.kg` and `.link` files) are not
-ported and raise, naming their ROADMAP.md item. Without those files
-GRU4RecKG and KSR take the plain `SequentialDataset`, as the JAX package
-falls back to it. A model that trains on users (`train_on_users`: the
-autoencoders and ENMF) gets the `UserTrainBatcher`.
+caller (one process when it gives none). A knowledge model gets the
+`KnowledgeBasedDataset` (`data/kg_dataset.py`) and the `KGTrainBatcher`,
+whose batches carry a block of triples and their negative tails
+(`KGSampler`); a corpus without its `.kg` and `.link` files is refused
+before any work, naming them (the JAX package falls back to the plain
+`Dataset` and builds the model with no entities, ROADMAP.md §3).
+GRU4RecKG and KSR get the `KGSeqDataset` on a corpus with both files, as
+in the JAX package (the model build refuses them there), and the plain
+`SequentialDataset` without. A model that trains on users
+(`train_on_users`: the autoencoders and ENMF) gets the `UserTrainBatcher`.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import Optional, Tuple
 
 from oovrec_tpu_torch.data.dataloader import (
     FullSortEvalBatcher,
+    KGTrainBatcher,
     NegSampleEvalBatcher,
     PlainEvalBatcher,
     TrainBatcher,
@@ -35,7 +39,9 @@ from oovrec_tpu_torch.data.dataloader import (
 )
 from oovrec_tpu_torch.data.dataset import Dataset
 from oovrec_tpu_torch.data.inductive_dataset import InductiveDataset
-from oovrec_tpu_torch.data.sampler import Sampler
+from oovrec_tpu_torch.data.kg_dataset import KnowledgeBasedDataset
+from oovrec_tpu_torch.data.kg_seq_dataset import KGSeqDataset
+from oovrec_tpu_torch.data.sampler import KGSampler, Sampler
 from oovrec_tpu_torch.data.sequential import (
     SeqDatasetSplit,
     SeqFullSortEvalBatcher,
@@ -55,10 +61,11 @@ DATASET_CACHE_ARGS = (
 KG_SEQUENTIAL = ("GRU4RecKG", "KSR")
 
 
-def _has_kg_files(config) -> bool:
+def _missing_kg_files(config):
+    """The corpus' `.kg` and `.link` paths that do not exist."""
     path = os.path.join(config["data_path"], config["dataset"])
-    return all(os.path.isfile(os.path.join(path, f"{config['dataset']}.{ext}"))
-               for ext in ("kg", "link"))
+    files = (os.path.join(path, f"{config['dataset']}.{ext}") for ext in ("kg", "link"))
+    return [f for f in files if not os.path.isfile(f)]
 
 
 def _dataset_cache_path(config) -> str:
@@ -82,20 +89,24 @@ def _model_class(config):
 def create_dataset(config, inductive: bool = False):
     """The dataset for the config's model. Under `save_dataset` the
     processed `Dataset` round-trips through a pickle keyed on the dataset
-    arguments; a sequential model's dataset is never read from or written
-    to it (the key names no model, so a general model would load it)."""
+    arguments; a sequential or knowledge model's dataset is never read
+    from or written to it (the key names no model, so a general model
+    would load it, and the JAX package's knowledge branch, behind its
+    pickle read, would load a general model's)."""
     if inductive:
         return InductiveDataset(config)
     cls = _model_class(config)
     mt = getattr(cls, "model_type", None)
     if mt == ModelType.SEQUENTIAL:
-        if config["model"] in KG_SEQUENTIAL and _has_kg_files(config):
-            raise NotImplementedError(
-                f"[{config['model']}] on a corpus with .kg and .link files needs the "
-                "knowledge-graph sequential dataset (KGSeqDataset), which is not ported "
-                "(ROADMAP.md, queue 1 item 3: the knowledge zoo; the JAX package "
-                "cannot build the model on it either, ROADMAP.md section 3)")
+        if config["model"] in KG_SEQUENTIAL and not _missing_kg_files(config):
+            return KGSeqDataset(config)
         return SequentialDataset(config)
+    if mt == ModelType.KNOWLEDGE:
+        missing = _missing_kg_files(config)
+        if missing:
+            raise ValueError(f"[{config['model']}] needs the corpus' knowledge graph: "
+                             f"{', '.join(missing)} not found")
+        return KnowledgeBasedDataset(config)
     cache_path = None
     if config.get("save_dataset"):
         cache_path = config.get("dataset_save_path") or _dataset_cache_path(config)
@@ -104,10 +115,6 @@ def create_dataset(config, inductive: bool = False):
                 ds = pickle.load(f)
             ds.config = config
             return ds
-    if mt == ModelType.KNOWLEDGE:
-        raise NotImplementedError(
-            f"the knowledge-graph datasets of [{config['model']}] are not ported "
-            "(ROADMAP.md, queue 1 item 3: the knowledge zoo)")
     ds = Dataset(config)
     if cache_path:
         os.makedirs(os.path.dirname(cache_path) or ".", exist_ok=True)
@@ -150,16 +157,15 @@ def data_preparation(config, dataset, process_index: Optional[int] = None,
 
     input_type = config["MODEL_INPUT_TYPE"] or InputType.POINTWISE
     # the JAX branch's order (`data/utils.py:132-163` there): the knowledge
-    # dataset, then the user batches, then the row batches. `create_dataset`
-    # refuses a knowledge model first, so its branch here only keeps that
-    # order until the knowledge zoo's loader is ported (ROADMAP.md, queue 1
-    # item 3)
+    # dataset (a `KGSeqDataset` too), then the user batches, then the rows
     cls = _model_class(config)
-    if getattr(cls, "model_type", None) == ModelType.KNOWLEDGE:
-        raise NotImplementedError(
-            f"the knowledge-graph loader of [{config['model']}] is not ported "
-            "(ROADMAP.md, queue 1 item 3: the knowledge zoo)")
-    if getattr(cls, "train_on_users", False):
+    if isinstance(dataset, KnowledgeBasedDataset):
+        heads, _, tails = dataset.kg_triples
+        kg_sampler = KGSampler(heads, tails, dataset.entity_num,
+                               seed=int(config["seed"] or 2020))
+        train_loader = KGTrainBatcher(train_split, sampler, config, input_type, phase="train",
+                                      kg_dataset=dataset, kg_sampler=kg_sampler, **procs)
+    elif getattr(cls, "train_on_users", False):
         train_loader = UserTrainBatcher(train_split, config)
     else:
         train_loader = TrainBatcher(train_split, sampler, config, input_type, phase="train",

@@ -55,6 +55,19 @@ from oovrec_tpu_torch.models.general import (
     SLIMElastic,
     SpectralCF,
 )
+from oovrec_tpu_torch.models.knowledge import (
+    CFKG,
+    CKE,
+    KGAT,
+    KGCN,
+    KGIN,
+    KGNNLS,
+    KTUP,
+    MCCLK,
+    MKR,
+    KnowledgeRecommender,
+    RippleNet,
+)
 from oovrec_tpu_torch.models.sequential import (
     BERT4Rec,
     CORE,
@@ -95,14 +108,15 @@ def get_model_class(name: str):
 
 
 __all__ = [
-    "ADMMSLIM", "AFM", "AutoInt", "BERT4Rec", "BPR", "CDAE", "CORE", "Caser",
+    "ADMMSLIM", "AFM", "AutoInt", "BERT4Rec", "BPR", "CDAE", "CFKG", "CKE", "CORE", "Caser",
     "ContextRecommender", "ConvNCF", "DCN", "DCNV2", "DGCF", "DIEN", "DIN", "DMF", "DSSM",
     "DeepFM", "DirectAU", "EASE", "ENMF", "EulerNet", "FDSA", "FFM", "FISM", "FM", "FNN",
     "FOSSIL", "FPMC", "FieldSpec", "FiGNN", "FwFM", "GCMC", "GCSAN", "GRU4Rec", "GRU4RecF",
-    "GRU4RecKG", "GeneralRecommender", "HGN", "HRM", "ItemKNN", "KD_DAGFM", "KSR", "LINE", "LR",
-    "LightGCN", "LightSANs", "MODEL_REGISTRY", "MacridVAE", "MultiDAE", "MultiVAE", "NAIS",
+    "GRU4RecKG", "GeneralRecommender", "HGN", "HRM", "ItemKNN", "KD_DAGFM", "KGAT", "KGCN",
+    "KGIN", "KGNNLS", "KSR", "KTUP", "KnowledgeRecommender", "LINE", "LR", "LightGCN",
+    "LightSANs", "MCCLK", "MKR", "MODEL_REGISTRY", "MacridVAE", "MultiDAE", "MultiVAE", "NAIS",
     "NARM", "NCEPLRec", "NCL", "NFM", "NGCF", "NNCF", "NPE", "NeuMF", "NextItNet", "PNN", "Pop",
-    "RaCT", "Random", "RecVAE", "RepeatNet", "S3Rec", "SASRec", "SASRecF", "SGL", "SHAN",
-    "SINE", "SLIMElastic", "SRGNN", "STAMP", "SequentialRecommender", "SimpleX", "SpectralCF",
-    "TransRec", "WideDeep", "get_model_class", "xDeepFM",
+    "RaCT", "Random", "RecVAE", "RepeatNet", "RippleNet", "S3Rec", "SASRec", "SASRecF", "SGL",
+    "SHAN", "SINE", "SLIMElastic", "SRGNN", "STAMP", "SequentialRecommender", "SimpleX",
+    "SpectralCF", "TransRec", "WideDeep", "get_model_class", "xDeepFM",
 ]

@@ -30,7 +30,7 @@ from oovrec_tpu_torch.models.init import xavier_normal_
 from oovrec_tpu_torch.ops.siphash_device import dhe_codes_device
 from oovrec_tpu_torch.utils.device import resolve_device
 from oovrec_tpu_torch.utils.enums import InputType, ModelType
-from oovrec_tpu_torch.utils.jax_params import MODEL_STATE
+from oovrec_tpu_torch.utils.jax_params import is_model_state
 
 Batch = Dict[str, torch.Tensor]
 STATE = "embedder_state"
@@ -106,13 +106,13 @@ def load_params(model: nn.Module, params: Mapping[str, torch.Tensor],
     take = {}
     for k, v in params.items():
         head, _, leaf = k.rpartition(".")
-        if (head.split(".")[-1] == STATE and leaf not in restore) or k in MODEL_STATE:
+        if (head.split(".")[-1] == STATE and leaf not in restore) or is_model_state(k):
             continue
         if k not in own:
             raise KeyError(f"checkpoint entry [{k}] has no place in the model")
         take[k] = v
     missing = [k for k in own
-               if k not in take and k not in MODEL_STATE and k.split(".")[-2:-1] != [STATE]]
+               if k not in take and not is_model_state(k) and k.split(".")[-2:-1] != [STATE]]
     if missing:
         raise KeyError(f"checkpoint lacks {missing}")
     model.load_state_dict(take, strict=False)
@@ -167,8 +167,10 @@ class GeneralRecommender(nn.Module):
         self.generator = generator
         self.embedder_state = make_embedder_state(spec, embedder_state, self.device)
 
-    def _embed_table(self, vocab: int) -> nn.Embedding:
-        table = nn.Embedding(vocab, self.embedding_size, device=self.device)
+    def _embed_table(self, vocab: int, dim: Optional[int] = None) -> nn.Embedding:
+        """A (vocab, dim) xavier-normal table (`embedding_size` wide unless
+        `dim` says otherwise), drawn from the model's generator."""
+        table = nn.Embedding(vocab, dim or self.embedding_size, device=self.device)
         xavier_normal_(table.weight, self.generator)
         return table
 

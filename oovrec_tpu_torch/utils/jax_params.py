@@ -40,8 +40,16 @@ SASRecF, FDSA and S3Rec; the general models' ``item_cnt``,
 ``user_hist_matrix``, ``item_sim``, ``ease_B``, ``slim_W``, ``admm_W``,
 ``plrec_scores``, the graph models' ``edge_src`` / ``edge_dst`` /
 ``edge_weight``, FISM's, NAIS's and ENMF's ``hist_items`` / ``hist_len``
-and NNCF's ``user_neighbors`` / ``item_neighbors``):
-`set_embedder_state` loads them, the bridge never carries them as params.
+and NNCF's ``user_neighbors`` / ``item_neighbors``; the knowledge models'
+KGCN / KGNNLS neighbours ``kg_neighbors`` / ``kg_neighbor_rels``, KGAT's
+collaborative graph ``ckg_src`` / ``ckg_dst`` / ``ckg_rel``, KGIN's and
+MCCLK's ``kgin_*`` edges and RippleNet's numbered ripple sets
+``ripple_{h,r,t}<hop>``, `is_model_state`): `set_embedder_state` loads
+them, the bridge never carries them as params. The knowledge models'
+trees cross like the others: KGAT's ``node_embedding`` (users first, then
+entities), its raw ``trans_w`` and Denses ``w1_<i>`` / ``w2_<i>``, CKE's
+raw ``trans_w``, MKR's ``cc_<i>`` raw vectors (``w_vv`` ... ``b_e``) and
+KGIN's raw ``latent_emb`` and ``disen_weight_att``.
 
 BatchNorm running statistics are not parameters either: flax keeps them
 in the ``batch_stats`` collection (``{.../BatchNorm_j: {mean, var}}``, or
@@ -86,6 +94,7 @@ model may rename top-level modules through a ``flax_names`` mapping
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
@@ -102,12 +111,20 @@ STATE = "embedder_state"
 MODEL_STATE = frozenset({
     "seq_feat_tokens", "item_cnt", "user_hist_matrix", "item_sim", "ease_B", "slim_W",
     "admm_W", "plrec_scores", "edge_src", "edge_dst", "edge_weight", "hist_items", "hist_len",
-    "user_neighbors", "item_neighbors",
+    "user_neighbors", "item_neighbors", "kg_neighbors", "kg_neighbor_rels", "ckg_src",
+    "ckg_dst", "ckg_rel", "kgin_head", "kgin_rel", "kgin_tail", "kgin_uid", "kgin_iid", "kgin_w",
 })
+# RippleNet's ripple sets, three arrays a hop: ripple_h0, ripple_r0, ...
+NUMBERED_STATE = re.compile(r"ripple_[hrt]\d+")
+
+
+def is_model_state(key: str) -> bool:
+    """Whether `key` names one of a model's own dataset-derived buffers."""
+    return key in MODEL_STATE or NUMBERED_STATE.fullmatch(key) is not None
 
 
 def _is_state(key: str) -> bool:
-    return key.split(".")[-2:-1] == [STATE] or key in MODEL_STATE
+    return key.split(".")[-2:-1] == [STATE] or is_model_state(key)
 
 
 def _stat_keys(module: Optional[nn.Module], keys=()) -> set:
@@ -271,7 +288,7 @@ def set_embedder_state(module: nn.Module, estate: Mapping[str, Any]) -> nn.Modul
     those names (the buffers must exist with the same shapes)."""
     buffers = dict(getattr(module, STATE).named_buffers())
     own = dict(module.named_buffers(recurse=False))
-    buffers.update({k: own[k] for k in MODEL_STATE if k in own})
+    buffers.update({k: v for k, v in own.items() if is_model_state(k)})
     for k, v in estate.items():
         if k not in buffers:
             continue  # JAX-only entries (the uint32 key parts of the TPU hash)

@@ -122,6 +122,20 @@ TRACKS.update({f"general-{name.lower()}": [f"--model={name}", *MAPPER]
                             "ENMF")})
 TRACKS.update({f"general-ract-{stage}": ["--model=RaCT", *MAPPER, f"--train_stage={stage}"]
                for stage in ("actor_pretrain", "critic_pretrain", "finetune")})
+# the knowledge models on toy-kg (its triples and negative tails in every
+# batch), at their YAML rates (KGAT's and KGIN's message dropout), with
+# CFKG's TransE loss, MCCLK's kNN graph at k 3 and KGAT's two layers
+KNOWLEDGE = ["--dataset=toy-kg", f"--data_path={ASSETS}", "--train_batch_size=16",
+             "--embedding_size=8", "--log_tensorboard=False",
+             "--load_col={'inter': ['user_id','item_id','rating','timestamp']}"]
+TRACKS.update({f"kg-{name.lower()}": [f"--model={name}", *KNOWLEDGE]
+               for name in ("CKE", "CFKG", "KGCN", "KGNNLS", "MKR", "KTUP", "RippleNet",
+                            "KGIN")})
+TRACKS.update({
+    "kg-cfkg-transe": ["--model=CFKG", *KNOWLEDGE, "--loss_function=transe"],
+    "kg-kgat": ["--model=KGAT", *KNOWLEDGE, "--layers=[8,8]", "--kg_embedding_size=8"],
+    "kg-mcclk": ["--model=MCCLK", *KNOWLEDGE, "--knn_k=3"],
+})
 
 
 class _Recorder(TorchDispatchMode):
@@ -166,7 +180,7 @@ def test_dense_step_reads_nothing_back(track, tmp_path, monkeypatch):
 
     monkeypatch.setattr(Trainer, "_apply_step", recorded)
     monkeypatch.chdir(tmp_path)
-    verbatim = track == "widedeep-lsh" or track.startswith("seq-")
+    verbatim = track == "widedeep-lsh" or track.startswith(("seq-", "kg-"))
     argv = TRACKS[track] if verbatim else COMMON + TRACKS[track]
     argv = [a for a in argv if not a.startswith(("--epochs", "--checkpoint_dir"))]
     port_main(argv + ["--epochs=1", "--device=cpu", f"--hash_key_dir={tmp_path / 'keys'}",

@@ -115,8 +115,9 @@ def test_config_files_layer_as_in_jax(tmp_path):
 
 
 def test_unported_model_defaults_to_pointwise():
-    port = Config({"model": "CKE"})  # pairwise in the JAX package, not ported
+    port = Config({"model": "NoSuchModel"})  # in neither registry
     assert port["MODEL_INPUT_TYPE"].name == "POINTWISE"
+    assert Config({"model": "CKE"})["MODEL_INPUT_TYPE"].name == "PAIRWISE"
     assert Config({"model": "BPR"})["MODEL_INPUT_TYPE"].name == "PAIRWISE"
     assert Config({"model": "LightGCN"})["MODEL_INPUT_TYPE"].name == "PAIRWISE"
     assert Config()["device"] == "cuda"

@@ -98,11 +98,15 @@ def data_preparation_train(config):
 
 
 def test_data_preparation_branch_order(monkeypatch):
-    cfg = Config(dict(TOY, model="MultiVAE", train_batch_size=8))
+    """The JAX package's order (`data/utils.py:132-163` there): a knowledge
+    dataset takes `KGTrainBatcher`, whatever the model trains on; then a
+    model trained on users takes `UserTrainBatcher`; then rows."""
+    from oovrec_tpu_torch.data.dataloader import KGTrainBatcher
+    from oovrec_tpu_torch.data.kg_dataset import KnowledgeBasedDataset
 
-    class Knowledge:
-        model_type = ModelType.KNOWLEDGE
-        train_on_users = True
+    cfg = Config(dict(TOY, model="MultiVAE", train_batch_size=8))
+    kg = Config(dict(model="MultiVAE", dataset="toy-kg", data_path=ASSETS, train_batch_size=8,
+                     load_col={"inter": ["user_id", "item_id", "rating", "timestamp"]}))
 
     class Users:
         model_type = ModelType.GENERAL
@@ -111,10 +115,9 @@ def test_data_preparation_branch_order(monkeypatch):
     class Rows:
         model_type = ModelType.GENERAL
 
-    monkeypatch.setattr(port_utils, "_model_class", lambda config: Knowledge)
-    with pytest.raises(NotImplementedError, match="knowledge-graph loader"):
-        data_preparation_train(cfg)
     monkeypatch.setattr(port_utils, "_model_class", lambda config: Users)
+    assert isinstance(port_utils.data_preparation(kg, KnowledgeBasedDataset(kg))[0],
+                      KGTrainBatcher)
     assert isinstance(data_preparation_train(cfg), UserTrainBatcher)
     monkeypatch.setattr(port_utils, "_model_class", lambda config: Rows)
     assert isinstance(data_preparation_train(cfg), TrainBatcher)

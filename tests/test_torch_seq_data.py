@@ -11,9 +11,9 @@ eval batches of several rows and a padded tail), at MAX_ITEM_LIST_LENGTH
 loaders (plain CE batches over two epochs, pairwise BPR batches, the
 uni-N eval over sequential examples); and the five batch transforms
 (mask, inverse, crop, reorder, user-defined) over several batches from
-one seed. `create_dataset` refuses the knowledge-graph sequential
-models on a corpus with `.kg` and `.link` files, and gives them the plain
-`SequentialDataset` without.
+one seed. On a corpus with `.kg` and `.link` files the knowledge-graph
+sequential models get the `KGSeqDataset` and the model build refuses
+them; without, they get the plain `SequentialDataset`.
 """
 
 import os
@@ -141,12 +141,25 @@ def test_data_preparation_matches_jax(case, tied):
 
 @pytest.mark.parametrize("model", ["GRU4RecKG", "KSR"])
 def test_knowledge_graph_sequential_models_are_refused(model):
-    """On a corpus with `.kg` and `.link` files (toy-kg) the JAX package
-    builds a `KGSeqDataset`, which is not ported (and on which JAX cannot
-    build the model either): the port refuses, naming queue 1 item 3.
-    Without them (toy) both take the plain `SequentialDataset`."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        create_dataset(Config(_cfg(model=model, dataset="toy-kg")))
+    """On a corpus with `.kg` and `.link` files (toy-kg) both packages
+    build a `KGSeqDataset`, and neither builds the model on it: flax
+    refuses the `n_entities` that JAX's `quick_start` passes (TypeError), the
+    port's build refuses with its own error. Without them (toy) both take
+    the plain `SequentialDataset`."""
+    import oovrec_tpu.cli.quick_start as jax_quick_start
+    from oovrec_tpu.data.utils import create_dataset as jax_create_dataset
+    from oovrec_tpu_torch.cli.quick_start import build_model_and_state
+    from oovrec_tpu_torch.data.kg_seq_dataset import KGSeqDataset
+
+    cfg = _cfg(model=model, dataset="toy-kg", device="cpu")
+    port = create_dataset(Config(dict(cfg)))
+    jc = JaxConfig(config_dict=dict(cfg))
+    jax_ds = jax_create_dataset(jc)
+    assert type(port) is KGSeqDataset and type(jax_ds).__name__ == "KGSeqDataset"
+    with pytest.raises(NotImplementedError, match="KGSeqDataset"):
+        build_model_and_state(Config(dict(cfg)), port)
+    with pytest.raises(TypeError, match="n_entities"):
+        jax_quick_start.build_model_and_state(jc, jax_ds)
     assert type(create_dataset(Config(_cfg(model=model)))) is SequentialDataset
 
 

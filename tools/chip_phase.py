@@ -3,9 +3,11 @@ alone: phase J (the fifteen plain sequence models, J1 and J2), phase K
 (the last seven: GRU4RecF, SASRecF, FDSA, RepeatNet, GRU4RecKG, KSR and
 S3Rec, K1 and K2), phase L (the general models: the seven traditional
 ones, L1, LightGCN and the six graph models, L2, and the `-m` entry, L3)
-or phase M (the rest of the general family: the eight pair and pointwise
+phase M (the rest of the general family: the eight pair and pointwise
 models, M1, the seven user-batch models, M2, and the `-m` entry, M3, whose
-runs share L3's child).
+runs share L3's child) or phase N (the ten knowledge models on the corpus's
+interactions with a seeded knowledge graph, N1, and CKE by the `-m`
+entry, N2).
 
 Runs on the card only. From the repo's root:
 
@@ -13,13 +15,17 @@ Runs on the card only. From the repo's root:
     python tools/chip_phase.py --phase K
     python tools/chip_phase.py --phase L
     python tools/chip_phase.py --phase M
+    python tools/chip_phase.py --phase N
 
 It builds the gathers' backward kernel (`csrc/embed_grad.cu`, also the
 graph models' segment sum), writes phase I's corpus
 (`chip_smoke.ml1m_inter_file`), for phase J loads it (`create_dataset`,
 `data_preparation`), for phases L and M loads it as a general dataset
-(`l_corpus`), runs the phase's parts with their checks (phase K writes
-and loads its own item and entity files beside the interactions), and
+(`l_corpus`), for phase N writes its knowledge graph beside them and
+loads both (`n_corpus`), runs the phase's parts with their checks (phase
+K writes and loads its own item and entity files beside the
+interactions; every `-m` run goes to the script's one shared CLI child,
+stopped at the end), and
 prints each part's launches, the kernels its graphed passes replayed, the
 phase's times line and the card's name and power limit. About 2-3
 minutes a phase on one H100.
@@ -42,7 +48,8 @@ PHASES = {"J": (("J1", "j1_sequential"), ("J2", "j2_cli")),
           "K": (("K1", "k1_sequential"), ("K2", "k2_cli")),
           "L": (("L2", "l2_graph"), ("L3", "l3_cli"), ("L1", "l1_traditional")),
           # M3's runs share L3's child
-          "M": (("M1", "m1_pairs"), ("M2", "m2_users"), ("L3", "l3_cli"), ("M3", "m3_cli"))}
+          "M": (("M1", "m1_pairs"), ("M2", "m2_users"), ("L3", "l3_cli"), ("M3", "m3_cli")),
+          "N": (("N1", "n1_knowledge"), ("N2", "n2_cli"))}
 
 
 def main(argv=None) -> int:
@@ -66,6 +73,8 @@ def main(argv=None) -> int:
         cs.I_CORPUS.update(ds=ds, loaders=cs.data_preparation(base, ds))
     if phase in ("L", "M"):
         cs.l_corpus(ahead=phase == "L")
+    if phase == "N":
+        cs.n_corpus()
     cs.log(f"corpus {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     for part, name in PHASES[phase]:
@@ -76,6 +85,7 @@ def main(argv=None) -> int:
         cs.sync()
         seen = {**cs.kernel_counts(), **out}
         cs.log(f"phase {part}: {time.perf_counter() - t1:.1f} s, kernel launches {seen}")
+    cs.stop_cli_server()
     cs.log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
     cs.log(f"phase {phase} kernels replayed, from the traces: " + json.dumps(cs.F_TRACE))
     cs.log(f"phase {phase} times: " + json.dumps(getattr(cs, f"{phase}_TIMES")))
