@@ -324,6 +324,30 @@ Phases (any failure exits non-zero; no phase failure is caught):
          runs in the shared CLI child, the gathers' backward launched,
          `--eval_only` == the run to 1e-9.
      Phase N launches none of kernels 1-6.
+ 19. phase O, the mesh (`oovrec_tpu_torch/parallel/`), in one child process
+     of its own (`o_child`: one NCCL process group of one rank, TCP
+     rendezvous on 127.0.0.1 at a free port, the ('data', 'model') mesh
+     {1, 1}; the card holds one rank, NCCL takes no two on one device):
+     O1. the psum and all-to-all exchanges of 2,048 ids into a 100,000 x
+         64 table (`sharded_embedding.py`, S = 1): rows and gradients ==
+         the plain gather's bit for bit, the collectives a call counted,
+         the all-to-all's overflow 0, device ms a call (forward, and
+         forward + backward) beside the plain gather's;
+     O2. phase 3's IV full sort (BPR, D 64, random-mapper buckets, 110,000
+         users x 1,000,000 items, 256 users a batch) through `EvalRunner`
+         under `use_mesh: true`, kernel 1 on the rank: hits and metrics ==
+         the plain run's bit for bit, wall ms a batch;
+     O3. 16 eager mesh steps (`parallel/train_step.py:mesh_step`) of
+         xDeepFM at its published widths (8,192 rows, kernels 4 and 5)
+         and of BPR (2,048 rows) == the plain trainer's 16 (captured)
+         steps bit for bit, losses and every parameter; ms a step and the
+         gradients' all-reduce's share;
+     O4. `cli.run.main` (the `-m` entry's) on dataset/synth-ind with
+         `--use_mesh=True --num_processes=1 --process_id=0
+         --coordinator_address=127.0.0.1:<port>`, 1 epoch: rank 0 writes
+         the checkpoint, `--eval_only` under the mesh == the run to 1e-9.
+     Kernels 1, 4 and 5 and the gathers' backward are counted on the mesh
+     runs alone (`launches_o`).
 Every `python -m oovrec_tpu_torch.cli.run` above runs in one shared CLI
 child (`cli_process`), started at phase A and stopped after phase N: it
 runs the module as `__main__` once a request, with the launch counts from
@@ -339,15 +363,15 @@ bit for bit on integer inputs and gradients (and against itself on a
 repeat run), and times it per layer and for the 3-layer stack.
 The last line is the device record; the line before it lists the kernels,
 each with its launches on the earlier phases' paths (`launches`), on the
-CLI phases (`launches_cli`) and on phase D's to N's parts
+CLI phases (`launches_cli`) and on phase D's to O's parts
 (`launches_d`, `launches_e`, `launches_f`, `launches_g`, `launches_h`,
 `launches_i`, `launches_j`, `launches_k`, `launches_l`, `launches_m`,
-`launches_n`),
+`launches_n`, `launches_o`),
 each counted by the kernel's wrapper where it launches (`ops/launches.py`;
 a CUDA graph's replays run no wrapper), and the kernels that phase F's to
 N's graphed passes replayed, as their profiler traces show them
-(`launches_f_trace` ... `launches_n_trace`); before them, phase F's to N's
-times as JSON lines (`phase F times` ... `phase N times`) and the edge
+(`launches_f_trace` ... `launches_n_trace`); before them, phase F's to O's
+times as JSON lines (`phase F times` ... `phase O times`) and the edge
 segment sum's numbers.
 
 TF32 is switched off for matmuls and cuDNN below: the plain versions and
@@ -1609,6 +1633,10 @@ def ranking():
 
 
 def ctr_train_cfg(**over):
+    return Config(ctr_train_dict(**over))
+
+
+def ctr_train_dict(**over):
     d = {
         "metrics": ["AUC", "LogLoss"], "valid_metric": "AUC", "seed": SEED,
         "eval_batch_size": CTR_B, "metric_decimal_place": 12,
@@ -1621,7 +1649,7 @@ def ctr_train_cfg(**over):
         "device_epoch": False, "host_scan_steps": 1,
     }
     d.update(over)
-    return Config(d)
+    return d
 
 
 def rows_of(split, keep, n_users, n_items):
@@ -6490,6 +6518,315 @@ def n2_cli():
     return general_cli_check("N2", N2_RUNS, ("CKE",))
 
 
+# ---------------------------------------------------------------- phase O
+# the mesh: one child process, one NCCL group of one rank (the card holds
+# one; NCCL takes no two ranks on one device)
+O_IDS, O_ROWS, O_DIM = 2048, 100_000, 64  # O1: the exchanges' lookup
+O_REPS = 20             # O1: timed calls
+O_STEPS = 16            # O3: mesh steps held against the plain trainer's
+O_BPR_B = 2048          # O3: BPR's rows a step
+O_EPOCHS_CLI = 1        # O4
+O_TIMEOUT = 300         # s the child may take
+O_TIMES = {}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def o1_exchange(mesh):
+    """Both exchanges at S = 1 on NCCL against the plain gather."""
+    from oovrec_tpu_torch.parallel import sharded_embedding as se
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 19)
+    table = torch.randn(O_ROWS, O_DIM, generator=g, device=DEVICE)
+    ids = torch.randint(0, O_ROWS, (O_IDS,), generator=g, device=DEVICE)
+    cot = torch.randn(O_IDS, O_DIM, generator=g, device=DEVICE)
+    leaf = table.clone().requires_grad_(True)
+    plain = embed_grad.gather_rows(leaf, ids)
+    (g_plain,) = torch.autograd.grad(plain, [leaf], cot)
+    lookups = {
+        "psum": lambda t: (se.psum_lookup(t, ids, mesh.model_group, 1, 0), None),
+        "alltoall": lambda t: se.alltoall_lookup(t, ids, mesh.model_group, 1, 0),
+    }
+
+    def fwd_bwd(lookup, t):
+        rows, _ = lookup(t)
+        return torch.autograd.grad(rows, [t], cot)
+
+    out, counted = {}, {}
+    for kind, lookup in lookups.items():
+        blk = table.clone().requires_grad_(True)
+        before = dict(se.COLLECTIVES)
+        launches.reset_launch_counts()
+        rows, overflow = lookup(blk)
+        (grad,) = torch.autograd.grad(rows, [blk], cot)
+        sync()
+        for k, v in launches.launch_counts().items():
+            counted[k] = counted.get(k, 0) + v
+        calls = {k: v - before.get(k, 0) for k, v in se.COLLECTIVES.items()
+                 if v - before.get(k, 0)}
+        require(torch.equal(rows, plain), f"O1 {kind}: rows differ from the plain gather")
+        require(torch.equal(grad, g_plain), f"O1 {kind}: gradient differs from the plain one")
+        over = 0 if overflow is None else int(overflow)
+        require(over == 0, f"O1 {kind}: overflow {over}")
+        out[kind] = {
+            "collectives": calls, "overflow": over,
+            "ms": time_ms(lambda: lookup(blk), [()], O_REPS),
+            "fwd_bwd_ms": time_ms(lambda: fwd_bwd(lookup, blk), [()], O_REPS),
+        }
+    out["plain"] = {"ms": time_ms(lambda: embed_grad.gather_rows(leaf, ids), [()], O_REPS),
+                    "fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(
+                        embed_grad.gather_rows(leaf, ids), [leaf], cot), [()], O_REPS)}
+    log(f"O1 exchanges == the plain gather bit for bit: {json.dumps(out)}")
+    return out, counted
+
+
+def hits_of(run):
+    """(the hits every collect_topk call received, the result) of `run()`."""
+    from oovrec_tpu_torch.eval.collector import Collector
+
+    seen, collect = [], Collector.collect_topk
+
+    def recording(self, pos_idx, pos_len, weight, *a, **kw):
+        seen.append((np.array(pos_idx), np.array(pos_len), np.array(weight)))
+        return collect(self, pos_idx, pos_len, weight, *a, **kw)
+
+    Collector.collect_topk = recording
+    try:
+        result = run()
+    finally:
+        Collector.collect_topk = collect
+    return seen, result
+
+
+def o2_serving(mesh):
+    """Phase 3's IV full sort on the plain runner and under the mesh."""
+    model = build_model()
+    mapper = RandomOOVMapper(model.spec, N_OLD_USERS, N_OLD_ITEMS,
+                             N_OLD_USERS + N_NEW_USERS, N_OLD_ITEMS + N_NEW_ITEMS)
+    mapper.set_eval()
+    _, iv_splits = synth_interactions(model, mapper)
+    c = serving_cfg(True, N_OLD_ITEMS)
+    EvalRunner(model, c).evaluate(loader(iv_splits, c))  # warm: kernel 1's library, allocator
+    runs = {}
+    for meshed in (False, True):
+        c = serving_cfg(True, N_OLD_ITEMS)
+        if meshed:
+            c["use_mesh"], c["mesh"] = True, {"data": 1, "model": 1}
+        runner = EvalRunner(model, c, mesh=mesh_from_cfg(c))
+        iv_loader = loader(iv_splits, c)
+        require(runner._use_fused(iv_loader.item_num), "O2: kernel 1 not on the path")
+        launches.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        hits, result = hits_of(lambda: runner.evaluate(iv_loader))
+        sync()
+        wall = time.perf_counter() - t0
+        runs[meshed] = (hits, dict(result), launches.launch_counts(), wall / len(iv_loader))
+    (h0, r0, _, ms0), (h1, r1, counts, ms1) = runs[False], runs[True]
+    require(r0 == r1, f"O2: mesh metrics {r1} vs plain {r0}")
+    require(len(h0) == len(h1) and all(all(np.array_equal(a, b) for a, b in zip(x, y))
+                                       for x, y in zip(h0, h1)), "O2: hits differ")
+    require(counts["fused_topk_scores"] == len(iv_loader), f"O2: kernel 1 launches {counts}")
+    O_TIMES["O2 ms a batch"] = {"mesh": ms1 * 1e3, "plain": ms0 * 1e3}
+    log(f"O2 IV full sort under the mesh == plain bit for bit (hits, {r1}); "
+        f"{ms1 * 1e3:.2f} ms a batch (wall) vs {ms0 * 1e3:.2f} plain")
+    return counts
+
+
+def mesh_from_cfg(cfg):
+    from oovrec_tpu_torch.parallel.mesh import maybe_mesh_from_config
+
+    return maybe_mesh_from_config(cfg)
+
+
+def o_ctr_rows(n):
+    """n seeded labelled rows over phase 4's field layout (old users and
+    items)."""
+    rng = np.random.default_rng(SEED + 23)
+    user_feat = {"user_id": np.arange(N_CTR_OLD_USERS),
+                 "gender": rng.integers(1, 3, N_CTR_OLD_USERS),
+                 "age": rng.random(N_CTR_OLD_USERS).astype(np.float32),
+                 "age__bucket": np.ones(N_CTR_OLD_USERS, np.int64)}
+    item_feat = {"item_id": np.arange(N_CTR_OLD_ITEMS),
+                 "category": rng.integers(1, 64, N_CTR_OLD_ITEMS),
+                 "price": rng.random(N_CTR_OLD_ITEMS).astype(np.float32),
+                 "price__bucket": np.ones(N_CTR_OLD_ITEMS, np.int64)}
+    inter = {"user_id": rng.integers(1, N_CTR_OLD_USERS, n),
+             "item_id": rng.integers(1, N_CTR_OLD_ITEMS, n), "hour": rng.integers(0, 25, n),
+             "label": (rng.random(n) < 0.3).astype(np.float32)}
+    return DatasetSplit(inter, N_CTR_OLD_USERS, N_CTR_OLD_ITEMS, user_feat=user_feat,
+                        item_feat=item_feat)
+
+
+def o3_pair(name, make_model, make_loader, cfg_over):
+    """O_STEPS steps of the plain trainer and of the mesh trainer from one
+    seed: losses and parameters bit for bit. → the mesh run's launches."""
+    from oovrec_tpu_torch.parallel import train_step
+
+    runs = {}
+    for meshed in (False, True):
+        over = dict(cfg_over, use_mesh=True, mesh={"data": 1, "model": 1}) if meshed else cfg_over
+        cfg = Config(over)
+        trainer = Trainer(cfg, make_model())
+        reduce_ms, reduce = [], train_step.allreduce_grads
+
+        def timed(grads, group, reduce=reduce, reduce_ms=reduce_ms):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            start.record()
+            out = reduce(grads, group)
+            end.record()
+            reduce_ms.append((start, end))
+            return out
+
+        walls, step = [], trainer._step
+
+        def timed_step(batch, frozen, step=step, walls=walls):
+            sync()
+            t0 = time.perf_counter()
+            loss = step(batch, frozen)
+            sync()
+            walls.append(time.perf_counter() - t0)
+            return loss
+
+        train_step.allreduce_grads = timed
+        trainer._step = timed_step
+        try:
+            launches.reset_launch_counts()
+            trainer._train_epoch(make_loader(cfg), 0)
+        finally:
+            train_step.allreduce_grads = reduce
+        # the first two steps warm up and capture the plain trainer's graph
+        wall = float(np.median(walls[2:]))
+        require(len(trainer.last_losses) == O_STEPS, f"O3 {name}: {len(trainer.last_losses)}")
+        require(meshed == (trainer.mesh is not None), f"O3 {name}: mesh {trainer.mesh}")
+        runs[meshed] = (trainer.last_losses.copy(),
+                        {n: p.detach().clone() for n, p in trainer.model.named_parameters()},
+                        launches.launch_counts(), wall,
+                        float(np.median([s.elapsed_time(e) for s, e in reduce_ms[2:]]))
+                        if reduce_ms else 0.0)
+        del trainer
+    (l0, p0, _, ms0, _), (l1, p1, counts, ms1, red1) = runs[False], runs[True]
+    require(np.array_equal(l0, l1), f"O3 {name}: losses {l1[:4]} vs {l0[:4]}")
+    require(list(p0) == list(p1) and all(torch.equal(p0[n], p1[n]) for n in p0),
+            f"O3 {name}: parameters differ")
+    O_TIMES[f"O3 {name}"] = {"mesh ms a step": ms1 * 1e3, "plain ms a step": ms0 * 1e3,
+                             "all-reduce ms a step": red1,
+                             "all-reduce share": red1 / (ms1 * 1e3)}
+    log(f"O3 {name}: {O_STEPS} mesh steps == the plain trainer's bit for bit; "
+        f"{json.dumps(O_TIMES[f'O3 {name}'])}, launches {counts}")
+    return counts
+
+
+def o3_training():
+    rows = o_ctr_rows(O_STEPS * CTR_B)
+    seen_x = o3_pair("xDeepFM", lambda: build_ranking_model(SEED + 29),
+                     lambda cfg: TrainBatcher(rows, None, cfg, InputType.POINTWISE),
+                     ctr_train_dict(train_oov=False))
+    require(seen_x["cin_layer_pooled"] > 0 and seen_x["cin_layer_pooled_bwd"] > 0,
+            f"O3 xDeepFM: kernels 4 and 5 not on the mesh step: {seen_x}")
+    rng = np.random.default_rng(SEED + 31)
+    n = O_STEPS * O_BPR_B
+    pairs = DatasetSplit({"user_id": rng.integers(1, N_OLD_USERS, n),
+                          "item_id": rng.integers(1, N_OLD_ITEMS, n)}, N_OLD_USERS, N_OLD_ITEMS)
+    bpr_cfg = {"seed": SEED, "train_batch_size": O_BPR_B, "learner": "adam",
+               "learning_rate": 1e-3, "epochs": 1, "device_epoch": False,
+               "host_scan_steps": 1, "train_oov": False,
+               "train_neg_sample_args": {"distribution": "uniform", "sample_num": 1}}
+    seen_b = o3_pair("BPR", build_model, lambda cfg: TrainBatcher(
+        pairs, Sampler(["train"], [pairs], seed=SEED), cfg, InputType.PAIRWISE), bpr_cfg)
+    return {k: seen_x[k] + seen_b[k] for k in seen_x}
+
+
+def o4_cli(port):
+    """The `-m` entry's main under the mesh, then `--eval_only`."""
+    out = cli_out("o")
+    mesh_flags = ["--use_mesh=True", "--num_processes=1", "--process_id=0",
+                  f"--coordinator_address=127.0.0.1:{port}"]
+    argv = ["--model=BPR", "--dataset=synth-ind", "--data_path=dataset", SYNTH_LOAD_COL,
+            *[f for f in CLI_OOV if f != "--inductive_eval=True"],
+            f"--epochs={O_EPOCHS_CLI}", *cli_flags(out), *mesh_flags]
+    launches.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = cli_run.main(argv)
+    wall = time.perf_counter() - t0
+    counts = launches.launch_counts()
+    tr = res["trainer"]
+    require(tr.mesh is not None and tr.mesh.shape == {"data": 1, "model": 1},
+            f"O4: mesh {tr.mesh}")
+    ckpt = os.path.join(out, "BPR-synth-ind.pth")
+    require(os.path.isfile(ckpt), "O4: rank 0 wrote no checkpoint")
+    finite_metrics(res["test_result"], "O4 test")
+    again = cli_run.main([f"--eval_only={ckpt}", *mesh_flags])
+    agree(dict(res["test_result"]), dict(again["test_result"]), "O4 eval_only", tol=1e-9)
+    O_TIMES["O4 s"] = wall
+    log(f"O4 cli.run.main under the mesh ({O_EPOCHS_CLI} epoch, synth-ind) in {wall:.1f} s, "
+        f"checkpoint by rank 0, --eval_only == the run (1e-9): {dict(res['test_result'])}")
+    return counts
+
+
+def o_child(argv) -> int:
+    """Phase O's process: the NCCL bootstrap, then O1-O4; their numbers
+    and each part's launches into the JSON file `argv[1]`."""
+    import torch.distributed as dist
+
+    from oovrec_tpu_torch.parallel.distributed import backend_for, initialize_distributed
+    from oovrec_tpu_torch.parallel.mesh import make_mesh
+
+    port, out = int(argv[0]), argv[1]
+    t0 = time.perf_counter()
+    info = initialize_distributed(f"127.0.0.1:{port}", 1, 0, device=DEVICE)
+    require(dist.get_backend() == backend_for(DEVICE) and info["process_count"] == 1,
+            f"O: {info}")
+    mesh = make_mesh(1, 1)
+    O_TIMES["bootstrap s"] = time.perf_counter() - t0
+    log(f"O: NCCL process group {info} in {O_TIMES['bootstrap s']:.1f} s, mesh {mesh.shape}")
+    seen, parts = {}, {}
+    parts["O1"], seen["O1"] = o1_exchange(mesh)
+    for part, run in (("O2", lambda: o2_serving(mesh)), ("O3", o3_training),
+                      ("O4", lambda: o4_cli(port))):
+        t1 = time.perf_counter()
+        seen[part] = run()
+        O_TIMES[f"{part} s"] = time.perf_counter() - t1
+    dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump({"O1": parts["O1"], "launches": seen, "times": O_TIMES}, f)
+    return 0
+
+
+def phase_o():
+    """Phase O in its child; its checks, its numbers. → each part's
+    launches."""
+    out = os.path.join("build", "phase_o.json")
+    with contextlib.suppress(FileNotFoundError):
+        os.remove(out)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-u", os.path.abspath(__file__), "--phase-o",
+                           str(free_port()), out], capture_output=True, text=True,
+                          timeout=O_TIMEOUT)
+    for line in proc.stdout.splitlines():
+        if line.startswith(("O", "phase", "  ")) or "Error" in line or "error" in line:
+            log(f"  [O] {line[:400]}")
+    require(proc.returncode == 0, f"phase O: rc {proc.returncode}: "
+            + "\n".join((proc.stdout + proc.stderr).splitlines()[-40:]))
+    with open(out) as f:
+        res = json.load(f)
+    seen = res["launches"]
+    require(seen["O1"]["scatter_rows_kernel"] > 0 and seen["O2"]["fused_topk_scores"] > 0
+            and seen["O3"]["cin_layer_pooled"] > 0 and seen["O3"]["cin_layer_pooled_bwd"] > 0,
+            f"phase O launches {seen}")
+    O_TIMES.update(res["times"], O1=res["O1"], wall_s=time.perf_counter() - t0)
+    log(f"phase O: {O_TIMES['wall_s']:.1f} s (its child process's start included)")
+    log("phase O times: " + json.dumps(O_TIMES))
+    return seen
+
+
 SERVING = {}
 
 
@@ -6751,6 +7088,8 @@ def main():
     log("phase N kernels replayed, from the traces: " + json.dumps(n_trace))
     log("phase N times: " + json.dumps(N_TIMES))
     stop_cli_server()
+    # phase O, the mesh, in a child process of its own
+    on_o = phase_o()
     cli = {  # each kernel's launches on the CLI paths (A launches none)
         "fused_topk_scores": {"C": k1_c},
         "cin_layer_pooled": {"B": cli_b["cin_layer_pooled"]},
@@ -6835,6 +7174,7 @@ def main():
         k["launches_m_trace"] = {part: c[k["name"]] for part, c in m_trace.items()}
         k["launches_n"] = {part: c[k["name"]] for part, c in on_n.items()}
         k["launches_n_trace"] = {part: c[k["name"]] for part, c in n_trace.items()}
+        k["launches_o"] = {part: c[k["name"]] for part, c in on_o.items()}
     log("gathers' backward (ops/embed_grad.py, not a Pallas kernel): " + json.dumps({
             "ms": gathers, "bound_ms": gather_bound,
             "device_epoch": GATHER_RESULTS.get("device_epoch")}))
@@ -6852,4 +7192,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(o_child(sys.argv[2:]) if sys.argv[1:2] == ["--phase-o"] else main())

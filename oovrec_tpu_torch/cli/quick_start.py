@@ -11,9 +11,13 @@ RecBole checkpoint before training (`:207-233` there,
 `utils/torch_import.py`): the leaves its map names are replaced, the
 others keep their initial values.
 
-What the JAX entry does and the port refuses: the multi-host bootstrap
-(`coordinator_address` / `num_processes`, ROADMAP.md queue 1
-"Parallelism").
+The multi-process bootstrap (`:180-191` there): with `coordinator_address`
+or `num_processes` the process joins its process group first
+(`parallel/distributed.py:initialize_distributed`: NCCL on the card,
+gloo on the CPU), and under an active mesh (`use_mesh`, `mesh`) the mesh
+is made before the loaders, so the eval loaders take the rank's data
+coordinate's users, and handed to a model that builds row-sharded ID
+tables (`sharded_mesh`, `:82-90` there).
 """
 
 from __future__ import annotations
@@ -35,6 +39,8 @@ from oovrec_tpu_torch.models import get_model_class
 from oovrec_tpu_torch.models.context import ContextRecommender, field_spec_from_dataset
 from oovrec_tpu_torch.models.knowledge import KnowledgeRecommender
 from oovrec_tpu_torch.models.sequential import SequentialRecommender
+from oovrec_tpu_torch.parallel.distributed import initialize_distributed
+from oovrec_tpu_torch.parallel.mesh import maybe_mesh_from_config
 from oovrec_tpu_torch.train.trainer import Trainer
 from oovrec_tpu_torch.utils.device import resolve_device
 from oovrec_tpu_torch.utils.jax_checkpoint import is_jax_checkpoint, read_jax_checkpoint
@@ -54,7 +60,8 @@ from oovrec_tpu_torch.utils.torch_import import import_reference_checkpoint, mer
 _CLAIMED = frozenset({
     "spec", "uid_field", "iid_field", "label_field", "neg_prefix", "fields",
     "embedding_size", "n_users", "n_items", "device", "generator", "embedder_state",
-    "max_seq_length",
+    "max_seq_length", "sharded_lookup", "sharded_mesh", "row_shard_threshold",
+    "alltoall_capacity_factor",
 })
 
 
@@ -171,6 +178,13 @@ def build_model_and_state(config, dataset, mode: str = "transductive",
     if "label_field" in _ctor_params(cls):  # DIN, DIEN, GCMC and the KG models read the label
         kwargs["label_field"] = config["LABEL_FIELD"]
     kwargs.update(model_kwargs(config, cls))
+    # the explicit row-sharded lookup: the mesh for `ShardedEmbedding` tables
+    if "sharded_mesh" in _ctor_params(cls) and config["sharded_lookup"] not in (None, "gspmd"):
+        mesh = maybe_mesh_from_config(config)
+        if mesh is not None and mesh.n_model > 1:
+            kwargs.update(sharded_mesh=mesh, sharded_lookup=config["sharded_lookup"],
+                          row_shard_threshold=int(config["row_shard_threshold"]),
+                          alltoall_capacity_factor=float(config["alltoall_capacity_factor"]))
     if issubclass(cls, KnowledgeRecommender):  # the dataset's sizes, as at :96-98 there
         kwargs.update(n_entities=dataset.entity_num, n_relations=dataset.relation_num)
     if hasattr(cls, "derive_kwargs"):  # dataset-derived sizes override the config's
@@ -181,11 +195,14 @@ def build_model_and_state(config, dataset, mode: str = "transductive",
     return cls(**kwargs)
 
 
-def _refuse_unported(config) -> None:
+def bootstrap(config) -> None:
+    """Join the process group when the config names one (before any
+    device use), and make the mesh when the config asks for it."""
     if config["coordinator_address"] or (config["num_processes"] or 0) > 1:
-        raise NotImplementedError(
-            "the multi-host bootstrap (coordinator_address / num_processes) is not "
-            "ported (ROADMAP.md, queue 1: parallelism)")
+        info = initialize_distributed(config["coordinator_address"], config["num_processes"],
+                                      config["process_id"], device=config["device"])
+        print(f"distributed runtime: {info}")
+    maybe_mesh_from_config(config)
 
 
 def import_torch_checkpoint(model: nn.Module, model_name: str, path: str) -> nn.Module:
@@ -218,8 +235,8 @@ def run(
     """Full train + test run. → the result dict of the JAX driver."""
     config = Config(config_dict, model=model, dataset=dataset,
                     config_file_list=config_file_list)
-    _refuse_unported(config)
     resolve_device(config["device"])
+    bootstrap(config)
     init_seed(int(config["seed"] or 2020), config["reproducibility"])
     logger = init_logger(config)
     set_policy(config.get("compute_dtype", "float32"))
@@ -295,7 +312,8 @@ def load_data_and_model(model_file: str,
     if config_overrides:
         cfg_dict.update(config_overrides)
     config = Config(cfg_dict)
-    _refuse_unported(config)
+    resolve_device(config["device"])
+    bootstrap(config)
     init_seed(int(config["seed"] or 2020), config["reproducibility"])
     set_policy(config.get("compute_dtype", "float32"))
     ds = create_dataset(config)

@@ -27,9 +27,19 @@ Batch = Dict[str, np.ndarray]
 def _process_info(
     process_index: Optional[int], process_count: Optional[int]
 ) -> tuple:
-    """The (rank, world) pair for per-process data sharding, as the caller
-    gives it; one process when it gives none."""
-    return int(process_index or 0), int(process_count or 1)
+    """The (rank, world) pair for per-process data sharding: the
+    caller's pair; else, under a mesh (`parallel/mesh.py:active_mesh`),
+    the rank's (data coordinate, n_data), so the ranks of one model group
+    see the same rows (the JAX package's `jax.process_index/count` read,
+    `dataloader.py:39-47` there); else one process."""
+    if process_count is not None:
+        return int(process_index or 0), int(process_count)
+    from oovrec_tpu_torch.parallel.mesh import active_mesh
+
+    mesh = active_mesh()
+    if mesh is not None:
+        return mesh.data_index, mesh.n_data
+    return int(process_index or 0), 1
 
 
 def _pad_to(arr: np.ndarray, n: int) -> np.ndarray:

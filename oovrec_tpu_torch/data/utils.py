@@ -168,8 +168,14 @@ def data_preparation(config, dataset, process_index: Optional[int] = None,
     elif getattr(cls, "train_on_users", False):
         train_loader = UserTrainBatcher(train_split, config)
     else:
+        # the global batch on every rank (one sampler stream, as one
+        # process draws it): the mesh trainer takes each rank's rows
+        # (`parallel/mesh.py:place_batch`), so a run on n ranks trains on
+        # the batches of a run on one
+        train_procs = procs if process_count is not None else dict(
+            process_index=0, process_count=1)
         train_loader = TrainBatcher(train_split, sampler, config, input_type, phase="train",
-                                    **procs)
+                                    **train_procs)
 
     def eval_loader(split, phase):
         mode = config["eval_args"]["mode"]["valid" if phase == "valid" else "test"]

@@ -25,7 +25,14 @@ Port of `oovrec_tpu/eval/runner.py:24-148, 353-564` on three paths:
     where the JAX scanned pass always takes `mask_and_topk`: both give the
     exact top-k, ties to the lowest index. A sequential loader keeps its
     `eval_batch_size // n_items` rows a batch there, as in JAX.
-The multi-device path comes with a later slice.
+On the mesh (`:58-77, 401-406, 570-589` there) each data coordinate's
+ranks evaluate its users (the eval loaders shard by data coordinate,
+`data/dataloader.py:_process_info`), each rank's metrics keep 12 decimals,
+`parallel/distributed.py:map_reduce_metrics` takes their sample-weighted
+mean over the data group and the result is rounded once; the scanned eval
+is off (`:157`). The full sort keeps `fused_topk_rule` on each rank, over
+the whole item tower (a sharded table's `dense()`), so kernel 1 runs per
+rank and the hits are the dense path's.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from oovrec_tpu_torch.eval.collector import (
     Evaluator,
     meanrank_from_scores,
 )
+from oovrec_tpu_torch.parallel.distributed import group_size, map_reduce_metrics
 from oovrec_tpu_torch.eval.full_sort import (
     apply_masks,
     mask_and_topk,
@@ -73,9 +81,11 @@ def fused_hits(topk_idx, pos_items, pos_valid):
 
 
 class EvalRunner:
-    def __init__(self, model, config):
+    def __init__(self, model, config, mesh=None):
         self.model = model
         self.config = config
+        self.mesh = mesh
+        self._n_local = 0.0
         self.maxk = max(config["topk"])
         self.eval_type = config["eval_type"]
         self._full_steps = {}
@@ -147,7 +157,7 @@ class EvalRunner:
         or a uni-N loader, with a collector that needs only the hits;
         `auto` at >= 1,024 users."""
         flag = self.config.get("device_eval", "auto")
-        if flag is False or self.eval_type != EvaluatorType.RANKING:
+        if flag is False or self.mesh is not None or self.eval_type != EvaluatorType.RANKING:
             return False
         if type(eval_loader) in (FullSortEvalBatcher, SeqFullSortEvalBatcher):
             if not hasattr(self.model, "full_sort_scores"):
@@ -183,7 +193,9 @@ class EvalRunner:
                 each(batch, db, topk_idx)
         if hits:
             out = torch.cat(hits).cpu().numpy()
-            collector.collect_topk(out[:, :-1], out[:, -1], np.concatenate(weights))
+            w = np.concatenate(weights)
+            self._n_local += float(np.sum(w))
+            collector.collect_topk(out[:, :-1], out[:, -1], w)
 
     def _device_batches(self, batches, scanned: bool, sample_eval_ratio=None, rng=None):
         """(host batch, its tensors on the device) in the loader's order."""
@@ -222,13 +234,32 @@ class EvalRunner:
 
     # ------------------------------------------------------------- entry
 
+    def _evaluator(self) -> Evaluator:
+        """Several ranks keep 12 decimals before the map-reduce."""
+        return Evaluator(self.config, decimal_place=12 if self._ranks() > 1 else None)
+
+    def _ranks(self) -> int:
+        return 1 if self.mesh is None else group_size(self.mesh.data_group)
+
     @torch.no_grad()
     def evaluate(self, eval_loader, sample_eval_ratio=None, rng=None):
-        """Run one evaluation pass; returns OrderedDict of metrics.
+        """Run one evaluation pass; returns OrderedDict of metrics (on
+        several ranks the map-reduced dict, keys sorted, rounded once).
 
         `sample_eval_ratio` (with `rng`) skips full-sort batches after the
         first with probability 1 - ratio, the trainer's sampled validation
         (`runner.py:463-470` of the JAX package)."""
+        self._n_local = 0.0
+        result = self._evaluate(eval_loader, sample_eval_ratio, rng)
+        if self.mesh is None:
+            return result
+        result = map_reduce_metrics(result, int(self._n_local), group=self.mesh.data_group)
+        if self._ranks() > 1:
+            dp = int(self.config["metric_decimal_place"])
+            result = type(result)((k, round(float(v), dp)) for k, v in result.items())
+        return result
+
+    def _evaluate(self, eval_loader, sample_eval_ratio=None, rng=None):
         self.model.eval()
         if isinstance(eval_loader, PlainEvalBatcher):
             return self._evaluate_value(eval_loader)
@@ -284,7 +315,7 @@ class EvalRunner:
         finally:
             if restore is not None:
                 eval_loader.users_per_batch = restore
-        return Evaluator(self.config).evaluate(collector.get_data_struct())
+        return self._evaluator().evaluate(collector.get_data_struct())
 
     def _evaluate_neg(self, eval_loader: NegSampleEvalBatcher, sample_eval_ratio=None,
                       rng=None):
@@ -307,7 +338,7 @@ class EvalRunner:
 
         self._ranking_pass(eval_loader, collector, step, weight_of, scanned, sample_eval_ratio,
                            rng)
-        return Evaluator(self.config).evaluate(collector.get_data_struct())
+        return self._evaluator().evaluate(collector.get_data_struct())
 
     def _evaluate_value(self, eval_loader, sample_eval_ratio=None, rng=None):
         """VALUE metrics over pooled (score, label) pairs of plain labelled
@@ -319,7 +350,8 @@ class EvalRunner:
                     and rng.random() > sample_eval_ratio):
                 continue
             scores = self.model.predict(to_device_batch(batch, self.device))
+            self._n_local += float(np.sum(batch["weight"]))
             collector.collect_scores(
                 scores.float().cpu().numpy(), batch[label], batch["weight"]
             )
-        return Evaluator(self.config).evaluate(collector.get_data_struct())
+        return self._evaluator().evaluate(collector.get_data_struct())

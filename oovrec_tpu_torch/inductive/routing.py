@@ -97,17 +97,26 @@ def route(
     dhe_hashes: Optional[torch.Tensor] = None,
     feat_ids: Optional[torch.Tensor] = None,
     iv_rows: Optional[torch.Tensor] = None,
+    iv_lookup: Optional[tuple] = None,
 ) -> torch.Tensor:
     """IV/OOV-routed embedding lookup.
 
     `oov = (id >= n_vocab) | (flag > 0)`; the IV side clips ids into the
     table (the clipped rows are discarded by the select). `iv_rows`, where
     given, are `iv_table[ids]` already (the sparse path's rows in batch
-    order), read without a gather.
+    order), read without a gather. `iv_lookup` (a row-sharded table's
+    exchange and its vocabulary, `parallel/sharded_embedding.py`, JAX
+    `:103-119`) takes the IV gather instead of `iv_table`, which then only
+    gives the dtype and width, or the whole table for mean and knn.
     """
     ids = ids.long()
-    n_vocab = iv_table.shape[0]
+    if iv_lookup is not None:
+        lookup, n_vocab = iv_lookup
+    else:
+        n_vocab = iv_table.shape[0]
     if spec is None or not spec.active:
+        if iv_lookup is not None:
+            return lookup(ids)
         return gather_rows(iv_table, ids) if iv_rows is None else iv_rows
     is_oov = ids >= n_vocab
     if oov_flags is not None:
@@ -119,8 +128,12 @@ def route(
         buckets = torch.zeros_like(ids)
     if spec.embedder in ("dhe", "fdhe") and dhe_hashes is None:
         dhe_hashes = iv_table.new_zeros((ids.shape[0], spec.dhe_num_hashes))
-    iv_e = (gather_rows(iv_table, ids.clamp(0, n_vocab - 1), ~is_oov)
-            if iv_rows is None else iv_rows)
+    if iv_lookup is not None:
+        iv_e = lookup(ids.clamp(0, n_vocab - 1))
+    elif iv_rows is None:
+        iv_e = gather_rows(iv_table, ids.clamp(0, n_vocab - 1), ~is_oov)
+    else:
+        iv_e = iv_rows
     oov_e = oov_embedding(
         spec, side, ids if feat_ids is None else feat_ids.long(), buckets, iv_table,
         bucket_table, estate, mlp=mlp, dhe_hashes=dhe_hashes, live=is_oov,

@@ -12,7 +12,13 @@ matrices, LSH planes, knn tables, DHE keys) lives on the model as buffers
 rides in `state_dict()` and the checkpoint, as the JAX trainer saves its
 `estate`; the towers' input widths come from it.
 
-Not ported yet: row-sharded tables (ROADMAP queue 1, parallelism).
+Row-sharded ID tables (`:62-88, 150-170` there): under a mesh with a
+model axis and `sharded_lookup` psum / alltoall / auto, the two towers'
+tables of at least `row_shard_threshold` rows are
+`parallel/sharded_embedding.py:ShardedEmbedding`s (`sharded_mesh`, which
+the driver hands the model); `_route_side` takes their IV gather through
+the exchange and reads the whole table (`dense()`) only for the mean and
+knn embedders.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from oovrec_tpu_torch.inductive.routing import route
 from oovrec_tpu_torch.inductive.spec import InductiveSpec
 from oovrec_tpu_torch.models.init import xavier_normal_
 from oovrec_tpu_torch.ops.siphash_device import dhe_codes_device
+from oovrec_tpu_torch.parallel.sharded_embedding import ShardedEmbedding
 from oovrec_tpu_torch.utils.device import resolve_device
 from oovrec_tpu_torch.utils.enums import InputType, ModelType
 from oovrec_tpu_torch.utils.jax_params import is_model_state
@@ -217,8 +224,13 @@ class GeneralRecommender(nn.Module):
             if spec.embedder in ("dhe", "fdhe"):
                 dhe = dhe_hashes_for(batch, field, self.embedder_state)
         table = batch.get("_sparse_rows_" + side)
-        iv_rows = None
-        if table is None:
+        iv_rows = iv_lookup = None
+        if table is None and isinstance(iv, ShardedEmbedding):
+            whole = active and spec.embedder in ("mean", "knn")
+            # the local block stands in for the table's dtype and width
+            table = iv.dense() if whole else iv.local_table
+            iv_lookup = (iv, iv.num_embeddings)
+        elif table is None:
             table = iv.weight
         else:
             assert not (active and spec.embedder in ("mean", "knn")), (
@@ -228,7 +240,8 @@ class GeneralRecommender(nn.Module):
                 iv_rows = table.narrow(0, off, ids.numel())
         return route(spec, side, ids, flags, buckets, table, bucket_table,
                      self.embedder_state, mlp=mlp, dhe_hashes=dhe,
-                     feat_ids=batch.get("_sparse_ids_" + field), iv_rows=iv_rows)
+                     feat_ids=batch.get("_sparse_ids_" + field), iv_rows=iv_rows,
+                     iv_lookup=iv_lookup)
 
     # Methods models must provide:
     def predict(self, batch: Batch):
@@ -242,11 +255,30 @@ class IDTowerRecommender(GeneralRecommender):
     whole (IV + OOV) item range and the two towers of the fused top-k
     kernel (`bpr.py:48-162`, `directau.py:37-125` of the JAX package)."""
 
-    def __init__(self, *args, **kwargs):
+    def __init__(self, *args, sharded_lookup: str = "gspmd", sharded_mesh=None,
+                 row_shard_threshold: int = 4096, alltoall_capacity_factor: float = 2.0,
+                 **kwargs):
         super().__init__(*args, **kwargs)
-        self.user_embedding = self._embed_table(self.n_users)
-        self.item_embedding = self._embed_table(self.n_items)
+        self.sharded_lookup = sharded_lookup
+        self.sharded_mesh = sharded_mesh
+        self.row_shard_threshold = int(row_shard_threshold)
+        self.capacity_factor = float(alltoall_capacity_factor)
+        self.user_embedding = self._id_table(self.n_users)
+        self.item_embedding = self._id_table(self.n_items)
         self._setup_oov()
+
+    def _id_table(self, vocab: int):
+        """`_embed_table`, or a `ShardedEmbedding` (mod layout, the
+        `sharded_lookup` exchange) under a mesh with a model axis when the
+        lookup is not gspmd and the table crosses the row-shard threshold
+        (`base.py:69-88` of the JAX package)."""
+        mesh = self.sharded_mesh
+        if (mesh is not None and self.sharded_lookup not in ("gspmd", None)
+                and mesh.n_model > 1 and vocab >= self.row_shard_threshold):
+            return ShardedEmbedding(vocab, self.embedding_size, mesh, kind=self.sharded_lookup,
+                                    capacity_factor=self.capacity_factor, device=self.device,
+                                    generator=self.generator)
+        return self._embed_table(vocab)
 
     def user_e(self, ids, batch: Batch):
         return self._route_side("user", self.user_embedding, ids, batch, self.uid_field)

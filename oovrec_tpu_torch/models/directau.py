@@ -55,6 +55,8 @@ def uniformity(x: torch.Tensor, w=None, t: float = 2.0) -> torch.Tensor:
 @register_model
 class DirectAU(IDTowerRecommender):
     input_type = InputType.POINTWISE
+    mesh_loss = ("its uniformity term is a mean over pairs of the batch's rows, which "
+                 "the ranks' row shares do not sum to")
 
     def __init__(self, *args, gamma: float = 1.0, **kwargs):
         super().__init__(*args, **kwargs)

@@ -34,7 +34,9 @@ the biased batch variance `mean(x²) − mean(x)²` clipped at 0, statistics
 in f32 whatever the compute dtype, epsilon 1e-5, parameters `scale` /
 `bias` and running buffers `mean` / `var` (flax's `batch_stats`). Every
 row of the batch counts in its statistics, the padded rows of a last
-batch included, as the JAX package's fixed-shape batches count them.
+batch included, as the JAX package's fixed-shape batches count them. Under
+the mesh (`parallel/train_step.py:batch_stats_over`) the statistics are
+the global batch's: the sums of x and x² all-reduced over the data group.
 
 Dropout draws its masks from an explicit `torch.Generator` that the
 trainer owns and seeds (`set_dropout_generator`), never from the global
@@ -48,9 +50,11 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from oovrec_tpu_torch.models.init import xavier_normal_
+from oovrec_tpu_torch.parallel.train_step import all_reduce_grad, batch_stats_group
 from oovrec_tpu_torch.utils.precision import compute_dtype
 
 
@@ -86,10 +90,19 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         xf = x.float()
-        if train:
+        group = batch_stats_group() if train else None
+        if group is not None:
+            # under the mesh: the global batch's moments, the sums of x and
+            # x² all-reduced over the data group inside autograd
+            n = xf.shape[0] * dist.get_world_size(group)
+            sums = all_reduce_grad(torch.stack([xf.sum(dim=0), (xf * xf).sum(dim=0)]), group)
+            mean = sums[0] / n
+            var = torch.maximum(sums[1] / n - mean * mean, torch.zeros_like(mean))
+        elif train:
             mean = xf.mean(dim=0)
             # jnp.maximum's gradient at a tie: half to each side
             var = torch.maximum((xf * xf).mean(dim=0) - mean * mean, torch.zeros_like(mean))
+        if train:
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)

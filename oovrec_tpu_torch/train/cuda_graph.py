@@ -26,7 +26,9 @@ host launches one graph a step instead of the step's hundreds of kernels.
     wrappers record them; a replay runs no Python and counts nothing. A
     profiler trace sees the replayed kernels by name.
 
-On a CPU model the same step runs eagerly, with the device count. The
+On a CPU model the same step runs eagerly, with the device count, and so
+does the mesh step (`parallel/train_step.py`: its collectives are not
+captured yet). The
 row-sparse step (`Trainer._sparse_step`, `learner: sparse_adam`) is never
 captured: kernel 6 takes its two bias corrections as host floats passed
 by value at each launch (`ops/sparse_rows.py:sparse_adam_rows_kernel`), so
@@ -73,7 +75,7 @@ class StepGraphs:
         loss, a tensor of its own."""
         t = self.trainer
         count = self._device_count()
-        if t.model.device.type != "cuda":
+        if t.model.device.type != "cuda" or t.mesh is not None:
             loss = t._apply_step(batch, trainable, count=count)
         else:
             owner = (id(t.params), id(t.opt_state))

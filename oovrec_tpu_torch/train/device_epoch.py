@@ -57,7 +57,12 @@ index (the counterpart of `fold_in(dropout_key, 1_000_000 + epoch)`); the
 normal epoch and the OOV sub-epoch of one epoch index share the seed, as
 they share the key in JAX.
 
-Not ported: the mesh.
+On the mesh (`:94-97, 316-344, 622-656` there) every rank builds the
+same epoch from the same seeded generator (the permutation, the keep
+decisions, the negatives and the OOV transform of the global batch) and
+takes its data coordinate's rows of each step's batch
+(`parallel/mesh.py:data_rows`) into the mesh step; the loader's step must
+divide over the data axis (`device_epoch_eligible`).
 """
 
 from __future__ import annotations
@@ -70,6 +75,7 @@ import torch
 from oovrec_tpu_torch.data.alias import alias_draw, build_alias_table
 from oovrec_tpu_torch.data.sampler import _MAX_RESAMPLE_ROUNDS
 from oovrec_tpu_torch.ops.inthash_device import sim_buckets_device
+from oovrec_tpu_torch.parallel.mesh import data_rows
 from oovrec_tpu_torch.train.sparse_update import resolve_sparse_impl, sparse_epoch_table_map
 from oovrec_tpu_torch.utils.seeding import host_rng, torch_generator
 
@@ -114,7 +120,8 @@ def device_epoch_eligible(trainer, loader, config) -> bool:
     device (`dhe_on_device`), and a model whose loss reads only what the
     epoch provides (`supports_device_epoch`); under `auto`, at least
     AUTO_MIN_ROWS rows. Dynamic hard negatives need the live scorer per
-    batch and stay on the host path. The port's trainer refuses the mesh."""
+    batch and stay on the host path. Under the mesh the global step must
+    divide over the data axis (`mesh_ok`)."""
     from oovrec_tpu_torch.data.dataloader import TrainBatcher
     from oovrec_tpu_torch.data.transform import Equal
 
@@ -131,7 +138,9 @@ def device_epoch_eligible(trainer, loader, config) -> bool:
         sampling_ok = loader.mode == "plain"
     hasher = getattr(trainer, "dhe_hasher", None)
     dhe_ok = hasher is None or hasher.on_device
-    if not (sampling_ok and dhe_ok and isinstance(loader.transform, Equal)
+    mesh = getattr(trainer, "mesh", None)
+    mesh_ok = mesh is None or loader.step % mesh.n_data == 0
+    if not (sampling_ok and dhe_ok and mesh_ok and isinstance(loader.transform, Equal)
             and getattr(trainer.model, "supports_device_epoch", False)):
         return False
     if flag == "auto":
@@ -318,6 +327,9 @@ class DeviceEpoch:
         its bias corrections as host floats at each launch. → the loss."""
         if self.sparse_tables:
             return self.trainer._sparse_step(batch, self.sparse_tables, self.sparse_impl)
+        mesh = self.trainer.mesh
+        if mesh is not None:
+            batch = data_rows(mesh, batch)
         return self.trainer.step_graphs.step(batch, self.trainable)
 
     # -------------------------------------------------------------- epoch

@@ -149,12 +149,14 @@ def sparse_epoch_table_map(trainer, model, spec, frozen: bool):
     Adam), tables that are plain embeddings among the trainer's
     parameters, an embedder that never reads the whole table (not mean or
     knn) and an unfrozen pass (a frozen sub-epoch leaves the tables alone
-    through the dense freeze)."""
+    through the dense freeze); not under the mesh, whose steps take the
+    dense update (`sparse_update.py:252` of the JAX package)."""
     cfg, opt = trainer.config, trainer.optimizer
     if (
         opt.rule != "lazy_adam"
         or opt.weight_decay
         or opt.max_norm is not None
+        or getattr(trainer, "mesh", None) is not None
         or frozen
         or cfg["sparse_update_impl"] == "dense"
     ):

@@ -73,8 +73,23 @@ from the JAX package's numpy streams (`host_rng(seed, "oov_regime")`,
 bit; dropout draws from the trainer's `torch.Generator`, seeded from
 `seed + 101`, which cannot match `jax.random`.
 
-Raises NotImplementedError where a config asks for what is not ported:
-a mesh. Tensorboard and wandb are not ported and log nothing.
+The mesh (`use_mesh`, `mesh`; `:90-100, 171-211` there): the trainer
+makes the rank mesh (`parallel/mesh.py`), turns the `nn.Embedding` tables
+that the row-shard rule picks into block-sharded tables under
+`sharded_lookup: gspmd` (`parallel/sharded_embedding.py:shard_tables`),
+broadcasts the starting state, and every step is the global batch's step
+(`parallel/train_step.py:mesh_step`, eager): each rank takes its data
+coordinate's rows of the global batch (`place_batch`; a device epoch's
+batch likewise), its loss share, the gradients summed over the data group.
+There is no host scan and no row-sparse step under the mesh (the JAX
+package's rules). Checkpoints gather the sharded tables to their full form
+(`host_copy`) and rank 0 alone writes; a resume converts stored layouts
+(`reconcile_state`: sharded ↔ dense, another S) and takes the rank's
+block; the best-model reload agrees across ranks first and broadcasts the
+file where only some ranks hold it (`_resume_best_multiprocess`, `:796-846`
+there). A model whose loss the mesh cannot split (`mesh_refusal`) raises
+NotImplementedError at init. Tensorboard and wandb are not ported and log
+nothing.
 """
 
 from __future__ import annotations
@@ -86,6 +101,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from oovrec_tpu_torch.data.prefetch import maybe_prefetch
 from oovrec_tpu_torch.eval.collector import calculate_valid_score
@@ -94,6 +110,16 @@ from oovrec_tpu_torch.eval.runner import EvalRunner
 from oovrec_tpu_torch.inductive.dhe import model_hasher
 from oovrec_tpu_torch.inductive.transform import OOVSimulator
 from oovrec_tpu_torch.models.layers import set_dropout_generator
+from oovrec_tpu_torch.parallel.distributed import comm_device
+from oovrec_tpu_torch.parallel.mesh import host_copy, maybe_mesh_from_config, place_batch
+from oovrec_tpu_torch.parallel.sharded_embedding import (
+    block_state,
+    full_shapes,
+    reconcile_layouts,
+    reconcile_state,
+    shard_tables,
+)
+from oovrec_tpu_torch.parallel.train_step import broadcast_state, mesh_refusal, mesh_step
 from oovrec_tpu_torch.train.cuda_graph import StepGraphs
 from oovrec_tpu_torch.train.device_epoch import (
     AUTO_MAX_BUCKETS,
@@ -113,6 +139,7 @@ from oovrec_tpu_torch.train.sparse_update import (
 from oovrec_tpu_torch.utils.enums import ModelType
 from oovrec_tpu_torch.utils.jax_checkpoint import is_jax_checkpoint, read_jax_checkpoint
 from oovrec_tpu_torch.utils.jax_params import (
+    flax_from_state_dict,
     load_batch_stats,
     load_flax_params,
     opt_state_from_flax,
@@ -144,7 +171,9 @@ class Trainer:
     def __init__(self, config, model):
         self.config = config
         self.model = model
-        self._refuse_unported(config, model)
+        self.mesh = maybe_mesh_from_config(config)
+        if self.mesh is not None:
+            self._place_on_mesh(config, model)
         self.logger = init_logger(config)
 
         self.epochs = int(config["epochs"])
@@ -166,7 +195,7 @@ class Trainer:
             config.get("checkpoint_dir", "saved"),
             f"{config.get('model', type(model).__name__)}-{config.get('dataset', 'data')}.pth",
         )
-        self.eval_runner = EvalRunner(model, config)
+        self.eval_runner = EvalRunner(model, config, mesh=self.mesh)
         self.metrics_log_path = config.get("metrics_log_path")
 
         seed = int(config["seed"] or 0)
@@ -189,10 +218,35 @@ class Trainer:
             self, model, getattr(model, "spec", None), frozen=False)
         self.sparse_impl = resolve_sparse_impl(config) if self.sparse_tables else None
 
-    @staticmethod
-    def _refuse_unported(config, model) -> None:
-        if config["use_mesh"]:
-            raise NotImplementedError("mesh training (use_mesh) is not ported")
+    # ------------------------------------------------------------ mesh
+
+    def _place_on_mesh(self, config, model) -> None:
+        """Refuse a model whose loss the mesh cannot split; shard the tables
+        the rule picks; start every rank from the same state."""
+        why = mesh_refusal(model)
+        if why is not None:
+            raise NotImplementedError(
+                f"[{type(model).__name__}] cannot train on the mesh: {why}")
+        kind = config["sharded_lookup"]
+        shard_tables(model, self.mesh, int(config["row_shard_threshold"] or 4096),
+                     kind="auto" if kind in (None, "gspmd") else kind,
+                     capacity_factor=float(config["alltoall_capacity_factor"] or 2.0))
+        broadcast_state(model, self.mesh)
+
+    def _to_device(self, batch, loader=None) -> Dict[str, torch.Tensor]:
+        """A host batch on the model's device; under the mesh this rank's
+        rows of it (the whole batch where the loader already gives this
+        rank's slice)."""
+        device = self.model.device
+        if self.mesh is None:
+            return to_device_batch(batch, device)
+        local = getattr(loader, "process_count", 1) == self.mesh.n_data > 1
+        return place_batch(self.mesh, batch, device, local=local)
+
+    def _barrier(self) -> None:
+        if dist.is_initialized():
+            flag = torch.zeros(1, device=comm_device())
+            dist.all_reduce(flag)
 
     # ------------------------------------------------------------ steps
 
@@ -213,7 +267,10 @@ class Trainer:
                     count: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Loss, gradient of every parameter and one optimizer update (only
         `trainable` moves when it is given; `count`, the optimizer's shared
-        count on the device, for a captured step). → the detached loss."""
+        count on the device, for a captured step). → the detached loss.
+        Under the mesh: the global batch's step from this rank's rows."""
+        if self.mesh is not None:
+            return mesh_step(self, batch, trainable, count)
         loss = self.model.calculate_loss(batch)
         names = list(self.params)
         grads = torch.autograd.grad(loss, [self.params[n] for n in names],
@@ -280,7 +337,8 @@ class Trainer:
             de = self._maybe_device_epoch(train_loader, oov=True, frozen=frozen)
             if de is not None:
                 return self._run_device_epoch(de, epoch_idx)
-        K = self._host_scan_k(train_loader)
+        K = self._host_scan_k(train_loader) if self.mesh is None else 1
+        loader = train_loader
         train_loader = maybe_prefetch(train_loader, self.config)
         self.model.train()
         device = self.model.device
@@ -317,7 +375,7 @@ class Trainer:
                                                        padded_when_flagged=True)
             n_examples += int(np.asarray(batch["weight"]).sum())
             if K == 1:
-                losses.append(self._step(to_device_batch(batch, device), frozen))
+                losses.append(self._step(self._to_device(batch, loader), frozen))
             else:
                 sig = host_signature(batch)
                 if buf and sig != buf_sig:
@@ -516,9 +574,32 @@ class Trainer:
             return None
         if load_best_model:
             path = model_file or self.saved_model_file
-            if os.path.isfile(path):
+            if dist.is_initialized() and dist.get_world_size() > 1:
+                self._resume_best_multiprocess(path)
+            elif os.path.isfile(path):
                 self.resume_checkpoint(path, params_only=True)
         return self.eval_runner.evaluate(eval_loader)
+
+    def _resume_best_multiprocess(self, path: str) -> None:
+        """The best-model reload on several ranks: every rank makes the
+        same decision (a rank that skips a collective the others make hangs
+        them). The ranks agree through an all-gather of who holds the
+        file; when only some do (rank 0's write to a directory the others
+        do not see), the first holder broadcasts the checkpoint."""
+        have = torch.tensor([float(os.path.isfile(path))], device=comm_device())
+        flags = [torch.zeros_like(have) for _ in range(dist.get_world_size())]
+        dist.all_gather(flags, have)
+        flags = torch.cat(flags).cpu().numpy() > 0
+        if not flags.any():
+            return
+        if flags.all():
+            self.resume_checkpoint(path, params_only=True)
+            return
+        src = int(np.argmax(flags))
+        box = [torch.load(path, map_location="cpu", weights_only=True)
+               if dist.get_rank() == src else None]
+        dist.broadcast_object_list(box, src=src)
+        self._load_state(box[0], params_only=True)
 
     # ------------------------------------------------------ checkpointing
 
@@ -526,17 +607,26 @@ class Trainer:
         """Config, epoch, early-stopping state, parameters and optimizer
         state, as plain Python and CPU tensors (`torch.save`)."""
         path = path or self.saved_model_file
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         config = self.config.as_dict() if hasattr(self.config, "as_dict") else dict(self.config)
-        state = {
-            "config": _plain(config),
-            "epoch": epoch,
-            "cur_step": self.cur_step,
-            "best_valid_score": self.best_valid_score,
-            "params": {n: p.detach().cpu() for n, p in self.model.state_dict().items()},
-            "opt_state": _to_device(self.opt_state, "cpu"),
-        }
-        torch.save(state, path)
+        if self.mesh is not None:
+            # the sharded tables gathered to their full form (collectives
+            # every rank joins); rank 0 alone writes
+            params = host_copy(self.model.state_dict(), self.model)
+            opt_state = host_copy(self.opt_state, self.model)
+        else:
+            params = {n: p.detach().cpu() for n, p in self.model.state_dict().items()}
+            opt_state = _to_device(self.opt_state, "cpu")
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            torch.save({
+                "config": _plain(config),
+                "epoch": epoch,
+                "cur_step": self.cur_step,
+                "best_valid_score": self.best_valid_score,
+                "params": params,
+                "opt_state": opt_state,
+            }, path)
+        self._barrier()  # no rank reads the file before it is whole
 
     def resume_checkpoint(self, path: str, params_only: bool = False) -> dict:
         """Restore the model (and unless `params_only` the optimizer and
@@ -546,11 +636,20 @@ class Trainer:
         if is_jax_checkpoint(path):
             return self._resume_jax_checkpoint(path, params_only)
         state = torch.load(path, map_location="cpu", weights_only=True)
-        self.model.load_state_dict(state["params"])
-        if not params_only:
-            _copy_into(self.opt_state, state["opt_state"])
-            self._resume_progress(state)
+        self._load_state(state, params_only)
         return state
+
+    def _load_state(self, state: dict, params_only: bool) -> None:
+        """The port's checkpoint dict into the model (and the optimizer and
+        the progress unless `params_only`): each stored table layout
+        converted to the model's (`reconcile_state`: sharded ↔ dense,
+        another S), each sharded table's block taken."""
+        model = self.model
+        shapes = full_shapes(model)
+        model.load_state_dict(block_state(model, reconcile_state(shapes, state["params"])))
+        if not params_only:
+            _copy_into(self.opt_state, _reconcile_tree(model, shapes, state["opt_state"]))
+            self._resume_progress(state)
 
     def _resume_jax_checkpoint(self, path: str, params_only: bool) -> dict:
         """A JAX package checkpoint (`trainer.py:883-915` there): the params
@@ -560,14 +659,19 @@ class Trainer:
         and best score."""
         state = read_jax_checkpoint(path)
         model = self.model
+        # the stored table layouts converted to the model's (a tree that
+        # holds `embedding_sharded`, `trainer.py:882-915` there)
+        target = _flax_target(model)
+        reconcile_layouts(target, state["params"])
         load_flax_params(model, state["params"])
         if state["extra_vars"].get("batch_stats"):
             load_batch_stats(model, state["extra_vars"]["batch_stats"])
         if state["estate"]:
             set_embedder_state(model, state["estate"])
         if not params_only:
-            _copy_into(self.opt_state,
-                       opt_state_from_flax(state["opt_state"], self.optimizer.rule, model))
+            _reconcile_flax_opt(target, state["opt_state"])
+            opt = opt_state_from_flax(state["opt_state"], self.optimizer.rule, model)
+            _copy_into(self.opt_state, block_state(model, opt))
             self._resume_progress(state)
         return state
 
@@ -584,6 +688,43 @@ def _to_device(state, device):
     if isinstance(state, torch.Tensor):
         return state.detach().to(device, copy=True)
     return state
+
+
+def _flax_target(model) -> dict:
+    """The model's flax-style param tree in the full form, each leaf a
+    zero-stride placeholder of its shape."""
+    zero = torch.zeros(())
+    return flax_from_state_dict({k: zero.expand(shape) for k, shape in full_shapes(model).items()},
+                                model)
+
+
+def _reconcile_tree(model, shapes: dict, tree):
+    """`reconcile_state` on each dict of an optimizer state that is keyed
+    by the model's parameter names (the moments), then each sharded
+    table's block taken."""
+    def keyed(node):
+        return any(k in shapes or k.rpartition(".")[0] + ".weight" in shapes
+                   or k.rpartition(".")[0] + ".embedding_sharded" in shapes for k in node)
+
+    def walk(node):
+        if not isinstance(node, dict):
+            return node
+        if node and keyed(node):
+            return reconcile_state(shapes, node)
+        return {k: walk(v) for k, v in node.items()}
+
+    return block_state(model, walk(tree))
+
+
+def _reconcile_flax_opt(target: dict, opt_tree) -> None:
+    """`reconcile_layouts` on every subtree of a JAX optimizer state that
+    mirrors the param tree (the moments; `trainer.py:907-910` there)."""
+    if not isinstance(opt_tree, dict):
+        return
+    if set(target) & set(opt_tree):
+        reconcile_layouts(target, opt_tree)
+    for v in opt_tree.values():
+        _reconcile_flax_opt(target, v)
 
 
 def _copy_into(target: dict, source: dict) -> None:

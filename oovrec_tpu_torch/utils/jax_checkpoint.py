@@ -9,10 +9,17 @@ scalars, an `OrderedDict` and the JAX package's enums, taken as the
 port's enums of the same name (`utils/enums.py`): nothing else of the
 pickle runs. The msgpack trees are decoded by `utils/flax_msgpack.py`.
 
-The sharded format (`checkpoint_format: orbax`, a pickle whose
-`__orbax__` entry names tree directories beside it) needs orbax and a
-device mesh; it raises NotImplementedError (ROADMAP.md, queue 1:
-parallelism).
+A pickle whose trees hold row-sharded tables (`embedding_sharded`, the
+(S, V/S, D) layout of a run under `sharded_lookup: psum|alltoall`) reads
+like any other; the trainer converts the layout to the model's
+(`parallel/sharded_embedding.py:reconcile_layouts`).
+
+The orbax format (`checkpoint_format: orbax`, a pickle whose `__orbax__`
+entry names tree directories beside it, `train/checkpoint.py:74-80` there)
+stays refused with NotImplementedError: its trees are OCDBT / tensorstore
+directories, for which there is no numpy reader, and the card's machine
+has no tensorstore. The JAX trainer itself pickles its checkpoints
+(`trainer.py:851-881` there).
 
 A file that `torch.save` wrote is a zip archive; `is_jax_checkpoint`
 tells the two apart.
@@ -64,8 +71,9 @@ def read_jax_checkpoint(path: str) -> Dict[str, Any]:
         state = _Unpickler(io.BytesIO(f.read())).load()
     if isinstance(state, dict) and "__orbax__" in state:
         raise NotImplementedError(
-            f"{path} is a sharded (orbax) checkpoint: reading it needs orbax and a device "
-            "mesh, which the port does not have (ROADMAP.md, queue 1: parallelism)")
+            f"{path} is an orbax checkpoint: its trees are OCDBT / tensorstore directories, "
+            "which have no numpy reader, and the port has no tensorstore (ROADMAP.md, "
+            "section 3); the JAX trainer's own pickle checkpoints read")
     if not isinstance(state, dict) or "params" not in state:
         raise ValueError(f"{path} is not a checkpoint of the JAX package's trainer")
     out = dict(state)

@@ -25,7 +25,8 @@ BatchNorm statistics, embedder state and optimizer state bit for bit,
 epoch and best score; one more epoch from it equals the JAX trainer's
 resumed epoch (losses 1e-5 relative, parameters 1e-5 absolute). The
 msgpack decoder equals flax's on every leaf type (bf16 arrays as their f32
-values), and a sharded (orbax) checkpoint raises.
+values), and an orbax checkpoint raises (its tensorstore trees have no
+numpy reader).
 
 The committed fixture `tests/assets/jax_checkpoints/BPR-synth-ind.ckpt`
 (BPR at D 16 on dataset/synth-ind, random-mapper buckets, sparse_adam, one
@@ -428,7 +429,7 @@ def test_sharded_checkpoint_raises(tmp_path):
     path = tmp_path / "sharded.ckpt"
     with open(path, "wb") as f:
         pickle.dump({"epoch": 0, "__orbax__": ["opt_state", "params"]}, f)
-    with pytest.raises(NotImplementedError, match="parallelism"):
+    with pytest.raises(NotImplementedError, match="tensorstore"):
         read_jax_checkpoint(str(path))
     with open(path, "wb") as f:
         pickle.dump({"epoch": 0, "unsafe": os.getcwd}, f)

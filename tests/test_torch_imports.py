@@ -58,6 +58,10 @@ def test_scan_sees_the_whole_port():
     assert "oovrec_tpu_torch/cli/quick_start.py" in names
     assert "oovrec_tpu_torch/cli/inductive_eval.py" in names
     assert "chip_smoke.py" in names and "tools/chip_phase.py" in names
+    for mod in ("parallel/distributed.py", "parallel/mesh.py", "parallel/sharded_embedding.py",
+                "parallel/train_step.py", "models/exlib/decision_tree.py",
+                "data/decisiontree.py", "train/decision_tree_trainer.py"):
+        assert f"oovrec_tpu_torch/{mod}" in names, mod
     for module in ("ops/embed_grad.py", "ops/siphash.py", "ops/siphash_device.py",
                    "inductive/dhe.py", "inductive/factory.py",
                    "models/context_aware/widedeep.py", "models/context_aware/dcnv2.py",

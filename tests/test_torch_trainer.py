@@ -376,10 +376,12 @@ def test_checkpoint_round_trip(tmp_path):
     (dict(use_mesh=True), "mesh"),
 ])
 def test_trainer_refuses_what_is_not_ported(over, match):
-    """The mesh is the one training configuration the port refuses; dynamic
-    negatives, adagrad, rmsprop and `optimizer_mu_dtype` are ported
-    (tests/test_torch_trainer_extras.py)."""
-    model = BPR(7, 11, 8, InductiveSpec(), device="cpu")
+    """The mesh refuses a model whose loss it cannot split over ranks
+    (DirectAU's uniformity term is over pairs of the batch's rows); BPR,
+    WideDeep, DCNv2, xDeepFM and SASRec train on it
+    (tests/test_torch_multiprocess.py). Dynamic negatives, adagrad, rmsprop
+    and `optimizer_mu_dtype` are ported (tests/test_torch_trainer_extras.py)."""
+    model = DirectAU(7, 11, 8, InductiveSpec(), device="cpu")
     cfg = Config(over)
     split = DatasetSplit({"user_id": np.arange(1, 7), "item_id": np.arange(1, 7)}, 7, 11)
     with pytest.raises(NotImplementedError, match=match):

@@ -5,9 +5,12 @@ S3Rec, K1 and K2), phase L (the general models: the seven traditional
 ones, L1, LightGCN and the six graph models, L2, and the `-m` entry, L3)
 phase M (the rest of the general family: the eight pair and pointwise
 models, M1, the seven user-batch models, M2, and the `-m` entry, M3, whose
-runs share L3's child) or phase N (the ten knowledge models on the corpus's
+runs share L3's child), phase N (the ten knowledge models on the corpus's
 interactions with a seeded knowledge graph, N1, and CKE by the `-m`
-entry, N2).
+entry, N2) or phase O (the mesh, in its own child process: the exchanges
+at S = 1 on NCCL, O1, serving under the mesh with kernel 1, O2, 16 mesh
+steps of xDeepFM and BPR against the plain trainer's, O3, and the `-m`
+entry's main with the multi-process flags, O4).
 
 Runs on the card only. From the repo's root:
 
@@ -16,6 +19,7 @@ Runs on the card only. From the repo's root:
     python tools/chip_phase.py --phase L
     python tools/chip_phase.py --phase M
     python tools/chip_phase.py --phase N
+    python tools/chip_phase.py --phase O
 
 It builds the gathers' backward kernel (`csrc/embed_grad.cu`, also the
 graph models' segment sum), writes phase I's corpus
@@ -49,7 +53,8 @@ PHASES = {"J": (("J1", "j1_sequential"), ("J2", "j2_cli")),
           "L": (("L2", "l2_graph"), ("L3", "l3_cli"), ("L1", "l1_traditional")),
           # M3's runs share L3's child
           "M": (("M1", "m1_pairs"), ("M2", "m2_users"), ("L3", "l3_cli"), ("M3", "m3_cli")),
-          "N": (("N1", "n1_knowledge"), ("N2", "n2_cli"))}
+          "N": (("N1", "n1_knowledge"), ("N2", "n2_cli")),
+          "O": ()}  # chip_smoke.phase_o runs the parts in its child
 
 
 def main(argv=None) -> int:
@@ -63,6 +68,12 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     cs.log(f"card: {smi}")
     t0 = time.perf_counter()
+    if phase == "O":  # kernels 1, 4 / 5 and the gathers' backward; about a minute
+        cs.cuda_build.build_kernels(["topk_score", "cin_fused", "cin_fused_bwd", "embed_grad"])
+        cs.log(f"build {time.perf_counter() - t0:.1f} s")
+        cs.log(f"phase O launches {cs.phase_o()}")
+        cs.log(smi)
+        return 0
     cs.cuda_build.build_kernels(["embed_grad"])
     cs.log(f"build {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
