@@ -2134,8 +2134,10 @@ def sparse_rows_timing():
 # rows x 7 fields, a small-vocabulary field's few rows), DCNv2's (D 16,
 # ids over the whole table), the first-order twin at D 1, E3's token_seq
 # field (8,192 rows x 16 positions, 47 % of them live, into 1,000 rows at
-# D 10 and its twin at D 1), a width past one warp, a ragged short input
-# and none
+# D 10 and its twin at D 1), a width past one warp, RippleNet's relation
+# lookup (2,048 users x 8 memories into 42 rows of D x D: eight slices of
+# the row) and a ragged width past two slices, a ragged short input and
+# none
 EMBED_GRAD_CASES = [
     ("bucket-0-discarded", SP_B, SP_BUCKETS, D, 1, 0.0),
     ("bucket-0-kept", SP_B, SP_BUCKETS, D, 1, 1.0),
@@ -2147,16 +2149,47 @@ EMBED_GRAD_CASES = [
     ("tags-seq", 16 * CTR_B, 1000, CTR_D, "pads", 0.47),
     ("tags-seq-D1", 16 * CTR_B, 1000, 1, "pads", 0.47),
     ("D100", 3000, 500, 100, 50, 0.8),
+    ("ripplenet-relations", 16_384, 42, D * D, "skew", 1.0),
+    ("D1030", 3000, 60, 1030, 60, 0.8),
     ("ragged31", 31, 8, 2, 8, 1.0),
     ("empty", 0, 16, 4, 1, 1.0),
 ]
 EMBED_GRAD_TOL = 1e-5
+# the plan route (ops/embed_grad.py:build_plan, the sort of fixed ids done
+# once) at L2's edges (1,611,078 ids into 9,748 rows: both directions of a
+# MovieLens-1M-shaped split, ids drawn with a degree skew whose heaviest
+# row takes about 3,500), N1's (2,611,078 into 66,041), KGIN's relation
+# lookup (500,000 into 40), KGAT's denominators at D 1, a run of one id
+# 1,611,078 long, edges that leave every other row empty, and few edges
+# into many rows (a small graph's nodes; KGAT's rel * N + src rows), whose
+# plans the one-block sort builds with more rows than its shared memory
+# holds offsets for; random cotangents are held against the plain version
+# in float64 (a run of 1.6 M float32 terms rounds by more than
+# EMBED_GRAD_TOL in either order)
+EMBED_GRAD_PLAN_CASES = [
+    ("L2-edges", 1_611_078, 9_748, D, "skew"),
+    ("N1-edges", 2_611_078, 66_041, D, "skew"),
+    ("kgin-rel", 500_000, 40, D, "skew"),
+    ("L2-edges-D1", 1_611_078, 9_748, 1, "skew"),
+    ("one-id-run", 1_611_078, 9_748, D, "one"),
+    ("empty-rows", 1_611_078, 9_748, D, "holes"),
+    ("few-edges", 2_000, 100_000, D, 100_000),
+    ("few-edges-kgat-rows", 10_000, 2_600_000, D, 2_600_000),
+]
+# BPR's item table on the host path (2,048 ids a batch into 1 M rows)
+BPR_ITEM_ROWS = N_OLD_ITEMS + N_NEW_ITEMS
 
 
 def embed_grad_inputs(n, n_rows, d, high, p_live, seed, integer, ids_dtype=torch.int64):
     gen = torch_generator(seed, DEVICE)
     if high == "perm":
         ids = torch.randperm(n, generator=gen, device=DEVICE)
+    elif high == "skew":
+        ids = (torch.rand(n, generator=gen, device=DEVICE) ** 1.5 * n_rows).long()
+    elif high == "one":
+        ids = torch.full((n,), 5, device=DEVICE)
+    elif high == "holes":
+        ids = 2 * torch.randint(0, n_rows // 2, (n,), generator=gen, device=DEVICE)
     else:
         ids = torch.randint(1 if high == "pads" else 0, n_rows if high == "pads" else high,
                             (n,), generator=gen, device=DEVICE)
@@ -2170,71 +2203,213 @@ def embed_grad_inputs(n, n_rows, d, high, p_live, seed, integer, ids_dtype=torch
     return g, ids.to(ids_dtype), live, n_rows
 
 
+def embed_grad_compare(got, again, want, name, integer, scale_of=None):
+    """`got` (a kernel call) against `want` (the plain version) and
+    `again` (a repeat): bit for bit on integer-valued cotangents, else to
+    EMBED_GRAD_TOL relative to max(1, the largest magnitude). → the
+    relative error (0 on integers)."""
+    require(got.shape == want.shape, f"embed_grad {name}: shape {tuple(got.shape)}")
+    require(torch.equal(got, again), f"embed_grad {name}: a repeat gave other bits")
+    if integer:
+        require(torch.equal(got, want), f"embed_grad {name}: differs from the plain version")
+        return 0.0
+    if not want.numel():
+        return 0.0
+    scale = max(1.0, float(want.abs().max()))
+    err = float((got - want).abs().max()) / scale
+    require(err <= EMBED_GRAD_TOL, f"embed_grad {name}: relative error {err}")
+    return err
+
+
 def embed_grad_cases():
     """The gathers' backward kernel (`csrc/embed_grad.cu`) against its plain
     version on the card: bit for bit on integer-valued cotangents (int64
     and int32 ids), to EMBED_GRAD_TOL relative to max(1, the plain
     result's largest magnitude) on random ones, and against a repeat run
-    bit for bit. → the largest relative error."""
+    bit for bit; at n <= SMALL_MAX also the one-block sort's arrays
+    against PyTorch's stable sort (`plan_packed_plain`), and every case
+    again on the plan route (its ids' plan, the discarded rows' cotangents
+    zeroed). Then EMBED_GRAD_PLAN_CASES: the plan built on the card ==
+    `plan_packed_plain`, its zeroed counters after the calls, and the
+    calls held as above (random ones against the plain version in
+    float64). → the largest relative error."""
     worst = 0.0
     for i, (name, n, n_rows, d, high, p_live) in enumerate(EMBED_GRAD_CASES):
         for integer in (True, False):
             for ids_dtype in ((torch.int64, torch.int32) if integer else (torch.int64,)):
+                what = f"{name} ({ids_dtype}, {'integer' if integer else 'random'})"
                 g, ids, live, rows = embed_grad_inputs(n, n_rows, d, high, p_live,
                                                        SEED + 1300 + i, integer, ids_dtype)
                 got = embed_grad.scatter_rows_kernel(g, ids, rows, live)
                 again = embed_grad.scatter_rows_kernel(g, ids, rows, live)
                 sync()
                 want = embed_grad.scatter_rows_plain(g, ids, rows, live)
-                require(got.shape == want.shape == (rows, d), f"embed_grad {name}: shape")
-                require(torch.equal(got, again), f"embed_grad {name}: a repeat gave other bits")
-                if integer:
-                    require(torch.equal(got, want),
-                            f"embed_grad {name} ({ids_dtype}): differs from the plain version")
-                else:
-                    scale = max(1.0, float(want.abs().max())) if want.numel() else 1.0
-                    err = float((got - want).abs().max()) / scale if want.numel() else 0.0
-                    worst = max(worst, err)
-                    require(err <= EMBED_GRAD_TOL, f"embed_grad {name}: relative error {err}")
+                worst = max(worst, embed_grad_compare(got, again, want, what, integer))
+                if 0 < n <= embed_grad.SMALL_MAX:
+                    arrays = embed_grad.sort_arrays(ids, rows, live)
+                    keys = torch.where(live, ids.long(), rows)
+                    perm = torch.argsort(keys, stable=True)
+                    sk = keys[perm]
+                    plain = {"perm": perm, "keys": sk,
+                             "spans": embed_grad.chunk_spans(sk, embed_grad.SMALL_CHUNK, rows),
+                             "offsets": torch.searchsorted(sk, torch.arange(rows + 1,
+                                                                            device=DEVICE))}
+                    require(all(torch.equal(arrays[k].long(), plain[k].long()) for k in plain),
+                            f"embed_grad {what}: the one-block sort differs from a stable sort")
+                plan = embed_grad.build_plan(ids, rows)
+                masked = torch.where(live[:, None], g, 0.0)
+                got = embed_grad.scatter_rows_kernel(masked, ids, rows, plan=plan)
+                again = embed_grad.scatter_rows_kernel(masked, ids, rows, plan=plan)
+                sync()
+                require(not plan.counters.any(), f"embed_grad {what}: counters left set")
+                worst = max(worst, embed_grad_compare(got, again, want, f"{what} plan", integer))
         log(f"embed_grad check {name}: n={n} rows={n_rows} D={d} ids<{high} kept {p_live}: "
-            "exact on integers (int64 and int32 ids), a repeat the same bits")
+            "exact on integers (int64 and int32 ids) on both routes, a repeat the same bits, "
+            "the one-block sort == a stable sort")
+    for i, (name, n, n_rows, d, high) in enumerate(EMBED_GRAD_PLAN_CASES):
+        for integer in (True, False):
+            for ids_dtype in ((torch.int64, torch.int32) if integer else (torch.int64,)):
+                what = f"plan {name} ({ids_dtype}, {'integer' if integer else 'random'})"
+                g, ids, _, rows = embed_grad_inputs(n, n_rows, d, high, 1.0, SEED + 1500 + i,
+                                                    integer, ids_dtype)
+                plan = embed_grad.build_plan(ids, rows)
+                require(torch.equal(plan.packed, embed_grad.plan_packed_plain(ids, rows)),
+                        f"embed_grad {what}: the plan differs from a stable sort's")
+                got = embed_grad.scatter_rows_kernel(g, ids, rows, plan=plan)
+                again = embed_grad.scatter_rows_kernel(g, ids, rows, plan=plan)
+                sync()
+                require(not plan.counters.any(), f"embed_grad {what}: counters left set")
+                want = embed_grad.scatter_rows_plain(g if integer else g.double(), ids, rows)
+                worst = max(worst, embed_grad_compare(got, again, want.float(), what, integer))
+                del g, got, again, want, plan
+        log(f"embed_grad plan check {name}: {n} ids into {n_rows} rows, D={d}, {high}: the "
+            "plan == a stable sort's, exact on integers (int64 and int32 ids), random to "
+            f"{EMBED_GRAD_TOL} of the float64 plain version, a repeat the same bits")
     return worst
+
+
+def per_call(fn, calls, what):
+    """The profile of `calls` calls of `fn`: (device ms a call, device
+    activities a call (kernels and memsets), each activity's name → its
+    count and device ms a call)."""
+    _, busy = profiled(lambda: [fn() for _ in range(calls)], what, quiet=True, gathers=False)
+    names = {name: [n / calls, us / 1e3 / calls] for us, name, n in profiled.rows}
+    return busy / calls, sum(n for n, _ in names.values()), names
+
+
+def embed_grad_bound(n, d, id_bytes, written_rows):
+    """(ms, "bytes" or "operations"): the cotangents and ids read once,
+    `written_rows` rows of D f32 written once, against n x D adds."""
+    t_bytes = (n * d * 4 + n * id_bytes + written_rows * d * 4) / PEAK_BYTES_PER_S * 1e3
+    t_ops = n * d / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
 
 
 def embed_grad_timing(err):
     """The kernel at the device epoch's bucket gathers (8,192 rows into
     1,024 x 64: ids spread over the buckets and kept, as in the OOV
-    sub-epoch) beside its bound (the cotangent and ids read once, the
-    touched rows written once), its plain version and the library call
-    (`embedding_dense_backward`, torch.nn.functional.embedding's
-    backward). A call's time, host included, and the device time a call
-    from a profile."""
-    g, ids, live, rows = embed_grad_inputs(SP_B, SP_BUCKETS, D, SP_BUCKETS, 1.0, SEED + 1400,
-                                           False)
-    kernel = lambda: embed_grad.scatter_rows_kernel(g, ids, rows, live)  # noqa: E731
-    plain = lambda: embed_grad.scatter_rows_plain(g, ids, rows, live)  # noqa: E731
-    library = lambda: torch.ops.aten.embedding_dense_backward(  # noqa: E731
-        g, ids, rows, -1, False)
-    ms, plain_ms, library_ms = (time_ms(f, [()], 50) for f in (kernel, plain, library))
-    touched = int(torch.unique(ids[live]).numel())
-    nbytes = SP_B * D * 4 + SP_B * 8 + touched * D * 4
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = SP_B * D / PEAK_F32_FLOPS * 1e3
-    _, busy = profiled(lambda: [kernel() for _ in range(20)],
-                       "profile 20 calls of the gathers' backward kernel", quiet=True)
-    log(f"embed_grad timing {SP_B} rows into {rows}x{D} ({touched} rows touched): "
-        f"kernel_ms={ms:.4f} ({busy / 20:.4f} ms of device time a call) plain_ms={plain_ms:.4f} "
-        f"library_ms={library_ms:.4f} (embedding_dense_backward) bound_ms={max(t_bytes, t_ops):.5f} "
-        f"({'bytes' if t_bytes > t_ops else 'operations'}; {nbytes / 1e6:.2f} MB)")
+    sub-epoch; the pass owns the table), at BPR's item gathers (2,048 ids
+    into its 1 M-row table: a memset, the sort, the pass) and with a plan
+    at L2-shaped edges (1,611,078 into 9,748 x 64, skewed) beside the same
+    call without one: each beside its bound (the cotangents and ids read
+    once, the table written once: every row, as the plain version and the
+    library call write it), its plain version and the library call
+    (`embedding_dense_backward`, torch.nn.functional.embedding's backward;
+    `index_add_` for the edges). A call's ms (CUDA events, host included),
+    its device ms and device activities from a profile. → the numbers."""
+    out = {}
+    cases = (("batch", SP_B, SP_BUCKETS, SP_BUCKETS, SEED + 1400),
+             ("bpr-items", BPR_TRAIN_B, BPR_ITEM_ROWS, BPR_ITEM_ROWS, SEED + 1401),
+             ("plan-L2-edges", 1_611_078, 9_748, "skew", SEED + 1402))
+    for case, n, rows, high, seed in cases:
+        g, ids, live, rows = embed_grad_inputs(n, rows, D, high, 1.0, seed, False)
+        plan = embed_grad.build_plan(ids, rows) if case.startswith("plan") else None
+        live = None if plan is not None else live
+        kernel = lambda: embed_grad.scatter_rows_kernel(g, ids, rows, live, plan)  # noqa: E731
+        plain = lambda: embed_grad.scatter_rows_plain(g, ids, rows, live)  # noqa: E731
+        if plan is None:
+            library = lambda: torch.ops.aten.embedding_dense_backward(  # noqa: E731
+                g, ids, rows, -1, False)
+        else:
+            library = lambda: torch.zeros((rows, D), device=DEVICE).index_add_(  # noqa: E731
+                0, ids, g)
+        reps = 50 if n < 100_000 else 20
+        ms, plain_ms, library_ms = (time_ms(f, [()], reps) for f in (kernel, plain, library))
+        device_ms, per, names = per_call(kernel, 20, f"profile 20 calls of the gathers' "
+                                         f"backward kernel, {case}")
+        bound, by = embed_grad_bound(n, D, 8, rows)
+        row = {"ms": ms, "device_ms": device_ms, "launches_a_call": per, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": bound, "bound_by": by, "n": n,
+               "rows": rows, "kernels": names}
+        if plan is not None:  # the same call without the plan: the device-wide sort
+            nop = lambda: embed_grad.scatter_rows_kernel(g, ids, rows)  # noqa: E731
+            row["no_plan_ms"] = time_ms(nop, [()], reps)
+            row["no_plan_device_ms"], row["no_plan_launches_a_call"], _ = per_call(
+                nop, 20, f"profile 20 calls without the plan, {case}")
+        out[case] = row
+        log(f"embed_grad timing {case}: {n} rows into {rows}x{D}: kernel_ms={ms:.4f} "
+            f"(device {device_ms:.4f} ms, {per:.2f} device activities a call: {names}) "
+            f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} bound_ms={bound:.5f} ({by})"
+            + (f"; without the plan {row['no_plan_ms']:.4f} ms (device "
+               f"{row['no_plan_device_ms']:.4f}, {row['no_plan_launches_a_call']:.2f} a call)"
+               if plan is not None else ""))
+        del g, ids, live, plan
+    batch = out["batch"]
+    require(batch["launches_a_call"] <= 3 and out["bpr-items"]["launches_a_call"] <= 3
+            and out["plan-L2-edges"]["launches_a_call"] == 1,
+            "embed_grad: device activities a call "
+            f"{[(k, v['launches_a_call']) for k, v in out.items()]}")
+    out["routes"] = embed_grad_routes()
+    EMBED_GRAD_TIMES.update(out)
     return {
         "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes > t_ops else "operations",
-        "library_ms": library_ms,
-        "device_ms": busy / 20,
+        "ms": batch["ms"],
+        "plain_ms": batch["plain_ms"],
+        "bound_ms": batch["bound_ms"],
+        "bound_by": batch["bound_by"],
+        "library_ms": batch["library_ms"],
+        "device_ms": batch["device_ms"],
     }
+
+
+EMBED_GRAD_TIMES = {}  # embed_grad_timing's numbers by case, for the last lines
+
+# (name, n, table rows, D, ids from [0, high) or "skew"): batch ids around
+# the one-block sort's limit (SMALL_MAX) into the device epoch's 1,024 x
+# 64 buckets, and RippleNet's lookups of a step (N1: 2,048 users x 8
+# memories; the relation table's 42 rows of D x D, the entity table's
+# 59,645 rows)
+EMBED_GRAD_ROUTE_CASES = [
+    ("8192", SP_B, SP_BUCKETS, D, SP_BUCKETS),
+    ("12288", 12_288, SP_BUCKETS, D, SP_BUCKETS),
+    ("16384", 16_384, SP_BUCKETS, D, SP_BUCKETS),
+    ("ripplenet-relations", 16_384, 42, D * D, "skew"),
+    ("ripplenet-entities", 16_384, 59_645, D, 59_645),
+]
+
+
+def embed_grad_routes():
+    """A batch call without a plan on both routes at the same inputs: the
+    one-block sort (`block`) and the device-wide one (`device`), device
+    ms and device activities a call from a profile of 20 calls, at
+    EMBED_GRAD_ROUTE_CASES: where SMALL_MAX should lie. → the numbers."""
+    out = {}
+    for i, (case, n, rows, d, high) in enumerate(EMBED_GRAD_ROUTE_CASES):
+        g, ids, live, rows = embed_grad_inputs(n, rows, d, high, 1.0, SEED + 1410 + i, False)
+        row = {"n": n, "rows": rows, "d": d, "chosen": "block" if n <= embed_grad.SMALL_MAX
+               else "device"}
+        for route, small in (("block", True), ("device", False)):
+            call = lambda: embed_grad._sorted_call(g, ids, rows, None, small)  # noqa: E731
+            row[f"{route}_device_ms"], row[f"{route}_launches_a_call"], names = per_call(
+                call, 20, f"profile 20 calls of the gathers' backward, {case}, {route} route")
+            row[f"{route}_kernels"] = names
+        out[case] = row
+        log(f"embed_grad route {case}: {n} ids into {rows}x{d}: one-block sort "
+            f"{row['block_device_ms']:.4f} device ms ({row['block_launches_a_call']:.0f} a "
+            f"call), device-wide {row['device_device_ms']:.4f} "
+            f"({row['device_launches_a_call']:.0f}); taken: {row['chosen']}")
+        del g, ids, live
+    return out
 
 
 # ------------------------------------- retrieval training, device epoch
@@ -2360,18 +2535,18 @@ def recorded_run(trainer, loader):
     return trainer.last_losses, {n: p.detach() for n, p in trainer.params.items()}, grad
 
 
-def _skip_backward(g, ids, n_rows, live=None):
+def _skip_backward(g, ids, n_rows, live=None, plan=None):
     """The kernel's plain version on the card: `embedding_dense_backward`
     with the discarded rows sent to a padding row that it skips."""
     return embed_grad.scatter_rows_plain(g, ids, n_rows, live)
 
 
-def _embedding_backward(g, ids, n_rows, live=None):
+def _embedding_backward(g, ids, n_rows, live=None, plan=None):
     """`torch.nn.functional.embedding`'s backward over every row."""
     return torch.ops.aten.embedding_dense_backward(g, ids.long(), n_rows, -1, False)
 
 
-def _index_backward(g, ids, n_rows, live=None):
+def _index_backward(g, ids, n_rows, live=None, plan=None):
     """torch's indexing backward over every row (`index_put_` with
     accumulate), the port's gathers' backward before `csrc/embed_grad.cu`."""
     return g.new_zeros((n_rows, g.shape[-1])).index_put_((ids.long(),), g, accumulate=True)
@@ -4034,7 +4209,10 @@ def graph_vs_eager_times(de, eager, batches, what, part):
     for name in ("eager", "graph"):
         w, busy, seen[name] = counted_trace(runs[name], f"profile {n} {what} steps, {name}")
         out[name] = {"wall_ms": wall[name], "device_ms": busy / n,
-                     "busy_pct": 100 * busy / max(w, 1e-9)}
+                     "busy_pct": 100 * busy / max(w, 1e-9),
+                     "sorts": sum(c for _, key, c in profiled.rows
+                                  if any(k in key for k in SORT_KERNELS)),
+                     "plan_builds": seen[name][0]["build_plan"]}
     add_trace(part, graph_trace_check(*seen["eager"], *seen["graph"], what))
     log(f"{what}, ms a step of {batches[0]['weight'].numel()} rows (wall, host included; "
         f"order eager, graph, graph, eager): eager "
@@ -4047,6 +4225,10 @@ def graph_vs_eager_times(de, eager, batches, what, part):
 
 
 F_TIMES = {}
+# the kernels of a device-wide sort (`csrc/embed_grad.cu`: key making, cub's
+# radix sort) and of a plan's build, counted in a step's trace
+# (`graph_vs_eager_times`): a step that sorts fixed edges shows them
+SORT_KERNELS = ("make_keys", "DeviceRadixSort", "plan_tables")
 
 
 def f_epoch_times(de, what):
@@ -5854,47 +6036,56 @@ def l_loader(cfg, train):
 
 def l_segment_sum(model):
     """The edge segment sum at LightGCN's edges (`ops/embed_grad.py:
-    segment_sum`, messages (E, D) at the model's destinations): the kernel
-    against `scatter_rows_plain`, bit for bit on integer-valued messages,
-    to 1e-6 of the largest sum on random ones (a row sums up to its
-    degree's ~6,000 messages, in another order), and against a repeat run
-    bit for bit; a call's ms (CUDA events, host included) and device ms
-    from a profile, beside the plain version, `index_add_` (the library
-    call, atomics) and the bound (the messages read once, the ids read
-    once, the table written once). → the numbers."""
-    dst, n = model.edge_dst, model.n_nodes
+    segment_sum`, messages (E, D) at the model's destinations) with the
+    edges' plan (the model's own, `planned("edge_dst")`) and without it:
+    each against `scatter_rows_plain`, bit for bit on integer-valued
+    messages, to 1e-6 of the largest sum on random ones (a row sums up to
+    its degree's ~6,000 messages, in another order), and against a repeat
+    run bit for bit; a call's ms (CUDA events, host included), its device
+    ms and device activities from a profile, beside the plain version,
+    `index_add_` (the library call, atomics) and the bound (the messages
+    read once, the ids read once, the table written once). → the numbers."""
+    dst, plan = model.planned("edge_dst")
+    n = model.n_nodes
     e, d = dst.shape[0], model.embedding_size
     g = torch.Generator(device=DEVICE)
     g.manual_seed(SEED + 1600)
     ints = torch.randint(-4, 5, (e, d), generator=g, device=DEVICE).float()
-    exact = torch.equal(embed_grad.segment_sum(ints, dst, n),
-                        embed_grad.scatter_rows_plain(ints, dst, n))
     msg = torch.randn((e, d), generator=g, device=DEVICE)
-    kernel = lambda: embed_grad.segment_sum(msg, dst, n)  # noqa: E731
-    a, b = kernel(), kernel()
+    want_ints = embed_grad.scatter_rows_plain(ints, dst, n)
     want = embed_grad.scatter_rows_plain(msg, dst, n)
-    err, top = float((a - want).abs().max()), float(want.abs().max())
-    require(exact and torch.equal(a, b) and err <= 1e-6 * top,
-            f"L segment sum: integers exact {exact}, repeat {torch.equal(a, b)}, max_abs_err "
-            f"{err} (largest sum {top})")
+    top = float(want.abs().max())
+    out = {"edges": e, "rows": n, "D": d, "largest_sum": top}
+    for route, p in (("plan", plan), ("no plan", None)):
+        exact = torch.equal(embed_grad.segment_sum(ints, dst, n, plan=p), want_ints)
+        kernel = lambda p=p: embed_grad.segment_sum(msg, dst, n, plan=p)  # noqa: E731
+        a, b = kernel(), kernel()
+        err = float((a - want).abs().max())
+        require(exact and torch.equal(a, b) and err <= 1e-6 * top,
+                f"L segment sum ({route}): integers exact {exact}, repeat {torch.equal(a, b)}, "
+                f"max_abs_err {err} (largest sum {top})")
+        device_ms, per, names = per_call(kernel, L_SEGMENT_REPS,
+                                         f"profile the edge segment sum ({route})")
+        out[route] = {"max_abs_err": err, "ms": time_ms(kernel, [()], L_SEGMENT_REPS),
+                      "device_ms": device_ms, "launches_a_call": per, "kernels": names}
+    require(out["plan"]["launches_a_call"] == 1,
+            f"L segment sum: a call with the plan ran {out['plan']['kernels']}")
     dst64 = dst.long()
     plain = lambda: embed_grad.scatter_rows_plain(msg, dst, n)  # noqa: E731
     library = lambda: torch.zeros((n, d), device=DEVICE).index_add_(0, dst64, msg)  # noqa: E731
-    ms, plain_ms, library_ms = (time_ms(f, [()], L_SEGMENT_REPS) for f in (kernel, plain, library))
-    _, busy = profiled(lambda: [kernel() for _ in range(L_SEGMENT_REPS)],
-                       "profile the edge segment sum", quiet=True, gathers=False)
-    nbytes = e * d * 4 + e * dst.element_size() + n * d * 4
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = e * d / PEAK_F32_FLOPS * 1e3
-    out = {"edges": e, "rows": n, "D": d, "max_abs_err": err, "largest_sum": top, "ms": ms,
-           "device_ms": busy / L_SEGMENT_REPS, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes > t_ops else
-           "operations"}
+    out["plain_ms"], out["library_ms"] = (time_ms(f, [()], L_SEGMENT_REPS)
+                                          for f in (plain, library))
+    out["bound_ms"], out["bound_by"] = embed_grad_bound(e, d, dst.element_size(), n)
+    # the first keys kept for the last lines: the plan route's numbers
+    out.update({k: out["plan"][k] for k in ("max_abs_err", "ms", "device_ms")})
     log(f"L segment sum, {e} edges x {d} into {n} rows: bit for bit on integers and on a "
-        f"repeat run, max_abs_err {err:.3g} vs scatter_rows_plain (largest sum {top:.1f}); "
-        f"ms a call {ms:.4f} (device "
-        f"{out['device_ms']:.4f}), plain {plain_ms:.4f}, index_add_ {library_ms:.4f}, bound "
-        f"{out['bound_ms']:.4f} ({out['bound_by']}, {nbytes / 1e6:.1f} MB)")
+        f"repeat run on both routes (largest sum {top:.1f}); with the plan: ms a call "
+        f"{out['plan']['ms']:.4f} (device {out['plan']['device_ms']:.4f}, "
+        f"{out['plan']['launches_a_call']:.2f} device activities a call, max_abs_err "
+        f"{out['plan']['max_abs_err']:.3g}); without: {out['no plan']['ms']:.4f} (device "
+        f"{out['no plan']['device_ms']:.4f}, {out['no plan']['launches_a_call']:.2f} a call); "
+        f"plain {out['plain_ms']:.4f}, index_add_ {out['library_ms']:.4f}, bound "
+        f"{out['bound_ms']:.4f} ({out['bound_by']})")
     L_TIMES["segment sum"] = out
     return out
 
@@ -5952,8 +6143,25 @@ def l2_graph():
 
         host_graph_vs_eager(make, what, L_COMPARE_STEPS, part="L2", times=L_TIMES,
                             time_steps=I_TIME_STEPS)
+        no_edge_sorts(what, L_TIMES[what], seen, fixed_edges=True)
     log("L2 the kernel's launches by model: " + json.dumps(L_GATHERS))
     return counts
+
+
+def no_edge_sorts(what, times, fit_counts, fixed_edges):
+    """A graph or knowledge model's fixed edges are sorted at its build
+    alone: its fit built no plan, its timed steps' traces (graphed and
+    eager, `graph_vs_eager_times`) show no plan build and, where the model
+    owns fixed edges, no device-wide sort; the others' device-wide sorts
+    are their batch ids above 16,384, the same in both traces."""
+    eager, graph = times["eager"], times["graph"]
+    require(fit_counts["build_plan"] == 0 and eager["plan_builds"] == graph["plan_builds"] == 0,
+            f"{what}: plans built in the fit {fit_counts['build_plan']}, in the steps "
+            f"{eager['plan_builds']} / {graph['plan_builds']}")
+    require(graph["sorts"] == eager["sorts"] and not (fixed_edges and graph["sorts"]),
+            f"{what}: sort kernels in the graphed steps {graph['sorts']}, eager {eager['sorts']}")
+    log(f"{what}: no plan built in the fit or the steps; device-wide sort kernels in the "
+        f"graphed replays {graph['sorts']} (eager {eager['sorts']})")
 
 
 # L3's, M3's and N2's runs, one after another in the shared CLI child:
@@ -6288,6 +6496,7 @@ N_ENTITIES, N_RELATIONS, N_TRIPLES, N_ITEM_HEADS, N_SEED = 60_000, 40, 500_000, 
 N_MODELS = ("CKE", "CFKG", "KGAT", "KGCN", "KGNNLS", "MKR", "KTUP", "RippleNet", "KGIN",
             "MCCLK")
 N_BLOCKED = ("KGCN", "KGNNLS", "MKR", "KTUP", "RippleNet")  # against the pairs
+N_PLANNED = ("KGAT", "KGIN", "MCCLK")  # the models that own fixed edges (their plans)
 N_STEPS = 16           # N1: host steps of I_B rows a fit
 N_COMPARE_STEPS = 4    # N1: graphed against eager steps, bit for bit (I_TIME_STEPS timed)
 N_SORT_TOL = 1e-6      # N1: blocked and hoisted full sorts against the pairs, of the largest
@@ -6502,6 +6711,7 @@ def n1_knowledge():
 
         host_graph_vs_eager(make, what, N_COMPARE_STEPS, part="N1", times=N_TIMES,
                             time_steps=I_TIME_STEPS)
+        no_edge_sorts(what, N_TIMES[what], seen, fixed_edges=name in N_PLANNED)
     log("N1 the gathers' backward launches by model: "
         + json.dumps({k: N_GATHERS[k] for k in N_MODELS}))
     return counts
@@ -7082,8 +7292,9 @@ def main():
     n_trace = {p: c for p, c in F_TRACE.items() if p not in n_done}
     require(all(on_n[p]["scatter_rows_kernel"] > 0 for p in ("N1", "N2"))
             and not any(n for c in on_n.values() for k, n in c.items()
-                        if k != "scatter_rows_kernel"),
-            f"phase N launches {on_n} (kernels 1-6 none, the gathers' backward in each part)")
+                        if k not in ("scatter_rows_kernel", "build_plan")),
+            f"phase N launches {on_n} (kernels 1-6 none, the gathers' backward in each part; "
+            "plans built with KGAT's, KGIN's and MCCLK's models)")
     require(n_trace["N1"]["scatter_rows_kernel"] > 0, f"phase N graphed traces {n_trace}")
     log("phase N kernels replayed, from the traces: " + json.dumps(n_trace))
     log("phase N times: " + json.dumps(N_TIMES))
@@ -7177,7 +7388,7 @@ def main():
         k["launches_o"] = {part: c[k["name"]] for part, c in on_o.items()}
     log("gathers' backward (ops/embed_grad.py, not a Pallas kernel): " + json.dumps({
             "ms": gathers, "bound_ms": gather_bound,
-            "device_epoch": GATHER_RESULTS.get("device_epoch")}))
+            "device_epoch": GATHER_RESULTS.get("device_epoch"), "cases": EMBED_GRAD_TIMES}))
     log("the edge segment sum (ops/embed_grad.py:segment_sum, the same kernel): "
         + json.dumps(L_TIMES["segment sum"]))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

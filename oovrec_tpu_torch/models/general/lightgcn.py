@@ -10,7 +10,11 @@ the gather's backward are both the sort-and-segment kernel
 (`ops/embed_grad.py`, `csrc/embed_grad.cu` on the card): no atomics, so a
 step gives the same bits on every run and a captured step equals the
 eager one. Every gather with a gradient (the edge sources, the batch's
-users and items) goes through `gather_rows`. The regulariser reads the
+users and items) goes through `gather_rows`. The edges' sorts are done
+once: `edge_src` and `edge_dst` each have a plan (`ops/embed_grad.py:
+IndexPlans`, a non-persistent buffer, rebuilt where the edges change), so
+a round's segment sum and gather backward each launch the segment pass
+alone. The regulariser reads the
 ego embeddings (before propagation). `predict` and `full_sort_scores`
 propagate on every call, as the JAX model does.
 
@@ -28,7 +32,7 @@ import torch
 from oovrec_tpu_torch.models.base import Batch, GeneralRecommender, register_model
 from oovrec_tpu_torch.models.general.base import set_state
 from oovrec_tpu_torch.models.losses import bpr_loss, emb_loss
-from oovrec_tpu_torch.ops.embed_grad import gather_rows, segment_sum
+from oovrec_tpu_torch.ops.embed_grad import IndexPlans, SegmentPlan, gather_rows, segment_sum
 from oovrec_tpu_torch.utils.enums import InputType
 
 
@@ -54,15 +58,17 @@ def graph_edges(train_split, config=None) -> dict:
 
 
 def propagate(cur: torch.Tensor, src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
-              n: int) -> torch.Tensor:
+              n: int, src_plan: Optional[SegmentPlan] = None,
+              dst_plan: Optional[SegmentPlan] = None) -> torch.Tensor:
     """One round Â·cur: the (n, D) sums of the weighted source rows at
-    their destinations; `w` is (E, 1) (or (E, D))."""
-    return segment_sum(gather_rows(cur, src) * w, dst, n)
+    their destinations; `w` is (E, 1) (or (E, D)); the plans: the edges'
+    own (`IndexPlans`)."""
+    return segment_sum(gather_rows(cur, src, plan=src_plan) * w, dst, n, plan=dst_plan)
 
 
-class GraphModel(GeneralRecommender):
+class GraphModel(IndexPlans, GeneralRecommender):
     """User and item tables (xavier-normal, as the JAX models draw them)
-    and the edge buffers."""
+    and the edge buffers with their plans."""
 
     def __init__(self, n_users: int, n_items: int, embedding_size: int = 64,
                  edge_src: Optional[np.ndarray] = None, edge_dst: Optional[np.ndarray] = None,
@@ -74,6 +80,8 @@ class GraphModel(GeneralRecommender):
         set_state(self, "edge_src", edge_src, (n_edges,), torch.int32)
         set_state(self, "edge_dst", edge_dst, (n_edges,), torch.int32)
         set_state(self, "edge_weight", edge_weight, (n_edges,), torch.float32)
+        self.add_index_plan("edge_src", self.n_nodes)
+        self.add_index_plan("edge_dst", self.n_nodes)
 
     build_estate = staticmethod(graph_edges)
 
@@ -88,7 +96,8 @@ class GraphModel(GeneralRecommender):
     def _prop(self, cur: torch.Tensor, w: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Â·cur over the model's edges (weights `w` (E, 1) where given)."""
         w = self.edge_weight[:, None] if w is None else w
-        return propagate(cur, self.edge_src, self.edge_dst, w, self.n_nodes)
+        (src, src_plan), (dst, dst_plan) = self.planned("edge_src"), self.planned("edge_dst")
+        return propagate(cur, src, dst, w, self.n_nodes, src_plan, dst_plan)
 
     def _split(self, e: torch.Tensor):
         return e[: self.n_users], e[self.n_users:]

@@ -244,15 +244,16 @@ class DGCF(GraphModel):
         self.reg_weight = float(reg_weight)
 
     def embeddings(self):
-        src, dst, w, n = self.edge_src, self.edge_dst, self.edge_weight, self.n_nodes
+        (src, src_plan), (dst, dst_plan) = self.planned("edge_src"), self.planned("edge_dst")
+        w, n = self.edge_weight, self.n_nodes
         chunks = list(self.ego().split(self.embedding_size // self.n_factors, dim=1))
         for _ in range(self.n_layers):
-            at_src = [gather_rows(c, src) for c in chunks]
+            at_src = [gather_rows(c, src, plan=src_plan) for c in chunks]
             # factor affinity per edge: the dot product of its ends' chunks
-            aff = torch.stack([(a * gather_rows(c, dst)).sum(dim=1)
+            aff = torch.stack([(a * gather_rows(c, dst, plan=dst_plan)).sum(dim=1)
                                for a, c in zip(at_src, chunks)])
             att = torch.softmax(aff, dim=0) * w  # (F, E)
-            chunks = [segment_sum(a * att[f][:, None], dst, n) + c
+            chunks = [segment_sum(a * att[f][:, None], dst, n, plan=dst_plan) + c
                       for f, (a, c) in enumerate(zip(at_src, chunks))]
         return self._split(torch.cat(chunks, dim=1))
 

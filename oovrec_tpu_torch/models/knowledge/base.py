@@ -6,7 +6,8 @@ first `n_items` of them the items) and `n_relations` relations (the last
 one `[UI-Relation]`), both handed over by `build_model_and_state` from the
 dataset. Every table lookup with a gradient goes through
 `ops/embed_grad.py:gather_rows` (`lookup`), whose backward is the
-sort-and-segment kernel on the card.
+sort-and-segment kernel on the card; a lookup of a fixed index buffer
+takes the buffer's plan.
 
 None of these models is an ID tower or routes through `_route_side`: the
 OOV regime trains them on their own ids, and the full-sort 7-slice eval
@@ -15,16 +16,20 @@ refuses them, as for the general models (ROADMAP.md §3).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from oovrec_tpu_torch.models.base import GeneralRecommender
-from oovrec_tpu_torch.ops.embed_grad import gather_rows
+from oovrec_tpu_torch.ops.embed_grad import SegmentPlan, gather_rows
 from oovrec_tpu_torch.utils.enums import ModelType
 
 
-def lookup(table: torch.nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
-    """`table(ids)`, ids of any shape, through `gather_rows`."""
-    return gather_rows(table.weight, ids)
+def lookup(table: torch.nn.Embedding, ids: torch.Tensor,
+           plan: Optional[SegmentPlan] = None) -> torch.Tensor:
+    """`table(ids)`, ids of any shape, through `gather_rows` (`plan`: the
+    plan of fixed `ids` into the table's rows)."""
+    return gather_rows(table.weight, ids, plan=plan)
 
 
 class KnowledgeRecommender(GeneralRecommender):

@@ -20,7 +20,11 @@ What differs from the JAX model, on purpose:
     (42 GB at 2.6 M edges and D = K = 64). The port projects every node
     once for every relation, an (R, N, K) table (`_projections`), and
     reads each edge's W_r e_h and W_r e_t from it at (rel, src) and (rel,
-    dst) through `gather_rows`. The same function, f32 rounding apart;
+    dst) through `gather_rows`. The same function, f32 rounding apart.
+    Those rows, rel · N + src and rel · N + dst, are fixed: the
+    non-persistent buffers `ckg_src_rows` / `ckg_dst_rows`, derived from
+    the edges; they, `ckg_src`, `ckg_dst` and `ckg_rel` each have a plan
+    (`ops/embed_grad.py:IndexPlans`), so no edge is sorted in a step;
   * the softmax's shift: the per-destination maximum is a `scatter_reduce`
     `amax` (order-free, so the same bits on every run) and is detached.
     The softmax does not depend on the shift, so the gradient is JAX's
@@ -45,7 +49,7 @@ from oovrec_tpu_torch.models.knowledge.base import KnowledgeRecommender, lookup
 from oovrec_tpu_torch.models.knowledge.cke import transr
 from oovrec_tpu_torch.models.layers import Dropout
 from oovrec_tpu_torch.models.losses import bpr_loss, emb_loss
-from oovrec_tpu_torch.ops.embed_grad import gather_rows, segment_sum
+from oovrec_tpu_torch.ops.embed_grad import IndexPlans, gather_rows, segment_sum
 from oovrec_tpu_torch.utils.enums import InputType
 
 
@@ -68,7 +72,7 @@ def ckg_edges(train_split, config=None) -> dict:
 
 
 @register_model
-class KGAT(KnowledgeRecommender):
+class KGAT(IndexPlans, KnowledgeRecommender):
     input_type = InputType.PAIRWISE
 
     def __init__(self, n_users: int, n_items: int, embedding_size: int = 64,
@@ -94,6 +98,15 @@ class KGAT(KnowledgeRecommender):
         n_edges = 0 if ckg_src is None else len(ckg_src)
         for name, value in (("ckg_src", ckg_src), ("ckg_dst", ckg_dst), ("ckg_rel", ckg_rel)):
             set_state(self, name, value, (n_edges,), torch.int32)
+        for name in ("ckg_src", "ckg_dst"):
+            self.add_index_plan(name, self.n_nodes)
+        self.add_index_plan("ckg_rel", self.n_relations)
+        for end in ("src", "dst"):
+            self.add_index_plan(
+                f"ckg_{end}_rows", self.n_relations * self.n_nodes,
+                derive=lambda m, end=end: (m.ckg_rel.long() * m.n_nodes
+                                           + getattr(m, f"ckg_{end}").long()),
+                sources=("ckg_rel", f"ckg_{end}"))
 
     build_estate = staticmethod(ckg_edges)
 
@@ -111,24 +124,30 @@ class KGAT(KnowledgeRecommender):
         """(E,): each edge's attention, softmaxed over its destination's
         edges."""
         n = self.n_nodes
-        src, dst, rel = self.ckg_src.long(), self.ckg_dst.long(), self.ckg_rel.long()
+        dst, dst_plan = self.planned("ckg_dst")
+        rel, rel_plan = self.planned("ckg_rel")
         proj = self._projections(e)
-        eh = gather_rows(proj, rel * n + src)
-        et = gather_rows(proj, rel * n + dst)
-        logits = (et * torch.tanh(eh + lookup(self.relation_embedding, rel))).sum(dim=1)
+        (src_rows, src_plan), (dst_rows, dst_rows_plan) = (self.planned("ckg_src_rows"),
+                                                           self.planned("ckg_dst_rows"))
+        eh = gather_rows(proj, src_rows, plan=src_plan)
+        et = gather_rows(proj, dst_rows, plan=dst_rows_plan)
+        logits = (et * torch.tanh(eh + lookup(self.relation_embedding, rel, rel_plan))).sum(dim=1)
+        dst64 = dst.long()
         shift = torch.full((n,), -torch.inf, device=e.device).scatter_reduce(
-            0, dst, logits.detach(), "amax")
-        ex = torch.exp(logits - shift[dst])
-        denom = segment_sum(ex[:, None], dst, n)
-        return ex / torch.clamp(gather_rows(denom, dst)[:, 0], min=1e-12)
+            0, dst64, logits.detach(), "amax")
+        ex = torch.exp(logits - shift[dst64])
+        denom = segment_sum(ex[:, None], dst, n, plan=dst_plan)
+        return ex / torch.clamp(gather_rows(denom, dst, plan=dst_plan)[:, 0], min=1e-12)
 
     def _propagate(self, train: bool = False):
         """(users (U, D + Σ layers), items (n_items, D + Σ layers))."""
         e = self.node_embedding.weight
         att = self._attention(e)[:, None]
+        (src, src_plan), (dst, dst_plan) = self.planned("ckg_src"), self.planned("ckg_dst")
         outs, cur = [e], e
         for w1, w2 in zip(self.agg_w1, self.agg_w2):
-            side = segment_sum(gather_rows(cur, self.ckg_src) * att, self.ckg_dst, self.n_nodes)
+            side = segment_sum(gather_rows(cur, src, plan=src_plan) * att, dst, self.n_nodes,
+                               plan=dst_plan)
             cur = leaky_relu(w1(cur + side)) + leaky_relu(w2(cur * side))
             cur = l2_rows(self.mdrop(cur, train))
             outs.append(cur)

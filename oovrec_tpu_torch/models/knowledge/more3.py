@@ -6,7 +6,10 @@ directed triples and the training interactions (`kg_edges`: int32
 float32 1/deg(user) weights `kgin_w`). Every aggregation is
 `ops/embed_grad.py:segment_sum` (the sort-and-segment kernel on the card,
 no atomics; the counts too) and every gather with a gradient
-`gather_rows`, so a captured step gives the eager step's bits.
+`gather_rows`, so a captured step gives the eager step's bits. Each edge
+buffer that a sum or a gather reads has its plan (`ops/embed_grad.py:
+IndexPlans`; `kgin_iid` into the rows `_user_sum` gathers, the entities
+in KGIN, the items in MCCLK), so no edge is sorted in a step.
 
   * KGIN: the users' softmax over `n_factors` intents (`latent_emb`), each
     intent a softmax mixture of the relations (`disen_weight_att`); each
@@ -47,7 +50,7 @@ from oovrec_tpu_torch.models.general.base import l2_rows, set_state
 from oovrec_tpu_torch.models.knowledge.base import KnowledgeRecommender, lookup
 from oovrec_tpu_torch.models.layers import Dropout
 from oovrec_tpu_torch.models.losses import bpr_loss, emb_loss
-from oovrec_tpu_torch.ops.embed_grad import gather_rows, segment_sum
+from oovrec_tpu_torch.ops.embed_grad import IndexPlans, gather_rows, segment_sum
 from oovrec_tpu_torch.utils.enums import InputType
 
 KG_EDGES = ("kgin_head", "kgin_rel", "kgin_tail", "kgin_uid", "kgin_iid", "kgin_w")
@@ -72,8 +75,10 @@ def kg_edges(train_split, config=None) -> dict:
     }
 
 
-class KGEdgeModel(KnowledgeRecommender):
-    """The user, entity and relation tables and the `kg_edges` buffers."""
+class KGEdgeModel(IndexPlans, KnowledgeRecommender):
+    """The user, entity and relation tables and the `kg_edges` buffers
+    with their plans; `iid_rows` is the row count of the tables that
+    `_user_sum` gathers at `kgin_iid`."""
 
     input_type = InputType.PAIRWISE
 
@@ -87,21 +92,28 @@ class KGEdgeModel(KnowledgeRecommender):
         for name, value in edges.items():
             n = 0 if value is None else len(value)
             set_state(self, name, value, (n,), torch.float32 if name == "kgin_w" else torch.int32)
+        for name, rows in (("kgin_head", self.n_entities), ("kgin_tail", self.n_entities),
+                           ("kgin_rel", self.n_relations), ("kgin_uid", n_users),
+                           ("kgin_iid", self.iid_rows)):
+            self.add_index_plan(name, rows)
 
     build_estate = staticmethod(kg_edges)
 
     def _kg_mean(self, ee: torch.Tensor) -> torch.Tensor:
         """Each entity's mean (tail ⊙ relation) message (0 without one)."""
-        msg = gather_rows(ee, self.kgin_tail) * lookup(self.relation_embedding, self.kgin_rel)
-        agg = segment_sum(msg, self.kgin_head, self.n_entities)
-        ones = torch.ones(len(self.kgin_head), 1, device=ee.device)
-        cnt = segment_sum(ones, self.kgin_head, self.n_entities)
+        (tail, tail_plan), (rel, rel_plan) = self.planned("kgin_tail"), self.planned("kgin_rel")
+        head, head_plan = self.planned("kgin_head")
+        msg = gather_rows(ee, tail, plan=tail_plan) * lookup(self.relation_embedding, rel, rel_plan)
+        agg = segment_sum(msg, head, self.n_entities, plan=head_plan)
+        ones = torch.ones(len(head), 1, device=ee.device)
+        cnt = segment_sum(ones, head, self.n_entities, plan=head_plan)
         return agg / torch.clamp(cnt, min=1.0)
 
     def _user_sum(self, rows: torch.Tensor) -> torch.Tensor:
         """Each user's 1/deg-weighted sum of its training items' rows."""
-        return segment_sum(gather_rows(rows, self.kgin_iid) * self.kgin_w[:, None],
-                           self.kgin_uid, self.n_users)
+        (iid, iid_plan), (uid, uid_plan) = self.planned("kgin_iid"), self.planned("kgin_uid")
+        return segment_sum(gather_rows(rows, iid, plan=iid_plan) * self.kgin_w[:, None],
+                           uid, self.n_users, plan=uid_plan)
 
     def _scored_rows(self, batch: Batch, users: torch.Tensor, items: torch.Tensor):
         return (gather_rows(users, batch[self.uid_field]),
@@ -131,6 +143,8 @@ def _dcov(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 @register_model
 class KGIN(KGEdgeModel):
+    iid_rows = property(lambda self: self.n_entities)  # `_user_sum` gathers entity rows
+
     def __init__(self, n_users: int, n_items: int, embedding_size: int = 64, n_factors: int = 4,
                  context_hops: int = 2, sim_decay: float = 1e-4, reg_weight: float = 1e-5,
                  mess_dropout_rate: float = 0.1, **kwargs):
@@ -183,6 +197,8 @@ def _info_nce(z1: torch.Tensor, z2: torch.Tensor, tau: float) -> torch.Tensor:
 
 @register_model
 class MCCLK(KGEdgeModel):
+    iid_rows = property(lambda self: self.n_items)  # `_user_sum` gathers item rows
+
     def __init__(self, n_users: int, n_items: int, embedding_size: int = 64, n_hops: int = 1,
                  lightgcn_layer: int = 2, knn_k: int = 8, tau: float = 0.8, alpha: float = 0.5,
                  beta: float = 0.1, reg_weight: float = 1e-5, **kwargs):
@@ -217,11 +233,13 @@ class MCCLK(KGEdgeModel):
     def _collab(self):
         ue, ie = self.user_embedding.weight, self.entity_embedding.weight[:self.n_items]
         u_res, i_res = ue, ie
-        ones = torch.ones(len(self.kgin_iid), 1, device=ue.device)
-        icnt = segment_sum(ones, self.kgin_iid, self.n_items)
+        (iid, iid_plan), (uid, uid_plan) = self.planned("kgin_iid"), self.planned("kgin_uid")
+        ones = torch.ones(len(iid), 1, device=ue.device)
+        icnt = segment_sum(ones, iid, self.n_items, plan=iid_plan)
         for _ in range(self.lightgcn_layer):
             u_new = self._user_sum(ie)
-            i_new = segment_sum(gather_rows(ue, self.kgin_uid), self.kgin_iid, self.n_items)
+            i_new = segment_sum(gather_rows(ue, uid, plan=uid_plan), iid, self.n_items,
+                                plan=iid_plan)
             ue, ie = u_new, i_new / torch.clamp(icnt, min=1.0)
             u_res = u_res + ue
             i_res = i_res + ie

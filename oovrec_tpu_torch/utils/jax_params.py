@@ -285,7 +285,8 @@ def embedder_state_to_numpy(module: nn.Module) -> Dict[str, np.ndarray]:
 def set_embedder_state(module: nn.Module, estate: Mapping[str, Any]) -> nn.Module:
     """Give `module` the JAX package's ``estate`` arrays as its embedder
     state, and the `MODEL_STATE` entries as the model's own buffers of
-    those names (the buffers must exist with the same shapes)."""
+    those names (the buffers must exist with the same shapes); then the
+    plans of its index buffers follow them."""
     buffers = dict(getattr(module, STATE).named_buffers())
     own = dict(module.named_buffers(recurse=False))
     buffers.update({k: v for k, v in own.items() if is_model_state(k)})
@@ -299,6 +300,9 @@ def set_embedder_state(module: nn.Module, estate: Mapping[str, Any]) -> nn.Modul
         if tuple(arr.shape) != tuple(t.shape):
             raise ValueError(f"embedder state [{k}]: {arr.shape} for {tuple(t.shape)}")
         t.copy_(torch.as_tensor(arr).to(t.dtype))
+    refresh = getattr(module, "refresh_index_plans", None)
+    if refresh is not None:  # the plans of edges just loaded (ops/embed_grad.py:IndexPlans)
+        refresh()
     return module
 
 

@@ -10,8 +10,9 @@ ids, without `live` and with dead rows whose cotangent is zero (what
 `route`'s select leaves them). Then `live`: the rows it marks dead add
 nothing, and `route` with that discard gives the gradient it gives
 without it, bit for bit on integer-valued inputs; and the CUDA kernel's
-chunk and run logic, followed step by step in numpy, equals the plain
-version bit for bit.
+sort, chunk and run logic on both routes (a plan, a call's own sort),
+followed step by step in numpy, equals the plain version bit for bit on
+integers and to 1e-6 on random cotangents.
 """
 
 import numpy as np
@@ -147,77 +148,155 @@ def test_live_rows_skipped(p_live):
     assert torch.equal(got, want) and torch.equal(got, again)
 
 
-def _kernel_steps(g, ids, live, n_rows, chunk):
-    """`csrc/embed_grad.cu` step by step in numpy: keys (dead rows under
-    n_rows), a stable sort, `segment_chunks` (run pieces of each chunk to
-    out, head or tail) and `segment_runs` (a crossing run's owner chunk
-    adds its tail and the heads of the chunks it covers, LANES-strided,
-    then the lanes in order)."""
+def _radix_order(keys, end_bit, radix_bits=4):
+    """The one-block sort's order (`csrc/embed_grad.cu:sort_block`, cub's
+    BlockRadixSort, 4 bits a pass over the low `end_bit` bits): least
+    significant digit first, each pass a stable counting sort, so equal
+    keys keep their positions."""
+    order = np.arange(len(keys))
+    for bit in range(0, end_bit, radix_bits):
+        digit = (keys[order] >> bit) & ((1 << radix_bits) - 1)
+        order = order[np.argsort(digit, kind="stable")]
+    return order
+
+
+def _spans(sk, chunk, dead):
+    """Each chunk's crossing runs, walked position by position: the first
+    chunk of the run it begins inside, the last chunk of the run its last
+    position goes on into (-1 for none)."""
+    n = len(sk)
+    out = []
+    for s in range(0, n, chunk):
+        e = min(s + chunk, n)
+        x = y = -1
+        if sk[s] != dead and s > 0 and sk[s - 1] == sk[s]:
+            p = s
+            while p > 0 and sk[p - 1] == sk[s]:
+                p -= 1
+            x = p // chunk
+        if sk[e - 1] != dead and e < n and sk[e] == sk[e - 1]:
+            p = e
+            while p + 1 < n and sk[p + 1] == sk[e - 1]:
+                p += 1
+            y = p // chunk
+        out.append((x, y))
+    return np.array(out, np.int64).reshape(-1, 2)
+
+
+def _kernel_steps(g, ids, live, n_rows, route):
+    """`csrc/embed_grad.cu` step by step in numpy, by route: "plan" (the
+    plan's stable order, PLAN_CHUNK) or "batch" (the keys live ? id :
+    n_rows; at n <= SMALL_MAX the one-block radix sort over the bits in
+    which the smallest and largest key differ and SMALL_CHUNK, the pass
+    owning the table where n_rows <= n; above it the device-wide sort,
+    LARGE_CHUNK, a zeroed table).
+    `segment_pass`, for each slice of SLICE_FLOATS columns with its own
+    counters: each chunk's run pieces summed in sorted order, a piece
+    inside the chunk to out, the crossing ones to head[c] (the chunk's
+    first piece, of a run begun before it) or tail[c] (its last, going
+    on); a crossing run's last chunk to finish adds tail[c0] and head[c0 +
+    1 .. c1] in chunk order. Where the pass owns the table the empty rows
+    get their zeros; else out starts at 0."""
     n, d = g.shape
-    keys = np.where(live, ids, n_rows)
-    perm = np.argsort(keys, kind="stable")
+    keys = np.where(live, ids, n_rows).astype(np.int64)
+    small = n <= embed_grad.SMALL_MAX
+    if route == "plan":
+        chunk, own = embed_grad.PLAN_CHUNK, True
+        perm = np.argsort(keys, kind="stable")
+    elif small:
+        chunk, own = embed_grad.SMALL_CHUNK, n_rows <= n
+        perm = _radix_order(keys, int(keys.min() ^ keys.max()).bit_length())
+    else:
+        chunk, own = embed_grad.LARGE_CHUNK, False
+        perm = np.argsort(keys, kind="stable")
     sk = keys[perm]
-    out = np.zeros((n_rows, d), np.float32)
-    n_chunks = -(-n // chunk)
+    spans = _spans(sk, chunk, n_rows)
+    out = np.full((n_rows, d), np.nan if own else 0, np.float32)
+    n_chunks = len(spans)
     head = np.full((n_chunks, d), np.nan, np.float32)
     tail = np.full((n_chunks, d), np.nan, np.float32)
-    for c in range(n_chunks):
-        start, end = c * chunk, min(c * chunk + chunk, n)
-        from_prev = start > 0 and sk[start - 1] == sk[start]
-        into_next = end < n and sk[end] == sk[end - 1]
-        first, acc = start, np.zeros(d, np.float32)
-        for p in range(start, end + 1):
-            if p == end or sk[p] != sk[first]:
-                if sk[first] != n_rows:
-                    if first == start and from_prev:
-                        head[c] = acc
-                    elif p == end and into_next:
-                        tail[c] = acc
-                    else:
-                        out[sk[first]] = acc
-                if p == end:
-                    break
-                first, acc = p, np.zeros(d, np.float32)
-            acc = acc + g[perm[p]]
-    for c in range(n_chunks):
-        start, end = c * chunk, min(c * chunk + chunk, n)
-        if end >= n:
+    width = embed_grad.SLICE_FLOATS
+    count = np.zeros((-(-d // width), n_chunks), np.int64)
+
+    def finish(c0, c1, key, cols, count):
+        count[c0] += 1
+        if count[c0] == c1 - c0 + 1:  # the run's last chunk to finish
+            acc = tail[c0, cols].copy()
+            for k in range(c0 + 1, c1 + 1):
+                acc = acc + head[k, cols]
+            out[key, cols] = acc
+            count[c0] = 0
+
+    # the slices, and in each the chunks in reverse: the last to finish is
+    # not the run's last chunk
+    for c, sl in ((c, sl) for sl in range(len(count)) for c in reversed(range(n_chunks))):
+        cols = slice(sl * width, min(d, sl * width + width))
+        s, e = c * chunk, min(c * chunk + chunk, n)
+        if sk[s] == n_rows:
             continue
-        key = sk[end - 1]
-        if key == n_rows or sk[end] != key or (start > 0 and sk[start - 1] == key
-                                               and sk[start] == key):
-            continue
-        last_chunk = (np.searchsorted(sk, key, side="right") - 1) // chunk
-        parts = [np.sum([head[k] for k in range(c + 1 + lane, last_chunk + 1, 8)]
-                        or [np.zeros(d, np.float32)], axis=0, dtype=np.float32)
-                 for lane in range(8)]
-        total = tail[c].copy()
-        for part in parts:
-            total = total + part
-        out[key] = total
+        (x, y), kf, kl = spans[c], sk[s], sk[e - 1]
+        whole = x >= 0 and y >= 0 and kf == kl
+        acc, key, first = np.zeros(d, np.float32)[cols], kf, True
+        for p in range(s, e):
+            if sk[p] != key:
+                if first and x >= 0:
+                    head[c, cols] = acc
+                else:
+                    out[key, cols] = acc
+                first, acc, key = False, np.zeros(d, np.float32)[cols], sk[p]
+            acc = acc + (g[perm[p], cols] if sk[p] != n_rows else np.float32(0))
+        if key != n_rows:
+            if first and x >= 0:
+                head[c, cols] = acc
+            elif y >= 0:
+                tail[c, cols] = acc
+            else:
+                out[key, cols] = acc
+        if x >= 0:
+            finish(x, y if whole else c, kf, cols, count[sl])
+        if y >= 0 and not whole:
+            finish(c, y, kl, cols, count[sl])
+    if own:
+        offsets = np.searchsorted(sk, np.arange(n_rows + 1))
+        out[offsets[:-1] == offsets[1:]] = 0
+    assert not count.any()
     return out
 
 
+@pytest.mark.parametrize("integer", [True, False], ids=["integer", "random"])
+@pytest.mark.parametrize("route", ["batch", "plan"])
 @pytest.mark.parametrize("n,n_rows,d,high,p_live", [
-    (8192, 64, 4, 1, 1.0),      # one run of 8,192 across 256 chunks
+    (8192, 64, 4, 1, 1.0),      # one run of 8,192 across the chunks
     (8192, 64, 4, 1, 0.0),      # all discarded: the IV rows' bucket 0
     (1000, 50, 3, 3, 0.7),      # a few long runs, ragged last chunk
-    (777, 900, 5, 900, 0.9),    # spread ids, most runs inside a chunk
+    (777, 900, 5, 900, 0.9),    # spread ids, most runs inside a chunk; a memset table
     (31, 8, 2, 8, 1.0),         # fewer rows than a chunk
     (4096, 300, 1, 2, 0.5),     # D = 1 (the first-order twin)
+    (20000, 70, 4, 70, 0.8),    # past the one-block sort: the device-wide sort
+    (1500, 30, 1100, 30, 0.9),  # a row wider than a slice: three slices, their own counters
 ])
-def test_kernel_steps_equal_the_plain_version(n, n_rows, d, high, p_live):
-    """The kernel's chunk and run logic, followed in numpy, sums what the
-    plain version sums, bit for bit on integer-valued cotangents: every
-    position in exactly one piece, every crossing run completed once."""
+def test_kernel_steps_equal_the_plain_version(n, n_rows, d, high, p_live, route, integer):
+    """The kernel's sort, chunk and run logic, followed in numpy on either
+    route (with a plan every row is live), sums what the plain version
+    sums: bit for bit on integer-valued cotangents; on random ones each
+    element to 1e-6 of the sum of its terms' magnitudes (two float32
+    summation orders differ by rounding that grows with that sum: a run of
+    8,192 normals gives 2.4e-4 against 6,500); every position in exactly
+    one piece, every crossing run completed once, every row written."""
     rng = np.random.default_rng(n + d)
     ids = rng.integers(0, high, n)
-    live = rng.random(n) < p_live
-    g = rng.integers(-8, 9, (n, d)).astype(np.float32)
-    got = _kernel_steps(g, ids, live, n_rows, chunk=32)
+    live = np.ones(n, bool) if route == "plan" else rng.random(n) < p_live
+    g = (rng.integers(-8, 9, (n, d)) if integer else rng.standard_normal((n, d))
+         ).astype(np.float32)
+    got = _kernel_steps(g, ids, live, n_rows, route)
     want = embed_grad.scatter_rows_plain(torch.from_numpy(g), torch.from_numpy(ids), n_rows,
-                                         torch.from_numpy(live))
-    np.testing.assert_array_equal(got, want.numpy())
+                                         torch.from_numpy(live)).numpy()
+    if integer:
+        np.testing.assert_array_equal(got, want)
+    else:
+        size = embed_grad.scatter_rows_plain(torch.from_numpy(np.abs(g)), torch.from_numpy(ids),
+                                             n_rows, torch.from_numpy(live)).numpy()
+        assert (np.abs(got - want) <= 1e-6 * np.maximum(size, 1.0)).all()
 
 
 def test_kernel_wrapper_takes_the_plain_version_on_the_cpu():

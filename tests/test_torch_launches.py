@@ -23,6 +23,7 @@ WRAPPERS = {
     "cin_layer_bwd": (cin_fused, "cin_fused_bwd.cu"),
     "sparse_adam_rows_kernel": (sparse_rows, "sparse_rows.cu"),
     "scatter_rows_kernel": (embed_grad, "embed_grad.cu"),
+    "build_plan": (embed_grad, "embed_grad.cu"),  # counts plan builds
 }
 
 

@@ -10,7 +10,10 @@ interactions with a seeded knowledge graph, N1, and CKE by the `-m`
 entry, N2) or phase O (the mesh, in its own child process: the exchanges
 at S = 1 on NCCL, O1, serving under the mesh with kernel 1, O2, 16 mesh
 steps of xDeepFM and BPR against the plain trainer's, O3, and the `-m`
-entry's main with the multi-process flags, O4).
+entry's main with the multi-process flags, O4); or the gathers' backward
+alone (`--phase gathers`: `csrc/embed_grad.cu`'s checks on both routes,
+`chip_smoke.embed_grad_cases`, and its timings, `embed_grad_timing`, with
+a batch call on both sort routes around SMALL_MAX, `embed_grad_routes`).
 
 Runs on the card only. From the repo's root:
 
@@ -20,6 +23,7 @@ Runs on the card only. From the repo's root:
     python tools/chip_phase.py --phase M
     python tools/chip_phase.py --phase N
     python tools/chip_phase.py --phase O
+    python tools/chip_phase.py --phase gathers
 
 It builds the gathers' backward kernel (`csrc/embed_grad.cu`, also the
 graph models' segment sum), writes phase I's corpus
@@ -54,13 +58,23 @@ PHASES = {"J": (("J1", "j1_sequential"), ("J2", "j2_cli")),
           # M3's runs share L3's child
           "M": (("M1", "m1_pairs"), ("M2", "m2_users"), ("L3", "l3_cli"), ("M3", "m3_cli")),
           "N": (("N1", "n1_knowledge"), ("N2", "n2_cli")),
-          "O": ()}  # chip_smoke.phase_o runs the parts in its child
+          "O": (),  # chip_smoke.phase_o runs the parts in its child
+          "gathers": ()}
+
+
+def gathers() -> None:
+    """The gathers' backward's checks and timings."""
+    t0 = time.perf_counter()
+    times = cs.embed_grad_timing(cs.embed_grad_cases())
+    cs.log(f"phase gathers: checks and timings {time.perf_counter() - t0:.1f} s: "
+           + json.dumps({"kernel": times, "cases": cs.EMBED_GRAD_TIMES}))
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phase", choices=sorted(PHASES), default="J")
-    phase = parser.parse_args(argv).phase
+    args = parser.parse_args(argv)
+    phase = args.phase
     if not cs.torch.cuda.is_available():
         print("chip_phase: no CUDA device", file=sys.stderr)
         return 1
@@ -76,6 +90,13 @@ def main(argv=None) -> int:
         return 0
     cs.cuda_build.build_kernels(["embed_grad"])
     cs.log(f"build {time.perf_counter() - t0:.1f} s")
+    for line in cs.cuda_build.LIBRARIES.build_log.get("embed_grad", "").splitlines():
+        if "registers" in line or "spill" in line or "error" in line or "Function" in line:
+            cs.log(f"  embed_grad: {line.strip()}")
+    if phase == "gathers":
+        gathers()
+        cs.log(smi)
+        return 0
     t0 = time.perf_counter()
     cs.ml1m_inter_file()
     if phase == "J":
