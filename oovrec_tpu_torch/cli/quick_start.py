@@ -43,6 +43,7 @@ from oovrec_tpu_torch.parallel.distributed import initialize_distributed
 from oovrec_tpu_torch.parallel.mesh import maybe_mesh_from_config
 from oovrec_tpu_torch.train.trainer import Trainer
 from oovrec_tpu_torch.utils.device import resolve_device
+from oovrec_tpu_torch.utils.flops import count_params
 from oovrec_tpu_torch.utils.jax_checkpoint import is_jax_checkpoint, read_jax_checkpoint
 from oovrec_tpu_torch.utils.jax_params import (
     batch_stats_from_module,
@@ -248,8 +249,7 @@ def run(
     if config["import_torch_checkpoint"]:
         import_torch_checkpoint(model_obj, config["model"], config["import_torch_checkpoint"])
         logger.info(f"imported reference checkpoint [{config['import_torch_checkpoint']}]")
-    n_params = sum(p.numel() for p in model_obj.parameters())
-    logger.info(f"model: {config['model']}  trainable params: {n_params:,}")
+    logger.info(f"model: {config['model']}  trainable params: {count_params(model_obj):,}")
     trainer = Trainer(config, model_obj)
 
     best_valid_score, best_valid_result = trainer.fit(train_loader, valid_loader, saved=saved)

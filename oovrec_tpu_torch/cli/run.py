@@ -84,10 +84,13 @@ def _gcs_upload(bucket_name: str, dataset: str, paths) -> None:
             blob.upload_from_filename(p, if_generation_match=0)
 
 
-def backup_weights(paths, config=None, nfs_path=None, logger=None) -> list:
+def backup_weights(paths, config=None, nfs_path=None, logger=None,
+                   wandb_logger=None) -> list:
     """Weight backup: GCS (when `gcs_bucket_name` is set) → NFS
     (`nfs_backup_path`) → local `saved/<dataset>/` only if neither
-    succeeded. → the media that succeeded."""
+    succeeded. `wandb_logger` (`utils/wandblogger.py`) logs each medium
+    that succeeded and raises an alert when none did. → the media that
+    succeeded."""
     config = config or {}
     warn = logger.warning if logger else print
     media: list = []
@@ -122,6 +125,11 @@ def backup_weights(paths, config=None, nfs_path=None, logger=None) -> list:
         except OSError as e:
             warn(f"Failed to write to local: {e}")
 
+    if wandb_logger is not None:
+        for m in media:
+            wandb_logger.log_raw({"file_backup_medium": m}, commit=False)
+        if not media:
+            wandb_logger.alert(title="Backup Failure", text="Failed to backup to any medium!")
     if not media:
         warn("Failed to backup to any medium!")
     return media
@@ -157,7 +165,8 @@ def main(argv=None) -> Dict[str, Any]:
     res = run(model=args["model"], dataset=args["dataset"], config_dict=args, saved=True)
     trainer = res["trainer"]
     backup_weights([trainer.saved_model_file], config=res["config"],
-                   nfs_path=res["config"]["nfs_backup_path"], logger=trainer.logger)
+                   nfs_path=res["config"]["nfs_backup_path"], logger=trainer.logger,
+                   wandb_logger=trainer.wandblogger)
 
     if args.get("inductive_eval"):
         print("Performing inductive evaluation...")

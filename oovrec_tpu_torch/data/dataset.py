@@ -570,6 +570,17 @@ class Dataset:
     def item_num(self) -> int:
         return len(self.field2id_token[self.iid_field])
 
+    def token2id(self, field: str, tokens):
+        """The internal id of a token (a str), or an array of ids."""
+        t2i = self.field2token_id[field]
+        if isinstance(tokens, str):
+            return t2i[tokens]
+        return np.array([t2i[t] for t in tokens])
+
+    def id2token(self, field: str, ids):
+        """The tokens of internal ids."""
+        return self.field2id_token[field][ids]
+
     def get_preload_weight(self, kid: str) -> np.ndarray:
         """The float32 matrix of `preload_weight: {kid: vector field}` from
         an `additional_feat_suffix` table holding both columns. Its rows

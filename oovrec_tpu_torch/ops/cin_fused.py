@@ -44,7 +44,7 @@ from typing import NamedTuple
 
 import torch
 
-from oovrec_tpu_torch.ops.launches import register
+from oovrec_tpu_torch.ops.launches import add_operations, register
 from oovrec_tpu_torch.utils.cuda_build import check, load_kernel
 
 
@@ -145,6 +145,15 @@ def cin_layer_bwd_plain(a, b0, w, bias, g, mxu_dtype="float32"):
     every row hidden and none pooled."""
     L = w.shape[1]
     return cin_layer_pooled_bwd_plain(a, b0, w, bias, g, None, mxu_dtype, L, False)
+
+
+def cin_operations(B: int, H: int, F: int, D: int, L: int, backward: bool = False) -> int:
+    """The operations `FlopCounterMode` counts in one layer's plain version:
+    the pair-axis product, 2·B·H·F·D·L, once forward and three times
+    backward (the recomputed pre-activation, dW and dz); the Hadamard slab,
+    the ReLU mask and the sums over D count nothing there. A launch adds
+    it to the open tallies (`ops/launches.py`)."""
+    return (6 if backward else 2) * B * H * F * D * L
 
 
 def _check_cuda(a, named):
@@ -495,6 +504,7 @@ def _pooled_forward(a, b0, w, bias, mxu_dtype, n_hidden, pool_all):
     if a.device.type == "cpu":
         return cin_layer_pooled_plain(a, b0, w, bias, mxu_dtype, n_hidden, pool_all)
     ps = _pool_start(w.shape[1], n_hidden, pool_all)
+    add_operations(cin_operations(*_shapes(a, b0, w, bias)))
     hidden, pooled = forward_split(a, b0, w, bias, mxu_dtype, n_hidden, ps,
                                    _counted(_launch, cin_layer_pooled))
     return (hidden if n_hidden else None), pooled
@@ -513,6 +523,7 @@ def cin_layer_pooled_bwd(a, b0, w, bias, gh, gp, mxu_dtype="float32",
         return cin_layer_pooled_bwd_plain(a, b0, w, bias, gh, gp, mxu_dtype,
                                           n_hidden, pool_all)
     ps = _pool_start(w.shape[1], n_hidden, pool_all)
+    add_operations(cin_operations(*_shapes(a, b0, w, bias), backward=True))
     return backward_split(a, b0, w, bias, gh, gp, mxu_dtype, n_hidden, ps,
                           _counted(_launch_bwd, cin_layer_pooled_bwd))
 
@@ -527,6 +538,7 @@ def cin_layer_bwd(a, b0, w, bias, g, mxu_dtype="float32"):
     if a.device.type == "cpu":
         return cin_layer_bwd_plain(a, b0, w, bias, g, mxu_dtype)
     L = w.shape[1]
+    add_operations(cin_operations(*_shapes(a, b0, w, bias), backward=True))
     return backward_split(a, b0, w, bias, g, None, mxu_dtype, L, L,
                           _counted(_launch_bwd, cin_layer_bwd))
 
@@ -574,6 +586,7 @@ class _CinLayer(torch.autograd.Function):
             out = cin_layer_plain(a, b0, w, bias, mxu_dtype)
         else:
             L = w.shape[1]
+            add_operations(cin_operations(*_shapes(a, b0, w, bias)))
             out, _ = forward_split(a, b0, w, bias, mxu_dtype, L, L,
                                    _counted(_launch, cin_layer))
         ctx.save_for_backward(a, b0, w, bias)

@@ -27,7 +27,7 @@ import functools
 
 import torch
 
-from oovrec_tpu_torch.ops.launches import register
+from oovrec_tpu_torch.ops.launches import add_operations, register
 from oovrec_tpu_torch.utils.cuda_build import check, load_kernel
 
 NEG_INF = float(-3.0e38)
@@ -206,6 +206,13 @@ def range_candidates_plain(user_e, item_e, hist_bitmap, k: int, n_tiles: int,
     return torch.stack(vals), torch.stack(idx)
 
 
+def topk_operations(B: int, N: int, D: int) -> int:
+    """The operations `FlopCounterMode` counts in the plain version: the
+    score product, 2·B·N·D (the mask and the top-k count nothing there). A
+    launch adds it to the open tallies (`ops/launches.py`)."""
+    return 2 * B * N * D
+
+
 def merge_candidates(vals: torch.Tensor, idx: torch.Tensor, k: int):
     """(n_ranges, B, k) range candidates → the (B, k) top-k. Among equal
     values, lower ranges and lower ranks hold lower indices, so a stable
@@ -260,6 +267,7 @@ def fused_topk_scores(
         )
     check(err, "topk_score_launch")
     fused_topk_scores.launches += 1
+    add_operations(topk_operations(B, N, D))
     return merge_candidates(vals, idx, k)
 
 

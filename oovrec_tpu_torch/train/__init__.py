@@ -1,4 +1,5 @@
+from oovrec_tpu_torch.train.hyper_tuning import HyperTuning
 from oovrec_tpu_torch.train.optimizers import Optimizer, build_optimizer
 from oovrec_tpu_torch.train.trainer import Trainer
 
-__all__ = ["Optimizer", "Trainer", "build_optimizer"]
+__all__ = ["HyperTuning", "Optimizer", "Trainer", "build_optimizer"]

@@ -88,8 +88,15 @@ package's rules). Checkpoints gather the sharded tables to their full form
 block; the best-model reload agrees across ranks first and broadcasts the
 file where only some ranks hold it (`_resume_best_multiprocess`, `:796-846`
 there). A model whose loss the mesh cannot split (`mesh_refusal`) raises
-NotImplementedError at init. Tensorboard and wandb are not ported and log
-nothing.
+NotImplementedError at init.
+
+Observability, as the JAX trainer's (`:121-135, 702-704, 749-758, 769-770`
+there): the JSONL `metrics_log_path`; TensorBoard (`utils/tensorboard.py`,
+`tensorboard_dir`, off under `log_tensorboard: false` or without the
+wheel): `Loss/Train` and `Loss/OOV` after each epoch's training,
+`Valid_score` and `Valid/<metric>` after each validation, the hparams at
+the end of `fit`; wandb (`utils/wandblogger.py`, `log_wandb`): each
+validation's metrics under `valid/`.
 """
 
 from __future__ import annotations
@@ -147,6 +154,8 @@ from oovrec_tpu_torch.utils.jax_params import (
 )
 from oovrec_tpu_torch.utils.logging import init_logger
 from oovrec_tpu_torch.utils.seeding import host_rng, torch_generator
+from oovrec_tpu_torch.utils.tensorboard import TensorboardLogger
+from oovrec_tpu_torch.utils.wandblogger import WandbLogger
 
 
 def _is_oov_param_path(name: str) -> bool:
@@ -197,6 +206,9 @@ class Trainer:
         )
         self.eval_runner = EvalRunner(model, config, mesh=self.mesh)
         self.metrics_log_path = config.get("metrics_log_path")
+        self.wandblogger = WandbLogger(config)
+        self.tensorboard = TensorboardLogger(
+            config, base_dir=config.get("tensorboard_dir") or "./log_tensorboard")
 
         seed = int(config["seed"] or 0)
         self.train_oov = bool(config["train_oov"])
@@ -526,6 +538,9 @@ class Trainer:
                     f"{train_loss:.4f}" if train_loss is not None else "None",
                     f", oov loss: {oov_loss:.4f}" if oov_loss is not None else "",
                 ))
+            self.tensorboard.add_scalar("Loss/Train", train_loss, epoch_idx)
+            if oov_loss is not None:
+                self.tensorboard.add_scalar("Loss/OOV", oov_loss, epoch_idx)
 
             if self.eval_step <= 0 or valid_loader is None:
                 if saved:
@@ -553,10 +568,15 @@ class Trainer:
                     callback_fn(epoch_idx, valid_score)
                 self._log_metrics({**{k: float(v) for k, v in valid_result.items()},
                                    "epoch": epoch_idx}, head="valid")
+                self.wandblogger.log_metrics(dict(valid_result), head="valid")
+                self.tensorboard.add_scalar("Valid_score", valid_score, epoch_idx)
+                self.tensorboard.add_scalars("Valid", dict(valid_result), epoch_idx)
                 if stop_flag:
                     self.logger.info("Finished training, best eval result in epoch %d"
                                      % (epoch_idx - self.cur_step * self.eval_step))
                     break
+        self.tensorboard.add_hparams(self.best_valid_score)
+        self.tensorboard.close()
         return self.best_valid_score, self.best_valid_result
 
     def _log_metrics(self, metrics: dict, head: str = "train") -> None:

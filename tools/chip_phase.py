@@ -10,7 +10,11 @@ interactions with a seeded knowledge graph, N1, and CKE by the `-m`
 entry, N2) or phase O (the mesh, in its own child process: the exchanges
 at S = 1 on NCCL, O1, serving under the mesh with kernel 1, O2, 16 mesh
 steps of xDeepFM and BPR against the plain trainer's, O3, and the `-m`
-entry's main with the multi-process flags, O4); or the gathers' backward
+entry's main with the multi-process flags, O4), phase P (the surfaces
+after a run, on dataset/synth-ind: the hyper-parameter search by its `-m`
+entry, P1, the case study on phase A's checkpoint, run first, P2, the cost
+report of xDeepFM, P3, the significance test, P4, and the TensorBoard
+writer, P5); or the gathers' backward
 alone (`--phase gathers`: `csrc/embed_grad.cu`'s checks on both routes,
 `chip_smoke.embed_grad_cases`, and its timings, `embed_grad_timing`, with
 a batch call on both sort routes around SMALL_MAX, `embed_grad_routes`).
@@ -23,6 +27,7 @@ Runs on the card only. From the repo's root:
     python tools/chip_phase.py --phase M
     python tools/chip_phase.py --phase N
     python tools/chip_phase.py --phase O
+    python tools/chip_phase.py --phase P
     python tools/chip_phase.py --phase gathers
 
 It builds the gathers' backward kernel (`csrc/embed_grad.cu`, also the
@@ -59,6 +64,9 @@ PHASES = {"J": (("J1", "j1_sequential"), ("J2", "j2_cli")),
           "M": (("M1", "m1_pairs"), ("M2", "m2_users"), ("L3", "l3_cli"), ("M3", "m3_cli")),
           "N": (("N1", "n1_knowledge"), ("N2", "n2_cli")),
           "O": (),  # chip_smoke.phase_o runs the parts in its child
+          # P2 reads phase A's checkpoint: phase A runs first
+          "P": (("A", "cli_retrieval"), ("P1", "p1_hyper"), ("P2", "p2_case_study"),
+                ("P3", "p3_flops"), ("P4", "p4_significance"), ("P5", "p5_tensorboard")),
           "gathers": ()}
 
 
@@ -81,6 +89,7 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     cs.log(f"card: {smi}")
+    os.environ["OOVREC_DISABLE_TENSORBOARD"] = "1"  # as chip_smoke.main; P5 lifts it
     t0 = time.perf_counter()
     if phase == "O":  # kernels 1, 4 / 5 and the gathers' backward; about a minute
         cs.cuda_build.build_kernels(["topk_score", "cin_fused", "cin_fused_bwd", "embed_grad"])
@@ -88,7 +97,8 @@ def main(argv=None) -> int:
         cs.log(f"phase O launches {cs.phase_o()}")
         cs.log(smi)
         return 0
-    cs.cuda_build.build_kernels(["embed_grad"])
+    cs.cuda_build.build_kernels(["topk_score", "cin_fused", "cin_fused_bwd", "embed_grad"]
+                                if phase == "P" else ["embed_grad"])
     cs.log(f"build {time.perf_counter() - t0:.1f} s")
     for line in cs.cuda_build.LIBRARIES.build_log.get("embed_grad", "").splitlines():
         if "registers" in line or "spill" in line or "error" in line or "Function" in line:
@@ -98,7 +108,8 @@ def main(argv=None) -> int:
         cs.log(smi)
         return 0
     t0 = time.perf_counter()
-    cs.ml1m_inter_file()
+    if phase != "P":
+        cs.ml1m_inter_file()
     if phase == "J":
         base = cs.seq_cfg("GRU4Rec")
         ds = cs.create_dataset(base)
@@ -115,7 +126,7 @@ def main(argv=None) -> int:
         t1 = time.perf_counter()
         out = getattr(cs, name)()
         cs.sync()
-        seen = {**cs.kernel_counts(), **out}
+        seen = {**cs.kernel_counts(), **(out if isinstance(out, dict) else {})}
         cs.log(f"phase {part}: {time.perf_counter() - t1:.1f} s, kernel launches {seen}")
     cs.stop_cli_server()
     cs.log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
