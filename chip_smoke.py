@@ -195,7 +195,7 @@ Phases (any failure exits non-zero; no phase failure is caught):
          every parameter moved, the gathers' backward launched; the
          scanned full-sort test pass over 6,040 examples, 256 a batch
          (GRU4Rec and SASRec: == the per-batch pass); 4 graphed steps ==
-         4 eager ones bit for bit and the ms a step of the first 2; also
+         4 eager ones bit for bit and the ms a step of the first; also
          MaskItemSequence's host ms a batch and GRU4Rec's valid pass at
          `eval_batch_size` 4,096 (one row a batch), stopped at 256 rows
          when it would pass 20 s;
@@ -210,7 +210,7 @@ Phases (any failure exits non-zero; no phase failure is caught):
          host path; DIN, DIEN with its negatives drawn on the card, and
          TransRec with one sampled negative), finite falling losses, every
          parameter moved, the gathers' backward launched; 4 graphed steps
-         == 4 eager ones bit for bit and the ms a step of the first 2; the
+         == 4 eager ones bit for bit and the ms a step of the first; the
          scanned full-sort test pass over 6,040 examples (Caser, SRGNN and
          LightSANs: == the per-batch pass); for DIN and DIEN instead
          `predict` on the test examples against one uniform negative each
@@ -236,7 +236,7 @@ Phases (any failure exits non-zero; no phase failure is caught):
          losses, every parameter moved but the frozen entity tables,
          which stay bit for bit (`weight_decay` 0), the gathers' backward
          launched; 4 graphed steps == 4 eager ones bit for bit (RepeatNet
-         on rows that repeat an item) and the ms a step of the first 2; the
+         on rows that repeat an item) and the ms a step of the first; the
          scanned full-sort test pass over 6,040 examples (FDSA and KSR:
          == the per-batch pass);
      K2. `python -m oovrec_tpu_torch.cli.run --model=SASRecF
@@ -264,8 +264,7 @@ Phases (any failure exits non-zero; no phase failure is caught):
          steps of 2,048 through `Trainer.fit`, finite falling losses,
          every parameter moved, the kernel launched (segment sums and
          gathers' backward); the scanned full-sort test pass; 4 graphed
-         steps == 4 eager ones bit for bit and the ms a step of the first
-         2;
+         steps == 4 eager ones bit for bit and the ms a step of the first;
      L3. `python -m oovrec_tpu_torch.cli.run --model=LightGCN`, then
          `--model=Pop` (then M3's two runs), on dataset/synth-ind for 1
          epoch in the shared CLI child, which prints each run's launch counts and
@@ -283,7 +282,7 @@ Phases (any failure exits non-zero; no phase failure is caught):
          512 users, the whole split projected); their and NNCF's blocked
          full sort against the per-pair definition for 8 users, to 1e-5;
          4 graphed steps == 4 eager ones bit for bit and the ms a step of
-         the first 2;
+         the first;
      M2. MultiVAE, MultiDAE, CDAE, RecVAE, MacridVAE, RaCT and ENMF on
          user batches of 2,048 (`UserTrainBatcher`, three an epoch, the
          last padded): two epochs through `Trainer.fit`, finite losses,
@@ -292,7 +291,7 @@ Phases (any failure exits non-zero; no phase failure is caught):
          pretrained actor, each leaving what it detaches unchanged bit for
          bit; the scanned test pass; 4 graphed steps == 4 eager ones bit
          for bit (the dropout generators seeded alike) and the ms a step
-         of the first 2;
+         of the first;
      M3. `python -m oovrec_tpu_torch.cli.run --model=MultiVAE`, then
          `--model=NeuMF`, on dataset/synth-ind for 1 epoch after L3's runs
          in the shared CLI child, each `--eval_only` == its run to 1e-9.
@@ -317,8 +316,7 @@ Phases (any failure exits non-zero; no phase failure is caught):
          (MKR) full sorts against the per-pair definition for 8 users and
          KGAT's per-relation projection table against the per-edge
          products on 65,536 edges, to 1e-6 of the largest; 4 graphed
-         steps == 4 eager ones bit for bit and the ms a step of the first
-         2;
+         steps == 4 eager ones bit for bit and the ms a step of the first;
      N2. `python -m oovrec_tpu_torch.cli.run --model=CKE` on
          tests/assets/toy-kg at its YAML widths for 1 epoch after M3's
          runs in the shared CLI child, the gathers' backward launched,
@@ -345,7 +343,16 @@ Phases (any failure exits non-zero; no phase failure is caught):
      O4. `cli.run.main` (the `-m` entry's) on dataset/synth-ind with
          `--use_mesh=True --num_processes=1 --process_id=0
          --coordinator_address=127.0.0.1:<port>`, 1 epoch: rank 0 writes
-         the checkpoint, `--eval_only` under the mesh == the run to 1e-9.
+         the checkpoint, `--eval_only` under the mesh == the run to 1e-9;
+     O5. one model of each loss class at its YAML widths (FM on O3's
+         ranking rows; GRU4Rec, BERT4Rec and S3Rec's pretraining on K1's
+         files; LightGCN, SGL, NCL, SimpleX, MultiVAE, RaCT, ENMF, DirectAU
+         (kernel 1 on its full sort) and Pop on L's dataset; KGAT and
+         MCCLK on N's), the datasets loaded by the child while phases L-P
+         run (`o5_load`): 4 eager mesh steps of 2,048 rows (FM 8,192;
+         user batches of 2,048) == the plain trainer's 4 captured steps
+         bit for bit, losses and every parameter, then one test pass of
+         each == bit for bit; ms a step of each.
      Kernels 1, 4 and 5 and the gathers' backward are counted on the mesh
      runs alone (`launches_o`).
  20. phase P, the surfaces users reach for after a run (it runs after N,
@@ -5078,7 +5085,7 @@ def g4_zoo(ind):
             graph_vs_eager_times(gde, b, batches, f"G4 {name} pointwise", "G4")
             g_times(f"G4 {name} pointwise")
             del a, gde, b, batches
-        host_graph_vs_eager(make, f"G4 {name} host", G_ZOO_STEPS)
+        host_graph_vs_eager(make, f"G4 {name} host", G_ZOO_STEPS, time_steps=I_TIME_STEPS)
     return counts
 
 
@@ -5170,7 +5177,8 @@ def h1_zoo(ind, mapper):
             return Trainer(c, h_model(name, SEED + 1100 + i, **over)), TrainBatcher(
                 train, sampler, c, InputType.POINTWISE)
 
-        host_graph_vs_eager(make, what, H_COMPARE_STEPS, part="H1", times=H_TIMES)
+        host_graph_vs_eager(make, what, H_COMPARE_STEPS, part="H1", times=H_TIMES,
+                            time_steps=I_TIME_STEPS)
     log("H1 gathers' backward launches by model: " + json.dumps(H_GATHERS))
     return counts
 
@@ -5235,7 +5243,8 @@ I_STEPS = 64           # I1: a fit's steps: the first I_STEPS batches' rows of
                        # the training split (131,072, so `auto` takes the
                        # device epoch at >= 100,000)
 I_COMPARE_STEPS = 4    # I1: graphed against eager steps, bit for bit (8 until phase J)
-I_TIME_STEPS = 2       # I1-M2: of those, the steps a timed and a profiled pass run
+I_TIME_STEPS = 1       # G4-N1: of those, the steps a timed and a profiled pass run
+                       # (2 in I1-N1 and all 4 in G4 and H1 until phase O5)
                        # (4 until phase M: the eager traces' events cost host seconds)
 I_EVAL_ROWS = 256      # I1: rows a batch of the scanned full-sort test pass
 I_DEFAULT_EVAL_BATCH = 4096  # I1: RecBole's default: one row a batch here
@@ -6849,7 +6858,7 @@ O_REPS = 20             # O1: timed calls
 O_STEPS = 16            # O3: mesh steps held against the plain trainer's
 O_BPR_B = 2048          # O3: BPR's rows a step
 O_EPOCHS_CLI = 1        # O4
-O_TIMEOUT = 300         # s the child may take
+O_TIMEOUT = 420         # s the child may take
 O_TIMES = {}
 
 
@@ -7094,6 +7103,140 @@ def o4_cli(port):
     return counts
 
 
+# O5: one model of each loss class at its YAML widths on the mesh at one
+# rank, from the files phases I, K, L and N write (the general dataset is
+# L's, read from phase I's `.inter`; the sequential one K1's, with its
+# `.item` and `.ent`; FM on O3's ranking rows)
+O5_MODELS = ("FM", "GRU4Rec", "BERT4Rec", "S3Rec", "LightGCN", "SGL", "NCL", "SimpleX",
+             "MultiVAE", "RaCT", "ENMF", "DirectAU", "KGAT", "MCCLK", "Pop")
+O5_SEQ, O5_KG = ("GRU4Rec", "BERT4Rec", "S3Rec"), ("KGAT", "MCCLK")
+O5_STEPS = 4            # O5: eager mesh steps held against the plain trainer's
+O5_FM_EVAL_ROWS = 65_536  # O5: FM's test pass (the value eval)
+O5_CORPUS = {}          # O5's datasets and loaders, loaded once in phase O's child
+
+
+def o5_corpora():
+    """The sequential, general and knowledge datasets of the files that
+    phases I, K and N wrote, each split once, with their loaders, in
+    O5_CORPUS (phase O's child loads them on its `load` line, while the
+    script runs phases L-P)."""
+    if O5_CORPUS:
+        return O5_CORPUS
+    t0 = time.perf_counter()
+    for kind, base in (("seq", k_cfg("S3Rec")), ("general", l_cfg("Pop")),
+                       ("kg", n_cfg("CKE"))):
+        ds = create_dataset(base)
+        splits = ds.build()
+        ds.build = lambda splits=splits: list(splits)
+        O5_CORPUS[kind] = (ds, data_preparation(base, ds))
+    O_TIMES["O5 corpora s"] = time.perf_counter() - t0
+    log(f"O5 corpora: {O_TIMES['O5 corpora s']:.1f} s")
+    return O5_CORPUS
+
+
+def o5_case(name):
+    """(config dict, model, the O5_STEPS host batches, the test loader) of
+    one representative."""
+    def first(loader):
+        out = []
+        while len(out) < O5_STEPS:
+            for hb in loader:
+                out.append(hb)
+                if len(out) == O5_STEPS:
+                    break
+        return out
+
+    if name == "FM":
+        cfg = ctr_train_dict(train_oov=False, device_eval=False)
+        c = Config(cfg)
+        model = e_ranking_model(name, SEED + 37)
+        train = TrainBatcher(o_ctr_rows(O5_STEPS * CTR_B), None, c, InputType.POINTWISE)
+        return cfg, model, first(train), PlainEvalBatcher(o_ctr_rows(O5_FM_EVAL_ROWS), c)
+    kind = "seq" if name in O5_SEQ else "kg" if name in O5_KG else "general"
+    ds, (train_loader, _, test) = o5_corpora()[kind]
+    train = train_loader.split
+    over = {"device_eval": False, "use_fused_topk": name == "DirectAU"}
+    if kind == "seq":
+        cfg = k_cfg(name)
+        cfg = Config(dict(cfg.as_dict(), **over))
+        split = SeqDatasetSplit(train.parent, train.index[: O5_STEPS * I_B])
+        loader = TrainBatcher(split, None, cfg, InputType.POINTWISE)
+    else:
+        cfg = n_cfg(name, **over) if kind == "kg" else l_cfg(name, **over)
+        cls = get_model_class(name)
+        if getattr(cls, "train_on_users", False):
+            loader = UserTrainBatcher(train, cfg)
+        else:
+            rows = O5_STEPS * I_B // (2 if cls.input_type == InputType.POINTWISE else 1)
+            split = DatasetSplit.view(train.parent, train.index[:rows])
+            sampler = Sampler(["train"], [split], seed=SEED)
+            loader = (KGTrainBatcher(split, sampler, cfg, cls.input_type, kg_dataset=ds,
+                                     kg_sampler=train_loader.kg_sampler) if kind == "kg"
+                      else TrainBatcher(split, sampler, cfg, cls.input_type))
+    model = quick_start.build_model_and_state(cfg, ds)
+    return cfg.as_dict(), model, first(loader), test
+
+
+def o5_pair(name):
+    """O5_STEPS eager mesh steps (`use_mesh`, {data: 1, model: 1}) of one
+    representative against the plain trainer's (captured) steps from the
+    same state on the same host batches, the losses and every parameter
+    bit for bit; then one test pass of each, the metrics bit for bit.
+    → (the mesh run's launches, its ms a step, the plain one's)."""
+    cfg, model, batches, test = o5_case(name)
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    runs = {}
+    for meshed in (False, True):
+        over = dict(cfg, use_mesh=True, mesh={"data": 1, "model": 1}) if meshed else cfg
+        model.load_state_dict(start)
+        trainer = Trainer(Config(over), model)
+        require(meshed == (trainer.mesh is not None), f"O5 {name}: mesh {trainer.mesh}")
+        model.train()
+        launches.reset_launch_counts()
+        walls, losses = [], []
+        for hb in batches:
+            sync()
+            t0 = time.perf_counter()
+            losses.append(trainer._step(trainer._to_device(hb), False))
+            sync()
+            walls.append(time.perf_counter() - t0)
+        result = trainer.evaluate(test, load_best_model=False)
+        sync()
+        runs[meshed] = (torch.stack(losses).cpu(), {n: p.detach().clone() for n, p
+                                                    in model.named_parameters()},
+                        dict(result), launches.launch_counts(), float(np.median(walls[1:])))
+        del trainer
+    (l0, p0, r0, _, ms0), (l1, p1, r1, counts, ms1) = runs[False], runs[True]
+    require(torch.isfinite(l1).all() and torch.equal(l0, l1),
+            f"O5 {name}: losses {l1.tolist()} vs {l0.tolist()}")
+    require(list(p0) == list(p1) and all(torch.equal(p0[n], p1[n]) for n in p0),
+            f"O5 {name}: parameters differ")
+    finite_metrics(r1, f"O5 {name} test")
+    require(r0 == r1, f"O5 {name}: mesh test pass {r1} vs plain {r0}")
+    return counts, ms1, ms0
+
+
+def o5_models():
+    """O5: each of O5_MODELS through `o5_pair`; kernel 1 on DirectAU's full
+    sort (`use_fused_topk`: the ID towers; the graph models have none, here
+    and in the JAX package) and the gathers' backward in the graph and
+    knowledge steps on the mesh runs. → the mesh runs' launches."""
+    o5_corpora()
+    counts, times = {}, {}
+    for name in O5_MODELS:
+        seen, ms1, ms0 = o5_pair(name)
+        counts = {k: counts.get(k, 0) + n for k, n in seen.items()}
+        times[name] = {"mesh ms a step": ms1 * 1e3, "plain ms a step": ms0 * 1e3}
+        if name == "DirectAU":  # the two-tower model: the graph models have no towers
+            require(seen["fused_topk_scores"] > 0, f"O5 DirectAU: kernel 1 {seen}")
+        if name in ("LightGCN", "SGL", "NCL", "KGAT", "MCCLK"):
+            require(seen["scatter_rows_kernel"] > 0, f"O5 {name}: the gathers' backward {seen}")
+        log(f"O5 {name}: {O5_STEPS} eager mesh steps == the plain trainer's bit for bit, "
+            f"the test pass too; {json.dumps(times[name])}, launches {seen}")
+    O_TIMES["O5"] = times
+    return counts
+
+
 def o_child(argv) -> int:
     """Phase O's process: started early (`start_phase_o`), it waits for a
     line on its stdin, then the NCCL bootstrap and O1-O4; their numbers
@@ -7104,7 +7247,9 @@ def o_child(argv) -> int:
     from oovrec_tpu_torch.parallel.mesh import make_mesh
 
     port, out = int(argv[0]), argv[1]
-    sys.stdin.readline()
+    if sys.stdin.readline().strip() == "load":  # O5's corpora, ahead of the go
+        o5_corpora()
+        sys.stdin.readline()
     t0 = time.perf_counter()
     info = initialize_distributed(f"127.0.0.1:{port}", 1, 0, device=DEVICE)
     require(dist.get_backend() == backend_for(DEVICE) and info["process_count"] == 1,
@@ -7115,7 +7260,7 @@ def o_child(argv) -> int:
     seen, parts = {}, {}
     parts["O1"], seen["O1"] = o1_exchange(mesh)
     for part, run in (("O2", lambda: o2_serving(mesh)), ("O3", o3_training),
-                      ("O4", lambda: o4_cli(port))):
+                      ("O4", lambda: o4_cli(port)), ("O5", o5_models)):
         t1 = time.perf_counter()
         seen[part] = run()
         O_TIMES[f"{part} s"] = time.perf_counter() - t1
@@ -7144,6 +7289,16 @@ def start_phase_o():
     O_CHILD.update(proc=proc, out=out)
 
 
+def o5_load():
+    """Phase O's child loads O5's datasets (`o5_corpora`) now, from the
+    files phases I, K and N wrote, ahead of its go (a depth cut for the
+    750 s budget)."""
+    proc = O_CHILD.get("proc")
+    if proc is not None and proc.poll() is None:
+        proc.stdin.write("load\n")
+        proc.stdin.flush()
+
+
 def phase_o():
     """Phase O in its child (started here unless `start_phase_o` ran); its
     checks, its numbers. → each part's launches."""
@@ -7166,7 +7321,8 @@ def phase_o():
         res = json.load(f)
     seen = res["launches"]
     require(seen["O1"]["scatter_rows_kernel"] > 0 and seen["O2"]["fused_topk_scores"] > 0
-            and seen["O3"]["cin_layer_pooled"] > 0 and seen["O3"]["cin_layer_pooled_bwd"] > 0,
+            and seen["O3"]["cin_layer_pooled"] > 0 and seen["O3"]["cin_layer_pooled_bwd"] > 0
+            and seen["O5"]["fused_topk_scores"] > 0 and seen["O5"]["scatter_rows_kernel"] > 0,
             f"phase O launches {seen}")
     O_TIMES.update(res["times"], O1=res["O1"], wall_s=time.perf_counter() - t0)
     log(f"phase O: {O_TIMES['wall_s']:.1f} s (from its child's go; the child's start "
@@ -7647,6 +7803,7 @@ def main():
     require(k_trace["K1"]["scatter_rows_kernel"] > 0, f"phase K graphed traces {k_trace}")
     log("phase K kernels replayed, from the traces: " + json.dumps(k_trace))
     log("phase K times: " + json.dumps(K_TIMES))
+    o5_load()  # phase O's child loads O5's corpora while phases L-P run
     # phases L and M, the general models on one corpus, counted by part as
     # K is. L1 runs last: its host solves (a worker thread from `l_corpus`
     # on) finish while L2, L3 and phase M run on the card

@@ -159,21 +159,22 @@ def data_preparation(config, dataset, process_index: Optional[int] = None,
     # the JAX branch's order (`data/utils.py:132-163` there): the knowledge
     # dataset (a `KGSeqDataset` too), then the user batches, then the rows
     cls = _model_class(config)
+    # the global batch on every rank (one sampler stream, as one process
+    # draws it): the mesh trainer takes each rank's rows
+    # (`parallel/mesh.py:place_batch`, padded as `pad_batch` pads them), so
+    # a run on n ranks trains on the batches of a run on one; the user
+    # batches are global too
+    train_procs = procs if process_count is not None else dict(
+        process_index=0, process_count=1)
     if isinstance(dataset, KnowledgeBasedDataset):
         heads, _, tails = dataset.kg_triples
         kg_sampler = KGSampler(heads, tails, dataset.entity_num,
                                seed=int(config["seed"] or 2020))
         train_loader = KGTrainBatcher(train_split, sampler, config, input_type, phase="train",
-                                      kg_dataset=dataset, kg_sampler=kg_sampler, **procs)
+                                      kg_dataset=dataset, kg_sampler=kg_sampler, **train_procs)
     elif getattr(cls, "train_on_users", False):
         train_loader = UserTrainBatcher(train_split, config)
     else:
-        # the global batch on every rank (one sampler stream, as one
-        # process draws it): the mesh trainer takes each rank's rows
-        # (`parallel/mesh.py:place_batch`), so a run on n ranks trains on
-        # the batches of a run on one
-        train_procs = procs if process_count is not None else dict(
-            process_index=0, process_count=1)
         train_loader = TrainBatcher(train_split, sampler, config, input_type, phase="train",
                                     **train_procs)
 

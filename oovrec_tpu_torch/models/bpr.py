@@ -22,9 +22,6 @@ class BPR(IDTowerRecommender):
     # calculate_loss consumes only (uid, iid, neg_iid, weight): eligible for
     # the device-resident epoch (train/device_epoch.py)
     supports_device_epoch = True
-    # the loss is a per-row weighted mean (+ parameter-only terms): the mesh
-    # splits it (parallel/train_step.py)
-    mesh_loss = "row_mean"
 
     def sparse_table_fields(self):
         """Sparse fast-path declaration (train/sparse_update.py): the ID

@@ -47,9 +47,6 @@ class DCNV2(ContextRecommender):
     # as the JAX model declares; the port's device epoch has no pointwise
     # mode yet (train/device_epoch.py), so `auto` takes the host path
     supports_device_epoch = True
-    # the loss is a per-row weighted mean (+ parameter-only terms): the mesh
-    # splits it (parallel/train_step.py)
-    mesh_loss = "row_mean"
 
     def __init__(
         self,

@@ -37,7 +37,7 @@ from oovrec_tpu_torch.models.base import Batch, register_model
 from oovrec_tpu_torch.models.context import FieldSpec, LogitModel, dense
 from oovrec_tpu_torch.models.init import xavier_normal_
 from oovrec_tpu_torch.models.layers import BatchNorm, Dropout
-from oovrec_tpu_torch.models.losses import bce_with_logits
+from oovrec_tpu_torch.models.losses import _wmean, bce_with_logits
 
 
 def fm_no_reduce(emb: torch.Tensor) -> torch.Tensor:
@@ -189,5 +189,4 @@ class KD_DAGFM(LogitModel):
         t = self.teacher(emb.reshape(emb.shape[0], -1))
         s = self.student(emb)
         kd = (t.detach() - s) ** 2
-        kd = kd.mean() if w is None else (kd * w).sum() / torch.clamp(w.sum(), min=1.0)
-        return self.alpha * bce_with_logits(s, label, w) + self.beta * kd
+        return self.alpha * bce_with_logits(s, label, w) + self.beta * _wmean(kd, w)

@@ -25,9 +25,6 @@ class WideDeep(LogitModel):
     # as the JAX model declares: the device epoch's pointwise and plain
     # modes provide what its loss reads (train/device_epoch.py)
     supports_device_epoch = True
-    # the loss is a per-row weighted mean (+ parameter-only terms): the mesh
-    # splits it (parallel/train_step.py)
-    mesh_loss = "row_mean"
 
     def __init__(
         self,

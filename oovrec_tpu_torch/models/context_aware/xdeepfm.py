@@ -70,9 +70,6 @@ class xDeepFM(ContextRecommender):
     # joined features, which the device epoch's pointwise and plain modes
     # provide (train/device_epoch.py)
     supports_device_epoch = True
-    # the loss is a per-row weighted mean (+ parameter-only terms): the mesh
-    # splits it (parallel/train_step.py)
-    mesh_loss = "row_mean"
 
     def __init__(
         self,

@@ -8,7 +8,9 @@ Port of `oovrec_tpu/models/directau.py:28-125` (the reference's
 over the batch's pointwise-expanded rows (labels are ignored, as in the
 reference), on L2-normalised embeddings. The alignment is the weighted
 mean over the rows; the uniformity's pair mean weighs each pair i < j by
-the product of its rows' weights, so padded rows add nothing.
+the product of its rows' weights, so padded rows add nothing. Under the
+mesh both run over the global batch: the alignment's sums over every data
+rank's rows, the uniformity over every pair of the gathered rows.
 
 `predict` is the cosine of the routed embeddings. `full_sort_scores`,
 `score_against` and the towers of the fused top-k kernel use the
@@ -23,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from oovrec_tpu_torch.models.base import Batch, IDTowerRecommender, register_model
+from oovrec_tpu_torch.parallel.train_step import batch_mean, batch_wmean, global_rows
 from oovrec_tpu_torch.utils.enums import InputType
 
 
@@ -34,13 +37,16 @@ def alignment(u: torch.Tensor, i: torch.Tensor, w=None) -> torch.Tensor:
     """‖u−i‖² (alpha = 2), the weighted mean over the rows."""
     d = ((u - i) ** 2).sum(dim=1)
     if w is None:
-        return d.mean()
-    return (d * w).sum() / torch.clamp(w.sum(), min=1.0)
+        return batch_mean(d)
+    return batch_wmean(d, w)
 
 
 def uniformity(x: torch.Tensor, w=None, t: float = 2.0) -> torch.Tensor:
     """log mean_{i<j} exp(−t‖xᵢ−xⱼ‖²), each pair weighted by w_i·w_j
-    (`torch.pdist` semantics with pad-pair masking)."""
+    (`torch.pdist` semantics with pad-pair masking), over every pair of the
+    global batch's rows (`global_rows`)."""
+    x, _ = global_rows(x)
+    w = None if w is None else global_rows(w)[0]
     sq = (x * x).sum(dim=1)
     d2 = sq[:, None] + sq[None, :] - 2.0 * (x @ x.T)
     # jnp.maximum's gradient at a tie: half to each side
@@ -55,8 +61,6 @@ def uniformity(x: torch.Tensor, w=None, t: float = 2.0) -> torch.Tensor:
 @register_model
 class DirectAU(IDTowerRecommender):
     input_type = InputType.POINTWISE
-    mesh_loss = ("its uniformity term is a mean over pairs of the batch's rows, which "
-                 "the ranks' row shares do not sum to")
 
     def __init__(self, *args, gamma: float = 1.0, **kwargs):
         super().__init__(*args, **kwargs)

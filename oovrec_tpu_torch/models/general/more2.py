@@ -55,6 +55,7 @@ from oovrec_tpu_torch.models.general.more import dense_stack, multinomial_nll
 from oovrec_tpu_torch.models.layers import Dropout, RandomDraws
 from oovrec_tpu_torch.models.losses import _wmean, bce_with_logits_terms, emb_loss
 from oovrec_tpu_torch.ops.embed_grad import gather_rows
+from oovrec_tpu_torch.parallel.train_step import batch_mean
 from oovrec_tpu_torch.utils.enums import InputType
 
 
@@ -265,11 +266,12 @@ class NGCF(GraphModel):
 
 def info_nce(a: torch.Tensor, b: torch.Tensor, ids: torch.Tensor, tau: float) -> torch.Tensor:
     """SGL's InfoNCE: rows `ids` of the normalised `a` against the same
-    rows of the normalised `b` over all of `b`."""
+    rows of the normalised `b` over all of `b`, the mean over the global
+    batch's rows (padding included)."""
     a, b = l2_rows(a), l2_rows(b)
     ai = gather_rows(a, ids)
     pos = (ai * gather_rows(b, ids)).sum(dim=1) / tau
-    return (-pos + torch.logsumexp((ai @ b.T) / tau, dim=1)).mean()
+    return batch_mean(-pos + torch.logsumexp((ai @ b.T) / tau, dim=1))
 
 
 @register_model

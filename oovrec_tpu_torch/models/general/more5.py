@@ -78,6 +78,7 @@ from oovrec_tpu_torch.models.layers import Dropout, RandomDraws
 from oovrec_tpu_torch.models.losses import _wmean, bce_with_logits, emb_loss
 from oovrec_tpu_torch.models.sequential.convs import Conv, windows
 from oovrec_tpu_torch.ops.embed_grad import gather_rows, segment_sum
+from oovrec_tpu_torch.parallel.train_step import batch_mean, global_rows
 from oovrec_tpu_torch.utils.enums import InputType
 from oovrec_tpu_torch.utils.seeding import host_rng
 
@@ -279,11 +280,13 @@ def kmeans(x: torch.Tensor, k: int, iters: int = 4):
 
 def ncl_info_nce(a: torch.Tensor, b: torch.Tensor, tau: float) -> torch.Tensor:
     """NCL's InfoNCE of row-aligned (B, D) views, the rows normalised
-    with 1e-12 under the root."""
+    with 1e-12 under the root: each row of `a` against every row of `b` in
+    the global batch, the mean over the global batch's rows."""
     a = a / torch.sqrt((a**2).sum(dim=1, keepdim=True) + 1e-12)
     b = b / torch.sqrt((b**2).sum(dim=1, keepdim=True) + 1e-12)
     pos = (a * b).sum(dim=1) / tau
-    return (-pos + torch.logsumexp((a @ b.T) / tau, dim=1)).mean()
+    every_b, _ = global_rows(b)
+    return batch_mean(-pos + torch.logsumexp((a @ every_b.T) / tau, dim=1))
 
 
 @register_model

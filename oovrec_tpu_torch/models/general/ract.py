@@ -20,7 +20,7 @@ get a zero gradient. The NDCG ranks the logits with the kept items at
 −inf by `torch.topk` (the JAX model's `lax.top_k`): the kept items carry
 no held-out mass, so their order among themselves cannot change it.
 The standardisation counts every row of the batch, a padded one too, as
-the JAX model's does.
+the JAX model's does; under the mesh its moments are the global batch's.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from oovrec_tpu_torch.models.base import Batch, register_model
 from oovrec_tpu_torch.models.context import raw_param
 from oovrec_tpu_torch.models.general.more import MultiVAE, gaussian_kl, multinomial_nll
 from oovrec_tpu_torch.models.losses import _wmean
+from oovrec_tpu_torch.parallel.train_step import batch_mean, batch_std
 
 STAGES = ("actor_pretrain", "critic_pretrain", "finetune")
 
@@ -56,9 +57,9 @@ class RaCT(MultiVAE):
                     torch.nn.Parameter(torch.zeros(d_out, device=self.device)))
 
     def critic(self, feats: torch.Tensor, freeze: bool) -> torch.Tensor:
-        """(B,) scores of the (B, 3) features, standardised over the batch."""
-        h = (feats - feats.mean(dim=0, keepdim=True)) / (
-            feats.std(dim=0, correction=0, keepdim=True) + 1e-6)
+        """(B,) scores of the (B, 3) features, standardised over the (global)
+        batch."""
+        h = (feats - batch_mean(feats, dim=0, keepdim=True)) / (batch_std(feats) + 1e-6)
         for i in range(self.n_critic):
             w, b = getattr(self, f"critic_w{i}"), getattr(self, f"critic_b{i}")
             if freeze:

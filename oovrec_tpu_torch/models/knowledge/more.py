@@ -48,6 +48,7 @@ from oovrec_tpu_torch.models.context import dense, raw_param
 from oovrec_tpu_torch.models.general.base import config_values, set_state
 from oovrec_tpu_torch.models.knowledge.base import KnowledgeRecommender, lookup
 from oovrec_tpu_torch.models.losses import bce_with_logits
+from oovrec_tpu_torch.parallel.train_step import batch_mean
 from oovrec_tpu_torch.utils.enums import InputType
 from oovrec_tpu_torch.utils.seeding import host_rng
 
@@ -224,7 +225,7 @@ class MKR(KnowledgeRecommender):
         pred_t = self.kge_mlp(torch.cat([he, r], dim=-1))
         kg_score = -((pred_t - t) ** 2).sum(dim=1)
         kgw = batch.get("kg_weight")
-        kg_loss = -(kg_score if kgw is None else kg_score * kgw).mean()
+        kg_loss = -batch_mean(kg_score if kgw is None else kg_score * kgw)
         return rec + self.kg_weight * kg_loss
 
     def _score(self, users: torch.Tensor, items: torch.Tensor) -> torch.Tensor:

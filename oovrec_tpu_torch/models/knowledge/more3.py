@@ -51,6 +51,7 @@ from oovrec_tpu_torch.models.knowledge.base import KnowledgeRecommender, lookup
 from oovrec_tpu_torch.models.layers import Dropout
 from oovrec_tpu_torch.models.losses import bpr_loss, emb_loss
 from oovrec_tpu_torch.ops.embed_grad import IndexPlans, gather_rows, segment_sum
+from oovrec_tpu_torch.parallel.train_step import batch_mean, global_rows
 from oovrec_tpu_torch.utils.enums import InputType
 
 KG_EDGES = ("kgin_head", "kgin_rel", "kgin_tail", "kgin_uid", "kgin_iid", "kgin_w")
@@ -190,9 +191,12 @@ class KGIN(KGEdgeModel):
 
 
 def _info_nce(z1: torch.Tensor, z2: torch.Tensor, tau: float) -> torch.Tensor:
-    """−mean log softmax of the diagonal of cos(z1, z2) / tau."""
-    logits = (l2_rows(z1) @ l2_rows(z2).T) / tau
-    return -torch.log_softmax(logits, dim=1).diagonal().mean()
+    """−mean log softmax of the diagonal of cos(z1, z2) / tau: each row of
+    z1 against every row of z2 in the global batch, the diagonal at this
+    rank's rows, the mean over the global batch's rows."""
+    every, first = global_rows(l2_rows(z2))
+    logits = (l2_rows(z1) @ every.T) / tau
+    return -batch_mean(torch.log_softmax(logits, dim=1).diagonal(offset=first))
 
 
 @register_model

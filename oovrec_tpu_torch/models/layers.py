@@ -35,7 +35,7 @@ in f32 whatever the compute dtype, epsilon 1e-5, parameters `scale` /
 `bias` and running buffers `mean` / `var` (flax's `batch_stats`). Every
 row of the batch counts in its statistics, the padded rows of a last
 batch included, as the JAX package's fixed-shape batches count them. Under
-the mesh (`parallel/train_step.py:batch_stats_over`) the statistics are
+the mesh (`parallel/train_step.py:data_scope`) the statistics are
 the global batch's: the sums of x and x² all-reduced over the data group.
 
 Dropout draws its masks from an explicit `torch.Generator` that the
@@ -54,7 +54,7 @@ import torch.distributed as dist
 from torch import nn
 
 from oovrec_tpu_torch.models.init import xavier_normal_
-from oovrec_tpu_torch.parallel.train_step import all_reduce_grad, batch_stats_group
+from oovrec_tpu_torch.parallel.train_step import all_reduce_grad, data_group
 from oovrec_tpu_torch.utils.precision import compute_dtype
 
 
@@ -90,7 +90,7 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         xf = x.float()
-        group = batch_stats_group() if train else None
+        group = data_group() if train else None
         if group is not None:
             # under the mesh: the global batch's moments, the sums of x and
             # x² all-reduced over the data group inside autograd

@@ -3,7 +3,9 @@
 Port of `oovrec_tpu/models/losses.py:13-53`. Every loss takes an optional
 per-row `weight` (1 real / 0 pad), so a padded fixed-shape batch gives the
 value the reference computes on its variable-size batch: padded rows
-carry weight 0 and do not count.
+carry weight 0 and do not count. Under the mesh (`parallel/train_step.py:
+data_scope`) the means and norms are the global batch's: the sums run over
+every data rank's rows.
 """
 
 from __future__ import annotations
@@ -12,12 +14,19 @@ from typing import Optional
 
 import torch
 
+from oovrec_tpu_torch.parallel.train_step import (
+    batch_mean,
+    batch_rows,
+    batch_sum,
+    batch_vector_norm,
+    batch_wmean,
+)
+
 
 def _wmean(x: torch.Tensor, weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     if weight is None:
-        return x.mean()
-    w = weight.to(x.dtype)
-    return (x * w).sum() / torch.clamp(w.sum(), min=1.0)
+        return batch_mean(x)
+    return batch_wmean(x, weight.to(x.dtype))
 
 
 def _sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -70,14 +79,15 @@ def _log_floor(x: torch.Tensor) -> torch.Tensor:
 def emb_loss(*embeddings, norm: int = 2, require_pow: bool = False):
     """EmbLoss (`loss.py`): the sum of each tensor's whole norm (or, under
     `require_pow`, of |e|^norm over `norm`) over the rows of the last one;
-    padded rows count, as in the JAX function."""
-    batch = embeddings[-1].shape[0]
+    padded rows count, as in the JAX function. Each tensor is per-row: under
+    the mesh its norm and the row count are the global batch's."""
+    batch = batch_rows(embeddings[-1].shape[0])
     total = 0.0
     for e in embeddings:
         if require_pow:
-            total = total + e.abs().pow(norm).sum()
+            total = total + batch_sum(e.abs().pow(norm))
         else:
-            total = total + torch.linalg.vector_norm(e.reshape(-1), ord=norm)
+            total = total + batch_vector_norm(e, ord=norm)
     if require_pow:
         total = total / norm
     return total / batch

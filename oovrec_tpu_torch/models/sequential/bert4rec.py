@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from oovrec_tpu_torch.models.base import register_model
+from oovrec_tpu_torch.parallel.train_step import batch_wmean
 from oovrec_tpu_torch.models.sequential.sasrec import SASRec
 
 
@@ -48,7 +49,7 @@ class BERT4Rec(SASRec):
         w = batch.get("weight")
         if w is not None:
             valid = valid * w[:, None]
-        return (nll * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+        return batch_wmean(nll, valid)  # over the global batch's masked positions
 
     def seq_output(self, batch, train: bool = False):
         seq, lengths = self._sequence(batch)

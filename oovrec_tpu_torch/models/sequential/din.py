@@ -37,6 +37,7 @@ from oovrec_tpu_torch.models.layers import GRUCell, MLPLayers, RandomDraws, gru_
 from oovrec_tpu_torch.models.losses import bce_with_logits
 from oovrec_tpu_torch.models.sequential.base import SequentialRecommender, inside
 from oovrec_tpu_torch.ops.embed_grad import gather_rows
+from oovrec_tpu_torch.parallel.train_step import batch_wmean
 from oovrec_tpu_torch.utils.enums import InputType
 
 
@@ -160,9 +161,8 @@ class DIEN(DIN):
         neg_s = (h * gather_rows(self.item_embedding.weight, neg[:, 1:])).sum(dim=-1)
         valid = (torch.arange(L - 1, device=seq.device)[None, :] + 1
                  < lengths[:, None]).to(h.dtype)
-        per = -(torch.nn.functional.logsigmoid(pos_s)
-                + torch.nn.functional.logsigmoid(-neg_s)) * valid
-        return per.sum() / torch.clamp(valid.sum(), min=1.0)
+        per = -(torch.nn.functional.logsigmoid(pos_s) + torch.nn.functional.logsigmoid(-neg_s))
+        return batch_wmean(per, valid)  # over the global batch's positions
 
     def calculate_loss(self, batch):
         logits, seq_e, seq_h = self._forward(batch, train=True)

@@ -19,12 +19,13 @@ batch corrupted on the device:
   * Segment Prediction: a segment of ⌊L/4⌋ positions (at least 1) from a
     per-row start in [0, max(length − ⌊L/4⌋, 1)), masked; its encoding
     at position −1 scores the segment above the batch neighbour's
-    (`roll` by one row).
+    (`roll` by one row of the global batch).
 The sum of the weighted terms is divided by the number of valid
-positions. The three draws (the Bernoulli mask, the negatives, the
-starts) come from the trainer's dropout generator (`pretrain_draws`),
-as the JAX package draws them from its `dropout` stream; the loss given
-the draws is `pretrain_loss`, so a test can hand it JAX's own draws.
+positions (both over the global batch under the mesh). The three draws
+(the Bernoulli mask, the negatives, the starts) come from the trainer's
+dropout generator (`pretrain_draws`), as the JAX package draws them from
+its `dropout` stream; the loss given the draws is `pretrain_loss`, so a
+test can hand it JAX's own draws.
 `finetune` trains the causal encoder's last state under CE over the
 items, and in that stage the attribute table and the four heads do not
 exist (flax creates only what the stage's loss calls).
@@ -45,6 +46,7 @@ from oovrec_tpu_torch.models.sequential.base import SequentialRecommender, ce_lo
 from oovrec_tpu_torch.models.sequential.featseq import FeatureSeqMixin
 from oovrec_tpu_torch.models.sequential.sasrec import add_blocks
 from oovrec_tpu_torch.ops.embed_grad import gather_rows
+from oovrec_tpu_torch.parallel.train_step import batch_sum, global_rows
 
 Draws = Dict[str, torch.Tensor]
 
@@ -143,13 +145,17 @@ class S3Rec(SequentialRecommender, FeatureSeqMixin):
         pos_segment = torch.where(in_seg, seq, 0)
         ctx = self.encode(torch.where(in_seg, self.mask_token, seq), True, True)[:, -1]
         pos_e = self.encode(pos_segment, True, True)[:, -1]
-        neg_e = self.encode(torch.roll(pos_segment, 1, dims=0), True, True)[:, -1]
+        # the previous row's segment in the global batch (under the mesh the
+        # first row's is the last row of the rank before)
+        segments, first = global_rows(pos_segment)
+        neg_segment = torch.roll(segments, 1, dims=0)[first:first + B]
+        neg_e = self.encode(neg_segment, True, True)[:, -1]
         h = self.sp_norm(ctx)
         diff = (h * pos_e).sum(dim=-1) - (h * neg_e).sum(dim=-1)
         sp_loss = bce_with_logits_terms(diff, torch.ones_like(diff)).sum()
         wa, wi, wm, ws = self.weights
         total = wa * aap_loss + wi * mip_loss + wm * map_loss + ws * sp_loss
-        return total / torch.clamp(valid.sum(), min=1).to(total.dtype)
+        return batch_sum(total) / torch.clamp(batch_sum(valid), min=1).to(total.dtype)
 
     def seq_output(self, batch, train: bool = False):
         seq, lengths = self._sequence(batch)

@@ -36,9 +36,6 @@ def add_blocks(model, prefix: str, n_layers: int, n_heads: int, inner_size: int,
 class SASRec(SequentialRecommender):
     # the loss reads only split columns (+ a sampled negative): device-epoch OK
     supports_device_epoch = True
-    # the loss is a per-row weighted mean (+ parameter-only terms): the mesh
-    # splits it (parallel/train_step.py)
-    mesh_loss = "row_mean"
     extra_item_rows = 0
 
     def __init__(self, *args, n_layers: int = 2, n_heads: int = 2, inner_size: int = 256,

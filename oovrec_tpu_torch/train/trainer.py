@@ -79,16 +79,17 @@ that the row-shard rule picks into block-sharded tables under
 `sharded_lookup: gspmd` (`parallel/sharded_embedding.py:shard_tables`),
 broadcasts the starting state, and every step is the global batch's step
 (`parallel/train_step.py:mesh_step`, eager): each rank takes its data
-coordinate's rows of the global batch (`place_batch`; a device epoch's
-batch likewise), its loss share, the gradients summed over the data group.
+coordinate's rows of the global batch (`place_batch`, padded as
+`pad_batch` pads it; a device epoch's batch likewise), the loss's batch
+reductions taken over the data group, so every rank's loss is the global
+batch's, and the gradients summed over the data group.
 There is no host scan and no row-sparse step under the mesh (the JAX
 package's rules). Checkpoints gather the sharded tables to their full form
 (`host_copy`) and rank 0 alone writes; a resume converts stored layouts
 (`reconcile_state`: sharded ↔ dense, another S) and takes the rank's
 block; the best-model reload agrees across ranks first and broadcasts the
 file where only some ranks hold it (`_resume_best_multiprocess`, `:796-846`
-there). A model whose loss the mesh cannot split (`mesh_refusal`) raises
-NotImplementedError at init.
+there). Every model trains on the mesh.
 
 Observability, as the JAX trainer's (`:121-135, 702-704, 749-758, 769-770`
 there): the JSONL `metrics_log_path`; TensorBoard (`utils/tensorboard.py`,
@@ -126,7 +127,7 @@ from oovrec_tpu_torch.parallel.sharded_embedding import (
     reconcile_state,
     shard_tables,
 )
-from oovrec_tpu_torch.parallel.train_step import broadcast_state, mesh_refusal, mesh_step
+from oovrec_tpu_torch.parallel.train_step import broadcast_state, mesh_step
 from oovrec_tpu_torch.train.cuda_graph import StepGraphs
 from oovrec_tpu_torch.train.device_epoch import (
     AUTO_MAX_BUCKETS,
@@ -233,12 +234,8 @@ class Trainer:
     # ------------------------------------------------------------ mesh
 
     def _place_on_mesh(self, config, model) -> None:
-        """Refuse a model whose loss the mesh cannot split; shard the tables
-        the rule picks; start every rank from the same state."""
-        why = mesh_refusal(model)
-        if why is not None:
-            raise NotImplementedError(
-                f"[{type(model).__name__}] cannot train on the mesh: {why}")
+        """Shard the tables the rule picks; start every rank from the same
+        state."""
         kind = config["sharded_lookup"]
         shard_tables(model, self.mesh, int(config["row_shard_threshold"] or 4096),
                      kind="auto" if kind in (None, "gspmd") else kind,

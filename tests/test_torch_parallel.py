@@ -16,8 +16,7 @@
   * `ShardedEmbedding`: the blocks of its folded init are the dense
     xavier init at (V_pad, D) in the mod layout, a block-layout table
     holds its dense rows, and at one rank both exchanges equal the plain
-    gather bit for bit, values and gradients;
-  * the trainer's refusal of a model whose loss the mesh cannot split.
+    gather bit for bit, values and gradients.
 """
 
 import numpy as np
@@ -32,7 +31,7 @@ from oovrec_tpu.parallel import mesh as jmesh  # noqa: E402
 from oovrec_tpu.parallel import sharded_embedding as jse  # noqa: E402
 from oovrec_tpu_torch.config import Config  # noqa: E402
 from oovrec_tpu_torch.inductive import InductiveSpec  # noqa: E402
-from oovrec_tpu_torch.models import BPR, DirectAU, NeuMF, get_model_class  # noqa: E402
+from oovrec_tpu_torch.models import BPR  # noqa: E402
 from oovrec_tpu_torch.ops.embed_grad import gather_rows  # noqa: E402
 from oovrec_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from oovrec_tpu_torch.parallel import sharded_embedding as pse  # noqa: E402
@@ -40,7 +39,7 @@ from oovrec_tpu_torch.parallel.distributed import (  # noqa: E402
     initialize_distributed,
     map_reduce_metrics,
 )
-from oovrec_tpu_torch.parallel.train_step import mesh_refusal, opt_state_sharding  # noqa: E402,E501
+from oovrec_tpu_torch.parallel.train_step import opt_state_sharding  # noqa: E402
 from oovrec_tpu_torch.train.trainer import Trainer  # noqa: E402
 
 from tests.test_torch_multiprocess import bpr_cfg, xdeepfm_cfg  # noqa: E402
@@ -305,22 +304,6 @@ def test_alltoall_overflow_without_ranks():
     assert torch.equal(rows[0], table[3]) and torch.equal(rows[1:], torch.zeros(3, 4))
     with pytest.raises(ValueError, match="unknown sharded_lookup"):
         pse.make_lookup(pmesh.Mesh(1, 1), "bogus")
-
-
-# ------------------------------------------------------------ the refusal
-
-
-@pytest.mark.parametrize("name", ["BPR", "WideDeep", "DCNV2", "xDeepFM", "SASRec"])
-def test_row_mean_models_split(name):
-    assert mesh_refusal(object.__new__(get_model_class(name))) is None
-
-
-@pytest.mark.parametrize("cls,why", [(DirectAU, "uniformity"), (NeuMF, "mesh_loss")])
-def test_trainer_refuses_a_loss_the_mesh_cannot_split(cls, why):
-    model = cls(7, 11, embedding_size=8, spec=InductiveSpec(), device="cpu")
-    with pytest.raises(NotImplementedError, match=why):
-        Trainer(Config({"use_mesh": True}), model)
-    Trainer(Config({}), model)  # off the mesh it trains
 
 
 def test_jax_pickle_with_sharded_tables_resumes(tmp_path):

@@ -376,20 +376,27 @@ def test_checkpoint_round_trip(tmp_path):
     (dict(use_mesh=True), "mesh"),
 ])
 def test_trainer_refuses_what_is_not_ported(over, match):
-    """The mesh refuses a model whose loss it cannot split over ranks
-    (DirectAU's uniformity term is over pairs of the batch's rows); BPR,
-    WideDeep, DCNv2, xDeepFM and SASRec train on it
-    (tests/test_torch_multiprocess.py). Dynamic negatives, adagrad, rmsprop
-    and `optimizer_mu_dtype` are ported (tests/test_torch_trainer_extras.py)."""
-    model = DirectAU(7, 11, 8, InductiveSpec(), device="cpu")
-    cfg = Config(over)
+    """Nothing is refused on the mesh now: DirectAU, whose uniformity term
+    spans pairs of the batch's rows, trains under `use_mesh` (a mesh of one
+    process), its epoch equal to the plain trainer's bit for bit; every
+    registered model trains on 2 ranks in `tests/test_torch_mesh_*.py`.
+    Dynamic negatives, adagrad, rmsprop and `optimizer_mu_dtype` are ported
+    (tests/test_torch_trainer_extras.py)."""
     split = DatasetSplit({"user_id": np.arange(1, 7), "item_id": np.arange(1, 7)}, 7, 11)
-    with pytest.raises(NotImplementedError, match=match):
+    runs = []
+    for cfg in (Config(over), Config({})):
+        torch.manual_seed(0)
+        model = DirectAU(7, 11, 8, InductiveSpec(), device="cpu")
         trainer = Trainer(cfg, model)
-        # what the constructor accepts, an epoch may refuse: a pointwise loader
+        assert (getattr(trainer, match) is not None) == bool(cfg["use_mesh"])
         loader = TrainBatcher(split, Sampler(["train"], [split], seed=1), cfg,
                               InputType.POINTWISE)
         trainer._train_epoch(loader, 0)
+        runs.append((trainer.last_losses, {n: p.detach().clone()
+                                           for n, p in model.named_parameters()}))
+    (l1, p1), (l0, p0) = runs
+    assert np.array_equal(l1, l0) and len(l0) > 0
+    assert all(torch.equal(p1[n], p0[n]) for n in p0)
 
 
 @pytest.mark.parametrize("flag", ["auto", True])

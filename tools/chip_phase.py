@@ -9,8 +9,10 @@ runs share L3's child), phase N (the ten knowledge models on the corpus's
 interactions with a seeded knowledge graph, N1, and CKE by the `-m`
 entry, N2) or phase O (the mesh, in its own child process: the exchanges
 at S = 1 on NCCL, O1, serving under the mesh with kernel 1, O2, 16 mesh
-steps of xDeepFM and BPR against the plain trainer's, O3, and the `-m`
-entry's main with the multi-process flags, O4), phase P (the surfaces
+steps of xDeepFM and BPR against the plain trainer's, O3, the `-m`
+entry's main with the multi-process flags, O4, and one model of each loss
+class, 4 mesh steps and a test pass against the plain trainer's, O5),
+phase P (the surfaces
 after a run, on dataset/synth-ind: the hyper-parameter search by its `-m`
 entry, P1, the case study on phase A's checkpoint, run first, P2, the cost
 report of xDeepFM, P3, the significance test, P4, and the TensorBoard
@@ -91,9 +93,14 @@ def main(argv=None) -> int:
     cs.log(f"card: {smi}")
     os.environ["OOVREC_DISABLE_TENSORBOARD"] = "1"  # as chip_smoke.main; P5 lifts it
     t0 = time.perf_counter()
-    if phase == "O":  # kernels 1, 4 / 5 and the gathers' backward; about a minute
+    if phase == "O":  # kernels 1, 4 / 5 and the gathers' backward; about two minutes
         cs.cuda_build.build_kernels(["topk_score", "cin_fused", "cin_fused_bwd", "embed_grad"])
         cs.log(f"build {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()  # O5's files: phases I's, K's and N's
+        cs.ml1m_inter_file()
+        cs.ml1m_side_files()
+        cs.n_kg_files()
+        cs.log(f"O5's files {time.perf_counter() - t0:.1f} s")
         cs.log(f"phase O launches {cs.phase_o()}")
         cs.log(smi)
         return 0
